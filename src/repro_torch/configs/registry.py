@@ -1,0 +1,28 @@
+"""Architecture registry of the port: ``--arch <id>`` lookup."""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.models import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "smollm-135m": "smollm_135m",
+}
+
+ARCH_NAMES: List[str] = list(_MODULES)
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; the port has {ARCH_NAMES}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def smoke_config(name: str) -> ModelConfig:
+    return _module(name).SMOKE

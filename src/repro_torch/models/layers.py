@@ -1,0 +1,212 @@
+"""Model building blocks on tensors (port of ``repro.models.layers``).
+
+Every projection goes through ``repro_torch.kernels.dispatch.matmul2``, so
+on the card each one runs the hand-written GEMM under its tuned config.
+Parameters are plain dicts of tensors; activations keep the model dtype,
+normalisation and attention run in fp32.  The reference's sharding
+constraints have no counterpart on one GPU and are dropped.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.kernels import dispatch
+
+Params = Dict[str, torch.Tensor]
+IndexLike = Union[int, torch.Tensor]
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
+               fan_in: Optional[int] = None) -> torch.Tensor:
+    fan_in = fan_in if fan_in is not None else shape[-2]
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
+    return (torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                        device=gen.device) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norm / rope
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x (B, S, H, D); positions (B, S) or (S,)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs          # (B, S, d/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool, q_start: IndexLike,
+                       kv_len: Optional[IndexLike] = None,
+                       chunk: int = 1024) -> torch.Tensor:
+    """Flash-style attention over KV chunks with a running (max, sum).
+
+    q (B, Sq, H, D); k/v (B, Skv, G, D), H % G == 0.  ``q_start`` is the
+    absolute position of q[0] and ``kv_len`` the number of valid KV
+    positions, each a scalar or per-slot (B,).
+    """
+    B, Sq, H, D = q.shape
+    Skv, G = k.shape[1], k.shape[2]
+    rep = H // G
+    dev = q.device
+    scale = 1.0 / math.sqrt(D)
+    chunk = min(chunk, Skv)
+    n_chunks = -(-Skv // chunk)
+    qf = q.float() * scale
+    q_pos = (torch.as_tensor(q_start, device=dev).reshape(-1, 1)
+             + torch.arange(Sq, device=dev)[None, :])               # (B|1, Sq)
+    valid = torch.as_tensor(Skv if kv_len is None else kv_len,
+                            device=dev).reshape(-1, 1, 1)
+    m = torch.full((B, H, Sq), float("-inf"), device=dev)
+    l = torch.zeros((B, H, Sq), device=dev)
+    acc = torch.zeros((B, H, Sq, D), device=dev)
+    for c in range(n_chunks):
+        lo = c * chunk
+        kb = k[:, lo:lo + chunk].repeat_interleave(rep, dim=2).float()
+        vb = v[:, lo:lo + chunk].repeat_interleave(rep, dim=2).float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
+        kv_pos = lo + torch.arange(kb.shape[1], device=dev)
+        mask = kv_pos[None, None, :] < valid                       # (B|1,1,ck)
+        if causal:
+            mask = mask & (kv_pos[None, None, :] <= q_pos[:, :, None])
+        s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)                          # (B,Sq,H,D)
+
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor
+                 ) -> None:
+    """Write ``new`` (B, S, G, D) into ``cache`` (B, L, G, D) in place at
+    per-slot positions ``idx`` (B,); positions past L are dropped, as the
+    reference's ``.at[].set(mode="drop")`` drops them."""
+    B, S = new.shape[:2]
+    L = cache.shape[1]
+    rows = torch.arange(B, device=cache.device)[:, None]
+    cols = idx.to(cache.device).reshape(-1, 1) + torch.arange(
+        S, device=cache.device)[None, :]
+    new = new.to(cache.dtype)
+    if S == 1:
+        # one position per row: clamp, and write back the old value where
+        # the position is dropped (no host sync, no duplicate indices)
+        keep = (cols < L)[..., None, None]
+        colc = cols.clamp(max=L - 1)
+        cache[rows, colc] = torch.where(keep, new, cache[rows, colc])
+    else:
+        keep = cols < L
+        rows_b = rows.expand(B, S)
+        cache[rows_b[keep], cols[keep]] = new[keep]
+
+
+def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
+              head_dim: int, positions: torch.Tensor, causal: bool,
+              rope_theta: float, qk_norm: bool, norm_eps: float,
+              cache: Optional[Params] = None,
+              cache_index: Optional[IndexLike] = None,
+              attn_chunk: int = 1024,
+              decode_kv_splits: int = 1,
+              ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """GQA attention block body (no residual / pre-norm).
+
+    ``cache`` {'k','v'}: (B, L_max, G, D) tensors, updated IN PLACE (the
+    reference returns a new cache; writing into the caller's buffers saves
+    a copy of the cache per layer and step).  ``cache_index`` is the number
+    of tokens already in it, a scalar or per-slot (B,).
+    """
+    B, S, _ = x.shape
+    q = dispatch.matmul2(x, p["wq"]).reshape(B, S, n_heads, head_dim)
+    k = dispatch.matmul2(x, p["wk"]).reshape(B, S, n_kv, head_dim)
+    v = dispatch.matmul2(x, p["wv"]).reshape(B, S, n_kv, head_dim)
+    if qk_norm:
+        q = rms_norm(q, p["q_norm"], norm_eps)
+        k = rms_norm(k, p["k_norm"], norm_eps)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    kv_len = None
+    q_start: IndexLike = 0
+    if cache is not None:
+        idx = cache_index
+        if isinstance(idx, torch.Tensor) and idx.dim() == 1:
+            _write_cache(cache["k"], k, idx)
+            _write_cache(cache["v"], v, idx)
+        else:
+            i0 = int(idx)
+            cache["k"][:, i0:i0 + S] = k.to(cache["k"].dtype)
+            cache["v"][:, i0:i0 + S] = v.to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+        kv_len = idx + S
+        q_start = idx
+
+    n_splits = 0
+    if cache is not None and S == 1 and decode_kv_splits > 1:
+        from repro_torch.serve.flash_decode import (flash_decode_attention,
+                                                    resolve_decode_splits)
+        n_splits = resolve_decode_splits(
+            B=B, Hq=n_heads, Hkv=n_kv, Lkv=k.shape[1], D=head_dim,
+            dtype_bits=dispatch._dtype_bits(q.dtype), causal=int(causal),
+            default=decode_kv_splits)
+        if n_splits <= 1 or k.shape[1] % n_splits != 0:
+            n_splits = 0
+    if n_splits > 1:
+        out = flash_decode_attention(q, k, v, kv_len, n_splits=n_splits)
+    else:
+        out = _chunked_attention(q, k, v, causal=causal, q_start=q_start,
+                                 kv_len=kv_len, chunk=attn_chunk)
+    out = out.reshape(B, S, n_heads * head_dim)
+    return dispatch.matmul2(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# dense SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = dispatch.matmul2(x, p["w_gate"])
+    u = dispatch.matmul2(x, p["w_up"])
+    return dispatch.matmul2(torch.nn.functional.silu(g) * u, p["w_down"])

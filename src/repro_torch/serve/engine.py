@@ -1,0 +1,161 @@
+"""Batched serving engine: slot-based continuous batching over a shared KV
+cache (port of the core of ``repro.serve.engine``).
+
+Requests are admitted into free slots (prefill fills the slot's cache
+region), every decode tick advances all slots together at their own cache
+positions, and finished requests (EOS or length budget) free their slot.
+Inactive slots decode too, on token 0 at position 0, and their output is
+discarded — the batch keeps one shape, as in the reference.
+
+PyTorch runs eagerly, so the reference's ``jax.jit`` programs and its
+trace-time telemetry capture have no counterpart here.  Retuning, routing,
+admission policies, deadlines, tracing and the status endpoint are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import pathlib
+import time
+import warnings
+from typing import Any, Deque, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import ModelConfig, decode_step, init_cache, prefill
+from repro_torch.tunedb.store import RecordStore, install_store
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_len: int = 2048
+    slots: int = 8                  # concurrent sequences
+    eos_token: int = -1             # -1: never emitted (synthetic tokens)
+    temperature: float = 0.0        # 0 => greedy
+    seed: int = 0
+    tunedb: Optional[str] = None    # warm-start: tuning-record store path
+    # pin dispatch lookups to one backend fingerprint; None = any backend
+    tunedb_backend: Optional[str] = None
+    # keep (start perf_counter, wall seconds) of each decode tick
+    record_tick_times: bool = False
+    tick_times_cap: int = 4096      # newest ticks kept; 0 keeps all
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray              # (len,) int
+    max_new: int
+    out: List[int] = dataclasses.field(default_factory=list)
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, params: Any, serve_cfg: ServeConfig,
+                 *, device: DeviceLike = None):
+        cfg.check_supported()
+        self.device = resolve_device(device)
+        self.cfg, self.sc = cfg, serve_cfg
+        self.params = _to_device(params, self.device)
+        # warm start: the store becomes the port's process-wide dispatch
+        # store, pinned to tunedb_backend; a missing file serves on the
+        # heuristics tier (dispatch warns once)
+        self.tunedb_store: Optional[RecordStore] = None
+        if serve_cfg.tunedb:
+            path = pathlib.Path(serve_cfg.tunedb)
+            if not path.exists():
+                warnings.warn(f"tunedb store {path} does not exist; serving "
+                              "starts with an empty store (heuristics "
+                              "fallback)", RuntimeWarning, stacklevel=2)
+            self.tunedb_store = RecordStore.open(path)
+            install_store(self.tunedb_store,
+                          fingerprint=serve_cfg.tunedb_backend)
+        self.cache = init_cache(cfg, serve_cfg.slots, serve_cfg.max_len,
+                                self.device)
+        self.lengths = np.zeros(serve_cfg.slots, np.int64)
+        self.slot_req: List[Optional[Request]] = [None] * serve_cfg.slots
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(serve_cfg.seed)
+        self.ticks = 0
+        self.prefills = 0
+        cap = serve_cfg.tick_times_cap
+        self.tick_times: Deque[Tuple[float, float]] = collections.deque(
+            maxlen=cap if cap > 0 else None)
+
+    # -- prefill ---------------------------------------------------------------
+    def _prefill_one(self, slot: int, req: Request) -> None:
+        """Prefill the prompt straight into the slot's cache rows (zeroed
+        first, as the reference replaces the slot with a fresh cache)."""
+        kv = self.cache["pos0"]["attn"]
+        for t in (kv["k"], kv["v"]):
+            t[:, slot].zero_()
+        single = {"pos0": {"attn": {"k": kv["k"][:, slot:slot + 1],
+                                    "v": kv["v"][:, slot:slot + 1]}}}
+        tokens = torch.as_tensor(req.prompt[None], dtype=torch.long,
+                                 device=self.device)
+        logits, _ = prefill(self.params, self.cfg, {"tokens": tokens}, single)
+        self.prefills += 1
+        self.lengths[slot] = len(req.prompt)
+        self.slot_req[slot] = req
+        req.out.append(int(self._sample(logits[:, : self.cfg.vocab])[0]))
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        if self.sc.temperature <= 0:
+            return logits.argmax(dim=-1).cpu().numpy()
+        probs = torch.softmax(logits.float() / self.sc.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0].cpu(
+            ).numpy()
+
+    # -- main loop --------------------------------------------------------------
+    def generate(self, prompts: List[np.ndarray], max_new: int = 32
+                 ) -> List[List[int]]:
+        """Continuous-batching loop: admit -> decode tick -> retire."""
+        sc = self.sc
+        queue = [Request(np.asarray(p, np.int64), max_new) for p in prompts]
+        pending = list(queue)
+        active = 0
+        while pending or active:
+            while pending:                       # admit into free slots
+                slot = next((i for i, r in enumerate(self.slot_req)
+                             if r is None), None)
+                if slot is None:
+                    break
+                self._prefill_one(slot, pending.pop(0))
+                active += 1
+            if active == 0:
+                break
+
+            t_tick = time.perf_counter()
+            last = torch.as_tensor(
+                [[r.out[-1] if r is not None and r.out else 0]
+                 for r in self.slot_req], dtype=torch.long,
+                device=self.device)
+            idx = torch.as_tensor(self.lengths, dtype=torch.long,
+                                  device=self.device)
+            logits, _ = decode_step(self.params, self.cfg, last, self.cache,
+                                    idx)
+            toks = self._sample(logits[:, : self.cfg.vocab])
+            self.ticks += 1
+
+            for s, req in enumerate(self.slot_req):
+                if req is None:
+                    continue
+                self.lengths[s] += 1
+                tok = int(toks[s])
+                req.out.append(tok)
+                if (tok == sc.eos_token or len(req.out) >= req.max_new
+                        or self.lengths[s] + 1 >= sc.max_len):
+                    self.slot_req[s] = None
+                    self.lengths[s] = 0
+                    active -= 1
+            if sc.record_tick_times:
+                self.tick_times.append((t_tick, time.perf_counter() - t_tick))
+        return [r.out for r in queue]
+
+
+def _to_device(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

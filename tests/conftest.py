@@ -24,6 +24,11 @@ except ImportError:
     sys.modules["hypothesis"] = _stub
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without them")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

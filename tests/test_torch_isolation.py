@@ -1,0 +1,80 @@
+"""The port stands alone: importing it (and chip_smoke.py) loads neither JAX
+nor the JAX package, and its entry points default to the GPU."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import device as tdevice
+from repro_torch.configs import smollm_135m as tconfigs
+from repro_torch.kernels import matmul as kmatmul
+from repro_torch.kernels import ops as tops
+from repro_torch.models import init_params
+from repro_torch.serve import Engine, ServeConfig
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    r = subprocess.run([sys.executable, "-c", _PROBE, str(REPO)],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert {"repro_torch.kernels.matmul", "repro_torch.serve.engine",
+            "repro_torch.tunedb.store", "repro_torch.weights"} <= set(
+                out["modules"])
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tdevice.resolve_device()
+    assert tdevice.resolve_device("cpu") == torch.device("cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = init_params(tconfigs.SMOKE, gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(tconfigs.SMOKE, params, ServeConfig(max_len=16, slots=1))
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--requests", "1", "--max-new", "1"])
+
+
+def test_gemm_never_takes_the_plain_version_off_the_cpu(monkeypatch):
+    """Only a CPU tensor reaches matmul_plain; any other device launches
+    the kernel or raises (here: the meta device, which has no kernel)."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a non-CPU tensor")
+    monkeypatch.setattr(kmatmul, "matmul_plain", boom)
+    a = torch.empty((4, 64), dtype=torch.bfloat16, device="meta")
+    b = torch.empty((64, 32), dtype=torch.bfloat16, device="meta")
+    before = kmatmul.launches
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tops.matmul(a, b)
+    assert kmatmul.launches == before
