@@ -7,9 +7,13 @@ PyTorch version so the port can be checked against the reference without a
 GPU.
 
   device.py       device resolution (cuda by default, cpu on request)
-  kernels/        hand-written Hopper kernels, their plain versions, dispatch
-  core/           tuning spaces with Hopper legality, vendor-style heuristics
-  tunedb/         the tuning-record store (same JSONL as the reference)
+  kernels/        hand-written Hopper kernels (GEMM, conv), their plain
+                  versions, dispatch
+  core/           tuning spaces with Hopper legality, vendor-style heuristics,
+                  the offline tuning loop (sampler, CUDA-event backend, MLP,
+                  search, tuner)
+  tunedb/         the tuning-record store (same JSONL as the reference),
+                  tuning sessions, ``python -m repro_torch.tunedb tune``
   models/         dense decoder LM (SmolLM family)
   serve/          continuous-batching engine, flash-decode attention
   configs/        model configurations

@@ -1,10 +1,12 @@
 """Parameter spaces with Hopper (sm_90a) legality.
 
 Same declarative :class:`ParamSpace` as ``repro.core.space`` and the same
-GEMM parameter names and semantics (``k_split``, ``order``, ``acc32``,
-``k_unroll``, ``prefetch``), but the block sizes are the CTA tile of the
-hand-written CUDA kernel (``kernels/csrc/gemm.cu``), so their ranges and the
-legality predicate follow the card, not the TPU's VMEM and lane tiling:
+GEMM and conv parameter names and semantics, but the block sizes are the
+CTA tiles of the hand-written CUDA kernels (``kernels/csrc/gemm.cu``,
+``kernels/csrc/conv.cu``), so their ranges and the legality predicates
+follow the card, not the TPU's VMEM and lane tiling.
+
+GEMM:
 
   bm, bn      CTA output tile; 256 threads as a 16x16 grid, each thread
               owns (bm/16) x (bn/16) outputs in registers
@@ -14,6 +16,20 @@ legality predicate follow the card, not the TPU's VMEM and lane tiling:
   k_split     split-K partial outputs, materialized and reduced by ops.py
   order       CTA raster: 0 = n fastest (m-major), 1 = m fastest
   acc32       fp32 accumulator (1) or IO-dtype running sum (0)
+  prefetch    shared-memory stages of the cp.async ring
+
+Conv (SAME, stride 1, NHWC input, RSCK filter; implicit GEMM over
+(N*P*Q) x K outputs, reduced over C*R*S):
+
+  b_npq       output pixels per CTA tile (flattened n, p, q); same 16 x 16
+              thread grid, each thread owns (b_npq/16) x (b_k/16) outputs
+  b_k         output channels per CTA tile
+  b_c         input channels of one (r, s) window's sub-dot
+  rs_unroll   (r, s) windows one shared-memory stage holds
+  c_split     split-C partial outputs, materialized and reduced by ops.py
+  order       CTA raster: 0 = k fastest, 1 = npq fastest
+  acc32       fp32 accumulator (1) or IO-dtype running sum rounded after
+              every (r, s) window's sub-dot (0), as on the TPU
   prefetch    shared-memory stages of the cp.async ring
 """
 
@@ -32,8 +48,15 @@ SMEM_DEFAULT = 48 * 1024        # above this the launcher opts in
 # 255 registers and the block still fits the SM's 65,536
 MAX_REGS_PER_THREAD = 255
 GEMM_REG_OVERHEAD = 40          # addressing / loop registers, estimated
+CONV_REG_OVERHEAD = 48          # conv adds the window and halo arithmetic
 
 Config = Dict[str, int]
+
+
+class ConfigRejected(AssertionError):
+    """The correctness gate's verdict on a legal config whose kernel output
+    misses the fp32 oracle (or its plain version) at a shape: the config is
+    not in X(inputs) there, so it is neither labelled nor picked."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,10 +161,97 @@ GEMM_SPACE = ParamSpace(
     is_legal=gemm_is_legal,
 )
 
-SPACES: Dict[str, ParamSpace] = {"gemm": GEMM_SPACE}
+
+CONV_PARAMS: Dict[str, Tuple[int, ...]] = {
+    "b_npq": (16, 32, 64, 128),
+    "b_k": (16, 32, 64, 128),
+    "b_c": (8, 16, 32, 64),
+    "rs_unroll": (1, 2, 4),
+    "c_split": (1, 2, 4, 8, 16),
+    "order": (0, 1),
+    "acc32": (0, 1),
+    "prefetch": (1, 2, 3),
+}
+
+CONV_INPUTS = ("N", "H", "W", "C", "K", "R", "S", "dtype_bits")
+
+
+def conv_out_shape(inputs: Mapping[str, int]) -> Tuple[int, int]:
+    """SAME-padded unit-stride output spatial shape (DeepBench convention)."""
+    return inputs["H"], inputs["W"]
+
+
+def conv_smem_bytes(cfg: Mapping[str, int], dtype_bits: int) -> int:
+    """Dynamic shared memory of one CTA: ``prefetch`` stages of
+    ``rs_unroll`` windows (input tile + filter tile each), plus the tile's
+    (n, p, q) row table (three ints per output pixel)."""
+    bpe = dtype_bits // 8
+    window = cfg["b_npq"] * cfg["b_c"] + cfg["b_c"] * cfg["b_k"]
+    return cfg["prefetch"] * cfg["rs_unroll"] * window * bpe \
+        + 12 * cfg["b_npq"]
+
+
+def conv_regs_per_thread(cfg: Mapping[str, int]) -> int:
+    """Estimated registers, as for the GEMM: accumulators (doubled for the
+    acc32=0 sub-dot), one input column and one filter row fragment."""
+    tm, tn = cfg["b_npq"] // 16, cfg["b_k"] // 16
+    acc = tm * tn * (1 if cfg["acc32"] else 2)
+    return acc + tm + tn + CONV_REG_OVERHEAD
+
+
+def conv_fits(cfg: Mapping[str, int], dtype_bits: int) -> bool:
+    """Can the conv kernel launch this config at all (shape-independent)?"""
+    if not CONV_SPACE.contains(cfg):
+        return False
+    if dtype_bits not in (16, 32):
+        return False
+    if conv_smem_bytes(cfg, dtype_bits) > SMEM_PER_BLOCK:
+        return False
+    if conv_regs_per_thread(cfg) > MAX_REGS_PER_THREAD:
+        return False
+    if dtype_bits == 32 and not cfg["acc32"]:
+        return False
+    return True
+
+
+def conv_is_legal(cfg: Mapping[str, int], inputs: Mapping[str, int]) -> bool:
+    """Launchable, and no tile, split or unroll larger than the problem."""
+    if not conv_fits(cfg, inputs["dtype_bits"]):
+        return False
+    P, Q = conv_out_shape(inputs)
+    npq = inputs["N"] * P * Q
+    C, K = inputs["C"], inputs["K"]
+    if cfg["c_split"] > _ceil_div(C, cfg["b_c"]):
+        return False
+    if cfg["rs_unroll"] > inputs["R"] * inputs["S"]:
+        return False
+    if cfg["b_npq"] > _round_up(npq, 16) or cfg["b_k"] > _round_up(K, 16) \
+            or cfg["b_c"] > _round_up(C, 8):
+        return False
+    return True
+
+
+CONV_SPACE = ParamSpace(
+    name="conv",
+    params=CONV_PARAMS,
+    input_params=CONV_INPUTS,
+    is_legal=conv_is_legal,
+)
+
+SPACES: Dict[str, ParamSpace] = {"gemm": GEMM_SPACE, "conv": CONV_SPACE}
+
+# per space: can the kernel launch this config for this dtype?
+FITS: Dict[str, Callable[[Mapping[str, int], int], bool]] = {
+    "gemm": gemm_fits, "conv": conv_fits}
 
 
 def gemm_input(M: int, N: int, K: int, dtype_bits: int = 16,
                trans_a: bool = False, trans_b: bool = False) -> Dict[str, int]:
     return {"M": int(M), "N": int(N), "K": int(K), "dtype_bits": int(dtype_bits),
             "trans_a": int(trans_a), "trans_b": int(trans_b)}
+
+
+def conv_input(N: int, H: int, W: int, C: int, K: int, R: int, S: int,
+               dtype_bits: int = 16) -> Dict[str, int]:
+    return {"N": int(N), "H": int(H), "W": int(W), "C": int(C), "K": int(K),
+            "R": int(R), "S": int(S), "dtype_bits": int(dtype_bits)}

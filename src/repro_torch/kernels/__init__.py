@@ -2,10 +2,13 @@
 PyTorch version.
 
   csrc/gemm.cu  parameterised GEMM (replaces repro.kernels.matmul)
-  _build.py     nvcc build at first use + ctypes binding
+  csrc/conv.cu  SAME/stride-1 implicit-GEMM conv (replaces repro.kernels.conv)
+  _build.py     nvcc build at first use (or in parallel) + ctypes binding
   matmul.py     GEMM wrapper (launch counter) and matmul_plain
-  ops.py        GEMM entry point: config defaults, block shrinking, split-K
-                reduction
+  conv.py       conv wrapper (launch counter) and conv2d_plain
+  ops.py        entry points: config defaults, block shrinking, split-K /
+                split-C reduction
   ref.py        fp32 oracles
-  dispatch.py   tuned-config routing: exact -> nearest -> heuristics
+  dispatch.py   tuned-config routing: tuner -> exact -> nearest ->
+                heuristics; the tuner's correctness gate (check_config)
 """

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
 ``<repo>/build/kernels/lib<name>-<hash>.so`` at first use; the hash covers
 the source and the flags, so an edited kernel rebuilds and an unchanged one
-loads from disk.  Nothing here runs at import time: the CPU tests import
+loads from disk.  :func:`build` compiles several sources at once, one
+``nvcc`` process per source, all started together.  Nothing here runs at import time: the CPU tests import
 every module of the port on a machine without ``nvcc``.
 """
 
@@ -15,7 +16,7 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -27,6 +28,7 @@ _I = ctypes.c_int
 # C signatures of the entry points, per source file
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "gemm": {"gemm_launch": (_I, [_P, _P, _P] + [_I] * 12 + [_P])},
+    "conv": {"conv_launch": (_I, [_P, _P, _P] + [_I] * 16 + [_P])},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -50,17 +52,29 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(name: str) -> None:
-    """Run ``nvcc`` for one source; raise with its output if it failed."""
-    out = library_path(name)
+def build(names: Iterable[str]) -> None:
+    """Compile every missing library among ``names``: one ``nvcc`` per
+    source, all started together; raise with the output of any that
+    failed (after every process has ended)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    r = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                       text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}")
-    os.replace(tmp, out)            # atomic: a reader never sees half a file
+    running = []
+    for name in dict.fromkeys(names):
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        running.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)    # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -69,7 +83,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         path = library_path(name)
         if not path.exists():
-            _compile(name)
+            build([name])
         lib = ctypes.CDLL(str(path))
         for fn, (restype, argtypes) in SIGNATURES[name].items():
             f = getattr(lib, fn)

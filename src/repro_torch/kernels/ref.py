@@ -1,6 +1,6 @@
 """Plain PyTorch oracles, computed in float32 (mirror ``repro.kernels.ref``).
 
-``conv2d_ref`` and ``ssd_ref`` arrive with the slices that port those ops.
+``ssd_ref`` arrives with the slice that ports the SSD scan.
 """
 
 from __future__ import annotations
@@ -10,6 +10,27 @@ import torch
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
+def same_padding(R: int, S: int) -> tuple:
+    """(top, bottom, left, right) SAME padding for stride 1, XLA's rule:
+    an even filter pads one more row/column after than before."""
+    pt, pl = (R - 1) // 2, (S - 1) // 2
+    return pt, R - 1 - pt, pl, S - 1 - pl
+
+
+def conv2d_ref(i: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """SAME-padded stride-1 conv.  i (N,H,W,C), f (R,S,C,K) -> (N,H,W,K).
+
+    Full fp32 on any device: cuDNN's TF32 is switched off for the call.
+    """
+    pt, pb, pl, pr = same_padding(f.shape[0], f.shape[1])
+    x = torch.nn.functional.pad(i.float().permute(0, 3, 1, 2),
+                                (pl, pr, pt, pb))
+    w = f.float().permute(3, 2, 0, 1)                       # (K, C, R, S)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out = torch.nn.functional.conv2d(x, w)
+    return out.permute(0, 2, 3, 1).to(i.dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

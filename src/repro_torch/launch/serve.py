@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
+from repro_torch.core.backend import CudaEventBackend
 from repro_torch.device import resolve_device
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.models import init_params
@@ -34,10 +35,15 @@ def main(argv=None) -> None:
     p.add_argument("--tunedb", default=None,
                    help="warm-start kernel dispatch from this record store")
     p.add_argument("--tunedb-backend", default=None,
-                   help="pin dispatch to one backend fingerprint")
+                   help="pin dispatch to one backend fingerprint (default "
+                        "with --tunedb: the one `python -m repro_torch."
+                        "tunedb tune` writes on this device)")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
+    fingerprint = args.tunedb_backend
+    if args.tunedb and fingerprint is None:
+        fingerprint = CudaEventBackend(device=device).fingerprint
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(0)
@@ -45,7 +51,7 @@ def main(argv=None) -> None:
     eng = Engine(cfg, params, ServeConfig(
         max_len=args.max_len, slots=args.slots, temperature=args.temperature,
         seed=0, tunedb=args.tunedb,
-        tunedb_backend=args.tunedb_backend), device=device)
+        tunedb_backend=fingerprint), device=device)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, args.prompt_len)
                for _ in range(args.requests)]

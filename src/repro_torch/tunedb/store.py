@@ -9,12 +9,15 @@ by cheap shape tuples instead of sha1 digests; lookups are exact per
 The port's serving state (:func:`install_store` / :func:`serving_state`)
 is its own: installing a store here touches nothing of the reference's
 dispatcher.  Quarantine/fsck, merge/export, dispatch plans and the model
-tier are not ported yet.
+tier are not ported yet.  Records of source ``"sample"`` (a tuning
+session's measured losers, training data for a performance model) are kept
+in the file but never indexed, so serving never resolves them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -42,6 +45,14 @@ def normalize_config(cfg: Mapping[str, object]) -> Dict[str, int]:
 
 def normalize_inputs(inputs: Mapping[str, object]) -> Dict[str, int]:
     return {str(k): int(v) for k, v in inputs.items()}
+
+
+def input_key(space: str, inputs: Mapping[str, object]) -> str:
+    """Stable 16-hex key for a (space, inputs) pair (the reference's)."""
+    blob = json.dumps(
+        {"s": space, "i": dict(sorted(normalize_inputs(inputs).items()))},
+        sort_keys=True)
+    return hashlib.sha1(blob.encode()).hexdigest()[:16]
 
 
 def shape_key(inputs: Mapping[str, int]) -> ShapeKey:
@@ -200,6 +211,17 @@ class RecordStore:
             backend: Optional[str] = None) -> Optional[TuneRecord]:
         """Latest record for exactly this (space, inputs[, backend])."""
         return self._exact(space, shape_key(inputs), backend)
+
+    def contains(self, space: str, inputs: Mapping[str, int], *,
+                 backend: Optional[str] = None) -> bool:
+        """Is there a served (non-sample) record for exactly this shape?"""
+        return self.get(space, normalize_inputs(inputs),
+                        backend=backend) is not None
+
+    def records(self) -> list:
+        """The latest served record per (backend, space, shape)."""
+        with self._lock:
+            return list(self._index.values())
 
     def nearest(self, space: str, inputs: Mapping[str, int], *,
                 backend: Optional[str] = None,

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: kernel vs plain version at the
-serving path's shapes.  Skips without a GPU; on a machine with one:
+serving path's and the conv tuning path's shapes, and the timing backend.
+Skips without a GPU; on a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -7,6 +8,9 @@ serving path's shapes.  Skips without a GPU; on a machine with one:
 import pytest
 import torch
 
+from repro_torch.core.backend import CheckedBackend, CudaEventBackend
+from repro_torch.core.space import conv_input, gemm_input
+from repro_torch.kernels import conv as kconv
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops as tops
 
@@ -55,3 +59,43 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     out = tops.matmul(a, b, {"k_split": 2})
     torch.cuda.synchronize()
     assert torch.equal(out, torch.full_like(out, 576.0))
+
+
+# (N, H, W, C, K, R, S): Table 5's C=1 / 5x20, K=174, and a ragged one
+CONV_SHAPES = [(16, 79, 341, 1, 32, 5, 20), (16, 128, 39, 64, 174, 5, 5),
+               (3, 5, 7, 20, 24, 4, 2)]
+CONV_CONFIGS = [
+    dict(tops.DEFAULT_CONV),
+    {"b_npq": 128, "b_k": 32, "b_c": 8, "rs_unroll": 4, "c_split": 2,
+     "order": 1, "acc32": 0, "prefetch": 3},
+]
+
+
+@pytest.mark.parametrize("cfg", CONV_CONFIGS)
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_kernel_matches_plain(cuda, shape, cfg):
+    N, H, W, C, K, R, S = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(C + K)
+    i = torch.randn((N, H, W, C), generator=gen, device=cuda).bfloat16()
+    f = (torch.randn((R, S, C, K), generator=gen, device=cuda)
+         / (R * S * C) ** 0.5).bfloat16()
+    small = tops.shrink_conv_cfg(cfg, N, H, W, C, K, R, S)
+    before = kconv.launches
+    got = kconv.conv(i, f, small)
+    want = kconv.conv2d_plain(i, f, small)
+    torch.cuda.synchronize()
+    assert kconv.launches == before + 1
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(err) <= 2e-2
+
+
+def test_backend_times_the_kernels_behind_the_gate(cuda):
+    backend = CheckedBackend(CudaEventBackend(device=cuda))
+    g0, c0 = kmatmul.launches, kconv.launches
+    assert backend.measure("gemm", dict(tops.DEFAULT_GEMM),
+                           gemm_input(32, 576, 576)) > 0
+    assert backend.measure("conv", dict(tops.DEFAULT_CONV),
+                           conv_input(8, 27, 27, 128, 128, 3, 3)) > 0
+    assert kmatmul.launches > g0 and kconv.launches > c0
+    assert "device=" + torch.cuda.get_device_name(cuda) in backend.fingerprint

@@ -142,3 +142,23 @@ def test_shrink_keeps_every_config_launchable():
             small = tops.shrink_gemm_cfg(cfg, M, N, K)
             assert gemm_fits(small, 16), (cfg, small)
             assert small["bk"] * small["k_split"] <= max(K, small["bk"])
+
+
+def test_a_k_cut_to_512_hides_the_drift_of_the_full_reduction():
+    """Why the gate keeps K whole on the card: with acc32=0 in bf16 the
+    down projection's K=1536 misses the fp32 oracle's 2e-2 (max-abs over
+    the oracle's max) where the reference gate's K cap of 512 passes.  The
+    plain version rounds where the kernel does."""
+    cfg = {"bm": 32, "bn": 64, "bk": 64, "k_unroll": 4, "k_split": 1,
+           "order": 0, "acc32": 0, "prefetch": 2}
+    errs = []
+    for K in (512, 1536):
+        rng = np.random.default_rng(0)
+        a = torch.as_tensor(rng.normal(size=(32, K)), dtype=torch.float32)
+        b = torch.as_tensor(rng.normal(size=(K, 576)) / K ** 0.5,
+                            dtype=torch.float32)
+        a, b = a.bfloat16(), b.bfloat16()
+        got = tops.matmul(a, b, cfg).float()
+        want = tref.matmul_ref(a.float(), b.float())
+        errs.append(float((got - want).abs().max() / want.abs().max()))
+    assert errs[0] <= 2e-2 < errs[1], errs
