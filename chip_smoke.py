@@ -6,35 +6,45 @@
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero:
 
-  1. device   the card's name and ``nvidia-smi`` name / power limit
-  2. build    every CUDA kernel (gemm.cu, conv.cu) from ``csrc/``, one
-              nvcc per source, in parallel
-  3. gemm     the GEMM kernel against its plain version (and the fp32
-              oracle) at the serving path's shapes, several configs
-  4. conv     the conv kernel against its plain version (and the fp32
-              oracle) at the paper's 14 Table 5 shapes, full size
-  5. tune     the offline loop on the card for gemm and conv: fit the
-              sampler, label a dataset with CheckedBackend(CudaEventBackend)
-              (the gate, then the kernels timed), train the MLP, run a
-              TuningSession with top-k re-measurement over the 8 SmolLM-135M
-              projection shapes and the 14 Table 5 shapes into a record
-              store, then serve every tuned shape through dispatch.matmul /
-              dispatch.conv2d from it; every job must succeed, every call
-              resolve exact and agree with the fp32 oracle at full size
-  6. times    per shape: the tuned config's kernel time, the heuristic
-              config's, the plain version, the library call the port never
-              makes (``torch.matmul``; ``F.conv2d`` channels-last on cuDNN)
-              and the bound max(bytes/HBM, FLOPs/peak)
-  7. pending  the kernels still to port (attention, SSD): their bounds at
-              a shape of a supported model, and SDPA's time for attention
-  8. serve    SmolLM-135M at full width (30 layers, bf16, random weights
-              from a seed) through ``Engine.generate`` from the tuned store;
-              every projection launches the kernel on the exact tier
-  9. model    prefill + 4 decode steps through the kernel path and again
-              through the plain path on the card; logits must agree
- 10. profile  a decode tick: eager wall time, host enqueue time, and the
-              device time of the same tick replayed from a CUDA graph
- 11. kernels  one JSON line summarising every ported kernel
+  1. device     the card's name and ``nvidia-smi`` name / power limit
+  2. build      every CUDA kernel (gemm.cu, conv.cu, attention.cu, ssd.cu)
+                from ``csrc/``, one nvcc per source, in parallel
+  3. gemm       the GEMM kernel against its plain version (and the fp32
+                oracle) at the serving path's shapes, several configs
+  4. conv       the conv kernel against its plain version (and the fp32
+                oracle) at the paper's 14 Table 5 shapes, full size
+  5. attention  the attention kernel against its plain version and the fp32
+                oracle, bf16 and fp32, several configs: SmolLM-135M and
+                qwen3-14b decode steps (causal with q_offset), causal
+                prefills with GQA groups 3 and 5, the three ragged
+                non-causal shapes the reference's offset trick got wrong
+  6. ssd        the SSD kernel against its plain version and the sequential
+                fp32 oracle, bf16 and fp32, several configs, a ragged L
+  7. tune       the offline loop on the card for all four spaces: fit the
+                sampler, label a dataset with CheckedBackend(CudaEventBackend)
+                (the gate, then the kernels timed), train the MLP, run a
+                TuningSession with top-k re-measurement into a record store
+                (GEMM: the 8 SmolLM-135M projection shapes; conv: the 14
+                Table 5 shapes; attention: SmolLM-135M decode and prefill,
+                qwen3-14b prefill and decode; SSD: a mamba2-1.3b and a
+                jamba-v0.1 layer), then serve every tuned shape through
+                ``dispatch`` from it; every job must succeed, every call
+                resolve exact and agree with the fp32 oracle at full size
+  8. times      per shape: the tuned config's kernel time, the heuristic's
+                (GEMM, conv) or the ops default's (attention, SSD), the
+                plain version, the library call the port never makes
+                (``torch.matmul``; ``F.conv2d`` channels-last on cuDNN;
+                SDPA) and the bound max(bytes/HBM, FLOPs/peak)
+  9. serve      SmolLM-135M at full width (30 layers, bf16, random weights
+                from a seed) through ``Engine.generate`` from the tuned store;
+                every projection launches the GEMM kernel on the exact tier,
+                every decode tick takes its KV split count from the tuned
+                attention record (exact tier)
+ 10. model      prefill + 4 decode steps through the kernel path and again
+                through the plain path on the card; logits must agree
+ 11. profile    a decode tick: eager wall time, host enqueue time, and the
+                device time of the same tick replayed from a CUDA graph
+ 12. kernels    one JSON line summarising every ported kernel
 
 Each path (tune, serve) runs with every launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails.
@@ -64,21 +74,28 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.backend import CheckedBackend, CudaEventBackend  # noqa: E402
+from repro_torch.core.backend import (CheckedBackend, CudaEventBackend,  # noqa: E402
+                                      problem_flops)
 from repro_torch.core.dataset import Dataset  # noqa: E402
 from repro_torch.core.features import Featurizer  # noqa: E402
 from repro_torch.core.generative import CategoricalSampler  # noqa: E402
 from repro_torch.core.heuristics import VendorHeuristicLibrary  # noqa: E402
 from repro_torch.core.mlp import MLP  # noqa: E402
-from repro_torch.core.space import (CONV_SPACE, GEMM_SPACE,  # noqa: E402
-                                    ConfigRejected, conv_input, gemm_input)
+from repro_torch.core.space import (ATTENTION_SPACE, CONV_SPACE,  # noqa: E402
+                                    GEMM_SPACE, SSD_SPACE, ConfigRejected,
+                                    attention_input, conv_input, gemm_input,
+                                    ssd_input)
 from repro_torch.core.tuner import InputAwareTuner  # noqa: E402
 from repro_torch.kernels import _build, dispatch, ops  # noqa: E402
+from repro_torch.kernels import attention as kattention  # noqa: E402
 from repro_torch.kernels import conv as kconv  # noqa: E402
 from repro_torch.kernels import matmul as kmatmul  # noqa: E402
-from repro_torch.kernels.ref import attention_ref, conv2d_ref, matmul_ref  # noqa: E402
+from repro_torch.kernels import ssd as kssd  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref, conv2d_ref,  # noqa: E402
+                                     matmul_ref, ssd_ref)
 from repro_torch.models import decode_step, init_cache, init_params, prefill  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+from repro_torch.serve.flash_decode import resolve_decode_splits  # noqa: E402
 from repro_torch.tunedb.session import TuningSession  # noqa: E402
 from repro_torch.tunedb.store import RecordStore, clear_store, install_store  # noqa: E402
 
@@ -139,8 +156,59 @@ CONV_CHECK_CONFIGS = {
 CONV_FP32 = ("Conv1-DeepSpeech", "Conv7-Face", "Conv11-Speaker",
              "Conv14-ResNET")
 
+# attention: (name, (B, Hq, Hkv, Lq, Lkv, D), causal, q_offset) checked
+# against the plain version and the oracle
+ATTN_CHECKS = [
+    ("smollm-135m decode", (4, 9, 3, 1, 256, 64), True, 255),
+    ("qwen3-14b decode", (8, 40, 8, 1, 32768, 128), True, 32767),
+    ("causal prefill, GQA 3", (1, 9, 3, 2048, 2048, 64), True, 0),
+    ("causal prefill, GQA 5", (1, 40, 8, 1024, 1024, 128), True, 0),
+    ("C1 Lq=4 Lkv=100", (1, 4, 2, 4, 100, 64), False, 0),
+    ("C1 Lq=8 Lkv=200", (1, 4, 2, 8, 200, 64), False, 0),
+    ("C1 Lq=130 Lkv=100", (1, 4, 2, 130, 100, 64), False, 0),
+]
+ATTN_CHECK_CONFIGS = {
+    "default": dict(ops.DEFAULT_ATTN),
+    "b_q=16,b_kv=128,prefetch=3": {"b_q": 16, "b_kv": 128, "acc32": 1,
+                                   "prefetch": 3},
+    "b_q=128,b_kv=16,prefetch=1": {"b_q": 128, "b_kv": 16, "acc32": 1,
+                                   "prefetch": 1},
+    "b_q=32,b_kv=32,acc32=0": {"b_q": 32, "b_kv": 32, "acc32": 0,
+                               "prefetch": 2},
+}
+# SSD: (name, (B, L, H, P, S))
+SSD_CHECKS = [
+    ("mamba2-1.3b layer", (1, 2048, 64, 64, 128)),
+    ("ragged L=1000", (2, 1000, 8, 64, 128)),
+    ("jamba-v0.1 layer, L=1024", (1, 1024, 128, 64, 128)),
+]
+SSD_CHECK_CONFIGS = {
+    "default": dict(ops.DEFAULT_SSD),
+    "chunk=256,prefetch=1": {"chunk": 256, "b_heads": 1, "acc32": 1,
+                             "prefetch": 1},
+    "chunk=16,b_heads=4,prefetch=3": {"chunk": 16, "b_heads": 4, "acc32": 1,
+                                      "prefetch": 3},
+    "chunk=128,b_heads=2,acc32=0": {"chunk": 128, "b_heads": 2, "acc32": 0,
+                                    "prefetch": 1},
+}
+# the fp32 oracle's tolerance in fp32 (tests/test_kernels.py's)
+ORACLE_TOL_FP32 = {"attention": 2e-3, "ssd": 1e-3}
+
+# tune targets, bf16; an attention target's q_offset for its dispatch check
+ATTN_TARGETS = [
+    ("smollm-135m decode", attention_input(4, 9, 3, 1, 256, 64), 255),
+    ("smollm-135m prefill 2048", attention_input(1, 9, 3, 2048, 2048, 64), 0),
+    ("qwen3-14b prefill 4096", attention_input(1, 40, 8, 4096, 4096, 128), 0),
+    ("qwen3-14b decode 32768", attention_input(8, 40, 8, 1, 32768, 128),
+     32767),
+]
+SSD_TARGETS = [
+    ("mamba2-1.3b layer", ssd_input(1, 2048, 64, 64, 128)),
+    ("jamba-v0.1 mamba layer", ssd_input(1, 4096, 128, 64, 128)),
+]
+
 # the tune phase: dataset size per space, regressor, top-k re-measured
-TUNE_SAMPLES = {"gemm": 320, "conv": 192}
+TUNE_SAMPLES = {"gemm": 320, "conv": 192, "attention": 96, "ssd": 64}
 TUNE_HIDDEN = (64, 128, 64)
 TUNE_EPOCHS = 60
 TUNE_BATCH = 32
@@ -166,16 +234,28 @@ def card_peaks(name: str) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Send ``ops.matmul`` / ``ops.conv2d`` through the kernels' plain
-    versions, on the card, under the same configs: the reference the kernel
-    paths are held to.  The port itself has no switch for this; only the
-    checks and timings here make it."""
-    gemm, conv = kmatmul.gemm, kconv.conv
+    """Send ``ops.matmul`` / ``ops.conv2d`` / ``ops.flash_attention`` /
+    ``ops.ssd_scan`` through the kernels' plain versions, on the card,
+    under the same configs: the reference the kernel paths are held to.
+    The port itself has no switch for this; only the checks and timings
+    here make it."""
+    saved = (kmatmul.gemm, kconv.conv, kattention.attention, kssd.ssd)
     kmatmul.gemm, kconv.conv = kmatmul.matmul_plain, kconv.conv2d_plain
+    kattention.attention, kssd.ssd = kattention.attention_plain, kssd.ssd_plain
     try:
         yield
     finally:
-        kmatmul.gemm, kconv.conv = gemm, conv
+        kmatmul.gemm, kconv.conv, kattention.attention, kssd.ssd = saved
+
+
+def reset_launches() -> None:
+    kmatmul.launches = kconv.launches = 0
+    kattention.launches = kssd.launches = 0
+
+
+def read_launches() -> dict:
+    return {"gemm": kmatmul.launches, "conv": kconv.launches,
+            "attention": kattention.launches, "ssd": kssd.launches}
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -192,7 +272,7 @@ def time_ms(fn, n_calls: int, reps: int = 5) -> float:
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for i in range(3):
-            fn(i)
+            fn(i % n_calls)
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -241,6 +321,52 @@ def conv_bound(x: dict, dtype: torch.dtype, peaks: dict) -> dict:
                  dtype, peaks)
 
 
+def attention_bound(x: dict, dtype: torch.dtype, peaks: dict) -> dict:
+    """q, k, v read once and the output written once; the FLOPs of the
+    tuner's count (4·B·Hq·Lq·Lkv·D, halved for a causal square)."""
+    bpe = torch.finfo(dtype).bits // 8
+    qo = 2 * x["B"] * x["Hq"] * x["Lq"] * x["D"]
+    kv = 2 * x["B"] * x["Hkv"] * x["Lkv"] * x["D"]
+    return bound((qo + kv) * bpe, problem_flops("attention", x), dtype, peaks)
+
+
+def ssd_bound(x: dict, dtype: torch.dtype, peaks: dict) -> dict:
+    """x, dt, B, C (and fp32 a) read once, y written once; 4·B·L·H·P·S
+    FLOPs, the least any form of the scan does: every step and head adds
+    its x·Bᵀ (P·S multiply-adds) into a P x S state and reads y from one
+    (C·state, P·S more).  The recurrence does 5·P·S a step and head, the
+    chunked form 4·P·S plus its intra-chunk terms.  Not the tuner's
+    ``problem_flops``, which counts the chunked form at chunk min(256, L)
+    with C·Bᵀ once per head: a yardstick, not the least work."""
+    bpe = torch.finfo(dtype).bits // 8
+    bl = x["B"] * x["L"]
+    nbytes = (2 * bl * x["H"] * x["P"] + bl * x["H"] + 2 * bl * x["S"]) * bpe \
+        + 4 * x["H"]
+    return bound(nbytes, 4.0 * bl * x["H"] * x["P"] * x["S"], dtype, peaks)
+
+
+def attention_operands(x: dict, dtype: torch.dtype, gen: torch.Generator,
+                       dev: torch.device) -> tuple:
+    q = torch.randn((x["B"], x["Hq"], x["Lq"], x["D"]), generator=gen,
+                    device=dev).to(dtype)
+    kv = [torch.randn((x["B"], x["Hkv"], x["Lkv"], x["D"]), generator=gen,
+                      device=dev).to(dtype) for _ in range(2)]
+    return (q, *kv)
+
+
+def ssd_operands(x: dict, dtype: torch.dtype, gen: torch.Generator,
+                 dev: torch.device) -> tuple:
+    """x, dt in [0.01, 0.1), a in (-2, -0.5] (fp32), B, C."""
+    B, L, H, P, S = (x[k] for k in ("B", "L", "H", "P", "S"))
+    xs = torch.randn((B, L, H, P), generator=gen, device=dev).to(dtype)
+    dt = (0.01 + 0.09 * torch.rand((B, L, H), generator=gen, device=dev)
+          ).to(dtype)
+    a = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
+    bm, cm = (torch.randn((B, L, S), generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    return xs, dt, a, bm, cm
+
+
 def conv_dims(x: dict) -> tuple:
     return tuple(x[k] for k in ("N", "H", "W", "C", "K", "R", "S"))
 
@@ -269,13 +395,16 @@ def phase_device() -> tuple:
     return name, smi
 
 
+KERNELS = ("gemm", "conv", "attention", "ssd")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.build(["gemm", "conv"])
-    _build.load("gemm")
-    _build.load("conv")
-    phase("build", f"nvcc sm_90a, gemm.cu + conv.cu in parallel, "
-          f"{time.perf_counter() - t0:.1f} s")
+    _build.build(KERNELS)
+    for name in KERNELS:
+        _build.load(name)
+    phase("build", f"nvcc sm_90a, {' + '.join(k + '.cu' for k in KERNELS)} "
+          f"in parallel, {time.perf_counter() - t0:.1f} s")
 
 
 def phase_gemm_check(dev: torch.device) -> dict:
@@ -364,24 +493,124 @@ def phase_conv_check(dev: torch.device) -> dict:
     return worst
 
 
+def phase_attention_check(dev: torch.device) -> dict:
+    """The attention kernel against its plain version (same config, same
+    block walk and rounding) and the fp32 oracle, every config at every
+    shape in bf16, the acc32=1 configs in fp32 too.  The three C1 shapes
+    are non-causal with a KV length no block size divides."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    worst = {"abs": 0.0, "rel": 0.0, "oracle_rel": 0.0}
+    n = 0
+    for name, (B, Hq, Hkv, Lq, Lkv, D), causal, off in ATTN_CHECKS:
+        x = attention_input(B, Hq, Hkv, Lq, Lkv, D)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attention_operands(x, dtype, gen, dev)
+            oracle = dispatch._attention_oracle(q, k, v, causal) if off == 0 \
+                else attention_ref(q, k, v, causal=causal, q_offset=off)
+            for cname, cfg in ATTN_CHECK_CONFIGS.items():
+                if dtype == torch.float32 and not cfg["acc32"]:
+                    continue
+                bits = torch.finfo(dtype).bits
+                small = ops.shrink_attention_cfg(cfg, Lq, Lkv, D, bits)
+                got = kattention.attention(q, k, v, small, causal=causal,
+                                           q_offset=off)
+                want = kattention.attention_plain(q, k, v, small,
+                                                  causal=causal, q_offset=off)
+                torch.cuda.synchronize()
+                ea, er = rel_err(got, want)
+                _, eo = rel_err(got, oracle)
+                tol_o = TOL[torch.bfloat16] if dtype == torch.bfloat16 \
+                    else ORACLE_TOL_FP32["attention"]
+                if not (er <= TOL[dtype] and eo <= tol_o
+                        and torch.isfinite(got).all()):
+                    raise AssertionError(
+                        f"attention kernel at {name} {dtype} {cname}: rel err "
+                        f"{er:.3e} vs plain (tol {TOL[dtype]}), {eo:.3e} vs "
+                        f"the fp32 oracle (tol {tol_o})")
+                worst = {"abs": max(worst["abs"], ea),
+                         "rel": max(worst["rel"], er),
+                         "oracle_rel": max(worst["oracle_rel"], eo)}
+                n += 1
+                del got, want
+            del q, k, v, oracle
+    phase("attention", f"{n} kernel-vs-plain and kernel-vs-oracle checks "
+          f"passed over {len(ATTN_CHECKS)} shapes (decode with q_offset, "
+          f"causal prefill with GQA 3 and 5, the C1 shapes); max abs err "
+          f"{worst['abs']:.3e}, max rel err {worst['rel']:.3e} vs plain; max "
+          f"rel err {worst['oracle_rel']:.3e} vs the fp32 oracle (tolerance "
+          f"bf16 {TOL[torch.bfloat16]}; fp32 {TOL[torch.float32]} vs plain, "
+          f"{ORACLE_TOL_FP32['attention']} vs the oracle)")
+    return worst
+
+
+def phase_ssd_check(dev: torch.device) -> dict:
+    """The SSD kernel against its plain version and the sequential fp32
+    oracle, every config at every shape in bf16, the acc32=1 ones in fp32."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    worst = {"abs": 0.0, "rel": 0.0, "oracle_rel": 0.0}
+    n = 0
+    for name, (B, L, H, P, S) in SSD_CHECKS:
+        x = ssd_input(B, L, H, P, S)
+        for dtype in (torch.bfloat16, torch.float32):
+            args = ssd_operands(x, dtype, gen, dev)
+            oracle = ssd_ref(*args)
+            for cname, cfg in SSD_CHECK_CONFIGS.items():
+                if dtype == torch.float32 and not cfg["acc32"]:
+                    continue
+                small = ops.shrink_ssd_cfg(cfg, L, H, P, S,
+                                           torch.finfo(dtype).bits)
+                got = kssd.ssd(*args, small)
+                want = kssd.ssd_plain(*args, small)
+                torch.cuda.synchronize()
+                ea, er = rel_err(got, want)
+                _, eo = rel_err(got, oracle)
+                tol_o = TOL[torch.bfloat16] if dtype == torch.bfloat16 \
+                    else ORACLE_TOL_FP32["ssd"]
+                if not (er <= TOL[dtype] and eo <= tol_o
+                        and torch.isfinite(got).all()):
+                    raise AssertionError(
+                        f"ssd kernel at {name} {dtype} {cname} ({small}): rel "
+                        f"err {er:.3e} vs plain (tol {TOL[dtype]}), {eo:.3e} "
+                        f"vs the fp32 oracle (tol {tol_o})")
+                worst = {"abs": max(worst["abs"], ea),
+                         "rel": max(worst["rel"], er),
+                         "oracle_rel": max(worst["oracle_rel"], eo)}
+                n += 1
+            del args, oracle
+    phase("ssd", f"{n} kernel-vs-plain and kernel-vs-oracle checks passed "
+          f"over {len(SSD_CHECKS)} shapes (a ragged L included); max abs err "
+          f"{worst['abs']:.3e}, max rel err {worst['rel']:.3e} vs plain; max "
+          f"rel err {worst['oracle_rel']:.3e} vs the sequential fp32 oracle "
+          f"(tolerance bf16 {TOL[torch.bfloat16]}; fp32 {TOL[torch.float32]} "
+          f"vs plain, {ORACLE_TOL_FP32['ssd']} vs the oracle)")
+    return worst
+
+
 def neighbours(x: dict, dims: tuple) -> list:
     """``x`` and, for each of ``dims``, ``x`` with that dim halved and
-    doubled: the pool the tune phase's dataset is drawn from."""
+    doubled: the pool the tune phase's dataset is drawn from.  A dim given
+    as a tuple of names scales them together (a causal prefill's Lq and
+    Lkv)."""
     out = [dict(x)]
     for d in dims:
-        for v in (max(1, x[d] // 2), 2 * x[d]):
-            out.append({**x, d: v})
+        names = d if isinstance(d, tuple) else (d,)
+        for f in (0.5, 2):
+            out.append({**x, **{k: max(1, int(x[k] * f)) for k in names}})
     return out
 
 
-def tune_space(space, targets: list, dims: tuple, backend, store
-               ) -> dict:
+def tune_space(space, targets: list, dims, backend, store) -> dict:
     """The offline loop for one space, built from the library's public
     pieces: fit the sampler on the target-and-neighbour pool, label a
-    dataset on the card, train the regressor, run a tuning session."""
+    dataset on the card, train the regressor, run a tuning session.
+    ``dims`` names the dims each target's neighbours vary (or maps a
+    target to them)."""
     pool = []
     for x in targets:
-        pool += [y for y in neighbours(x, dims) if y not in pool]
+        d = dims(x) if callable(dims) else dims
+        pool += [y for y in neighbours(x, d) if y not in pool]
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     sampler = CategoricalSampler(space).fit(pool, 2000, rng)
@@ -435,46 +664,74 @@ def tune_space(space, targets: list, dims: tuple, backend, store
     return out
 
 
+def attention_dims(x: dict) -> tuple:
+    """Neighbour dims of an attention target: a decode step's batch and
+    cache length; a causal prefill's batch and its length (Lq and Lkv
+    together, so the neighbour stays a causal square)."""
+    return ("B", "Lkv") if x["Lq"] == 1 else ("B", ("Lq", "Lkv"))
+
+
 def phase_tune(backend, store: RecordStore, fp: str, dev: torch.device
                ) -> dict:
-    """The tuning path: both spaces tuned into ``store``, then every tuned
-    shape served through ``dispatch.matmul`` / ``dispatch.conv2d`` from it:
-    each on the exact tier, within the bf16 tolerance of the plain version
-    under the same config and of the fp32 oracle, at full size."""
+    """The tuning path: all four spaces tuned into ``store``, then every
+    tuned shape served through ``dispatch`` from it: each on the exact
+    tier, within the bf16 tolerance of the plain version under the same
+    config and of the fp32 oracle, at full size."""
     gemm_targets = [gemm_input(M, N, K, 16) for M in SLICE_M
                     for (N, K) in SLICE_NK]
     stats = [tune_space(GEMM_SPACE, gemm_targets, ("M", "N", "K"), backend,
                         store),
              tune_space(CONV_SPACE, CONV_SHAPES, ("N", "H", "W", "C", "K"),
-                        backend, store)]
+                        backend, store),
+             tune_space(ATTENTION_SPACE, [x for _, x, _ in ATTN_TARGETS],
+                        attention_dims, backend, store),
+             tune_space(SSD_SPACE, [x for _, x in SSD_TARGETS],
+                        ("B", "L", "H"), backend, store)]
     install_store(store, fingerprint=fp)
     dispatch.reset_counts()
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
+    bf16 = torch.bfloat16
+    # (space, name, shape, operands, q_offset for attention)
     cases = []
     for x in gemm_targets:
         a = torch.randn((x["M"], x["K"]), generator=gen, device=dev)
         b = torch.randn((x["K"], x["N"]), generator=gen, device=dev
                         ) / x["K"] ** 0.5
         cases.append(("gemm", f"M={x['M']} N={x['N']} K={x['K']}", x,
-                      a.bfloat16(), b.bfloat16()))
+                      (a.bfloat16(), b.bfloat16()), 0))
     for x, row in zip(CONV_SHAPES, TABLE5):
-        cases.append(("conv", row[-1], x,
-                      *conv_operands(x, torch.bfloat16, gen, dev)))
+        cases.append(("conv", row[-1], x, conv_operands(x, bf16, gen, dev), 0))
+    cases += [("attention", name, x, None, off) for name, x, off in ATTN_TARGETS]
+    cases += [("ssd", name, x, None, 0) for name, x in SSD_TARGETS]
     worst = {"plain": 0.0, "oracle": 0.0}
-    for space, name, x, u, v in cases:
+    for space, name, x, args, off in cases:
         cfg = store.get(space, x, backend=fp).config
         if space == "gemm":
-            out, want_shape = dispatch.matmul(u, v), (x["M"], x["N"])
+            out, want_shape = dispatch.matmul(*args), (x["M"], x["N"])
             with plain_kernels():
-                plain = ops.matmul(u, v, cfg)
-            oracle = matmul_ref(u, v)
-        else:
-            out = dispatch.conv2d(u, v)
+                plain = ops.matmul(*args, cfg)
+            oracle = matmul_ref(*args)
+        elif space == "conv":
+            out = dispatch.conv2d(*args)
             want_shape = (x["N"], x["H"], x["W"], x["K"])
             with plain_kernels():
-                plain = ops.conv2d(u, v, cfg)
-            oracle = conv2d_ref(u, v)
+                plain = ops.conv2d(*args, cfg)
+            oracle = conv2d_ref(*args)
+        elif space == "attention":
+            args = attention_operands(x, bf16, gen, dev)
+            out = dispatch.flash_attention(*args, causal=True, q_offset=off)
+            want_shape = tuple(args[0].shape)
+            with plain_kernels():
+                plain = ops.flash_attention(*args, cfg, causal=True,
+                                            q_offset=off)
+            oracle = dispatch._attention_oracle(*args, True, q_offset=off)
+        else:
+            args = ssd_operands(x, bf16, gen, dev)
+            out, want_shape = dispatch.ssd_scan(*args), tuple(args[0].shape)
+            with plain_kernels():
+                plain = ops.ssd_scan(*args, cfg)
+            oracle = ssd_ref(*args)
         torch.cuda.synchronize()
         er = {"plain": rel_err(out, plain)[1], "oracle": rel_err(out, oracle)[1]}
         if tuple(out.shape) != want_shape or max(er.values()) > TOL[
@@ -482,16 +739,20 @@ def phase_tune(backend, store: RecordStore, fp: str, dev: torch.device
             raise AssertionError(f"dispatch.{space} at {name} under {cfg}: "
                                  f"shape {tuple(out.shape)}, rel err {er}")
         worst = {k: max(worst[k], er[k]) for k in worst}
-        del u, v, out, plain, oracle
+        del args, out, plain, oracle
     tiers = dict(dispatch.tier_counts)
     want_tiers = {("gemm", "exact"): len(gemm_targets),
-                  ("conv", "exact"): len(CONV_SHAPES)}
+                  ("conv", "exact"): len(CONV_SHAPES),
+                  ("attention", "exact"): len(ATTN_TARGETS),
+                  ("ssd", "exact"): len(SSD_TARGETS)}
     if tiers != want_tiers:
         raise AssertionError(f"dispatch tiers {tiers}")
-    phase("tune", f"dispatch.matmul over the 8 GEMM and dispatch.conv2d over "
-          f"the 14 Table 5 shapes from the tuned store: all exact; max rel "
-          f"err {worst['plain']:.3e} vs the plain version under the same "
-          f"config, {worst['oracle']:.3e} vs the fp32 oracle (tolerance "
+    phase("tune", f"dispatch.matmul over the 8 GEMM, dispatch.conv2d over "
+          f"the 14 Table 5, dispatch.flash_attention over the "
+          f"{len(ATTN_TARGETS)} attention and dispatch.ssd_scan over the "
+          f"{len(SSD_TARGETS)} SSD shapes from the tuned store: all exact; "
+          f"max rel err {worst['plain']:.3e} vs the plain version under the "
+          f"same config, {worst['oracle']:.3e} vs the fp32 oracle (tolerance "
           f"{TOL[torch.bfloat16]})")
     return {"stats": stats}
 
@@ -574,45 +835,77 @@ def phase_times(dev: torch.device, peaks: dict, label: str) -> tuple:
     return gemm_rows, conv_rows
 
 
-def phase_pending(dev: torch.device, peaks: dict, label: str) -> dict:
-    """The two TPU kernels not ported yet, at a shape of a configuration the
-    repo supports: their bounds, and the time of the one PyTorch call that
-    computes the same function where there is one (a yardstick; nothing in
-    the port calls it)."""
+def phase_times_attention_ssd(dev: torch.device, peaks: dict, label: str
+                              ) -> tuple:
+    """Per attention and SSD target: the tuned config (dispatch's exact
+    tier), the ops default config, the plain version under the tuned
+    config, SDPA for attention (the PyTorch call the port never makes) and
+    the bound.  Operand copies exceed the L2 where one set does not."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     bf16 = torch.bfloat16
-    # attention: SmolLM-135M's decode tick, 4 slots over a 256-token cache
-    B, Hq, Hkv, D, Lkv = 4, 9, 3, 64, 256
-    n_calls = 200                     # K/V copies: 79 MB, past the L2
-    q = torch.randn((B, Hq, 1, D), generator=gen, device=dev).to(bf16)
-    ks = [torch.randn((B, Hkv, Lkv, D), generator=gen, device=dev).to(bf16)
-          for _ in range(n_calls)]
-    vs = [torch.randn((B, Hkv, Lkv, D), generator=gen, device=dev).to(bf16)
-          for _ in range(n_calls)]
-    sdpa = lambda i: torch.nn.functional.scaled_dot_product_attention(
-        q, ks[i], vs[i], enable_gqa=True)
-    _, er = rel_err(sdpa(0), attention_ref(q, ks[0], vs[0], causal=False))
-    if er > TOL[bf16]:
-        raise AssertionError(f"SDPA disagrees with attention_ref: {er:.3e}")
-    attn = {"sdpa_ms": time_ms(sdpa, n_calls),
-            **bound((2 * B * Hq * D + 2 * B * Hkv * Lkv * D) * 2,
-                    4.0 * B * Hq * Lkv * D, bf16, peaks)}
-    del ks, vs
-    # SSD: one mamba2-1.3b layer (d_inner 4096 = 64 heads of 64, state 128,
-    # chunk 256) over a 2048-token prefill; FLOPs of the chunked form
-    Bs, L, H, P, S, c = 1, 2048, 64, 64, 128, 256
-    nc = L // c
-    flops = 2.0 * Bs * H * nc * (c * c * (P + S) + c * S * P * 2 + P * S)
-    nbytes = (2 * Bs * L * H * P + Bs * L * H + 2 * Bs * L * S) * 2 + H * 4
-    ssd = bound(nbytes, flops, bf16, peaks)
-    phase("pending", f"attention (not ported) at B={B} Hq={Hq} Hkv={Hkv} "
-          f"D={D} Lq=1 Lkv={Lkv} bf16: SDPA {attn['sdpa_ms'] * 1e3:.2f} us, "
-          f"bound {attn['bound_ms'] * 1e3:.3f} us ({attn['bound_by']}); "
-          f"SSD scan (not ported) at B={Bs} L={L} H={H} P={P} S={S} chunk "
-          f"{c}: bound {ssd['bound_ms'] * 1e3:.2f} us ({ssd['bound_by']}), "
-          f"no single PyTorch call computes it [{label}]")
-    return {"attention": attn, "ssd": ssd}
+    attn_rows, ssd_rows = [], []
+    for name, x, off in ATTN_TARGETS:
+        cfg, tier = dispatch._resolve_cfg("attention", x)
+        one = attention_operands(x, bf16, gen, dev)
+        nbytes = sum(t.numel() for t in one) * 2
+        n_calls = max(1, min(64, math.ceil(2.5 * L2_BYTES / nbytes)))
+        sets = [one] + [attention_operands(x, bf16, gen, dev)
+                        for _ in range(n_calls - 1)]
+        causal = x["Lq"] == x["Lkv"]        # a decode step sees every key
+        sdpa = lambda i: torch.nn.functional.scaled_dot_product_attention(
+            *sets[i], is_causal=causal, enable_gqa=True)
+        _, er = rel_err(sdpa(0), dispatch._attention_oracle(
+            *one, True, q_offset=off))
+        if er > TOL[bf16]:
+            raise AssertionError(f"SDPA disagrees with attention_ref at "
+                                 f"{name}: rel err {er:.3e}")
+        run = lambda c: (lambda i: ops.flash_attention(
+            *sets[i], c, causal=True, q_offset=off))
+        kernel = time_ms(run(cfg), n_calls)
+        default = time_ms(run(dict(ops.DEFAULT_ATTN)), n_calls)
+        with plain_kernels():
+            plain = time_ms(run(cfg), min(n_calls, 2))
+        library = time_ms(sdpa, n_calls)
+        del sets, one
+        attn_rows.append({"name": name, **x, "tier": tier, "cfg": cfg,
+                          "default_cfg": ops.shrink_attention_cfg(
+                              {}, x["Lq"], x["Lkv"], x["D"], 16),
+                          "kernel_ms": kernel, "default_ms": default,
+                          "plain_ms": plain, "library_ms": library,
+                          **attention_bound(x, bf16, peaks)})
+        r = attn_rows[-1]
+        phase("times", f"attention {name} (B={x['B']} Hq={x['Hq']} "
+              f"Hkv={x['Hkv']} Lq={x['Lq']} Lkv={x['Lkv']} D={x['D']}) bf16 "
+              f"tier={tier} tuned {cfg} {kernel:.4f} ms, ops default "
+              f"{default:.4f} ms, plain {plain:.4f} ms, SDPA {library:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{label}]")
+    for name, x in SSD_TARGETS:
+        cfg, tier = dispatch._resolve_cfg("ssd", x)
+        one = ssd_operands(x, bf16, gen, dev)
+        nbytes = sum(t.numel() * t.element_size() for t in one)
+        n_calls = max(1, min(16, math.ceil(2.5 * L2_BYTES / nbytes)))
+        sets = [one] + [ssd_operands(x, bf16, gen, dev)
+                        for _ in range(n_calls - 1)]
+        run = lambda c: (lambda i: ops.ssd_scan(*sets[i], c))
+        kernel = time_ms(run(cfg), n_calls)
+        default = time_ms(run(dict(ops.DEFAULT_SSD)), n_calls)
+        with plain_kernels():
+            plain = time_ms(run(cfg), min(n_calls, 2))
+        del sets, one
+        ssd_rows.append({"name": name, **x, "tier": tier, "cfg": cfg,
+                         "default_cfg": ops.shrink_ssd_cfg(
+                             {}, x["L"], x["H"], x["P"], x["S"], 16),
+                         "kernel_ms": kernel, "default_ms": default,
+                         "plain_ms": plain, "library_ms": None,
+                         **ssd_bound(x, bf16, peaks)})
+        r = ssd_rows[-1]
+        phase("times", f"ssd {name} (B={x['B']} L={x['L']} H={x['H']} "
+              f"P={x['P']} S={x['S']}) bf16 tier={tier} tuned {cfg} "
+              f"{kernel:.4f} ms, ops default {default:.4f} ms, plain "
+              f"{plain:.4f} ms, no single PyTorch call computes it, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{label}]")
+    return attn_rows, ssd_rows
 
 
 def per_tick(rows: list, key: str, n_layers: int) -> float:
@@ -634,15 +927,15 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     ticks0, prefills0 = eng.ticks, eng.prefills
     eng.tick_times.clear()
     torch.cuda.synchronize()
-    kmatmul.launches = 0
-    kconv.launches = 0
+    reset_launches()
     dispatch.reset_counts()
     t0 = time.perf_counter()
     outs = eng.generate(prompts, max_new=16)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kmatmul.launches
-    tiers = {t: c for (s, t), c in dispatch.tier_counts.items() if s == "gemm"}
+    tiers, attn_tiers = ({t: c for (s, t), c in dispatch.tier_counts.items()
+                          if s == space} for space in ("gemm", "attention"))
     forwards = (eng.ticks - ticks0) + (eng.prefills - prefills0)
     if [len(o) for o in outs] != [16] * len(prompts):
         raise AssertionError(f"token counts {[len(o) for o in outs]}")
@@ -655,6 +948,15 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     if tiers != {"exact": want}:
         raise AssertionError(f"dispatch tiers seen: {tiers}; every GEMM "
                              "should resolve on the exact tier")
+    # every layer of every decode tick reads its KV split count from the
+    # attention record tuned at this decode shape
+    want_attn = cfg.n_layers * (eng.ticks - ticks0)
+    if attn_tiers != {"exact": want_attn}:
+        raise AssertionError(f"decode-split resolutions {attn_tiers}; want "
+                             f"{want_attn} on the exact tier")
+    splits = resolve_decode_splits(
+        B=sc.slots, Hq=cfg.n_heads, Hkv=cfg.n_kv, Lkv=sc.max_len,
+        D=cfg.head_dim, dtype_bits=16, default=cfg.decode_kv_splits)
     total = sum(len(o) for o in outs)
     tick_ms = statistics.median(t[1] for t in eng.tick_times) * 1e3
     tuned, heur = (per_tick(gemm_rows, k, cfg.n_layers)
@@ -662,12 +964,15 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     phase("serve", f"{cfg.name} ({cfg.n_layers}L d={cfg.d_model} bf16): "
           f"{len(outs)} requests x 16 tokens, {forwards} forwards "
           f"({eng.prefills - prefills0} prefills + {eng.ticks - ticks0} "
-          f"ticks), {launches} GEMM launches, tiers {tiers}; "
-          f"{total / wall:.1f} tok/s, median tick {tick_ms:.2f} ms; GEMM "
-          f"per decode tick {tuned:.3f} ms under tuned configs, "
-          f"{heur:.3f} ms under the heuristic's [{label}]")
+          f"ticks), {launches} GEMM launches, tiers {tiers}; decode KV "
+          f"splits {splits} from the tuned attention record (default "
+          f"{cfg.decode_kv_splits}), {want_attn} resolutions, tiers "
+          f"{attn_tiers}; {total / wall:.1f} tok/s, median tick "
+          f"{tick_ms:.2f} ms; GEMM per decode tick {tuned:.3f} ms under "
+          f"tuned configs, {heur:.3f} ms under the heuristic's [{label}]")
     return {"launches": launches, "tokens_per_s": total / wall,
-            "tick_ms": tick_ms, "tiers": tiers, "engine": eng}
+            "tick_ms": tick_ms, "tiers": tiers, "splits": splits,
+            "engine": eng}
 
 
 
@@ -754,39 +1059,53 @@ def phase_model(cfg, params, dev: torch.device) -> float:
     return er
 
 
-def kernels_line(gemm_rows: list, conv_rows: list, worst: dict,
-                 launches: dict, n_layers: int) -> dict:
+REPLACES = {"gemm": "src/repro/kernels/matmul.py:36",
+            "conv": "src/repro/kernels/conv.py:38",
+            "attention": "src/repro/kernels/attention.py:29",
+            "ssd": "src/repro/kernels/ssd.py:28"}
+
+
+def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
+                 ) -> dict:
     """One row per ported kernel.  GEMM: times summed over one decode
     tick's projections; conv: summed over the 14 Table 5 shapes, one call
-    each.  ``launches`` is the count on the kernel's own path (serve for
-    the GEMM, tune for the conv); ``launches_by_path`` gives both."""
-    def row(name, rows, tot, per, path):
+    each; attention and SSD: summed over their tune targets, one call each.
+    ``ms`` is the tuned config's kernel time.  ``launches`` is the count on
+    the kernel's own path (serve for the GEMM, tune for the rest);
+    ``launches_by_path`` gives every path's."""
+    per = {"gemm": "one decode tick: 210 projections at M=4, tuned configs",
+           "conv": "the 14 Table 5 shapes, bf16, one call each, tuned configs",
+           "attention": "the 4 attention targets, bf16, one call each, tuned "
+                        "configs",
+           "ssd": "the 2 SSD targets, bf16, one call each, tuned configs"}
+    path = {"gemm": "serve", "conv": "tune", "attention": "tune",
+            "ssd": "tune"}
+    out = []
+    for name in KERNELS:
+        if name == "gemm":
+            tot = lambda key: per_tick(rows["gemm"], key, n_layers)
+        else:
+            tot = lambda key, n=name: sum(r[key] for r in rows[n])
         t_bytes, t_ops = tot("t_bytes"), tot("t_ops")
-        return {
+        alt = "heuristic_ms" if name in ("gemm", "conv") else "default_ms"
+        library = None if name == "ssd" else tot("library_ms")
+        out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": {"gemm": "src/repro/kernels/matmul.py:36",
-                         "conv": "src/repro/kernels/conv.py:38"}[name],
-            "launches": launches[path][name],
+            "replaces": REPLACES[name],
+            "launches": launches[path[name]][name],
             "launches_by_path": {p: c[name] for p, c in launches.items()},
             "max_abs_err": worst[name]["abs"],
             "max_rel_err": worst[name]["rel"],
             "ms": tot("kernel_ms"), "kernel_ms": tot("kernel_ms"),
-            "heuristic_ms": tot("heuristic_ms"),
-            "plain_ms": tot("plain_ms"), "library_ms": tot("library_ms"),
+            alt: tot(alt), "plain_ms": tot("plain_ms"),
+            "library_ms": library,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "per": per,
+            "per": per[name],
             "shapes": [{k: r[k] for k in r if k not in ("t_bytes", "t_ops")}
-                       for r in rows]}
-    gemm_tot = lambda key: per_tick(gemm_rows, key, n_layers)
-    conv_tot = lambda key: sum(r[key] for r in conv_rows)
-    return {"kernels": [
-        row("gemm", gemm_rows, gemm_tot,
-            "one decode tick: 210 projections at M=4, tuned configs", "serve"),
-        row("conv", conv_rows, conv_tot,
-            "the 14 Table 5 shapes, bf16, one call each, tuned configs",
-            "tune")]}
+                       for r in rows[name]]})
+    return {"kernels": out}
 
 
 def main() -> int:
@@ -802,7 +1121,9 @@ def main() -> int:
     peaks = card_peaks(name)
     label = f"{smi}; peaks of H100 SXM"
     phase_build()
-    worst = {"gemm": phase_gemm_check(dev), "conv": phase_conv_check(dev)}
+    worst = {"gemm": phase_gemm_check(dev), "conv": phase_conv_check(dev),
+             "attention": phase_attention_check(dev),
+             "ssd": phase_ssd_check(dev)}
 
     cfg = get_config("smollm-135m")
     backend = CheckedBackend(CudaEventBackend(device=dev))
@@ -812,25 +1133,26 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         store_path = Path(tmp) / "tunedb.jsonl"
         store = RecordStore.open(store_path)
-        kmatmul.launches = 0
-        kconv.launches = 0
+        reset_launches()
         phase_tune(backend, store, fp, dev)
-        launches["tune"] = {"gemm": kmatmul.launches, "conv": kconv.launches}
+        launches["tune"] = read_launches()
         if not all(launches["tune"].values()):
             raise AssertionError(f"tune path launches {launches['tune']}")
+        phase("tune", f"launches on the tune path: {launches['tune']}")
         gemm_rows, conv_rows = phase_times(dev, peaks, label)
-        phase_pending(dev, peaks, label)
+        attn_rows, ssd_rows = phase_times_attention_ssd(dev, peaks, label)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         params = init_params(cfg, gen)
         serve = phase_serve(cfg, params, store_path, fp, gemm_rows, label)
-        launches["serve"] = {"gemm": serve["launches"],
-                             "conv": kconv.launches}
+        launches["serve"] = read_launches()
         phase_model(cfg, params, dev)
         phase_profile(serve.pop("engine"), cfg, dev, label)
         clear_store()
-    print(json.dumps(kernels_line(gemm_rows, conv_rows, worst, launches,
-                                  cfg.n_layers)), flush=True)
+    rows = {"gemm": gemm_rows, "conv": conv_rows, "attention": attn_rows,
+            "ssd": ssd_rows}
+    print(json.dumps(kernels_line(rows, worst, launches, cfg.n_layers)),
+          flush=True)
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,7 +1,8 @@
 """Tuning spaces, baselines and the offline tuning loop of the port (paper
 §3-§7).
 
-  space.py        ParamSpace + the GEMM and conv spaces with Hopper legality
+  space.py        ParamSpace + the GEMM, conv, attention and SSD spaces with
+                  Hopper legality
   heuristics.py   vendor-style fixed menus + size-bucket selection
   features.py     log2 featurizer (a copy of the reference's)
   generative.py   factorized categorical sampler, workload draws (a copy)

@@ -1,12 +1,14 @@
 """Measurement backends of the port: the oracle that labels
 (config, inputs) -> TFLOPS.
 
-  * :class:`CudaEventBackend` times the port's own kernel — ``ops.matmul``
-    or ``ops.conv2d`` under the config, which launches ``csrc/gemm.cu`` or
-    ``csrc/conv.cu`` — with CUDA events on the card.  It never times
-    ``torch.matmul`` or ``F.conv2d``: a record that says what a config does
-    must come from the kernel that runs the config (the reference's
+  * :class:`CudaEventBackend` times the port's own kernel — ``ops.matmul``,
+    ``ops.conv2d``, ``ops.flash_attention`` or ``ops.ssd_scan`` under the
+    config, which launches ``csrc/{gemm,conv,attention,ssd}.cu`` — with
+    CUDA events on the card.  It never times ``torch.matmul``,
+    ``F.conv2d`` or SDPA: a record that says what a config does must come
+    from the kernel that runs the config (the reference's
     ``WallClockBackend`` times ``jnp.matmul``, not its Pallas kernel).
+    Attention runs causal only where the gate does (Lq == Lkv).
   * :class:`CheckedBackend` mirrors the reference's ``InterpretBackend``:
     the correctness gate (``dispatch.check_config``) first, then the
     timing backend it wraps.
@@ -55,13 +57,31 @@ CPU_MAX_DIM = 64                # dims of the instance timed on the CPU
 OPERAND_SEED = 0                # seeds the timed operands' values
 
 
+SSD_FLOP_CHUNK = 256            # the chunk the SSD FLOP count is taken at
+
+
 def problem_flops(space_name: str, inputs: Mapping[str, int]) -> float:
-    """FLOPs of one call: 2MNK for GEMM, 2·N·P·Q·K·C·R·S for conv."""
+    """FLOPs of one call, from the shape alone (a yardstick that moves with
+    the config would rank configs by it): 2MNK for GEMM, 2·N·P·Q·K·C·R·S
+    for conv, 4·B·Hq·Lq·Lkv·D for attention (halved when causal with
+    Lq == Lkv), and for SSD the chunked form at a fixed chunk c =
+    min(256, L): 2·B·H·nc·(c²(P+S) + 2cSP + PS) over nc = ceil(L/c)
+    chunks."""
+    x = inputs
     if space_name == "gemm":
-        return 2.0 * inputs["M"] * inputs["N"] * inputs["K"]
+        return 2.0 * x["M"] * x["N"] * x["K"]
     if space_name == "conv":
-        return 2.0 * inputs["N"] * inputs["H"] * inputs["W"] * inputs["K"] \
-            * inputs["C"] * inputs["R"] * inputs["S"]
+        return 2.0 * x["N"] * x["H"] * x["W"] * x["K"] * x["C"] * x["R"] \
+            * x["S"]
+    if space_name == "attention":
+        frac = 0.5 if x.get("causal", 0) and x["Lq"] == x["Lkv"] else 1.0
+        return 4.0 * x["B"] * x["Hq"] * x["Lq"] * x["Lkv"] * x["D"] * frac
+    if space_name == "ssd":
+        c = min(SSD_FLOP_CHUNK, x["L"])
+        nc = -(-x["L"] // c)
+        P, S = x["P"], x["S"]
+        return 2.0 * x["B"] * x["H"] * nc * (c * c * (P + S) + 2 * c * S * P
+                                             + P * S)
     raise ValueError(f"no ported kernel for space {space_name!r}")
 
 
@@ -120,18 +140,41 @@ class CudaEventBackend:
         self._operands = ((), [])               # free the last shape first
         dtype = torch.bfloat16 if inputs["dtype_bits"] <= 16 \
             else torch.float32
+        x = inputs
+        # (shape, dtype, kind) of every operand; all count towards the bytes
+        # that must exceed the L2 (K and V, B and C included)
         if space_name == "gemm":
-            shapes = [(inputs["M"], inputs["K"]), (inputs["K"], inputs["N"])]
+            operands = [((x["M"], x["K"]), dtype, "n"),
+                        ((x["K"], x["N"]), dtype, "n")]
+        elif space_name == "conv":
+            operands = [((x["N"], x["H"], x["W"], x["C"]), dtype, "n"),
+                        ((x["R"], x["S"], x["C"], x["K"]), dtype, "n")]
+        elif space_name == "attention":
+            kv = (x["B"], x["Hkv"], x["Lkv"], x["D"])
+            operands = [((x["B"], x["Hq"], x["Lq"], x["D"]), dtype, "n"),
+                        (kv, dtype, "n"), (kv, dtype, "n")]
         else:
-            shapes = [(inputs["N"], inputs["H"], inputs["W"], inputs["C"]),
-                      (inputs["R"], inputs["S"], inputs["C"], inputs["K"])]
-        nbytes = sum(math.prod(s) for s in shapes) * (inputs["dtype_bits"] // 8)
+            bl = (x["B"], x["L"])
+            operands = [((*bl, x["H"], x["P"]), dtype, "n"),
+                        ((*bl, x["H"]), dtype, "dt"),
+                        ((x["H"],), torch.float32, "a"),
+                        ((*bl, x["S"]), dtype, "n"),
+                        ((*bl, x["S"]), dtype, "n")]
+        nbytes = sum(math.prod(s) * t.itemsize for s, t, _ in operands)
         copies = 1 if self.device.type == "cpu" else \
             max(1, min(MAX_CALLS, math.ceil(2 * L2_BYTES / nbytes)))
         gen = torch.Generator(device=self.device)
         gen.manual_seed(OPERAND_SEED)
-        stacks = [torch.randn((copies, *s), generator=gen, device=self.device
-                              ).to(dtype) for s in shapes]
+        stacks = []
+        for shape, t, kind in operands:
+            if kind == "n":
+                v = torch.randn((copies, *shape), generator=gen,
+                                device=self.device)
+            else:       # SSD: dt in [0.01, 0.1), a in (-2, -0.5]
+                v = torch.rand((copies, *shape), generator=gen,
+                               device=self.device)
+                v = 0.01 + 0.09 * v if kind == "dt" else -(0.5 + 1.5 * v)
+            stacks.append(v.to(t))
         sets = [tuple(st[c] for st in stacks) for c in range(copies)]
         self._operands = (key, sets)
         return sets
@@ -189,9 +232,15 @@ class CudaEventBackend:
             inst = self.instance(space_name, inputs)
             sets = self._operand_sets(space_name, inst)
             if space_name == "gemm":
-                fn = lambda i: ops.matmul(sets[i][0], sets[i][1], cfg)
+                fn = lambda i: ops.matmul(*sets[i], cfg)
             elif space_name == "conv":
-                fn = lambda i: ops.conv2d(sets[i][0], sets[i][1], cfg)
+                fn = lambda i: ops.conv2d(*sets[i], cfg)
+            elif space_name == "attention":
+                causal = dispatch.gate_causal(inst)
+                fn = lambda i: ops.flash_attention(*sets[i], cfg,
+                                                   causal=causal)
+            elif space_name == "ssd":
+                fn = lambda i: ops.ssd_scan(*sets[i], cfg)
             else:
                 raise ValueError(f"no ported kernel for space {space_name!r}")
             if self.device.type == "cpu":
@@ -223,12 +272,19 @@ class CudaEventBackend:
 class CheckedBackend:
     """Gate, then time: a config the kernel computes wrongly raises instead
     of labelling a sample (the reference's ``InterpretBackend``).  Each
-    (config, gate instance) pair that passes is checked once."""
+    (config, gate instance) pair that passes is checked once.  The gate's
+    attention and SSD operands and oracles are kept per instance until
+    :meth:`release` (a tuning session calls it when it ends)."""
 
     timer: CudaEventBackend
 
     def __post_init__(self) -> None:
         self._passed: set = set()
+        self._cases = dispatch.GateCases()
+
+    def release(self) -> None:
+        """Drop the gate's cached operands and oracles (device memory)."""
+        self._cases.clear()
 
     @property
     def fingerprint(self) -> str:
@@ -246,7 +302,8 @@ class CheckedBackend:
             return
         with self.timer.lock:
             dispatch.check_config(space_name, cfg, inst,
-                                  device=self.timer.device)
+                                  device=self.timer.device,
+                                  cases=self._cases)
         self._passed.add(key)
 
     def measure(self, space_name: str, cfg: Mapping[str, int],

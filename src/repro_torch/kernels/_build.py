@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
 ``<repo>/build/kernels/lib<name>-<hash>.so`` at first use; the hash covers
 the source and the flags, so an edited kernel rebuilds and an unchanged one
 loads from disk.  :func:`build` compiles several sources at once, one
-``nvcc`` process per source, all started together.  Nothing here runs at import time: the CPU tests import
-every module of the port on a machine without ``nvcc``.
+``nvcc`` process per source, all started together.  Nothing here runs at
+import time: the CPU tests import every module of the port on a machine
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ _I = ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "gemm": {"gemm_launch": (_I, [_P, _P, _P] + [_I] * 12 + [_P])},
     "conv": {"conv_launch": (_I, [_P, _P, _P] + [_I] * 16 + [_P])},
+    "attention": {"attention_launch": (_I, [_P] * 4 + [_I] * 12
+                                       + [ctypes.c_float, _P])},
+    "ssd": {"ssd_launch": (_I, [_P] * 6 + [_I] * 9 + [_P])},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,10 @@
-"""Kernel dispatch: route GEMMs and convolutions through tuned configs and
-the kernels.
+"""Kernel dispatch: route GEMMs, convolutions, attention and SSD scans
+through tuned configs and the kernels.
 
-Every ``matmul``/``matmul2``/``conv2d`` resolves an input-aware config for
-its shape (the paper's §6 runtime) and runs ``ops.matmul``/``ops.conv2d``
-with it: the CUDA kernel for a CUDA tensor, its plain version for a CPU
-tensor.  Resolution follows
+Every ``matmul``/``matmul2``/``conv2d``/``flash_attention``/``ssd_scan``
+resolves an input-aware config for its shape (the paper's §6 runtime) and
+runs the matching ``ops`` entry point with it: the CUDA kernel for a CUDA
+tensor, its plain version for a CPU tensor.  Resolution follows
 ``repro.kernels.dispatch._resolve_cfg`` without the plan and model tiers:
 
   0. tuner    an installed tuner (``core.tuner.install_tuner``) answers
@@ -12,12 +12,16 @@ tensor.  Resolution follows
   1. exact    the installed store's record for this shape (and fingerprint)
   2. nearest  the closest tuned shape within the store's log2 radius
   3. degraded the space's own vendor-style heuristics (the GEMM menu for
-              GEMMs, the conv menu for convolutions), one warning per space
+              GEMMs, the conv menu for convolutions), one warning per space;
+              attention and SSD have no vendor menu, so their degraded tier
+              returns no config and the ops defaults apply (the reference's
+              rule)
 
-A record whose config the kernel cannot launch (a TPU-tuned ``bn=1024`` or
-conv ``b_k=512``, say) never reaches the kernel: an exact one is passed over
-with one warning, and the nearest tier only considers launchable records.
-With no store installed the ops defaults apply (tier ``none``).
+A record whose config the kernel cannot launch (a TPU-tuned ``bn=1024``,
+conv ``b_k=512``, attention ``b_kv=2048`` or SSD ``chunk=512``, say) never
+reaches the kernel: an exact one is passed over with one warning, and the
+nearest tier only considers launchable records.  With no store installed
+the ops defaults apply (tier ``none``).
 
 ``check_config`` is the tuner's correctness gate: it runs a config's kernel
 at a shape (on the card the whole shape, on the CPU the reference's
@@ -29,21 +33,24 @@ from __future__ import annotations
 
 import collections
 import warnings
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.heuristics import VendorHeuristicLibrary
-from repro_torch.core.space import (FITS, SPACES, ConfigRejected, conv_input,
-                                    gemm_input)
+from repro_torch.core.space import (FITS, SPACES, ConfigRejected,
+                                    attention_input, conv_input, gemm_input,
+                                    ssd_input)
 from repro_torch.core.tuner import get_tuner
 from repro_torch.device import DeviceLike, on_cuda  # noqa: F401  (on_tpu)
 from repro_torch.tunedb.store import serving_state, shape_key
 
+from . import attention as _attention
 from . import conv as _conv
 from . import matmul as _matmul
 from . import ops, ref
+from . import ssd as _ssd
 
 # resolutions per (space, tier) since the last reset
 tier_counts: collections.Counter = collections.Counter()
@@ -71,17 +78,10 @@ def reset_counts() -> None:
     tier_counts.clear()
 
 
-def _launchable(space: str):
-    fits = FITS[space]
-
-    def legal(cfg: Mapping[str, int], inputs: Mapping[str, int]) -> bool:
-        return fits(cfg, inputs["dtype_bits"])
-    return legal
-
-
-# spaces with a ported kernel: a record's config must launch on it.  Other
-# spaces (attention's decode split count) only steer host-side code.
-_LEGAL = {space: _launchable(space) for space in FITS}
+# every space has a ported kernel: a record's config must launch on it (at
+# the call's dtype, and head/state dims for attention and SSD), also where
+# only host code reads it (the decode split count from an attention record)
+_LEGAL = dict(FITS)
 
 # each space's vendor menu: a conv shape never gets a GEMM tile
 _HEURISTIC_MAKERS = {"gemm": VendorHeuristicLibrary.gemm,
@@ -91,8 +91,9 @@ _HEURISTIC_MAKERS = {"gemm": VendorHeuristicLibrary.gemm,
 def _heuristic_cfg(space: str, inputs: Mapping[str, int]
                    ) -> Optional[Dict[str, int]]:
     """Vendor-style pick, memoized per shape: the menu scan costs more than
-    the small GEMMs it picks for."""
-    if space not in SPACES:
+    the small GEMMs it picks for.  ``None`` for a space without a vendor
+    menu (attention, SSD): the ops defaults apply, as in the reference."""
+    if space not in _HEURISTIC_MAKERS:
         return None                     # ops-layer defaults apply
     key = (space, shape_key(inputs))
     cfg = _HEURISTIC_MEMO.get(key)
@@ -138,7 +139,9 @@ def _resolve_cfg(space: str, inputs: Mapping[str, int]
     if cfg is None:
         _warn_once((state.generation, "untuned", space),
                    f"tunedb: no launchable record or neighbor for a {space} "
-                   f"shape {dict(inputs)}; serving on vendor heuristics")
+                   f"shape {dict(inputs)}; serving on "
+                   + ("vendor heuristics" if space in _HEURISTIC_MAKERS
+                      else "the ops defaults"))
         cfg, tier = _heuristic_cfg(space, inputs), "degraded"
     tier_counts[(space, tier)] += 1
     return cfg, tier
@@ -173,6 +176,26 @@ def conv2d(i: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return ops.conv2d(i, f, _tuned_cfg("conv", inputs))
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Flash attention q (B,Hq,Lq,D), k/v (B,Hkv,Lkv,D) through the tuned
+    config (``ops.flash_attention``'s semantics)."""
+    B, Hq, Lq, D = q.shape
+    inputs = attention_input(B, Hq, k.shape[1], Lq, k.shape[2], D,
+                             _dtype_bits(q.dtype), causal)
+    return ops.flash_attention(q, k, v, _tuned_cfg("attention", inputs),
+                               causal=causal, q_offset=q_offset)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bm: torch.Tensor, cm: torch.Tensor) -> torch.Tensor:
+    """SSD chunk scan x (B,L,H,P), dt (B,L,H), a (H,), B/C (B,L,S) through
+    the tuned config."""
+    B, L, H, P = x.shape
+    inputs = ssd_input(B, L, H, P, bm.shape[-1], _dtype_bits(x.dtype))
+    return ops.ssd_scan(x, dt, a, bm, cm, _tuned_cfg("ssd", inputs))
+
+
 # ---------------------------------------------------------------------------
 # Correctness gate used by CheckedBackend and the tests
 # ---------------------------------------------------------------------------
@@ -181,7 +204,9 @@ def check_instance(space_name: str, inputs: Mapping[str, int], *,
                    max_dim: int = 512) -> Dict[str, int]:
     """The shrunken instance of ``inputs`` that ``check_config`` runs on
     the CPU: every dim capped at ``max_dim``; a conv also keeps at most 2
-    images of at most 16 x 16 pixels (the reference's caps)."""
+    images of at most 16 x 16 pixels; attention at most B=2, Hq=4 (Hkv cut
+    to a divisor of it) and D=128; SSD at most B=2, H=4, P=64, S=64 (the
+    reference's caps)."""
     cap = lambda v: int(min(v, max_dim))
     out = dict(inputs)
     if space_name == "gemm":
@@ -190,6 +215,18 @@ def check_instance(space_name: str, inputs: Mapping[str, int], *,
         out.update(N=min(cap(inputs["N"]), 2), H=min(cap(inputs["H"]), 16),
                    W=min(cap(inputs["W"]), 16), C=cap(inputs["C"]),
                    K=cap(inputs["K"]))
+    elif space_name == "attention":
+        hq = min(inputs["Hq"], 4)
+        hkv = min(inputs["Hkv"], hq)
+        while hq % hkv:
+            hkv -= 1
+        out.update(B=min(inputs["B"], 2), Hq=hq, Hkv=hkv,
+                   Lq=cap(inputs["Lq"]), Lkv=cap(inputs["Lkv"]),
+                   D=min(inputs["D"], 128))
+    elif space_name == "ssd":
+        out.update(B=min(inputs["B"], 2), L=cap(inputs["L"]),
+                   H=min(inputs["H"], 4), P=min(inputs["P"], 64),
+                   S=min(inputs["S"], 64))
     else:
         raise ValueError(f"no ported kernel for space {space_name!r}")
     return out
@@ -201,14 +238,192 @@ def gate_instance(space_name: str, inputs: Mapping[str, int],
     reference's shrunken instance on the CPU."""
     if torch.device(device).type == "cpu":
         return check_instance(space_name, inputs)
-    if space_name not in ("gemm", "conv"):
+    if space_name not in SPACES:
         raise ValueError(f"no ported kernel for space {space_name!r}")
     return dict(inputs)
 
 
+def gate_causal(inputs: Mapping[str, int]) -> bool:
+    """Does the gate (and the timer) run an attention shape causal?  Only
+    where Lq == Lkv, as the reference's gate has it: a causal query block
+    shorter than its cache is a decode step, which sees every key."""
+    return bool(inputs.get("causal", 1)) and inputs["Lq"] == inputs["Lkv"]
+
+
+# fp32 scores the gate's attention oracle materialises at once, at most
+ORACLE_SCORE_BYTES = 1 << 30
+
+
+def _attention_oracle(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """``ref.attention_ref`` one KV head's query group and at most
+    :data:`ORACLE_SCORE_BYTES` of fp32 scores at a time (row blocks keep
+    their causal offset): the same numbers, without materialising every
+    head's scores at once (40 heads x 4096^2 would be 2.7 GB for each of
+    several intermediates)."""
+    B, Hq, Lq, _ = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    rows = max(1, ORACLE_SCORE_BYTES // (4 * B * group * Lkv))
+    out = torch.empty_like(q)
+    for h in range(Hkv):
+        hs = slice(h * group, (h + 1) * group)
+        for r0 in range(0, Lq, rows):
+            out[:, hs, r0:r0 + rows] = ref.attention_ref(
+                q[:, hs, r0:r0 + rows], k[:, h:h + 1], v[:, h:h + 1],
+                causal=causal, q_offset=q_offset + r0)
+    return out
+
+
+def _gate_operands(space_name: str, small: Mapping[str, int],
+                   dev: torch.device) -> Tuple[torch.Tensor, ...]:
+    """Operands of the gate's problem: seeded numpy draws on the CPU (the
+    reference gate's draws, in its order), a seeded generator on the
+    card.  Values are fp32 here; the IO dtype is applied by the caller."""
+    if space_name == "gemm":
+        scale = small["K"] ** 0.5
+        draws = [("normal", (small["M"], small["K"]), 1.0),
+                 ("normal", (small["K"], small["N"]), scale)]
+    elif space_name == "conv":
+        R, S, C = small["R"], small["S"], small["C"]
+        draws = [("normal", (small["N"], small["H"], small["W"], C), 1.0),
+                 ("normal", (R, S, C, small["K"]), (R * S * C) ** 0.5)]
+    elif space_name == "attention":
+        B, D = small["B"], small["D"]
+        draws = [("normal", (B, small["Hq"], small["Lq"], D), 1.0),
+                 ("normal", (B, small["Hkv"], small["Lkv"], D), 1.0),
+                 ("normal", (B, small["Hkv"], small["Lkv"], D), 1.0)]
+    else:
+        B, L, H = small["B"], small["L"], small["H"]
+        draws = [("normal", (B, L, H, small["P"]), 1.0),
+                 ("dt", (B, L, H), None), ("a", (H,), None),
+                 ("normal", (B, L, small["S"]), 1.0),
+                 ("normal", (B, L, small["S"]), 1.0)]
+    out = []
+    if dev.type == "cpu":
+        rng = np.random.default_rng(0)
+        for kind, shape, scale in draws:
+            if kind == "normal":
+                x = rng.normal(size=shape) / scale
+            elif kind == "dt":
+                x = rng.uniform(0.01, 0.1, size=shape)
+            else:
+                x = -rng.uniform(0.5, 2.0, size=shape)
+            out.append(torch.as_tensor(x, dtype=torch.float32))
+        return tuple(out)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for kind, shape, scale in draws:
+        if kind == "normal":
+            x = torch.randn(shape, generator=gen, device=dev) / scale
+        else:
+            u = torch.rand(shape, generator=gen, device=dev)
+            x = 0.01 + 0.09 * u if kind == "dt" else -(0.5 + 1.5 * u)
+        out.append(x)
+    return tuple(out)
+
+
+# spaces whose gate oracle is worth keeping between configs: at full size
+# the SSD oracle is a Python loop over L and the attention oracle a
+# quadratic pass; GEMM and conv operands are cheaper to redraw than to hold
+CACHED_SPACES = ("attention", "ssd")
+
+
+class GateCases:
+    """The gate's operands and fp32 oracle per (space, instance, device),
+    for :data:`CACHED_SPACES`: the oracle of a shape is computed once
+    however many configs are checked there.  The least recently used
+    cases are dropped past ``max_bytes`` (the newest is always kept).  The
+    owner decides how long the tensors live: ``CheckedBackend`` holds one
+    and a tuning session clears it when it ends."""
+
+    def __init__(self, max_bytes: int = 16 << 30):
+        self.max_bytes = max_bytes
+        self._cases: "collections.OrderedDict[tuple, tuple]" = \
+            collections.OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._cases)
+
+    def clear(self) -> None:
+        self._cases.clear()
+
+    def get(self, space_name: str, small: Mapping[str, int],
+            dev: torch.device
+            ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+        if space_name not in CACHED_SPACES:
+            return _gate_case(space_name, small, dev)
+        key = (space_name, shape_key(small), str(dev))
+        case = self._cases.get(key)
+        if case is not None:
+            self._cases.move_to_end(key)
+            return case
+        case = self._cases[key] = _gate_case(space_name, small, dev)
+        total = sum(_case_bytes(c) for c in self._cases.values())
+        while len(self._cases) > 1 and total > self.max_bytes:
+            total -= _case_bytes(self._cases.popitem(last=False)[1])
+        return case
+
+
+def _case_bytes(case: tuple) -> int:
+    xs, oracle = case
+    return sum(t.numel() * t.element_size() for t in (*xs, oracle))
+
+
+def _gate_case(space_name: str, small: Mapping[str, int], dev: torch.device
+               ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """The gate's operands (IO dtype; SSD's ``a`` in fp32) and fp32 oracle."""
+    dtype = torch.bfloat16 if small.get("dtype_bits", 16) <= 16 \
+        else torch.float32
+    xs = _gate_operands(space_name, small, dev)
+    # a stays fp32 (the reference's SSD takes it so); the rest in IO dtype
+    xs = tuple(x if (space_name == "ssd" and j == 2) else x.to(dtype)
+               for j, x in enumerate(xs))
+    if space_name == "gemm":
+        oracle = ref.matmul_ref(*xs)
+    elif space_name == "conv":
+        oracle = ref.conv2d_ref(*xs)
+    elif space_name == "attention":
+        oracle = _attention_oracle(*xs, gate_causal(small))
+    else:
+        oracle = ref.ssd_ref(*xs)
+    return xs, oracle.float()
+
+
+def _gate_runs(space_name: str, cfg: Mapping[str, int],
+               small: Mapping[str, int]
+               ) -> Tuple[Callable[..., torch.Tensor],
+                          Callable[..., torch.Tensor]]:
+    """(kernel, plain) for the gate: each maps the operands to the reduced
+    fp32 output under ``cfg`` shrunk to the instance, as ``ops`` would run
+    it (split partials summed in fp32)."""
+    bits = small.get("dtype_bits", 16)
+    if space_name == "gemm":
+        run = ops.shrink_gemm_cfg(cfg, small["M"], small["N"], small["K"])
+        return (lambda *x: _matmul.gemm(*x, run).float().sum(dim=0),
+                lambda *x: _matmul.matmul_plain(*x, run).float().sum(dim=0))
+    if space_name == "conv":
+        run = ops.shrink_conv_cfg(cfg, *(small[k] for k in
+                                         ("N", "H", "W", "C", "K", "R", "S")))
+        return (lambda *x: _conv.conv(*x, run).float().sum(dim=0),
+                lambda *x: _conv.conv2d_plain(*x, run).float().sum(dim=0))
+    if space_name == "attention":
+        run = ops.shrink_attention_cfg(cfg, small["Lq"], small["Lkv"],
+                                       small["D"], bits)
+        causal = gate_causal(small)
+        return (lambda *x: _attention.attention(*x, run,
+                                                causal=causal).float(),
+                lambda *x: _attention.attention_plain(*x, run,
+                                                      causal=causal).float())
+    run = ops.shrink_ssd_cfg(cfg, small["L"], small["H"], small["P"],
+                             small["S"], bits)
+    return (lambda *x: _ssd.ssd(*x, run).float(),
+            lambda *x: _ssd.ssd_plain(*x, run).float())
+
+
 def check_config(space_name: str, cfg: Mapping[str, int],
-                 inputs: Mapping[str, int], *, device: DeviceLike = "cuda"
-                 ) -> None:
+                 inputs: Mapping[str, int], *, device: DeviceLike = "cuda",
+                 cases: Optional[GateCases] = None) -> None:
     """Run the kernel for ``cfg`` at ``inputs`` and raise
     :class:`ConfigRejected` unless it agrees with its plain version and
     with the fp32 oracle.
@@ -223,48 +438,24 @@ def check_config(space_name: str, cfg: Mapping[str, int],
     within :data:`GATE_RTOL`.  Every config is held to the oracle, as the
     reference's gate holds it: ``acc32=0`` in bf16 rounds the running sum
     after every sub-dot, and where that drifts past the bound the config
-    is rejected.
+    is rejected.  Attention runs causal only where Lq == Lkv
+    (:func:`gate_causal`); a ragged KV length is masked by length, so the
+    shapes where the reference's gate rejects every config for its
+    offset trick (non-causal, Lkv not a multiple of ``b_kv``, Lq > 1)
+    pass here.  ``cases``, where given, keeps the operands and oracle of
+    an attention or SSD instance for the next config checked there;
+    without it they are drawn anew and dropped.
     """
     dev = torch.device(device)
     small = gate_instance(space_name, inputs, dev)
-    if space_name == "gemm":
-        shapes = [(small["M"], small["K"]), (small["K"], small["N"])]
-        scale = small["K"] ** 0.5
-    else:
-        R, S, C = small["R"], small["S"], small["C"]
-        shapes = [(small["N"], small["H"], small["W"], C),
-                  (R, S, C, small["K"])]
-        scale = (R * S * C) ** 0.5
-    if dev.type == "cpu":
-        # seeded numpy operands, as the reference's gate makes them
-        rng = np.random.default_rng(0)
-        x = torch.as_tensor(rng.normal(size=shapes[0]), dtype=torch.float32)
-        y = torch.as_tensor(rng.normal(size=shapes[1]) / scale,
-                            dtype=torch.float32)
-    else:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        x = torch.randn(shapes[0], generator=gen, device=dev)
-        y = torch.randn(shapes[1], generator=gen, device=dev) / scale
-    dtype = torch.bfloat16 if small.get("dtype_bits", 16) <= 16 \
-        else torch.float32
-    x, y = x.to(dtype), y.to(dtype)
-    if space_name == "gemm":
-        kernel, plain = _matmul.gemm, _matmul.matmul_plain
-        run = ops.shrink_gemm_cfg(cfg, small["M"], small["N"], small["K"])
-        oracle = ref.matmul_ref(x, y).float()
-    else:
-        kernel, plain = _conv.conv, _conv.conv2d_plain
-        run = ops.shrink_conv_cfg(cfg, *(small[k] for k in
-                                         ("N", "H", "W", "C", "K", "R", "S")))
-        oracle = ref.conv2d_ref(x, y).float()
-    # partials reduced in fp32, as ops.matmul / ops.conv2d reduce them
-    got = kernel(x, y, run).float().sum(dim=0)
+    xs, oracle = (cases.get(space_name, small, dev) if cases is not None
+                  else _gate_case(space_name, small, dev))
+    kernel, plain = _gate_runs(space_name, cfg, small)
+    got = kernel(*xs)
     if not bool(torch.isfinite(got).all()):
         raise ConfigRejected(f"{space_name} cfg {dict(cfg)}: non-finite output")
     scale = max(float(oracle.abs().max()), 1e-6)
-    for what, want in (("plain version", plain(x, y, run).float().sum(dim=0)),
-                       ("fp32 oracle", oracle)):
+    for what, want in (("plain version", plain(*xs)), ("fp32 oracle", oracle)):
         err = float((got - want).abs().max()) / scale
         if err > GATE_RTOL:
             raise ConfigRejected(f"{space_name} cfg {dict(cfg)} on "

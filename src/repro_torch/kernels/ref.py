@@ -1,7 +1,4 @@
-"""Plain PyTorch oracles, computed in float32 (mirror ``repro.kernels.ref``).
-
-``ssd_ref`` arrives with the slice that ports the SSD scan.
-"""
+"""Plain PyTorch oracles, computed in float32 (mirror ``repro.kernels.ref``)."""
 
 from __future__ import annotations
 
@@ -48,3 +45,26 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(cols <= rows, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            bm: torch.Tensor, cm: torch.Tensor) -> torch.Tensor:
+    """Sequential SSD recurrence, the exact (slow) oracle.
+
+    state_t = exp(a*dt_t) * state_{t-1} + dt_t * x_t (outer) B_t
+    y_t     = C_t . state_t
+    x (B,L,H,P), dt (B,L,H), a (H,), bm/cm (B,L,S) -> y (B,L,H,P)
+    """
+    B, L, H, P = x.shape
+    S = bm.shape[-1]
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bf, cf = bm.float(), cm.float()
+    state = torch.zeros((B, H, P, S), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(L):
+        decay = torch.exp(af[None, :] * dtf[:, t])                  # (B,H)
+        contrib = torch.einsum("bh,bhp,bs->bhps", dtf[:, t], xf[:, t],
+                               bf[:, t])
+        state = state * decay[:, :, None, None] + contrib
+        ys.append(torch.einsum("bhps,bs->bhp", state, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype)

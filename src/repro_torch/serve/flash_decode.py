@@ -18,8 +18,13 @@ def resolve_decode_splits(*, B: int, Hq: int, Hkv: int, Lkv: int, D: int,
                           dtype_bits: int, causal: int = 1,
                           default: int = 1) -> int:
     """Split count from the tuned attention config's ``b_kv`` for the decode
-    shape (``Lkv // b_kv``); ``default`` when nothing tuned resolves or the
-    block does not tile ``Lkv``."""
+    shape (``Lkv // b_kv``); ``default`` when nothing tuned resolves (the
+    attention space has no vendor menu: its degraded tier returns no
+    config) or the block does not tile ``Lkv``.  A record tuned at this
+    exact shape resolves on the exact tier; one whose config the attention
+    kernel cannot launch (a TPU-tuned ``b_kv=2048``) is passed over like
+    any other unlaunchable record.  The decode attention itself stays plain
+    PyTorch (:func:`flash_decode_attention`), as in the reference."""
     from repro_torch.kernels import dispatch
     inputs = {"B": int(B), "Hq": int(Hq), "Hkv": int(Hkv), "Lq": 1,
               "Lkv": int(Lkv), "D": int(D), "dtype_bits": int(dtype_bits),

@@ -11,6 +11,24 @@
   $ python -m repro_torch.tunedb tune --device cpu --space conv \\
         --shape N=2,H=8,W=8,C=16,K=32,R=3,S=3 --train-samples 64 --epochs 2 \\
         --store /tmp/tunedb.jsonl           # the loop on the host (plain)
+  $ python -m repro_torch.tunedb tune --space attention --train-samples 64 \\
+        --shape B=4,Hq=9,Hkv=3,Lq=1,Lkv=256,D=64 --store tunedb.jsonl
+  $ python -m repro_torch.tunedb tune --space ssd --train-samples 64 \\
+        --shape B=1,L=2048,H=64,P=64,S=128 --store tunedb.jsonl
+
+``--space`` is one of gemm, conv, attention, ssd; a ``--shape`` may omit
+``dtype_bits`` (16), ``trans_a``/``trans_b`` (0) and ``causal`` (1).
+
+The training draws come from the reference's ``workload_inputs``
+distribution whatever the ``--shape``s are.  For attention and SSD on the
+card that distribution does not fit: it draws attention up to B=64,
+Hq=64, Lq=Lkv=32768, D=256 (q alone 68.7 GB in bf16; with k and v past
+the card's 80 GB) and SSD up to B=64, L=65536; the first eight attention
+draws of seed 0 include calls of 3e13-7e13 FLOPs, seconds each with this
+kernel before the correctness gate's plain version and oracle run at the
+same size.  So these two spaces are tuned on the card from draws around
+the model's shapes (``chip_smoke.py`` does so with the library's pieces),
+and with this CLI on the CPU (``--device cpu``: shrunken instances).
 
 The records carry ``backend_fingerprint`` of the timing backend, which
 names the package, the backend class and the device (not ``--seed``, which
@@ -27,7 +45,7 @@ import sys
 from typing import Dict, List, Optional
 
 # optional input params a --shape may omit
-_SHAPE_DEFAULTS = {"dtype_bits": 16, "trans_a": 0, "trans_b": 0}
+_SHAPE_DEFAULTS = {"dtype_bits": 16, "trans_a": 0, "trans_b": 0, "causal": 1}
 
 
 def parse_shape(spec: str, space) -> Dict[str, int]:
@@ -95,7 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
                                 description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("tune", help="tune shapes into a store")
-    t.add_argument("--space", default="gemm", choices=["gemm", "conv"])
+    t.add_argument("--space", default="gemm",
+                   choices=["gemm", "conv", "attention", "ssd"])
     t.add_argument("--store", required=True, help="JSONL record store")
     t.add_argument("--shape", action="append", required=True,
                    help="shape to tune, e.g. M=4,N=576,K=576 (repeatable)")

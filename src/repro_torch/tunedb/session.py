@@ -101,7 +101,9 @@ class TuningSession:
     measurements themselves (one kernel on the card at a time), so the
     threads overlap the host-side search, not the timing.  A job that
     raises is counted in ``SessionReport.failed`` with its error, and the
-    other jobs go on: the caller reads the report.
+    other jobs go on: the caller reads the report.  When the jobs are done
+    the backend's ``release`` (where it has one) drops what it kept for
+    them: ``CheckedBackend``'s cached gate oracles.
     """
 
     def __init__(self, tuner, store: RecordStore, *, workers: int = 4,
@@ -175,5 +177,8 @@ class TuningSession:
                     if verbose:
                         print(f"[session:{job.space}] {job.inputs} -> "
                               f"{rec.config} {rec.tflops:.3f} TFLOPS")
+        release = getattr(self.tuner.backend, "release", None)
+        if release is not None:         # the gate's cached oracles
+            release()
         report.wall_s = time.time() - t0
         return report

@@ -258,7 +258,7 @@ def test_gate_runs_the_whole_shape_on_the_card_and_a_shrunken_one_here():
     assert tdispatch.gate_instance("gemm", g, torch.device("cuda", 0)) == g
     assert tdispatch.gate_instance("gemm", g, "cpu")["K"] == 512
     with pytest.raises(ValueError, match="no ported kernel"):
-        tdispatch.gate_instance("attention", g, "cuda")
+        tdispatch.gate_instance("fft", g, "cuda")
 
 
 def test_conv_never_takes_the_plain_version_off_the_cpu(monkeypatch):

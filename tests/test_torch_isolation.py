@@ -12,8 +12,10 @@ import torch
 
 from repro_torch import device as tdevice
 from repro_torch.configs import smollm_135m as tconfigs
+from repro_torch.kernels import attention as kattention
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ssd as kssd
 from repro_torch.models import init_params
 from repro_torch.serve import Engine, ServeConfig
 
@@ -42,7 +44,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    assert {"repro_torch.kernels.matmul", "repro_torch.serve.engine",
+    assert {"repro_torch.kernels.matmul", "repro_torch.kernels.attention",
+            "repro_torch.kernels.ssd", "repro_torch.serve.engine",
             "repro_torch.tunedb.store", "repro_torch.weights"} <= set(
                 out["modules"])
 
@@ -78,3 +81,25 @@ def test_gemm_never_takes_the_plain_version_off_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match="cuda or cpu"):
         tops.matmul(a, b)
     assert kmatmul.launches == before
+
+
+def test_attention_and_ssd_have_no_fallback_off_the_cpu(monkeypatch):
+    """Only a CPU tensor reaches attention_plain / ssd_plain; SDPA is never
+    called; any other device launches the kernel or raises (here: the meta
+    device, which has no kernel)."""
+    def boom(*a, **k):
+        raise AssertionError("plain version or SDPA called off the CPU")
+    monkeypatch.setattr(kattention, "attention_plain", boom)
+    monkeypatch.setattr(kssd, "ssd_plain", boom)
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention",
+                        boom)
+    meta = lambda *s: torch.empty(s, dtype=torch.bfloat16, device="meta")
+    a0, s0 = kattention.launches, kssd.launches
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tops.flash_attention(meta(1, 4, 1, 64), meta(1, 2, 40, 64),
+                             meta(1, 2, 40, 64), q_offset=39)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tops.ssd_scan(meta(1, 40, 4, 64), meta(1, 40, 4),
+                      torch.empty(4, device="meta"), meta(1, 40, 128),
+                      meta(1, 40, 128))
+    assert (kattention.launches, kssd.launches) == (a0, s0)

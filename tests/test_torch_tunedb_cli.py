@@ -20,8 +20,9 @@ from repro_torch.core.backend import CheckedBackend, CudaEventBackend
 from repro_torch.core.generative import CategoricalSampler
 from repro_torch.core.dataset import generate_dataset
 from repro_torch.core.search import exhaustive_search
-from repro_torch.core.space import (CONV_SPACE, GEMM_SPACE, ConfigRejected,
-                                    conv_input, gemm_input)
+from repro_torch.core.space import (GEMM_SPACE, SPACES, ConfigRejected,
+                                    attention_input, conv_input, gemm_input,
+                                    ssd_input)
 from repro_torch.core.tuner import InputAwareTuner
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.tunedb import store as tstore
@@ -52,6 +53,9 @@ def _cli(*args):
 @pytest.mark.parametrize("space,shape,want", [
     ("gemm", "M=4,N=576,K=576", gemm_input(4, 576, 576)),
     ("conv", "N=2,H=8,W=8,C=16,K=32,R=3,S=3", conv_input(2, 8, 8, 16, 32, 3, 3)),
+    ("attention", "B=1,Hq=40,Hkv=8,Lq=256,Lkv=256,D=128,causal=1",
+     attention_input(1, 40, 8, 256, 256, 128)),
+    ("ssd", "B=1,L=300,H=64,P=64,S=128", ssd_input(1, 300, 64, 64, 128)),
 ])
 def test_cli_tune_on_cpu_writes_a_record_naming_package_and_device(
         tmp_path, space, shape, want):
@@ -66,8 +70,7 @@ def test_cli_tune_on_cpu_writes_a_record_naming_package_and_device(
     rec = store.get(space, want, backend=fp)
     assert rec is not None and rec.source == "session"
     assert rec.tflops > 0 and rec.latency_us > 0
-    fits = GEMM_SPACE if space == "gemm" else CONV_SPACE
-    assert fits.is_legal(rec.config, want)
+    assert SPACES[space].is_legal(rec.config, want)
     # a second run skips the tuned shape; --retune tunes it again
     r = _cli("tune", "--device", "cpu", "--space", space, "--shape", shape,
              "--train-samples", "32", "--epochs", "1", "--store", str(path))
@@ -78,6 +81,35 @@ def test_cli_rejects_a_shape_missing_an_input(tmp_path):
     with pytest.raises(SystemExit, match="missing input param 'K'"):
         cli_main(["tune", "--device", "cpu", "--shape", "M=4,N=8",
                   "--store", str(tmp_path / "db.jsonl")])
+    with pytest.raises(SystemExit, match="missing input param 'D'"):
+        cli_main(["tune", "--device", "cpu", "--space", "attention",
+                  "--shape", "B=1,Hq=2,Hkv=1,Lq=1,Lkv=8",
+                  "--store", str(tmp_path / "db.jsonl")])
+
+
+def test_cli_tunes_the_decode_shape_that_decode_splits_resolve_exact(
+        tmp_path):
+    """Repair: ``causal`` defaults to 1 in a ``--shape`` (it stopped the
+    attention CLI with "missing input param"), and the record tuned at
+    SmolLM-135M's decode shape gives the engine's decode ticks their KV
+    split count on the exact tier."""
+    from repro_torch.serve.flash_decode import resolve_decode_splits
+    path = tmp_path / "db.jsonl"
+    r = _cli("tune", "--device", "cpu", "--space", "attention", "--shape",
+             "B=4,Hq=9,Hkv=3,Lq=1,Lkv=256,D=64", "--train-samples", "32",
+             "--epochs", "1", "--top-k", "3", "--store", str(path))
+    assert r.returncode == 0 and "1 tuned" in r.stdout, r.stdout + r.stderr
+    fp = CudaEventBackend(device="cpu").fingerprint
+    store = tstore.RecordStore.open(path)
+    rec = store.get("attention", attention_input(4, 9, 3, 1, 256, 64),
+                    backend=fp)
+    assert rec is not None and rec.inputs["causal"] == 1
+    tstore.install_store(store, fingerprint=fp)
+    tdispatch.reset_counts()
+    n = resolve_decode_splits(B=4, Hq=9, Hkv=3, Lkv=256, D=64, dtype_bits=16,
+                              default=16)
+    assert n == 256 // rec.config["b_kv"]
+    assert dict(tdispatch.tier_counts) == {("attention", "exact"): 1}
 
 
 def _tuner(space, backend, pool, n=48):
@@ -188,7 +220,7 @@ def test_backend_times_the_plain_version_on_a_shrunken_cpu_instance():
     flops = 2.0 * 2 * 16 * 16 * 32 * 1 * 5 * 20
     assert tflops == pytest.approx(flops / (us * 1e-6) / 1e12)
     with pytest.raises(ValueError, match="no ported kernel"):
-        be.measure("attention", {}, inputs)
+        be.measure("fft", {}, inputs)
 
 
 def test_cli_seed_leaves_the_fingerprint_the_launcher_pins(tmp_path,

@@ -50,7 +50,7 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("name", ["gemm", "conv"])
+@pytest.mark.parametrize("name", ["gemm", "conv", "attention", "ssd"])
 def test_featurizer_matches_reference(name):
     js, ts = jspace.SPACES[name], port_space(name)
     rng = np.random.default_rng(0)
@@ -79,7 +79,7 @@ def test_workload_inputs_draw_like_the_reference(name):
     assert got == want
 
 
-@pytest.mark.parametrize("name", ["gemm", "conv"])
+@pytest.mark.parametrize("name", ["gemm", "conv", "attention", "ssd"])
 def test_sampler_fit_and_sample_draw_like_the_reference(name):
     js, ts = jspace.SPACES[name], port_space(name)
     pool = jgenerative.workload_inputs(js, 64, np.random.default_rng(1))
@@ -158,11 +158,19 @@ def _trained_pair(name, n=600, epochs=6):
     return js, ts, jm, tmlp.MLP.from_bytes(jm.to_bytes()), jf, tf
 
 
-@pytest.mark.parametrize("name", ["gemm", "conv"])
+SEARCH_INPUTS = {
+    "gemm": jspace.gemm_input(4, 576, 576),
+    "conv": jspace.conv_input(16, 38, 166, 32, 32, 5, 10),
+    "attention": {"B": 1, "Hq": 40, "Hkv": 8, "Lq": 4096, "Lkv": 4096,
+                  "D": 128, "dtype_bits": 16, "causal": 1},
+    "ssd": {"B": 1, "L": 2048, "H": 64, "P": 64, "S": 128, "dtype_bits": 16},
+}
+
+
+@pytest.mark.parametrize("name", ["gemm", "conv", "attention", "ssd"])
 def test_exhaustive_search_ranks_like_the_reference(name):
     js, ts, jm, tm, jf, tf = _trained_pair(name)
-    inputs = (jspace.gemm_input(4, 576, 576) if name == "gemm"
-              else jspace.conv_input(16, 38, 166, 32, 32, 5, 10))
+    inputs = SEARCH_INPUTS[name]
     jr = jsearch.exhaustive_search(js, inputs, model=jm, featurizer=jf,
                                    top_k=8)
     tr = tsearch.exhaustive_search(ts, inputs, model=tm, featurizer=tf,
@@ -253,3 +261,30 @@ def test_installed_tuner_answers_dispatch():
     finally:
         ttuner.clear_tuners()
     assert ttuner.get_tuner("gemm") is None
+
+
+@pytest.mark.parametrize("name,inputs", [
+    ("attention", {"B": 4, "Hq": 9, "Hkv": 3, "Lq": 1, "Lkv": 256, "D": 64,
+                   "dtype_bits": 16, "causal": 1}),
+    ("ssd", {"B": 1, "L": 2048, "H": 64, "P": 64, "S": 128,
+             "dtype_bits": 16}),
+])
+def test_tuner_loop_for_attention_and_ssd_on_the_cpu(name, inputs, tmp_path):
+    """The port's own loop over the port's Hopper spaces: labels from the
+    gate and the plain versions timed on a shrunken CPU instance, then a
+    pick (re-measured) that the space calls legal, committed to the store
+    under the CPU fingerprint."""
+    from repro_torch.core.backend import CheckedBackend, CudaEventBackend
+    from repro_torch.core.space import SPACES
+    space = SPACES[name]
+    backend = CheckedBackend(CudaEventBackend(device="cpu"))
+    store = RecordStore(tmp_path / "t.jsonl")
+    tt = ttuner.InputAwareTuner.train(space, n_samples=24, epochs=2,
+                                      hidden=(16, 16), backend=backend,
+                                      seed=0, store=store)
+    tt.top_k = 3
+    cfg = tt.best_config(inputs)
+    assert space.is_legal(cfg, inputs)
+    rec = store.get(name, inputs, backend=backend_fingerprint(backend))
+    assert rec is not None and rec.config == cfg and rec.tflops > 0
+    assert "device=cpu" in rec.backend
