@@ -8,7 +8,9 @@ exits non-zero:
 
   1. device     the card's name and ``nvidia-smi`` name / power limit
   2. build      every CUDA kernel (gemm.cu, conv.cu, attention.cu, ssd.cu)
-                from ``csrc/``, one nvcc per source, in parallel
+                from ``csrc/``, one nvcc per source, in parallel; the
+                ``ptxas -v`` report: no attention kernel that a legal
+                config launches spills
   3. gemm       the GEMM kernel against its plain version (and the fp32
                 oracle) at the serving path's shapes, several configs
   4. conv       the conv kernel against its plain version (and the fp32
@@ -17,7 +19,9 @@ exits non-zero:
                 oracle, bf16 and fp32, several configs: SmolLM-135M and
                 qwen3-14b decode steps (causal with q_offset), causal
                 prefills with GQA groups 3 and 5, the three ragged
-                non-causal shapes the reference's offset trick got wrong
+                non-causal shapes the reference's offset trick got wrong,
+                packed rows straddling two heads, decode at GQA 5 over a
+                ragged cache and at GQA 8
   6. ssd        the SSD kernel against its plain version and the sequential
                 fp32 oracle, bf16 and fp32, several configs, a ragged L
   7. tune       the offline loop on the card for all four spaces: fit the
@@ -34,7 +38,10 @@ exits non-zero:
                 (GEMM, conv) or the ops default's (attention, SSD), the
                 plain version, the library call the port never makes
                 (``torch.matmul``; ``F.conv2d`` channels-last on cuDNN;
-                SDPA) and the bound max(bytes/HBM, FLOPs/peak)
+                SDPA) and the bound max(bytes/HBM, FLOPs/peak); for
+                attention also the achieved TFLOP/s (prefill) or GB/s
+                (decode), the share of the bound, and the tuned config's
+                registers and spills
   9. serve      SmolLM-135M at full width (30 layers, bf16, random weights
                 from a seed) through ``Engine.generate`` from the tuned store;
                 every projection launches the GEMM kernel on the exact tier,
@@ -83,6 +90,7 @@ from repro_torch.core.heuristics import VendorHeuristicLibrary  # noqa: E402
 from repro_torch.core.mlp import MLP  # noqa: E402
 from repro_torch.core.space import (ATTENTION_SPACE, CONV_SPACE,  # noqa: E402
                                     GEMM_SPACE, SSD_SPACE, ConfigRejected,
+                                    attention_fits, attention_head_tile,
                                     attention_input, conv_input, gemm_input,
                                     ssd_input)
 from repro_torch.core.tuner import InputAwareTuner  # noqa: E402
@@ -166,6 +174,9 @@ ATTN_CHECKS = [
     ("C1 Lq=4 Lkv=100", (1, 4, 2, 4, 100, 64), False, 0),
     ("C1 Lq=8 Lkv=200", (1, 4, 2, 8, 200, 64), False, 0),
     ("C1 Lq=130 Lkv=100", (1, 4, 2, 130, 100, 64), False, 0),
+    ("packed rows straddling heads", (1, 10, 2, 100, 100, 64), True, 0),
+    ("decode GQA 5, ragged cache", (2, 40, 8, 1, 1000, 128), True, 999),
+    ("decode GQA 8", (1, 32, 4, 1, 4096, 128), True, 4095),
 ]
 ATTN_CHECK_CONFIGS = {
     "default": dict(ops.DEFAULT_ATTN),
@@ -398,6 +409,20 @@ def phase_device() -> tuple:
 KERNELS = ("gemm", "conv", "attention", "ssd")
 
 
+def attention_kernel(usage: dict, cfg: dict, D: int, bits: int) -> str:
+    """The (mangled) name, in the ptxas report ``usage``, of the attention
+    kernel that ``cfg`` launches at head dim D."""
+    if bits == 16:
+        key = (f"attn_mma_kernelILi{cfg['b_q']}ELi{cfg['b_kv']}ELi"
+               f"{attention_head_tile(D)}E")
+    else:
+        key = f"attn_simt_kernelILi{cfg['b_q']}ELi{cfg['b_kv']}EE"
+    found = [k for k in usage if key in k]
+    if len(found) != 1:
+        raise AssertionError(f"ptxas report: {len(found)} kernels match {key}")
+    return found[0]
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build(KERNELS)
@@ -405,6 +430,26 @@ def phase_build() -> None:
         _build.load(name)
     phase("build", f"nvcc sm_90a, {' + '.join(k + '.cu' for k in KERNELS)} "
           f"in parallel, {time.perf_counter() - t0:.1f} s")
+    usage = {name: _build.ptxas_usage(name) for name in KERNELS}
+    spills = {name: sorted(k for k, (_, s) in u.items() if s)
+              for name, u in usage.items()}
+    phase("build", "ptxas -v: " + "; ".join(
+        f"{name}.cu {len(u)} kernels, {max(r for r, _ in u.values())} "
+        f"registers at most, {len(spills[name])} spill"
+        for name, u in usage.items()))
+    # every attention kernel some legal config launches: no spill
+    launched = {}
+    for cfg in ATTENTION_SPACE.enumerate():
+        for bits, D in ((16, 64), (16, 128), (16, 256), (32, 64)):
+            if attention_fits(cfg, bits, D):
+                launched[attention_kernel(usage["attention"], cfg, D, bits)
+                         ] = (cfg, bits, D)
+    spilled = [v for k, v in launched.items() if usage["attention"][k][1]]
+    if spilled:
+        raise AssertionError(f"attention kernels a legal config launches "
+                             f"spill: {spilled}")
+    phase("build", f"attention.cu: none of the {len(launched)} kernels that "
+          f"legal configs launch spills")
 
 
 def phase_gemm_check(dev: torch.device) -> dict:
@@ -512,7 +557,8 @@ def phase_attention_check(dev: torch.device) -> dict:
                 if dtype == torch.float32 and not cfg["acc32"]:
                     continue
                 bits = torch.finfo(dtype).bits
-                small = ops.shrink_attention_cfg(cfg, Lq, Lkv, D, bits)
+                small = ops.shrink_attention_cfg(cfg, Lq, Lkv, D, bits,
+                                                 group=Hq // Hkv)
                 got = kattention.attention(q, k, v, small, causal=causal,
                                            q_offset=off)
                 want = kattention.attention_plain(q, k, v, small,
@@ -536,7 +582,8 @@ def phase_attention_check(dev: torch.device) -> dict:
             del q, k, v, oracle
     phase("attention", f"{n} kernel-vs-plain and kernel-vs-oracle checks "
           f"passed over {len(ATTN_CHECKS)} shapes (decode with q_offset, "
-          f"causal prefill with GQA 3 and 5, the C1 shapes); max abs err "
+          f"causal prefill with GQA 3 and 5, the C1 shapes, packed rows "
+          f"straddling heads, decode at GQA 5 and 8); max abs err "
           f"{worst['abs']:.3e}, max rel err {worst['rel']:.3e} vs plain; max "
           f"rel err {worst['oracle_rel']:.3e} vs the fp32 oracle (tolerance "
           f"bf16 {TOL[torch.bfloat16]}; fp32 {TOL[torch.float32]} vs plain, "
@@ -845,6 +892,7 @@ def phase_times_attention_ssd(dev: torch.device, peaks: dict, label: str
     gen.manual_seed(5)
     bf16 = torch.bfloat16
     attn_rows, ssd_rows = [], []
+    usage = _build.ptxas_usage("attention")
     for name, x, off in ATTN_TARGETS:
         cfg, tier = dispatch._resolve_cfg("attention", x)
         one = attention_operands(x, bf16, gen, dev)
@@ -868,18 +916,33 @@ def phase_times_attention_ssd(dev: torch.device, peaks: dict, label: str
             plain = time_ms(run(cfg), min(n_calls, 2))
         library = time_ms(sdpa, n_calls)
         del sets, one
+        regs, spill = usage[attention_kernel(usage, cfg, x["D"], 16)]
+        bnd = attention_bound(x, bf16, peaks)
+        # prefill: operations bound it, so the rate is TFLOP/s; decode:
+        # bytes, so GB/s of q, k, v read and out written once
+        rate = (problem_flops("attention", x) / (kernel * 1e-3) / 1e12,
+                "TFLOP/s") if x["Lq"] > 1 else (
+            bnd["t_bytes"] * peaks["hbm"] / (kernel * 1e-3) / 1e9, "GB/s")
         attn_rows.append({"name": name, **x, "tier": tier, "cfg": cfg,
                           "default_cfg": ops.shrink_attention_cfg(
-                              {}, x["Lq"], x["Lkv"], x["D"], 16),
+                              {}, x["Lq"], x["Lkv"], x["D"], 16,
+                              group=x["Hq"] // x["Hkv"]),
                           "kernel_ms": kernel, "default_ms": default,
                           "plain_ms": plain, "library_ms": library,
-                          **attention_bound(x, bf16, peaks)})
+                          "rate": rate[0], "rate_unit": rate[1],
+                          "bound_share": bnd["bound_ms"] / kernel,
+                          "registers": regs, "spill_bytes": spill, **bnd})
         r = attn_rows[-1]
         phase("times", f"attention {name} (B={x['B']} Hq={x['Hq']} "
               f"Hkv={x['Hkv']} Lq={x['Lq']} Lkv={x['Lkv']} D={x['D']}) bf16 "
-              f"tier={tier} tuned {cfg} {kernel:.4f} ms, ops default "
+              f"tier={tier} tuned {cfg} {kernel:.4f} ms ({rate[0]:.1f} "
+              f"{rate[1]}, {100 * r['bound_share']:.1f}% of the bound; "
+              f"{regs} registers, {spill} bytes spilled), ops default "
               f"{default:.4f} ms, plain {plain:.4f} ms, SDPA {library:.4f} "
               f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{label}]")
+        if spill:
+            raise AssertionError(f"the tuned attention config {cfg} at "
+                                 f"{name} spills {spill} bytes")
     for name, x in SSD_TARGETS:
         cfg, tier = dispatch._resolve_cfg("ssd", x)
         one = ssd_operands(x, bf16, gen, dev)

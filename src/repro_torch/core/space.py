@@ -33,10 +33,15 @@ Conv (SAME, stride 1, NHWC input, RSCK filter; implicit GEMM over
   prefetch    shared-memory stages of the cp.async ring
 
 Attention (``kernels/csrc/attention.cu``; q (B, Hq, Lq, D), k/v (B, Hkv,
-Lkv, D)):
+Lkv, D); a CTA owns one (b, KV head) and its group = Hq/Hkv query heads'
+rows packed head-major, group*Lq of them):
 
-  b_q         query rows per CTA; the same 16 x 16 thread grid, each thread
-              owns (b_q/16) rows x (b_kv/16) scores of a KV block
+  b_q         packed query rows per CTA.  bf16: one warp per 16 rows on
+              mma.sync tensor cores; a CTA of fewer than 4 row tiles gives
+              each tile cs = min(4 / (b_q/16), b_kv/16) warps, each on a
+              disjoint b_kv/cs-column slice of every KV block.  fp32: the
+              16 x 16 CUDA-core thread grid, each thread (b_q/16) rows x
+              (b_kv/16) scores of a KV block
   b_kv        KV rows per block of the online softmax (and per stage)
   acc32       kept as a name: m, l and the output accumulator are fp32
               whatever it says, as in the TPU kernel; fp32 IO needs it
@@ -273,28 +278,71 @@ ATTENTION_PARAMS: Dict[str, Tuple[int, ...]] = {
 }
 
 ATTENTION_INPUTS = ("B", "Hq", "Hkv", "Lq", "Lkv", "D", "dtype_bits", "causal")
-ATTN_REG_OVERHEAD = 40          # addressing, loop and mask registers
+ATTN_REG_OVERHEAD = 40          # fp32 body: addressing, loop and mask
+# bf16 body: addressing, masks and the merge, fitted to the ptxas -v report
+# so that exactly the spilling instantiations exceed 255
+ATTN_MMA_REG_OVERHEAD = 64
+ATTN_HEAD_TILES = (64, 128, 256)  # the bf16 body's compile-time head dims
+ATTN_MMA_WARPS = 4              # warps a CTA of few row tiles fills up to
+
+
+def attention_head_tile(D: int) -> int:
+    """The bf16 kernel's head-dim bucket: D is zero-padded up to it."""
+    for tile in ATTN_HEAD_TILES:
+        if D <= tile:
+            return tile
+    raise ValueError(f"bf16 attention takes D <= {ATTN_HEAD_TILES[-1]}, "
+                     f"got {D}")
+
+
+def attention_warps(cfg: Mapping[str, int]) -> Tuple[int, int]:
+    """(row tiles, warps per row tile) of a bf16 CTA: one warp per 16
+    packed rows; where that gives fewer than 4 warps, each row tile takes
+    up to 4 / tiles warps, each on a slice of at least 16 KV columns."""
+    tiles = cfg["b_q"] // 16
+    if tiles >= ATTN_MMA_WARPS:
+        return tiles, 1
+    return tiles, min(ATTN_MMA_WARPS // tiles, cfg["b_kv"] // 16)
 
 
 def attention_smem_bytes(cfg: Mapping[str, int], dtype_bits: int, D: int
                          ) -> int:
-    """Dynamic shared memory of one CTA, as ``attention.cu`` lays it out:
-    the Q tile and ``prefetch`` stages of K and V tiles (rows of D plus
-    16 bytes against bank conflicts), the fp32 P tile (``b_q`` x (``b_kv``
-    + 4)) and the fp32 output accumulator (rows of D rounded up to 32,
-    plus 16)."""
-    bpe = dtype_bits // 8
-    row = D * bpe + 16
+    """Dynamic shared memory of one CTA, as ``attention.cu`` lays it out.
+
+    bf16: the Q tile and ``prefetch`` stages of K and V tiles, rows of the
+    head tile plus 16 bytes against bank conflicts (P and the accumulator
+    live in registers); where warps split the columns, their merge (fp32
+    m, l and a 16 x (tile + 4) accumulator per warp) reuses the ring,
+    grown to hold it where one narrow stage is smaller.  fp32: the same tiles with rows of D plus 16 bytes, the
+    fp32 P tile (``b_q`` x (``b_kv`` + 4)) and the fp32 output accumulator
+    (rows of D rounded up to 32, plus 16)."""
+    if dtype_bits == 16:
+        dm = attention_head_tile(D)
+        row = (dm + 8) * 2
+        ring = 2 * cfg["prefetch"] * cfg["b_kv"] * row
+        tiles, split = attention_warps(cfg)
+        merge = tiles * split * 16 * (dm + 4 + 2) * 4 if split > 1 else 0
+        return cfg["b_q"] * row + max(ring, merge)
+    row = D * dtype_bits // 8 + 16
     tiles = (cfg["b_q"] + 2 * cfg["prefetch"] * cfg["b_kv"]) * row
     return tiles + cfg["b_q"] * (cfg["b_kv"] + 4) * 4 \
         + cfg["b_q"] * (_round_up(D, 32) + 16) * 4
 
 
-def attention_regs_per_thread(cfg: Mapping[str, int], dtype_bits: int
-                              ) -> int:
-    """Estimated registers: the thread's scores, one 16-byte K vector per
-    score column and one Q vector (as floats), four output columns per row
-    of P.V, the row's m, l and alpha, plus overhead."""
+def attention_regs_per_thread(cfg: Mapping[str, int], dtype_bits: int,
+                              D: int) -> int:
+    """Estimated registers.  bf16: a warp's mma fragments, per thread the
+    16 x tile fp32 accumulator (tile/2), its slice's scores (columns/2),
+    the Q fragments where the tile is at most 128 (tile/4), m and l of two
+    rows, plus overhead.  fp32: the thread's scores, one 16-byte K vector
+    per score column and one Q vector (as floats), four output columns per
+    row of P.V, the row's m, l and alpha, plus overhead."""
+    if dtype_bits == 16:
+        dm = attention_head_tile(D)
+        _, split = attention_warps(cfg)
+        q_frags = dm // 4 if dm <= 128 else 0
+        return dm // 2 + cfg["b_kv"] // split // 2 + q_frags + 4 \
+            + ATTN_MMA_REG_OVERHEAD
     tq, tk = cfg["b_q"] // 16, cfg["b_kv"] // 16
     vec = 128 // dtype_bits
     return tq * tk + tk * vec + vec + 4 * tq + 3 * tq + ATTN_REG_OVERHEAD
@@ -302,14 +350,17 @@ def attention_regs_per_thread(cfg: Mapping[str, int], dtype_bits: int
 
 def attention_fits(cfg: Mapping[str, int], dtype_bits: int, D: int) -> bool:
     """Can the attention kernel launch this config at head dim ``D``?  D
-    must be a multiple of 8: the kernel reads rows in 16-byte pieces."""
+    must be a multiple of 8 (the kernel reads rows in 16-byte pieces), and
+    at most the largest head tile in bf16."""
     if not ATTENTION_SPACE.contains(cfg):
         return False
     if dtype_bits not in (16, 32) or D % 8:
         return False
+    if dtype_bits == 16 and D > ATTN_HEAD_TILES[-1]:
+        return False
     if attention_smem_bytes(cfg, dtype_bits, D) > SMEM_PER_BLOCK:
         return False
-    if attention_regs_per_thread(cfg, dtype_bits) > MAX_REGS_PER_THREAD:
+    if attention_regs_per_thread(cfg, dtype_bits, D) > MAX_REGS_PER_THREAD:
         return False
     if dtype_bits == 32 and not cfg["acc32"]:
         return False
@@ -318,12 +369,14 @@ def attention_fits(cfg: Mapping[str, int], dtype_bits: int, D: int) -> bool:
 
 def attention_is_legal(cfg: Mapping[str, int], inputs: Mapping[str, int]
                        ) -> bool:
-    """Launchable at this head dim, and no tile larger than the problem
-    (rounded up to 16 rows: a decode step's single query row takes
-    ``b_q=16``)."""
+    """Launchable at this head dim, and no tile larger than the problem:
+    ``b_q`` at most the packed rows (group*Lq, group = Hq/Hkv) rounded up
+    to 16 (a decode step of group 5 takes ``b_q=16``), ``b_kv`` at most
+    Lkv rounded up to 16."""
     if not attention_fits(cfg, inputs["dtype_bits"], inputs["D"]):
         return False
-    return cfg["b_q"] <= _round_up(inputs["Lq"], 16) \
+    rows = inputs["Hq"] // inputs["Hkv"] * inputs["Lq"]
+    return cfg["b_q"] <= _round_up(rows, 16) \
         and cfg["b_kv"] <= _round_up(inputs["Lkv"], 16)
 
 

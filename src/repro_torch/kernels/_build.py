@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
 ``<repo>/build/kernels/lib<name>-<hash>.so`` at first use; the hash covers
 the source and the flags, so an edited kernel rebuilds and an unchanged one
 loads from disk.  :func:`build` compiles several sources at once, one
-``nvcc`` process per source, all started together.  Nothing here runs at
-import time: the CPU tests import every module of the port on a machine
-without ``nvcc``.
+``nvcc`` process per source, all started together, and keeps each build's
+``ptxas -v`` report beside its library (:func:`ptxas_usage` reads it).
+Nothing here runs at import time: the CPU tests import every module of the
+port on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -15,14 +16,15 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,9 +78,33 @@ def build(names: Iterable[str]) -> None:
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)    # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(name: str) -> Dict[str, Tuple[int, int]]:
+    """(registers, spill bytes stored + loaded) of every kernel in the
+    built ``csrc/<name>.cu``, by mangled name, from its ``ptxas -v``
+    report."""
+    log = library_path(name).with_suffix(".log").read_text()
+    usage: Dict[str, Tuple[int, int]] = {}
+    kernel, spill = None, 0
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            kernel, spill = m.group(1), 0
+        elif m := _SPILL.search(line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := _REGS.search(line)) and kernel:
+            usage[kernel] = (int(m.group(1)), spill)
+            kernel = None
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,7 +8,9 @@ Hkv).  On a CUDA tensor it launches ``csrc/attention.cu`` (or raises); on a
 CPU tensor it runs :func:`attention_plain`, which repeats the kernel's walk
 over KV blocks of ``b_kv`` rows in PyTorch: the same online softmax in
 fp32, the same NEG_INF masking (causal, and KV columns past Lkv by length)
-and the same cast of p to the IO dtype before p.v.
+and the same cast of p to the IO dtype before p.v.  Where the bf16 kernel
+splits a block's columns over several warps it rounds p against a slice's
+max rather than the block's, which the bf16 tolerance (2e-2) covers.
 """
 
 from __future__ import annotations

@@ -409,7 +409,8 @@ def _gate_runs(space_name: str, cfg: Mapping[str, int],
                 lambda *x: _conv.conv2d_plain(*x, run).float().sum(dim=0))
     if space_name == "attention":
         run = ops.shrink_attention_cfg(cfg, small["Lq"], small["Lkv"],
-                                       small["D"], bits)
+                                       small["D"], bits,
+                                       group=small["Hq"] // small["Hkv"])
         causal = gate_causal(small)
         return (lambda *x: _attention.attention(*x, run,
                                                 causal=causal).float(),

@@ -134,17 +134,18 @@ def _round16(n: int) -> int:
 
 
 def shrink_attention_cfg(cfg: Mapping[str, int], Lq: int, Lkv: int, D: int,
-                         dtype_bits: int) -> Dict[str, int]:
+                         dtype_bits: int, *, group: int) -> Dict[str, int]:
     """Shrink tiles larger than the problem, keeping any config runnable.
 
-    ``b_q`` and ``b_kv`` halve while they exceed Lq and Lkv rounded up to
-    16 (a decode step runs ``b_q=16``); then, while the config does not fit
-    the CTA at this head dim, ``prefetch`` drops, then ``b_kv`` halves,
-    then ``b_q``.  A legal config (``attention_is_legal``) is left as it
-    is.
+    ``b_q`` halves while it exceeds the packed rows, ``group`` * Lq with
+    ``group`` = Hq/Hkv, rounded up to 16 (a decode step of a group of 16
+    or fewer runs ``b_q=16``), and ``b_kv`` while it exceeds Lkv rounded
+    up to 16; then, while the config does not fit the CTA at this head
+    dim, ``prefetch`` drops, then ``b_kv`` halves, then ``b_q``.  A legal
+    config (``attention_is_legal``) is left as it is.
     """
     cfg = {**DEFAULT_ATTN, **cfg}
-    while cfg["b_q"] > _round16(Lq) and cfg["b_q"] > _MIN_BQ:
+    while cfg["b_q"] > _round16(group * Lq) and cfg["b_q"] > _MIN_BQ:
         cfg["b_q"] //= 2
     while cfg["b_kv"] > _round16(Lkv) and cfg["b_kv"] > _MIN_BKV:
         cfg["b_kv"] //= 2
@@ -169,7 +170,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset = Lkv - Lq``)."""
     Lq, D = q.shape[2], q.shape[3]
     cfg = shrink_attention_cfg(cfg or {}, Lq, k.shape[2], D,
-                               _dtype_bits(q.dtype))
+                               _dtype_bits(q.dtype),
+                               group=q.shape[1] // max(k.shape[1], 1))
     return _attention.attention(q, k, v, cfg, causal=causal,
                                 q_offset=q_offset)
 

@@ -23,9 +23,11 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core.space import (ATTENTION_SPACE, FITS, SMEM_PER_BLOCK,
                                     ConfigRejected, attention_fits,
-                                    attention_input, attention_is_legal,
+                                    attention_head_tile, attention_input,
+                                    attention_is_legal,
                                     attention_regs_per_thread,
-                                    attention_smem_bytes)
+                                    attention_smem_bytes, attention_warps)
+from repro_torch.kernels import _build as kbuild
 from repro_torch.kernels import attention as kattention
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.kernels import ops as tops
@@ -78,6 +80,13 @@ JAX_CASES = [
     ("gqa3", (1, 6, 2, 24, 24, 16), {"b_q": 16, "b_kv": 16}, True, 0,
      "float32"),
     ("gqa5", (1, 5, 1, 32, 32, 16), {"b_q": 32, "b_kv": 16}, True, 0,
+     "bfloat16"),
+    # packed rows: 5*20 = 100 rows of a KV head in CTAs of 32 straddle heads
+    ("packed,straddle", (1, 10, 2, 20, 20, 16), {"b_q": 32, "b_kv": 16}, True,
+     0, "float32"),
+    ("decode,gqa5,ragged", (2, 10, 2, 1, 100, 32), {"b_q": 16, "b_kv": 32},
+     True, 99, "bfloat16"),
+    ("decode,gqa8", (1, 8, 1, 1, 64, 16), {"b_q": 16, "b_kv": 16}, True, 63,
      "bfloat16"),
 ]
 
@@ -156,8 +165,15 @@ def test_acc32_does_not_change_the_arithmetic():
 
 def test_attention_space_legality_follows_smem_and_registers():
     cfg = {"b_q": 64, "b_kv": 64, "acc32": 1, "prefetch": 2}
-    row = 128 * 2 + 16
-    assert attention_smem_bytes(cfg, 16, 128) == (64 + 2 * 2 * 64) * row \
+    # bf16: the Q tile and the K/V ring, rows of the head tile plus 16 bytes;
+    # P and the accumulator live in registers
+    row = (128 + 8) * 2
+    assert attention_smem_bytes(cfg, 16, 128) == 64 * row + 2 * 2 * 64 * row
+    assert attention_smem_bytes(cfg, 16, 96) == attention_smem_bytes(cfg, 16,
+                                                                      128)
+    # fp32: the CUDA-core body's P tile and shared accumulator as well
+    row32 = 128 * 4 + 16
+    assert attention_smem_bytes(cfg, 32, 128) == (64 + 2 * 2 * 64) * row32 \
         + 64 * 68 * 4 + 64 * (128 + 16) * 4
     big = {"b_q": 128, "b_kv": 128, "acc32": 1, "prefetch": 3}
     assert attention_smem_bytes(big, 16, 256) > SMEM_PER_BLOCK
@@ -169,9 +185,58 @@ def test_attention_space_legality_follows_smem_and_registers():
         for bits, D in ((16, 64), (16, 128), (32, 128), (16, 256)):
             if attention_fits(c, bits, D):
                 assert attention_smem_bytes(c, bits, D) <= SMEM_PER_BLOCK
-                assert attention_regs_per_thread(c, bits) <= 255
+                assert attention_regs_per_thread(c, bits, D) <= 255
     assert FITS["attention"](cfg, attention_input(1, 4, 4, 8, 8, 128))
     assert not FITS["attention"](big, attention_input(1, 4, 4, 8, 8, 256))
+
+
+def test_bf16_head_dims_pad_to_a_tile_of_at_most_256():
+    assert [attention_head_tile(D) for D in (8, 24, 64, 72, 128, 136, 256)] \
+        == [64, 64, 64, 128, 128, 256, 256]
+    cfg = {"b_q": 16, "b_kv": 16, "acc32": 1, "prefetch": 1}
+    assert attention_fits(cfg, 16, 256) and not attention_fits(cfg, 16, 264)
+    assert attention_fits(cfg, 32, 264)      # the fp32 body takes any D
+    with pytest.raises(ValueError, match="D <= 256"):
+        attention_head_tile(264)
+
+
+@pytest.mark.parametrize("b_q,b_kv,tiles,split", [
+    (16, 16, 1, 1), (16, 32, 1, 2), (16, 64, 1, 4), (16, 128, 1, 4),
+    (32, 16, 2, 1), (32, 32, 2, 2), (32, 128, 2, 2), (64, 64, 4, 1),
+    (128, 16, 8, 1)])
+def test_bf16_warps_split_kv_columns_only_where_rows_are_few(b_q, b_kv, tiles,
+                                                             split):
+    """One warp per 16 packed rows; a CTA of fewer than 4 row tiles gives
+    each up to 4 / tiles warps, each on a slice of >= 16 KV columns."""
+    cfg = {"b_q": b_q, "b_kv": b_kv, "acc32": 1, "prefetch": 2}
+    assert attention_warps(cfg) == (tiles, split)
+    assert b_kv // split >= 16 and tiles * split <= max(4, tiles)
+
+
+def test_bf16_merge_of_split_warps_fits_the_ring_or_the_smem_grows():
+    """A split CTA merges through the freed K/V ring; where one stage of
+    narrow blocks is smaller than the merge, the smem grows to hold it."""
+    split = {"b_q": 32, "b_kv": 32, "acc32": 1, "prefetch": 1}
+    row = (128 + 8) * 2
+    merge = 2 * 2 * 16 * (128 + 4 + 2) * 4
+    assert merge > 2 * 32 * row
+    assert attention_smem_bytes(split, 16, 128) == 32 * row + merge
+    decode = {"b_q": 16, "b_kv": 128, "acc32": 1, "prefetch": 2}
+    assert attention_smem_bytes(decode, 16, 128) == 16 * row + 2 * 2 * 128 * row
+
+
+def test_bf16_configs_that_spill_are_not_launchable():
+    """The ptxas -v report of attention.cu: at head tile 256 a single warp
+    on 128 columns spills (255 registers); the register estimate keeps
+    exactly those out of the space."""
+    for b_q in (64, 128):
+        cfg = {"b_q": b_q, "b_kv": 128, "acc32": 1, "prefetch": 1}
+        assert attention_regs_per_thread(cfg, 16, 256) > 255
+        assert not attention_fits(cfg, 16, 256) and attention_fits(cfg, 16, 128)
+    assert attention_fits({"b_q": 128, "b_kv": 64, "acc32": 1, "prefetch": 1},
+                          16, 256)
+    assert attention_fits({"b_q": 32, "b_kv": 128, "acc32": 1, "prefetch": 1},
+                          16, 256)
 
 
 def test_head_dims_not_a_multiple_of_8_are_rejected():
@@ -205,18 +270,88 @@ def test_attention_space_sizes_tiles_to_the_problem():
                               attention_input(1, 4, 4, 1, 113, 64))
 
 
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115attn_mma_kernelILi64ELi128ELi256EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiifiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115attn_mma_kernelILi64ELi128ELi256EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiifiii
+    0 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, 412 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116attn_simt_kernelILi16ELi16EEEvPKfS2_S2_Pfiiiiifiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116attn_simt_kernelILi16ELi16EEEvPKfS2_S2_Pfiiiiifiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 60 registers, 412 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_reads_registers_and_spills(tmp_path, monkeypatch):
+    """The build keeps ptxas -v's report beside each library; the card
+    run reads every attention kernel's registers and spills from it."""
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
+    kbuild.library_path("attention").with_suffix(".log").write_text(PTXAS_LOG)
+    usage = kbuild.ptxas_usage("attention")
+    assert sorted(usage.values()) == [(60, 0), (255, 24)]
+    mma = next(k for k in usage if "attn_mma_kernelILi64ELi128ELi256E" in k)
+    assert usage[mma] == (255, 24)
+
+
+@pytest.mark.parametrize("Hq,Hkv,Lq,max_bq", [
+    (40, 8, 1, 16),         # qwen3-14b decode: 5 packed rows take b_q=16
+    (32, 4, 1, 16),         # group 8
+    (64, 2, 1, 32),         # group 32: two row tiles of one decode step
+    (10, 2, 100, 128),      # 500 packed rows straddle heads every 100
+    (9, 3, 2048, 128),
+])
+def test_b_q_is_bounded_by_the_packed_rows(Hq, Hkv, Lq, max_bq):
+    """b_q counts packed rows, group*Lq of them per (b, KV head): the bound
+    is round16(group*Lq), not round16(Lq)."""
+    x = attention_input(2, Hq, Hkv, Lq, 1000, 128)
+    legal = [b for b in (16, 32, 64, 128) if attention_is_legal(
+        {"b_q": b, "b_kv": 64, "acc32": 1, "prefetch": 2}, x)]
+    assert legal[-1] == max_bq and legal == [16, 32, 64, 128][:len(legal)]
+
+
 @pytest.mark.parametrize("Lq,Lkv,D,bits", [(1, 256, 64, 16), (4096, 4096, 128, 16),
                                            (7, 20, 256, 32), (130, 100, 24, 32)])
 def test_shrink_keeps_every_config_launchable(Lq, Lkv, D, bits):
     for cfg in ATTENTION_SPACE.enumerate():
         if bits == 32 and not cfg["acc32"]:
             continue
-        small = tops.shrink_attention_cfg(cfg, Lq, Lkv, D, bits)
+        small = tops.shrink_attention_cfg(cfg, Lq, Lkv, D, bits, group=1)
         assert attention_fits(small, bits, D), (cfg, small)
         r16 = lambda n: -(-n // 16) * 16
         assert small["b_q"] <= r16(Lq) and small["b_kv"] <= r16(Lkv)
         if attention_is_legal(cfg, attention_input(1, 1, 1, Lq, Lkv, D, bits)):
             assert small == cfg             # a legal config runs as it is
+
+
+# (B, Hq, Hkv, Lq, Lkv, D, causal): the four tune targets, the card checks'
+# shapes (smoke and tests/test_torch_cuda.py) and the packed ones
+SHRINK_SHAPES = [
+    (4, 9, 3, 1, 256, 64, 1), (1, 9, 3, 2048, 2048, 64, 1),
+    (1, 40, 8, 4096, 4096, 128, 1), (8, 40, 8, 1, 32768, 128, 1),
+    (1, 40, 8, 1024, 1024, 128, 1), (1, 4, 2, 4, 100, 64, 0),
+    (1, 4, 2, 8, 200, 64, 0), (1, 4, 2, 130, 100, 64, 0),
+    (1, 6, 2, 300, 300, 64, 1), (2, 10, 2, 40, 77, 128, 0),
+    (1, 4, 4, 4, 100, 64, 0), (2, 3, 1, 33, 50, 24, 1),
+    (1, 10, 2, 100, 100, 64, 1), (2, 40, 8, 1, 1000, 128, 1),
+    (1, 32, 4, 1, 4096, 128, 1),
+]
+
+
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("shape", SHRINK_SHAPES,
+                         ids=["x".join(map(str, s[:6])) for s in SHRINK_SHAPES])
+def test_shrink_gives_a_legal_config_at_every_target_and_check(shape, bits):
+    B, Hq, Hkv, Lq, Lkv, D, causal = shape
+    x = attention_input(B, Hq, Hkv, Lq, Lkv, D, bits, causal)
+    for cfg in ATTENTION_SPACE.enumerate():
+        if bits == 32 and not cfg["acc32"]:
+            continue
+        small = tops.shrink_attention_cfg(cfg, Lq, Lkv, D, bits,
+                                          group=Hq // Hkv)
+        assert attention_is_legal(small, x), (cfg, small)
+        if attention_is_legal(cfg, x):
+            assert small == cfg
 
 
 # -- the correctness gate -------------------------------------------------------

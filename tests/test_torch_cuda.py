@@ -114,11 +114,14 @@ def _rel(got, want):
 # (B, Hq, Hkv, Lq, Lkv, D, causal, q_offset): SmolLM-135M decode over a
 # 256-entry cache, a causal prefill, GQA groups 3 and 5, the three ragged
 # non-causal shapes the reference's offset trick gets wrong, a narrow head
-# dim (D=24)
+# dim (D=24); packed rows that straddle two heads (500 rows of a KV head
+# in tiles of 16 to 128), decode at group 5 over a cache that is not a
+# multiple of b_kv, decode at group 8
 ATTN_SHAPES = [(4, 9, 3, 1, 256, 64, True, 255), (1, 6, 2, 300, 300, 64, True, 0),
                (2, 10, 2, 40, 77, 128, False, 0), (1, 4, 4, 4, 100, 64, False, 0),
                (1, 4, 2, 8, 200, 64, False, 0), (1, 4, 2, 130, 100, 64, False, 0),
-               (2, 3, 1, 33, 50, 24, True, 17)]
+               (2, 3, 1, 33, 50, 24, True, 17), (1, 10, 2, 100, 100, 64, True, 0),
+               (2, 40, 8, 1, 1000, 128, True, 999), (1, 32, 4, 1, 4096, 128, True, 4095)]
 ATTN_CONFIGS = [
     dict(tops.DEFAULT_ATTN),
     {"b_q": 16, "b_kv": 128, "acc32": 1, "prefetch": 3},
@@ -139,7 +142,8 @@ def test_attention_kernel_matches_plain_and_oracle(cuda, shape, cfg, dtype):
     if dtype == torch.float32:          # fp32 IO needs acc32=1
         cfg = {**cfg, "acc32": 1}
     small = tops.shrink_attention_cfg(cfg, Lq, Lkv, D,
-                                      torch.finfo(dtype).bits)
+                                      torch.finfo(dtype).bits,
+                                      group=Hq // Hkv)
     before = kattention.launches
     got = kattention.attention(q, k, v, small, causal=causal, q_offset=off)
     want = kattention.attention_plain(q, k, v, small, causal=causal,
