@@ -9,12 +9,14 @@ exits non-zero:
   1. device     the card's name and ``nvidia-smi`` name / power limit
   2. build      every CUDA kernel (gemm.cu, conv.cu, attention.cu, ssd.cu)
                 from ``csrc/``, one nvcc per source, in parallel; the
-                ``ptxas -v`` report: no attention kernel that a legal
-                config launches spills
+                ``ptxas -v`` report: no attention or conv kernel that a
+                legal config launches spills
   3. gemm       the GEMM kernel against its plain version (and the fp32
                 oracle) at the serving path's shapes, several configs
   4. conv       the conv kernel against its plain version (and the fp32
-                oracle) at the paper's 14 Table 5 shapes, full size
+                oracle) at the paper's 14 Table 5 shapes, full size (C=1,
+                K=174 and K=87 among them), under configs that cover b_c=8,
+                acc32=0 and the smallest and largest tiles
   5. attention  the attention kernel against its plain version and the fp32
                 oracle, bf16 and fp32, several configs: SmolLM-135M and
                 qwen3-14b decode steps (causal with q_offset), causal
@@ -43,10 +45,13 @@ exits non-zero:
                 (decode), the share of the bound, and the tuned config's
                 registers and spills
   9. serve      SmolLM-135M at full width (30 layers, bf16, random weights
-                from a seed) through ``Engine.generate`` from the tuned store;
-                every projection launches the GEMM kernel on the exact tier,
-                every decode tick takes its KV split count from the tuned
-                attention record (exact tier)
+                from a seed) through ``Engine.generate`` from the tuned store,
+                each decode tick replayed from the engine's CUDA graph; the
+                capture (at the warm-up) and every prefill resolve each
+                projection's GEMM config on the exact tier and the decode KV
+                split count from the tuned attention record; then the same
+                requests with the eager tick: the same greedy tokens, tok/s
+                and median tick of both
  10. model      prefill + 4 decode steps through the kernel path and again
                 through the plain path on the card; logits must agree
  11. profile    a decode tick: eager wall time, host enqueue time, and the
@@ -67,6 +72,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -91,8 +97,8 @@ from repro_torch.core.mlp import MLP  # noqa: E402
 from repro_torch.core.space import (ATTENTION_SPACE, CONV_SPACE,  # noqa: E402
                                     GEMM_SPACE, SSD_SPACE, ConfigRejected,
                                     attention_fits, attention_head_tile,
-                                    attention_input, conv_input, gemm_input,
-                                    ssd_input)
+                                    attention_input, conv_fits, conv_input,
+                                    gemm_input, ssd_input)
 from repro_torch.core.tuner import InputAwareTuner  # noqa: E402
 from repro_torch.kernels import _build, dispatch, ops  # noqa: E402
 from repro_torch.kernels import attention as kattention  # noqa: E402
@@ -150,6 +156,12 @@ CONV_SHAPES = [conv_input(n, h, w, c, k, r, s) for n, h, w, k, c, r, s, _
 
 CONV_CHECK_CONFIGS = {
     "default": dict(ops.DEFAULT_CONV),
+    "16x16,acc32=0": {
+        "b_npq": 16, "b_k": 16, "b_c": 16, "rs_unroll": 2, "c_split": 1,
+        "order": 0, "acc32": 0, "prefetch": 2},
+    "128x128,b_c=8,acc32=0": {
+        "b_npq": 128, "b_k": 128, "b_c": 8, "rs_unroll": 2, "c_split": 1,
+        "order": 1, "acc32": 0, "prefetch": 3},
     "c_split=2,acc32=0,rs_unroll=4": {
         "b_npq": 128, "b_k": 32, "b_c": 8, "rs_unroll": 4, "c_split": 2,
         "order": 1, "acc32": 0, "prefetch": 3},
@@ -409,18 +421,32 @@ def phase_device() -> tuple:
 KERNELS = ("gemm", "conv", "attention", "ssd")
 
 
-def attention_kernel(usage: dict, cfg: dict, D: int, bits: int) -> str:
-    """The (mangled) name, in the ptxas report ``usage``, of the attention
-    kernel that ``cfg`` launches at head dim D."""
-    if bits == 16:
-        key = (f"attn_mma_kernelILi{cfg['b_q']}ELi{cfg['b_kv']}ELi"
-               f"{attention_head_tile(D)}E")
-    else:
-        key = f"attn_simt_kernelILi{cfg['b_q']}ELi{cfg['b_kv']}EE"
+def ptxas_kernel(usage: dict, key: str) -> str:
+    """The one (mangled) kernel name in the ptxas report ``usage`` that
+    contains ``key``."""
     found = [k for k in usage if key in k]
     if len(found) != 1:
         raise AssertionError(f"ptxas report: {len(found)} kernels match {key}")
     return found[0]
+
+
+def attention_kernel(usage: dict, cfg: dict, D: int, bits: int) -> str:
+    """The attention kernel that ``cfg`` launches at head dim D."""
+    if bits == 16:
+        return ptxas_kernel(usage, f"attn_mma_kernelILi{cfg['b_q']}ELi"
+                                   f"{cfg['b_kv']}ELi{attention_head_tile(D)}E")
+    return ptxas_kernel(usage, f"attn_simt_kernelILi{cfg['b_q']}ELi"
+                               f"{cfg['b_kv']}EE")
+
+
+def conv_kernel(usage: dict, cfg: dict, bits: int) -> str:
+    """The conv kernel that ``cfg`` launches: the mma.sync body in bf16,
+    the CUDA-core body (acc32=1) in fp32."""
+    if bits == 16:
+        return ptxas_kernel(usage, f"conv_mma_kernelILi{cfg['b_npq']}ELi"
+                                   f"{cfg['b_k']}ELb{cfg['acc32']}E")
+    return ptxas_kernel(usage, f"conv_kernelIfLi{cfg['b_npq']}ELi"
+                               f"{cfg['b_k']}ELb1E")
 
 
 def phase_build() -> None:
@@ -437,19 +463,27 @@ def phase_build() -> None:
         f"{name}.cu {len(u)} kernels, {max(r for r, _ in u.values())} "
         f"registers at most, {len(spills[name])} spill"
         for name, u in usage.items()))
-    # every attention kernel some legal config launches: no spill
-    launched = {}
+    # every attention and conv kernel some legal config launches: no spill
+    launched = {"attention": {}, "conv": {}}
     for cfg in ATTENTION_SPACE.enumerate():
         for bits, D in ((16, 64), (16, 128), (16, 256), (32, 64)):
             if attention_fits(cfg, bits, D):
-                launched[attention_kernel(usage["attention"], cfg, D, bits)
-                         ] = (cfg, bits, D)
-    spilled = [v for k, v in launched.items() if usage["attention"][k][1]]
-    if spilled:
-        raise AssertionError(f"attention kernels a legal config launches "
-                             f"spill: {spilled}")
-    phase("build", f"attention.cu: none of the {len(launched)} kernels that "
-          f"legal configs launch spills")
+                launched["attention"][attention_kernel(
+                    usage["attention"], cfg, D, bits)] = (cfg, bits, D)
+    for cfg in CONV_SPACE.enumerate():
+        for bits in (16, 32):
+            if conv_fits(cfg, bits):
+                launched["conv"][conv_kernel(usage["conv"], cfg, bits)] = (
+                    cfg, bits)
+    for name, kernels in launched.items():
+        spilled = [v for k, v in kernels.items() if usage[name][k][1]]
+        if spilled:
+            raise AssertionError(f"{name} kernels a legal config launches "
+                                 f"spill: {spilled}")
+    phase("build", "; ".join(
+        f"{name}.cu: none of the {len(k)} kernels that legal configs launch "
+        f"spills ({max(usage[name][n][0] for n in k)} registers at most)"
+        for name, k in launched.items()))
 
 
 def phase_gemm_check(dev: torch.device) -> dict:
@@ -978,65 +1012,147 @@ def per_tick(rows: list, key: str, n_layers: int) -> float:
                for r in rows if r["M"] == 4)
 
 
+# demangled ("...::gemm_kernel<...>") or mangled ("...11gemm_kernelI...")
+GEMM_KERNEL = re.compile(r"(^|[\s:]|\d)gemm_kernel(\b|I)")
+
+
+def device_gemm_launches(prof) -> int:
+    """GEMM kernels (``csrc/gemm.cu`` ``gemm_kernel``) a profiler session
+    traced on the device, graph replays included."""
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and GEMM_KERNEL.search(ev.name))
+
+
 def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                 label: str) -> dict:
+    """Serve 8 requests from the tuned store with the engine's CUDA-graph
+    tick, then the same requests with its eager tick.  Launches and
+    resolutions are counted as the reference counts them at trace time:
+    the host sees a tick's 210 GEMMs and 30 split-count lookups when the
+    tick is captured (and in the capture's eager warm-up), each prefill's
+    210 GEMMs every time; a replay runs the captured launches on the device
+    and calls nothing on the host.  So the graph run is traced with the
+    torch profiler (CUDA activity only), and the GEMM kernels it counts on
+    the device must be 210 x (prefills + replays); tok/s and the median
+    tick come from a second, untraced graph run of the same requests."""
     sc = ServeConfig(max_len=256, slots=4, tunedb=str(store_path),
                      tunedb_backend=fp, record_tick_times=True)
     eng = Engine(cfg, params, sc)
     rng = np.random.default_rng(0)
-    eng.generate([rng.integers(0, cfg.vocab, 32) for _ in range(2)],
-                 max_new=2)                               # warm-up
+    warm = [rng.integers(0, cfg.vocab, 32) for _ in range(2)]
     prompts = [rng.integers(0, cfg.vocab, 32) for _ in range(8)]
-    ticks0, prefills0 = eng.ticks, eng.prefills
-    eng.tick_times.clear()
-    torch.cuda.synchronize()
-    reset_launches()
-    dispatch.reset_counts()
-    t0 = time.perf_counter()
-    outs = eng.generate(prompts, max_new=16)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kmatmul.launches
-    tiers, attn_tiers = ({t: c for (s, t), c in dispatch.tier_counts.items()
-                          if s == space} for space in ("gemm", "attention"))
-    forwards = (eng.ticks - ticks0) + (eng.prefills - prefills0)
-    if [len(o) for o in outs] != [16] * len(prompts):
-        raise AssertionError(f"token counts {[len(o) for o in outs]}")
-    if any(not (0 <= t < cfg.vocab) for o in outs for t in o):
-        raise AssertionError("token outside the vocabulary")
-    want = GEMMS_PER_LAYER * cfg.n_layers * forwards
-    if launches != want:
-        raise AssertionError(f"GEMM launches {launches} != {want} "
-                             f"(210 x {forwards} forwards)")
-    if tiers != {"exact": want}:
-        raise AssertionError(f"dispatch tiers seen: {tiers}; every GEMM "
-                             "should resolve on the exact tier")
-    # every layer of every decode tick reads its KV split count from the
-    # attention record tuned at this decode shape
-    want_attn = cfg.n_layers * (eng.ticks - ticks0)
-    if attn_tiers != {"exact": want_attn}:
-        raise AssertionError(f"decode-split resolutions {attn_tiers}; want "
-                             f"{want_attn} on the exact tier")
+    per_fwd = GEMMS_PER_LAYER * cfg.n_layers        # 210 GEMMs a forward
+
+    def run(what: str, batch: list, max_new: int, trace: bool = False
+            ) -> dict:
+        before = (eng.ticks, eng.prefills, eng.captures, eng.replays)
+        eng.tick_times.clear()
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) if trace \
+            else contextlib.nullcontext()
+        reset_launches()
+        dispatch.reset_counts()
+        t0 = time.perf_counter()
+        with prof:
+            outs = eng.generate(batch, max_new=max_new)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        device = device_gemm_launches(prof) if trace else None
+        ticks, prefills, captures, replays = (
+            now - b for now, b in zip((eng.ticks, eng.prefills, eng.captures,
+                                       eng.replays), before))
+        got = {"launches": kmatmul.launches,
+               "tiers": {t: c for (sp, t), c in dispatch.tier_counts.items()
+                         if sp == "gemm"},
+               "attn_tiers": {t: c for (sp, t), c in
+                              dispatch.tier_counts.items()
+                              if sp == "attention"}}
+        if [len(o) for o in outs] != [max_new] * len(batch):
+            raise AssertionError(f"{what}: token counts {[len(o) for o in outs]}")
+        if any(not (0 <= t < cfg.vocab) for o in outs for t in o):
+            raise AssertionError(f"{what}: token outside the vocabulary")
+        # ticks the host traced: every eager tick, or a capture and its
+        # eager warm-up
+        traced = ticks if eng.decode == eng.decode_eager else 2 * captures
+        if eng.decode != eng.decode_eager and replays != ticks:
+            raise AssertionError(f"{what}: {replays} replays for {ticks} ticks")
+        want_gemm = per_fwd * (prefills + traced)
+        want = {"launches": want_gemm,
+                "tiers": {"exact": want_gemm},
+                "attn_tiers": {"exact": cfg.n_layers * traced} if traced
+                else {}}
+        if got != want:
+            raise AssertionError(f"{what}: host-side GEMM launches and "
+                                 f"resolutions {got}, want {want} ({prefills} "
+                                 f"prefills, {ticks} ticks, {captures} "
+                                 f"captures, {replays} replays)")
+        return {"outs": outs, "wall": wall, "ticks": ticks,
+                "counts": read_launches(), "device_launches": device,
+                "prefills": prefills, "captures": captures,
+                "replays": replays, "launches": got["launches"],
+                "tok_s": sum(len(o) for o in outs) / wall,
+                "tick_ms": statistics.median(t[1] for t in eng.tick_times)
+                * 1e3}
+
+    # the profiler (CUPTI) is started once before the capture: a graph
+    # captured before CUPTI was initialised may replay untraced
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    # warm-up: the engine captures its decode tick here, once
+    w = run("warm-up", warm, 2)
+    if w["captures"] != 1:
+        raise AssertionError(f"warm-up: {w['captures']} captures, want 1")
+    g = run("graph", prompts, 16, trace=True)
+    if g["captures"]:
+        raise AssertionError(f"graph run re-captured {g['captures']} times "
+                             "with the store unchanged")
+    want_device = per_fwd * (g["prefills"] + g["replays"])
+    if g["device_launches"] != want_device:
+        raise AssertionError(f"graph run: {g['device_launches']} GEMM kernels "
+                             f"traced on the device, want {want_device} "
+                             f"({per_fwd} x ({g['prefills']} prefills + "
+                             f"{g['replays']} replays))")
+    timed = run("graph (untraced)", prompts, 16)
+    if timed["outs"] != g["outs"] or timed["captures"]:
+        raise AssertionError("the untraced graph run differs from the traced "
+                             "one")
+    eng.decode = eng.decode_eager
+    try:
+        e = run("eager", prompts, 16)
+    finally:
+        eng.decode = eng.decode_graph
+    if e["outs"] != g["outs"]:
+        raise AssertionError("greedy tokens from the graph tick differ from "
+                             "the eager tick's")
     splits = resolve_decode_splits(
         B=sc.slots, Hq=cfg.n_heads, Hkv=cfg.n_kv, Lkv=sc.max_len,
         D=cfg.head_dim, dtype_bits=16, default=cfg.decode_kv_splits)
-    total = sum(len(o) for o in outs)
-    tick_ms = statistics.median(t[1] for t in eng.tick_times) * 1e3
     tuned, heur = (per_tick(gemm_rows, k, cfg.n_layers)
                    for k in ("kernel_ms", "heuristic_ms"))
     phase("serve", f"{cfg.name} ({cfg.n_layers}L d={cfg.d_model} bf16): "
-          f"{len(outs)} requests x 16 tokens, {forwards} forwards "
-          f"({eng.prefills - prefills0} prefills + {eng.ticks - ticks0} "
-          f"ticks), {launches} GEMM launches, tiers {tiers}; decode KV "
-          f"splits {splits} from the tuned attention record (default "
-          f"{cfg.decode_kv_splits}), {want_attn} resolutions, tiers "
-          f"{attn_tiers}; {total / wall:.1f} tok/s, median tick "
-          f"{tick_ms:.2f} ms; GEMM per decode tick {tuned:.3f} ms under "
-          f"tuned configs, {heur:.3f} ms under the heuristic's [{label}]")
-    return {"launches": launches, "tokens_per_s": total / wall,
-            "tick_ms": tick_ms, "tiers": tiers, "splits": splits,
-            "engine": eng}
-
+          f"{len(prompts)} requests x 16 tokens; capture at the warm-up: "
+          f"{per_fwd} GEMMs and {cfg.n_layers} split-count lookups, all "
+          f"exact; graph run: {g['prefills']} prefills + {g['ticks']} ticks "
+          f"({g['replays']} replays, 0 captures), {g['launches']} GEMM "
+          f"launches from the host (prefills, all exact) and "
+          f"{g['device_launches']} GEMM kernels traced on the device (210 x "
+          f"(prefills + replays)); decode KV splits {splits} from the tuned "
+          f"attention record (default {cfg.decode_kv_splits}); graph "
+          f"(untraced run) {timed['tok_s']:.1f} tok/s, median tick "
+          f"{timed['tick_ms']:.2f} ms; eager {e['tok_s']:.1f} tok/s, median "
+          f"tick {e['tick_ms']:.2f} ms ({e['launches']} GEMM launches, all "
+          f"exact); the 8 requests' greedy tokens equal; GEMM per decode "
+          f"tick {tuned:.3f} ms under tuned configs, {heur:.3f} ms under the "
+          f"heuristic's [{label}]")
+    return {"launches": g["launches"],
+            "device_launches": g["device_launches"],
+            "tokens_per_s": timed["tok_s"], "tick_ms": timed["tick_ms"],
+            "eager_tokens_per_s": e["tok_s"], "eager_tick_ms": e["tick_ms"],
+            "splits": splits, "engine": eng, "counts": g["counts"]}
 
 
 def phase_profile(eng, cfg, dev: torch.device, label: str) -> dict:
@@ -1134,8 +1250,12 @@ def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
     tick's projections; conv: summed over the 14 Table 5 shapes, one call
     each; attention and SSD: summed over their tune targets, one call each.
     ``ms`` is the tuned config's kernel time.  ``launches`` is the count on
-    the kernel's own path (serve for the GEMM, tune for the rest);
-    ``launches_by_path`` gives every path's."""
+    the kernel's own path (serve for the GEMM, tune for the rest): the
+    wrapper's count, so for serving the prefills' GEMMs (a replayed tick
+    launches from the graph, not the wrapper; the GEMM row's
+    ``device_launches`` is the count of GEMM kernels the profiler traced on
+    the device in the same run, replays included); ``launches_by_path``
+    gives every path's."""
     per = {"gemm": "one decode tick: 210 projections at M=4, tuned configs",
            "conv": "the 14 Table 5 shapes, bf16, one call each, tuned configs",
            "attention": "the 4 attention targets, bf16, one call each, tuned "
@@ -1208,14 +1328,15 @@ def main() -> int:
         gen.manual_seed(0)
         params = init_params(cfg, gen)
         serve = phase_serve(cfg, params, store_path, fp, gemm_rows, label)
-        launches["serve"] = read_launches()
+        launches["serve"] = serve["counts"]
         phase_model(cfg, params, dev)
         phase_profile(serve.pop("engine"), cfg, dev, label)
         clear_store()
     rows = {"gemm": gemm_rows, "conv": conv_rows, "attention": attn_rows,
             "ssd": ssd_rows}
-    print(json.dumps(kernels_line(rows, worst, launches, cfg.n_layers)),
-          flush=True)
+    line = kernels_line(rows, worst, launches, cfg.n_layers)
+    line["kernels"][0]["device_launches"] = serve["device_launches"]
+    print(json.dumps(line), flush=True)
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

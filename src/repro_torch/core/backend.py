@@ -24,7 +24,16 @@ one card would corrupt each other's event windows.
 
 A config the gate rejects raises :class:`~repro_torch.core.space.
 ConfigRejected`; the dataset generator and the search's re-measurement
-pass over it, so it is neither labelled nor picked.
+pass over it, so it is neither labelled nor picked.  A training draw whose
+call, memory or (SSD) gate oracle would not fit the card's per-draw
+budgets (:meth:`CudaEventBackend.fits`) is dropped from the dataset's pool
+before any config is drawn for it.
+
+A GEMM timed with ``trans_a`` / ``trans_b`` set gets its operand stored
+transposed and passed as a transposed view, so the time includes the
+relayout ``ops.matmul`` makes before the row-major kernel: what the flag
+costs on this card (the reference's simulated backend charges a
+relayout too).
 
 On ``device="cpu"`` (asked for by name, never a fallback) the backend times
 the kernels' plain versions with ``perf_counter`` on a shrunken instance
@@ -45,6 +54,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import dispatch, ops
+from repro_torch.kernels.matmul import PLAIN_BLOCK_BYTES
 from repro_torch.tunedb.session import backend_fingerprint
 from repro_torch.tunedb.store import shape_key
 
@@ -58,6 +68,19 @@ OPERAND_SEED = 0                # seeds the timed operands' values
 
 
 SSD_FLOP_CHUNK = 256            # the chunk the SSD FLOP count is taken at
+
+# What one training draw may cost on the card, gate included (about a
+# second at most): the FLOPs of one call, the share of the card's free
+# memory the draw's tensors may hold at once, and for SSD the steps of the
+# gate's fp32 oracle.  That oracle (``ref.ssd_ref``) is a Python loop with
+# one step a time step, which no FLOP count bounds: about 0.25 ms a step
+# on the card's host, plus about as much again per 2**23 state elements
+# B·H·P·S (``tools/tune_draw_cost.py``, NVIDIA H100 80GB HBM3), so
+# :func:`ssd_oracle_steps` counts a step of a larger state as more.
+FLOP_BUDGET = 2.5e11
+MEM_SHARE = 0.5
+SSD_STEP_BUDGET = 4096
+SSD_STATE_PER_STEP = 1 << 23
 
 
 def problem_flops(space_name: str, inputs: Mapping[str, int]) -> float:
@@ -83,6 +106,134 @@ def problem_flops(space_name: str, inputs: Mapping[str, int]) -> float:
         return 2.0 * x["B"] * x["H"] * nc * (c * c * (P + S) + 2 * c * S * P
                                              + P * S)
     raise ValueError(f"no ported kernel for space {space_name!r}")
+
+
+def _io_dtype(inputs: Mapping[str, int]) -> torch.dtype:
+    return torch.bfloat16 if inputs["dtype_bits"] <= 16 else torch.float32
+
+
+def operand_specs(space_name: str, inputs: Mapping[str, int]
+                  ) -> List[Tuple[Tuple[int, ...], torch.dtype, str]]:
+    """(shape, dtype, kind) of every operand the timer passes to one call;
+    all count towards the bytes that must exceed the L2 (K and V, B and C
+    included).  A GEMM operand whose flag says transposed is stored so (A
+    as (K, M), B as (N, K)) and passed as its .t() view ("nt")."""
+    x, dtype = inputs, _io_dtype(inputs)
+    if space_name == "gemm":
+        return [((x["K"], x["M"]), dtype, "nt") if x.get("trans_a")
+                else ((x["M"], x["K"]), dtype, "n"),
+                ((x["N"], x["K"]), dtype, "nt") if x.get("trans_b")
+                else ((x["K"], x["N"]), dtype, "n")]
+    if space_name == "conv":
+        return [((x["N"], x["H"], x["W"], x["C"]), dtype, "n"),
+                ((x["R"], x["S"], x["C"], x["K"]), dtype, "n")]
+    if space_name == "attention":
+        kv = (x["B"], x["Hkv"], x["Lkv"], x["D"])
+        return [((x["B"], x["Hq"], x["Lq"], x["D"]), dtype, "n"),
+                (kv, dtype, "n"), (kv, dtype, "n")]
+    if space_name == "ssd":
+        bl = (x["B"], x["L"])
+        return [((*bl, x["H"], x["P"]), dtype, "n"),
+                ((*bl, x["H"]), dtype, "dt"),
+                ((x["H"],), torch.float32, "a"),
+                ((*bl, x["S"]), dtype, "n"),
+                ((*bl, x["S"]), dtype, "n")]
+    raise ValueError(f"no ported kernel for space {space_name!r}")
+
+
+def operand_copies(space_name: str, inputs: Mapping[str, int]) -> int:
+    """Operand sets the card's timer cycles through: enough that their
+    bytes exceed twice the L2, at most :data:`MAX_CALLS`."""
+    nbytes = sum(math.prod(s) * t.itemsize
+                 for s, t, _ in operand_specs(space_name, inputs))
+    return max(1, min(MAX_CALLS, math.ceil(2 * L2_BYTES / nbytes)))
+
+
+def footprint_bytes(space_name: str, inputs: Mapping[str, int]) -> int:
+    """Device bytes one labelled draw may hold at once on the card, summed
+    over its parts, each counted at its own peak: the timer's operand sets
+    and two calls' outputs and split partials; the gate's operands (drawn
+    in fp32), its fp32 oracle, its kernel run and its plain version, all at
+    the whole shape, under the config of the draw's shape that needs the
+    most (up to 8 GEMM or 16 conv split partials; K or C padded to the
+    split chunk, under 2K + 256 or 2C + 64).  Each part's peak was
+    measured per draw by ``tools/tune_draw_cost.py`` and this sum bounds
+    it."""
+    x = inputs
+    e = _io_dtype(x).itemsize
+    timer = operand_copies(space_name, x) * sum(
+        math.prod(s) * t.itemsize for s, t, _ in operand_specs(space_name, x))
+    if space_name == "gemm":
+        M, N, K = x["M"], x["N"], x["K"]
+        kp, mn = 2 * K + 256, M * N
+        ab, abp = M * K + K * N, M * kp + kp * N
+        parts = (8 * mn * (e + 4) + mn * (8 + e))     # one call's partials
+        # timer calls (the relayout of a transposed operand); the gate's
+        # draws, IO copies and oracle; the plain version's padded fp32
+        # copies and its block of rounded acc32=0 sub-dots
+        # (matmul.PLAIN_BLOCK_BYTES in fp32 and in the IO dtype)
+        total = (timer + 2 * (ab * e + parts) + ab * (8 + e) + 8 * mn
+                 + parts + 12 * abp
+                 + min(3 * PLAIN_BLOCK_BYTES // 2, (kp // 8) * mn * (4 + e))
+                 + 16 * mn * (4 + e))
+    elif space_name == "conv":
+        N, H, W, C, K, R, S = (x[k] for k in "NHWCKRS")
+        npq, cp, rs = N * H * W, 2 * C + 64, R * S
+        io = N * H * W * C + rs * C * K
+        parts = 16 * npq * K * (e + 4) + npq * K * (8 + e)
+        padded = N * (H + R) * (W + S) * cp
+        # timer calls; the gate's draws, IO copies and its oracle (an
+        # im2col of one image, fp32 copies of the operands, the output);
+        # the plain version: the padded input, every (r, s) window of it
+        # (a list, its stack and a split's slice), the padded filter, the
+        # windows' products
+        total = (timer + 2 * parts + io * (8 + e)
+                 + 4 * (padded + C * rs * H * W + 2 * npq * K) + parts
+                 + 4 * (2 * padded + 3 * rs * npq * cp + 2 * rs * cp * K
+                        + 2 * rs * npq * K) + rs * npq * K * e)
+    elif space_name == "attention":
+        B, Hq, Lq, D = x["B"], x["Hq"], x["Lq"], x["D"]
+        group = Hq // x["Hkv"]
+        q, kv = B * Hq * Lq * D, B * x["Hkv"] * x["Lkv"] * D
+        scores = min(dispatch.ORACLE_SCORE_BYTES // 4,
+                     B * group * Lq * x["Lkv"])
+        # q and the output (draw, plain accumulator, oracle); K and V; the
+        # oracle's repeated K/V of one head and its score blocks; the plain
+        # version's score block (b_kv <= 128) and repeated K/V block
+        total = timer + 4 * (8 * q + 4 * kv + 2 * B * group * x["Lkv"] * D
+                             + 4 * scores + 6 * B * Hq * Lq * 128
+                             + 2 * B * Hq * 128 * D)
+    elif space_name == "ssd":
+        B, L, H, P, S = (x[k] for k in ("B", "L", "H", "P", "S"))
+        # x and y (draws, padded copies, the per-step and per-chunk outputs
+        # and their stacks); dt, B and C; the plain version's chunk x chunk
+        # decay blocks (chunk <= 256); the state
+        total = timer + 4 * (8 * B * L * H * P + 4 * B * L * (H + 2 * S)
+                             + 4 * B * 256 * 256 * H + 2 * B * H * P * S)
+    else:
+        raise ValueError(f"no ported kernel for space {space_name!r}")
+    return int(total)
+
+
+def ssd_oracle_steps(inputs: Mapping[str, int]) -> float:
+    """The SSD gate oracle's time steps, each weighted by its state size:
+    L · (1 + B·H·P·S / :data:`SSD_STATE_PER_STEP`)."""
+    x = inputs
+    return x["L"] * (1 + x["B"] * x["H"] * x["P"] * x["S"]
+                     / SSD_STATE_PER_STEP)
+
+
+def draw_fits(space_name: str, inputs: Mapping[str, int],
+              free_bytes: int) -> bool:
+    """Can a training draw at ``inputs`` be labelled on a card with
+    ``free_bytes`` free: one call within :data:`FLOP_BUDGET`, its
+    :func:`footprint_bytes` within :data:`MEM_SHARE` of the free memory,
+    and for SSD the oracle's :func:`ssd_oracle_steps` within
+    :data:`SSD_STEP_BUDGET`."""
+    return (problem_flops(space_name, inputs) <= FLOP_BUDGET
+            and footprint_bytes(space_name, inputs) <= MEM_SHARE * free_bytes
+            and (space_name != "ssd"
+                 or ssd_oracle_steps(inputs) <= SSD_STEP_BUDGET))
 
 
 def _cfg_key(cfg: Mapping[str, int]) -> Tuple[Tuple[str, int], ...]:
@@ -138,46 +289,37 @@ class CudaEventBackend:
         if self._operands[0] == key:
             return self._operands[1]
         self._operands = ((), [])               # free the last shape first
-        dtype = torch.bfloat16 if inputs["dtype_bits"] <= 16 \
-            else torch.float32
-        x = inputs
-        # (shape, dtype, kind) of every operand; all count towards the bytes
-        # that must exceed the L2 (K and V, B and C included)
-        if space_name == "gemm":
-            operands = [((x["M"], x["K"]), dtype, "n"),
-                        ((x["K"], x["N"]), dtype, "n")]
-        elif space_name == "conv":
-            operands = [((x["N"], x["H"], x["W"], x["C"]), dtype, "n"),
-                        ((x["R"], x["S"], x["C"], x["K"]), dtype, "n")]
-        elif space_name == "attention":
-            kv = (x["B"], x["Hkv"], x["Lkv"], x["D"])
-            operands = [((x["B"], x["Hq"], x["Lq"], x["D"]), dtype, "n"),
-                        (kv, dtype, "n"), (kv, dtype, "n")]
-        else:
-            bl = (x["B"], x["L"])
-            operands = [((*bl, x["H"], x["P"]), dtype, "n"),
-                        ((*bl, x["H"]), dtype, "dt"),
-                        ((x["H"],), torch.float32, "a"),
-                        ((*bl, x["S"]), dtype, "n"),
-                        ((*bl, x["S"]), dtype, "n")]
-        nbytes = sum(math.prod(s) * t.itemsize for s, t, _ in operands)
+        operands = operand_specs(space_name, inputs)
         copies = 1 if self.device.type == "cpu" else \
-            max(1, min(MAX_CALLS, math.ceil(2 * L2_BYTES / nbytes)))
+            operand_copies(space_name, inputs)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(OPERAND_SEED)
         stacks = []
-        for shape, t, kind in operands:
-            if kind == "n":
+        for shape, t, kind in operands:    # drawn in their own dtype
+            if kind in ("n", "nt"):
                 v = torch.randn((copies, *shape), generator=gen,
-                                device=self.device)
+                                device=self.device, dtype=t)
             else:       # SSD: dt in [0.01, 0.1), a in (-2, -0.5]
                 v = torch.rand((copies, *shape), generator=gen,
-                               device=self.device)
+                               device=self.device, dtype=t)
                 v = 0.01 + 0.09 * v if kind == "dt" else -(0.5 + 1.5 * v)
-            stacks.append(v.to(t))
-        sets = [tuple(st[c] for st in stacks) for c in range(copies)]
+            stacks.append(v)
+        del v
+        sets = [tuple(st[c].t() if kind == "nt" else st[c]
+                      for st, (_, _, kind) in zip(stacks, operands))
+                for c in range(copies)]
         self._operands = (key, sets)
         return sets
+
+    def fits(self, space_name: str, inputs: Mapping[str, int]) -> bool:
+        """Can a training draw at ``inputs`` be labelled here within the
+        per-call budgets (:func:`draw_fits`, against the card's free memory
+        now)?  The CPU backend labels a shrunken instance and refuses
+        nothing."""
+        if self.device.type == "cpu":
+            return True
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return draw_fits(space_name, inputs, free)
 
     # -- timing --------------------------------------------------------------
     def _time_cpu_ms(self, fn: Callable[[int], Any]) -> float:
@@ -305,6 +447,9 @@ class CheckedBackend:
                                   device=self.timer.device,
                                   cases=self._cases)
         self._passed.add(key)
+
+    def fits(self, space_name: str, inputs: Mapping[str, int]) -> bool:
+        return self.timer.fits(space_name, inputs)
 
     def measure(self, space_name: str, cfg: Mapping[str, int],
                 inputs: Mapping[str, int]) -> float:

@@ -9,13 +9,17 @@ the labels come from whatever backend the caller passes (the port's
 ``CudaEventBackend`` times the kernels on the card); there is no default,
 since the port has no simulated speed model.  A draw that the correctness
 gate rejects (``ConfigRejected``) is passed over, as an illegal one is.
+A workload draw the backend cannot label within its per-call budgets (its
+``fits``, where it has one: on the card, a call or a footprint too large)
+is dropped from the pool and drawn again; a backend that refuses nothing
+(the CPU's) gets the reference's pool, draw for draw.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -67,6 +71,26 @@ class Dataset:
                        tflops=self.tflops[idx])
 
 
+MAX_POOL_ROUNDS = 1000      # redraws before a pool that will not fill fails
+
+
+def workload_pool(space: ParamSpace, n: int, rng: np.random.Generator,
+                  fits: Optional[Callable[[str, Mapping[str, int]], bool]]
+                  = None) -> List[Dict[str, int]]:
+    """``n`` draws of :func:`workload_inputs` that ``fits(space, inputs)``
+    accepts: a refused draw is dropped and the missing ones are drawn
+    again from the same ``rng``.  Without ``fits``, or where it accepts
+    every draw, this is ``workload_inputs(space, n, rng)`` itself."""
+    pool: List[Dict[str, int]] = []
+    for _ in range(MAX_POOL_ROUNDS):
+        pool += [x for x in workload_inputs(space, n - len(pool), rng)
+                 if fits is None or fits(space.name, x)]
+        if len(pool) == n:
+            return pool
+    raise RuntimeError(f"{space.name}: {len(pool)} of {n} workload draws fit "
+                       f"the backend after {MAX_POOL_ROUNDS} rounds")
+
+
 def generate_dataset(space: ParamSpace, n_samples: int, *,
                      backend: Any,
                      sampler: Optional[CategoricalSampler] = None,
@@ -76,7 +100,8 @@ def generate_dataset(space: ParamSpace, n_samples: int, *,
                      verbose: bool = False) -> Tuple[Dataset, CategoricalSampler]:
     """End-to-end §4: fit the generative model, draw legal pairs, label them."""
     rng = np.random.default_rng(seed)
-    inputs_pool = workload_inputs(space, n_workloads, rng)
+    inputs_pool = workload_pool(space, n_workloads, rng,
+                                getattr(backend, "fits", None))
 
     if sampler is None:
         sampler = CategoricalSampler(space=space)

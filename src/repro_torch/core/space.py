@@ -21,8 +21,11 @@ GEMM:
 Conv (SAME, stride 1, NHWC input, RSCK filter; implicit GEMM over
 (N*P*Q) x K outputs, reduced over C*R*S):
 
-  b_npq       output pixels per CTA tile (flattened n, p, q); same 16 x 16
-              thread grid, each thread owns (b_npq/16) x (b_k/16) outputs
+  b_npq       output pixels per CTA tile (flattened n, p, q).  bf16: warps
+              sized to the tile, each on a min(b_npq, 32) x (b_k, or b_k/2
+              from 64 up) block of mma.sync fragments (1 warp at 16 x 16,
+              8 at 128 x 128).  fp32: the 16 x 16 CUDA-core thread grid,
+              each thread (b_npq/16) x (b_k/16) outputs
   b_k         output channels per CTA tile
   b_c         input channels of one (r, s) window's sub-dot
   rs_unroll   (r, s) windows one shared-memory stage holds
@@ -72,11 +75,18 @@ from typing import Callable, Dict, Iterable, List, Mapping, Tuple
 # ---------------------------------------------------------------------------
 SMEM_PER_BLOCK = 232_448        # max dynamic shared memory (after opt-in)
 SMEM_DEFAULT = 48 * 1024        # above this the launcher opts in
-# the kernel always runs 256 threads (16 x 16), so a thread may hold up to
-# 255 registers and the block still fits the SM's 65,536
+# every kernel's CTA runs at most 256 threads (the GEMM's and the fp32
+# bodies' 16 x 16 grid; the bf16 conv and attention bodies size their warps
+# to the tile, 1 to 8 warps), so a thread may hold up to 255 registers and
+# the block still fits the SM's 65,536
 MAX_REGS_PER_THREAD = 255
 GEMM_REG_OVERHEAD = 40          # addressing / loop registers, estimated
-CONV_REG_OVERHEAD = 48          # conv adds the window and halo arithmetic
+# conv (both bodies): addressing, the window and halo arithmetic and, in
+# bf16, the rounding temporaries; fitted to the ptxas -v report so that the
+# estimate bounds every instantiation and equals it at the 128 x 128 tile
+# (fp32 165 registers; bf16 164, and 228 with acc32=0)
+CONV_REG_OVERHEAD = 85
+CONV_MMA_REG_OVERHEAD = 88
 
 Config = Dict[str, int]
 
@@ -209,19 +219,46 @@ def conv_out_shape(inputs: Mapping[str, int]) -> Tuple[int, int]:
     return inputs["H"], inputs["W"]
 
 
+def conv_mma_pitch(n: int) -> int:
+    """Row pitch (elements) of a bf16 conv stage row of ``n`` elements: an
+    odd number of 16-byte units, so an ldmatrix phase's eight rows hit
+    distinct banks (``mma_pitch`` in ``conv.cu``)."""
+    return n if (n // 8) % 2 else n + 8
+
+
 def conv_smem_bytes(cfg: Mapping[str, int], dtype_bits: int) -> int:
     """Dynamic shared memory of one CTA: ``prefetch`` stages of
-    ``rs_unroll`` windows (input tile + filter tile each), plus the tile's
-    (n, p, q) row table (three ints per output pixel)."""
+    ``rs_unroll`` windows (input tile + filter tile each; bf16 rows padded
+    by :func:`conv_mma_pitch`), plus the tile's row table (p, q and a
+    64-bit offset per output pixel: 16 bytes)."""
     bpe = dtype_bits // 8
-    window = cfg["b_npq"] * cfg["b_c"] + cfg["b_c"] * cfg["b_k"]
+    b_c, b_k = cfg["b_c"], cfg["b_k"]
+    if dtype_bits == 16:
+        pa, pf = conv_mma_pitch(b_c), conv_mma_pitch(b_k)
+    else:
+        pa, pf = b_c, b_k
+    window = cfg["b_npq"] * pa + b_c * pf
     return cfg["prefetch"] * cfg["rs_unroll"] * window * bpe \
-        + 12 * cfg["b_npq"]
+        + 16 * cfg["b_npq"]
 
 
-def conv_regs_per_thread(cfg: Mapping[str, int]) -> int:
-    """Estimated registers, as for the GEMM: accumulators (doubled for the
-    acc32=0 sub-dot), one input column and one filter row fragment."""
+def conv_warp_tile(cfg: Mapping[str, int]) -> Tuple[int, int]:
+    """(rows, columns) of the output block one warp of the bf16 body owns
+    (``MmaTile`` in ``conv.cu``)."""
+    return min(cfg["b_npq"], 32), cfg["b_k"] if cfg["b_k"] < 64 \
+        else cfg["b_k"] // 2
+
+
+def conv_regs_per_thread(cfg: Mapping[str, int], dtype_bits: int) -> int:
+    """Estimated registers.  bf16: the warp block's fp32 accumulator
+    fragments (doubled for the acc32=0 sub-dot), the A fragments of one
+    k-step and one B pair, plus overhead.  fp32, as for the GEMM:
+    accumulators (doubled for acc32=0), one input column and one filter
+    row fragment."""
+    if dtype_bits == 16:
+        wm, wn = conv_warp_tile(cfg)
+        acc = wm * wn // 32 * (1 if cfg["acc32"] else 2)
+        return acc + wm // 16 * 4 + 4 + CONV_MMA_REG_OVERHEAD
     tm, tn = cfg["b_npq"] // 16, cfg["b_k"] // 16
     acc = tm * tn * (1 if cfg["acc32"] else 2)
     return acc + tm + tn + CONV_REG_OVERHEAD
@@ -235,7 +272,7 @@ def conv_fits(cfg: Mapping[str, int], dtype_bits: int) -> bool:
         return False
     if conv_smem_bytes(cfg, dtype_bits) > SMEM_PER_BLOCK:
         return False
-    if conv_regs_per_thread(cfg) > MAX_REGS_PER_THREAD:
+    if conv_regs_per_thread(cfg, dtype_bits) > MAX_REGS_PER_THREAD:
         return False
     if dtype_bits == 32 and not cfg["acc32"]:
         return False

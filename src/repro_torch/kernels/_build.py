@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
 ``<repo>/build/kernels/lib<name>-<hash>.so`` at first use; the hash covers
-the source and the flags, so an edited kernel rebuilds and an unchanged one
-loads from disk.  :func:`build` compiles several sources at once, one
-``nvcc`` process per source, all started together, and keeps each build's
-``ptxas -v`` report beside its library (:func:`ptxas_usage` reads it).
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+kernel or header rebuilds and an unchanged one loads from disk.
+:func:`build` compiles several sources at once, one ``nvcc`` process per
+source, all started together, and keeps each build's ``ptxas -v`` report
+beside its library (:func:`ptxas_usage` reads it).
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
 """
@@ -52,8 +53,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -78,9 +78,12 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "mma.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace mma;
 
 constexpr int kMaxSmem = 232448;  // dynamic shared memory opt-in limit
 constexpr float kNegInf = -1e30f;
@@ -149,33 +152,6 @@ template <int BQ, int BKV, int DM> size_t mma_smem_bytes(int stages) {
   const size_t merge =
       S::kSplit > 1 ? (size_t)S::kWarps * 16 * (DM + 4 + 2) * sizeof(float) : 0;
   return (size_t)BQ * row + (ring > merge ? ring : merge);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // Fragment layout of m16n8k16 (lane = 4*g + t4): an A or C fragment holds

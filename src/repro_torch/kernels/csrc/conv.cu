@@ -30,23 +30,42 @@
 // most 227 KB of shared memory.  So each CTA stages only what its output
 // tile needs for `rs_unroll` windows at a time.
 //
-// Design: 256 threads as a 16 x 16 grid; each thread owns (b_npq/16) x
-// (b_k/16) outputs in registers, as in gemm.cu.  A shared-memory stage holds
-// `rs_unroll` windows, each a (b_npq x b_c) input tile and a (b_c x b_k)
-// filter tile; stages stream through a ring of `prefetch` buffers filled
-// with 16-byte cp.async copies (zero-filled past the edges).  Input rows of
-// a channel count that is not a multiple of 16 bytes (C=1 in Conv1 of
-// DeepBench) and filter rows of such a K (K=174, K=87) fall back to element
-// loads.  The tile's (n, p, q) coordinates are decoded once into a row
-// table in shared memory.
+// Staging (both bodies): a shared-memory stage holds `rs_unroll` windows,
+// each a (b_npq x b_c) input tile (channels fastest) and a (b_c x b_k)
+// filter tile (output channels fastest); stages stream through a ring of
+// `prefetch` buffers filled with 16-byte cp.async copies (zero-filled past
+// the edges).  Input rows of a channel count that is not a multiple of 16
+// bytes (C=1 in Conv1 of DeepBench) and filter rows of such a K (K=174,
+// K=87) fall back to element loads.  The tile's output pixels are decoded
+// once into a row table in shared memory: p, q and the offset m*C of pixel
+// m itself, which a window's shift (dr, ds) moves by (dr*W + ds)*C.
+//
+// bf16: tensor cores.  The CTA's warps are sized to its tile: each warp
+// owns a (16 or 32) x (16, 32 or 64) block of the output (1 warp for a
+// 16 x 16 tile, 8 for 128 x 128) and runs the window's sub-dot as
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, the input tile as
+// the row-major A through ldmatrix.x4 and the filter tile as the col-major
+// B through ldmatrix.x4.trans.  A slab of b_c = 8 channels is one
+// m16n8k8 product (ldmatrix.x2 / .x2.trans): no zero-filled half k-step.
+// Stage rows are padded to an odd number of 16-byte units, so the eight
+// rows one ldmatrix phase reads hit distinct banks.  The fp32 accumulator
+// fragments stay in registers; with acc32=0 a second fragment of the same
+// positions takes each window's sub-dot (complete in fp32 once the window's
+// k-steps are done), which is rounded to bf16 and added into the running
+// sum, itself rounded again -- all in registers.
+//
+// fp32 (a checking dtype: every tune target runs bf16): the CUDA-core body
+// of the first version, 256 threads as a 16 x 16 grid, each thread owning
+// (b_npq/16) x (b_k/16) outputs, FMAs from unpadded stage rows.  TF32 would
+// change its numbers.
 //
 // What bounds it on this card: the Table 5 convolutions do 2*C*R*S FLOPs
 // per output and reuse every input element R*S*K times, so at full size
 // they sit far above the ~295 FLOP/byte ridge of an H100 in bf16: they are
-// bound by operations.  This first version does its arithmetic as CUDA-core
-// FMAs from shared memory (at most 67 TFLOP/s of fp32 FMA on an H100 SXM,
-// against 989 TFLOP/s of bf16 tensor cores); mma.sync / wgmma and a TMA
-// im2col tensor map are later work.
+// bound by operations, which the mma.sync body brings onto the tensor
+// cores.  What is left: wgmma (warpgroup products from shared-memory
+// descriptors) and a TMA im2col tensor map in place of the cp.async
+// gathers.  A C=1 input (Conv1) fills one channel of each 8-deep k-step.
 //
 // Built by kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -57,23 +76,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSmem = 232448;  // dynamic shared memory opt-in limit
+using bf16 = __nv_bfloat16;
+using namespace mma;
+
+constexpr int kSimtThreads = 256;   // the fp32 body's 16 x 16 thread grid
+constexpr int kMaxSmem = 232448;    // dynamic shared memory opt-in limit
 constexpr int kNoRow = -(1 << 28);  // row-table marker: past N*H*W
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
 
 // round a float to the IO dtype and back
 template <typename T> __device__ __forceinline__ float round_io(float x) {
@@ -108,110 +130,294 @@ struct Problem {
   int vec_i, vec_f;    // 16-byte copies possible for input / filter rows
 };
 
+// Row pitch, in bf16 elements, of a bf16 stage row of n elements: an odd
+// number of 16-byte units (n + 8 where n / 8 is even), so the eight rows an
+// ldmatrix phase reads start in eight distinct bank groups.
+__host__ __device__ constexpr int mma_pitch(int n) { return (n / 8) % 2 ? n : n + 8; }
+
 // Load stage `t` (C slab t / groups, window group t % groups) of this CTA:
-// for each of the group's windows, the (BM x bc) input tile and the
-// (bc x BN) filter tile.  Out-of-range elements are zero.
-template <typename T, int BM, int BN>
+// for each of the group's windows, the (BM x bc) input tile (rows of pitch
+// pa) and the (bc x BN) filter tile (rows of pitch pf).  Out-of-range
+// elements are zero.  bc is a power of 2, so a copy's row and column are
+// shifts and masks, and the row table holds each output pixel's p, q and
+// m*C (no division per copy).
+template <typename T, int BM, int BN, int NTHREADS>
 __device__ __forceinline__ void load_stage(T* st, const T* __restrict__ I,
                                            const T* __restrict__ F, const Problem& pb,
-                                           const int* rn, const int* rp, const int* rq, int n0,
-                                           int cbase, int t) {
+                                           const long long* rb, const int* rp, const int* rq,
+                                           int n0, int cbase, int t, int pa, int pf) {
   constexpr int V = 16 / sizeof(T);  // elements per 16-byte copy
   const int tid = threadIdx.x;
   const int bc = pb.bc;
   const int c0 = cbase + (t / pb.groups) * bc;
   const int rs0 = (t % pb.groups) * pb.ru;
-  const int win_elems = BM * bc + bc * BN;
+  const int win_elems = BM * pa + bc * pf;
   for (int u = 0; u < pb.ru; ++u) {
     const int rs = rs0 + u;
     if (rs >= pb.R * pb.S) break;  // the compute loop stops there too
-    const int r = rs / pb.S, s = rs % pb.S;
+    const int dr = rs / pb.S - pb.pt, ds = rs % pb.S - pb.pl;  // the window's shift
+    // output pixel m = (n, p, q) reads input pixel (n, p + dr, q + ds), which
+    // lies (dr*W + ds)*C elements past m*C
+    const long long shift = ((long long)dr * pb.W + ds) * pb.C + c0;
     T* As = st + u * win_elems;
-    T* Bs = As + BM * bc;
+    T* Bs = As + BM * pa;
     // input tile: output pixel (n, p, q) reads input pixel
     // (n, p + r - pt, q + s - pl), channels [c0, c0 + bc)
     if (pb.vec_i) {
-      const int cpr = bc / V;
-      for (int c = tid; c < BM * cpr; c += kThreads) {
-        const int row = c / cpr, cc = (c % cpr) * V;
-        const int ip = rp[row] + r - pb.pt, iq = rq[row] + s - pb.pl;
-        const int gc = c0 + cc;
-        const bool ok = ip >= 0 && ip < pb.H && iq >= 0 && iq < pb.W && gc < pb.C;
-        const T* src = ok ? I + (((size_t)rn[row] * pb.H + ip) * pb.W + iq) * pb.C + gc : I;
-        cp_async16(As + row * bc + cc, src, ok);
+      const int lg = __ffs(bc / V) - 1;  // log2 of the 16-byte chunks a row
+      for (int c = tid; c < (BM << lg); c += NTHREADS) {
+        const int row = c >> lg, cc = (c & ((1 << lg) - 1)) * V;
+        const int ip = rp[row] + dr, iq = rq[row] + ds;
+        const bool ok = (unsigned)ip < (unsigned)pb.H && (unsigned)iq < (unsigned)pb.W &&
+                        c0 + cc < pb.C;
+        cp_async16(As + row * pa + cc, ok ? I + rb[row] + shift + cc : I, ok);
       }
     } else {
-      for (int e = tid; e < BM * bc; e += kThreads) {
-        const int row = e / bc, cc = e % bc;
-        const int ip = rp[row] + r - pb.pt, iq = rq[row] + s - pb.pl;
-        const int gc = c0 + cc;
-        const bool ok = ip >= 0 && ip < pb.H && iq >= 0 && iq < pb.W && gc < pb.C;
-        As[e] = ok ? I[(((size_t)rn[row] * pb.H + ip) * pb.W + iq) * pb.C + gc] : from_f<T>(0.f);
+      const int lgc = __ffs(bc) - 1;
+      for (int e = tid; e < (BM << lgc); e += NTHREADS) {
+        const int row = e >> lgc, cc = e & (bc - 1);
+        const int ip = rp[row] + dr, iq = rq[row] + ds;
+        const bool ok = (unsigned)ip < (unsigned)pb.H && (unsigned)iq < (unsigned)pb.W &&
+                        c0 + cc < pb.C;
+        As[row * pa + cc] = ok ? I[rb[row] + shift + cc] : from_f<T>(0.f);
       }
     }
     // filter tile: F[r, s, c0 + kk, n0 + nn]
     const T* Frs = F + (size_t)rs * pb.C * pb.K;
     if (pb.vec_f) {
       constexpr int cpr = BN / V;
-      for (int c = tid; c < bc * cpr; c += kThreads) {
+      for (int c = tid; c < bc * cpr; c += NTHREADS) {
         const int kk = c / cpr, nc = (c % cpr) * V;
         const int gc = c0 + kk, gk = n0 + nc;
         const bool ok = gc < pb.C && gk < pb.K;
-        cp_async16(Bs + kk * BN + nc, ok ? Frs + (size_t)gc * pb.K + gk : F, ok);
+        cp_async16(Bs + kk * pf + nc, ok ? Frs + (size_t)gc * pb.K + gk : F, ok);
       }
     } else {
-      for (int e = tid; e < bc * BN; e += kThreads) {
+      for (int e = tid; e < bc * BN; e += NTHREADS) {
         const int kk = e / BN, nn = e % BN;
         const int gc = c0 + kk, gk = n0 + nn;
-        Bs[e] = (gc < pb.C && gk < pb.K) ? Frs[(size_t)gc * pb.K + gk] : from_f<T>(0.f);
+        Bs[kk * pf + nn] = (gc < pb.C && gk < pb.K) ? Frs[(size_t)gc * pb.K + gk] : from_f<T>(0.f);
       }
     }
   }
 }
 
+// Decode the tile's output pixels once; rows past N*H*W never match a
+// valid input pixel, so they load zeros.
+template <int BM, int NTHREADS>
+__device__ __forceinline__ void fill_row_table(long long* rb, int* rp, int* rq, int m0,
+                                               const Problem& pb) {
+  for (int row = threadIdx.x; row < BM; row += NTHREADS) {
+    const int m = m0 + row;
+    if (m < pb.npq) {
+      rq[row] = m % pb.W;
+      rp[row] = (m / pb.W) % pb.H;
+      rb[row] = (long long)m * pb.C;
+    } else {
+      rb[row] = 0;
+      rp[row] = kNoRow;
+      rq[row] = 0;
+    }
+  }
+}
+
+// (tile row, tile column) of this CTA under the `order` raster
+__device__ __forceinline__ int2 tile_of(int BM, int BN, const Problem& pb, int order) {
+  const int gm = (pb.npq + BM - 1) / BM, gn = (pb.K + BN - 1) / BN;
+  const int tile = blockIdx.x;
+  if (order == 0) return make_int2(tile / gn, tile % gn);
+  return make_int2(tile % gm, tile / gm);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: mma.sync tensor cores
+// ---------------------------------------------------------------------------
+
+// Warps sized to the CTA tile: a warp owns kWM x kWN outputs, kMT x kNT
+// m16n8 fragments.
+template <int BM, int BN> struct MmaTile {
+  static constexpr int kWM = BM < 32 ? BM : 32;
+  static constexpr int kWarpsM = BM / kWM;          // 1, 1, 2, 4
+  static constexpr int kWarpsN = BN < 64 ? 1 : 2;
+  static constexpr int kWN = BN / kWarpsN;          // 16, 32, 32, 64
+  static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+  static constexpr int kMT = kWM / 16;
+  static constexpr int kNT = kWN / 8;
+  static constexpr int kPF = mma_pitch(BN);        // filter-tile row pitch
+};
+
+// c += this warp's block of one window's sub-dot: As (rows of pitch pa) is
+// the (BM x bc) input tile, Bs (rows of pitch pf) the (bc x BN) filter
+// tile; the warp's block starts at row wm0, column wn0.  Fragment layout of
+// m16n8k16 (lane = 4*g + t4): an A fragment holds rows g and g+8; C element
+// e of n-tile j is (row g + 8*(e/2), column 8j + 2*t4 + e%2).
+template <int MT, int NT>
+__device__ __forceinline__ void window_dot(float (&c)[MT][NT][4], const bf16* As, const bf16* Bs,
+                                           int bc, int pa, int pf, int wm0, int wn0, int lane) {
+  if (bc == 8) {  // one m16n8k8 step
+    uint32_t a[MT][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) ldsm_x2(a[i], As + (wm0 + 16 * i + (lane & 15)) * pa);
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      uint32_t b[2];
+      ldsm_x2_trans(b, Bs + (lane & 7) * pf + wn0 + 16 * jp + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16_k8(c[i][2 * jp], a[i], b[0]);
+        mma_bf16_k8(c[i][2 * jp + 1], a[i], b[1]);
+      }
+    }
+    return;
+  }
+  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8, b_col = (lane >> 4) * 8;
+  for (int kk = 0; kk < bc; kk += 16) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      ldsm_x4(a[i], As + (wm0 + 16 * i + (lane & 15)) * pa + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, Bs + (kk + b_row) * pf + wn0 + 16 * jp + b_col);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16(c[i][2 * jp], a[i], b[0], b[1]);
+        mma_bf16(c[i][2 * jp + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// One CTA per SM in the launch bounds: without it ptxas capped some
+// instantiations at 64 registers and spilled.
+template <int BM, int BN, bool ACC32>
+__global__ void __launch_bounds__(MmaTile<BM, BN>::kThreads, 1)
+    conv_mma_kernel(const bf16* __restrict__ I, const bf16* __restrict__ F,
+                    bf16* __restrict__ O, Problem pb, int stages, int order) {
+  using Tl = MmaTile<BM, BN>;
+  constexpr int kThreads = Tl::kThreads, MT = Tl::kMT, NT = Tl::kNT, PF = Tl::kPF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int bc = pb.bc, pa = mma_pitch(bc);
+  const int win = BM * pa + bc * PF;
+  const int stage_elems = pb.ru * win;
+  long long* rb = reinterpret_cast<long long*>(smem + (size_t)stages * stage_elems);
+  int* rp = reinterpret_cast<int*>(rb + BM);
+  int* rq = rp + BM;
+
+  const int2 tl = tile_of(BM, BN, pb, order);
+  const int m0 = tl.x * BM, n0 = tl.y * BN;
+  const int split = blockIdx.z;
+  const int cbase = split * pb.cps * pb.bc;
+  const int n_tiles = pb.cps * pb.groups;  // stages this split walks
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm0 = (warp / Tl::kWarpsN) * Tl::kWM, wn0 = (warp % Tl::kWarpsN) * Tl::kWN;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  fill_row_table<BM, kThreads>(rb, rp, rq, m0, pb);
+  __syncthreads();
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  // prologue: stages-1 tiles in flight
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < n_tiles)
+      load_stage<bf16, BM, BN, kThreads>(smem + s * stage_elems, I, F, pb, rb, rp, rq, n0, cbase,
+                                         s, pa, PF);
+    cp_async_commit();
+  }
+
+  const int rs_total = pb.R * pb.S;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int nt = t + stages - 1;
+    if (nt < n_tiles)
+      load_stage<bf16, BM, BN, kThreads>(smem + (nt % stages) * stage_elems, I, F, pb, rb, rp, rq,
+                                         n0, cbase, nt, pa, PF);
+    cp_async_commit();
+    cp_async_wait(stages - 1);
+    __syncthreads();
+
+    const bf16* st = smem + (t % stages) * stage_elems;
+    const int rs0 = (t % pb.groups) * pb.ru;
+    for (int u = 0; u < pb.ru && rs0 + u < rs_total; ++u) {
+      const bf16* As = st + u * win;
+      const bf16* Bs = As + BM * pa;
+      if constexpr (ACC32) {
+        window_dot<MT, NT>(acc, As, Bs, bc, pa, PF, wm0, wn0, lane);
+      } else {
+        float sub[MT][NT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) sub[i][j][0] = sub[i][j][1] = sub[i][j][2] = sub[i][j][3] = 0.f;
+        window_dot<MT, NT>(sub, As, Bs, bc, pa, PF, wm0, wn0, lane);
+        // the window's fp32 sub-dot is complete: round it, add, round again
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][j][e] = round_io<bf16>(acc[i][j][e] + round_io<bf16>(sub[i][j][e]));
+      }
+    }
+    __syncthreads();  // the stage is refilled by a later iteration
+  }
+
+  // epilogue: two adjacent columns a store where K keeps them 4-byte aligned
+  bf16* Os = O + (size_t)split * pb.npq * pb.K;
+  const bool pairs = (pb.K % 2) == 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm0 + 16 * i + g + 8 * h;
+      if (m >= pb.npq) continue;
+      bf16* orow = Os + (size_t)m * pb.K;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int k = n0 + wn0 + 8 * j + 2 * t4;
+        const float lo = acc[i][j][2 * h], hi = acc[i][j][2 * h + 1];
+        if (pairs && k + 1 < pb.K) {
+          *reinterpret_cast<uint32_t*>(orow + k) = pack_bf16(lo, hi);
+        } else {
+          if (k < pb.K) orow[k] = __float2bfloat16_rn(lo);
+          if (k + 1 < pb.K) orow[k + 1] = __float2bfloat16_rn(hi);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: the CUDA-core body
+// ---------------------------------------------------------------------------
+
 template <typename T, int BM, int BN, bool ACC32>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSimtThreads, 1)
     conv_kernel(const T* __restrict__ I, const T* __restrict__ F, T* __restrict__ O, Problem pb,
                 int stages, int order) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   constexpr int TM = BM / 16, TN = BN / 16;
   const int stage_elems = pb.ru * (BM * pb.bc + pb.bc * BN);
-  int* rn = reinterpret_cast<int*>(smem + (size_t)stages * stage_elems);
-  int* rp = rn + BM;
+  long long* rb = reinterpret_cast<long long*>(smem + (size_t)stages * stage_elems);
+  int* rp = reinterpret_cast<int*>(rb + BM);
   int* rq = rp + BM;
 
-  const int gm = (pb.npq + BM - 1) / BM, gn = (pb.K + BN - 1) / BN;
-  const int tile = blockIdx.x;
-  int tm, tn;
-  if (order == 0) {
-    tm = tile / gn;
-    tn = tile % gn;
-  } else {
-    tn = tile / gm;
-    tm = tile % gm;
-  }
-  const int m0 = tm * BM, n0 = tn * BN;
+  const int2 tl = tile_of(BM, BN, pb, order);
+  const int m0 = tl.x * BM, n0 = tl.y * BN;
   const int split = blockIdx.z;
   const int cbase = split * pb.cps * pb.bc;
   const int n_tiles = pb.cps * pb.groups;  // stages this split walks
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  // decode the tile's output pixels once; rows past N*H*W never match a
-  // valid input pixel, so they load zeros
-  for (int row = threadIdx.x; row < BM; row += kThreads) {
-    const int m = m0 + row;
-    if (m < pb.npq) {
-      rq[row] = m % pb.W;
-      const int nh = m / pb.W;
-      rp[row] = nh % pb.H;
-      rn[row] = nh / pb.H;
-    } else {
-      rn[row] = 0;
-      rp[row] = kNoRow;
-      rq[row] = 0;
-    }
-  }
+  fill_row_table<BM, kSimtThreads>(rb, rp, rq, m0, pb);
   __syncthreads();
 
   float acc[TM][TN];
@@ -222,7 +428,9 @@ __global__ void __launch_bounds__(kThreads)
 
   // prologue: stages-1 tiles in flight
   for (int s = 0; s < stages - 1; ++s) {
-    if (s < n_tiles) load_stage<T, BM, BN>(smem + s * stage_elems, I, F, pb, rn, rp, rq, n0, cbase, s);
+    if (s < n_tiles)
+      load_stage<T, BM, BN, kSimtThreads>(smem + s * stage_elems, I, F, pb, rb, rp, rq, n0, cbase,
+                                          s, pb.bc, BN);
     cp_async_commit();
   }
 
@@ -231,7 +439,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_tiles; ++t) {
     const int nt = t + stages - 1;
     if (nt < n_tiles)
-      load_stage<T, BM, BN>(smem + (nt % stages) * stage_elems, I, F, pb, rn, rp, rq, n0, cbase, nt);
+      load_stage<T, BM, BN, kSimtThreads>(smem + (nt % stages) * stage_elems, I, F, pb, rb, rp,
+                                          rq, n0, cbase, nt, pb.bc, BN);
     cp_async_commit();
     cp_async_wait(stages - 1);
     __syncthreads();
@@ -290,25 +499,47 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
 template <typename T, int BM, int BN, bool ACC32>
 int launch(const void* I, const void* F, void* O, const Problem& pb, int c_split, int order,
            int prefetch, cudaStream_t stream) {
-  auto kernel = conv_kernel<T, BM, BN, ACC32>;
-  static bool opted_in = false;  // one opt-in per instantiation
-  if (!opted_in) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in = true;
-  }
-  const size_t smem = (size_t)prefetch * pb.ru * (BM * pb.bc + pb.bc * BN) * sizeof(T) +
-                      3 * BM * sizeof(int);
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+  // bf16 rows are padded for ldmatrix; fp32 rows are not
+  const int pa = kMma ? mma_pitch(pb.bc) : pb.bc;
+  const int pf = kMma ? MmaTile<BM, BN>::kPF : BN;
+  const int threads = kMma ? MmaTile<BM, BN>::kThreads : kSimtThreads;
+  const size_t smem = (size_t)prefetch * pb.ru * (BM * pa + pb.bc * pf) * sizeof(T) +
+                      BM * (sizeof(long long) + 2 * sizeof(int));
   if (smem > (size_t)kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const long long gm = (pb.npq + BM - 1) / BM, gn = (pb.K + BN - 1) / BN;
   if (gm * gn > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(static_cast<unsigned>(gm * gn), 1, c_split);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(I), static_cast<const T*>(F),
-                                           static_cast<T*>(O), pb, prefetch, order);
+  static bool opted_in = false;  // one opt-in per instantiation
+  if constexpr (kMma) {
+    auto kernel = conv_mma_kernel<BM, BN, ACC32>;
+    if (!opted_in) {
+      cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      opted_in = true;
+    }
+    kernel<<<grid, threads, smem, stream>>>(static_cast<const bf16*>(I),
+                                            static_cast<const bf16*>(F), static_cast<bf16*>(O),
+                                            pb, prefetch, order);
+  } else {
+    auto kernel = conv_kernel<T, BM, BN, ACC32>;
+    if (!opted_in) {
+      cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      opted_in = true;
+    }
+    kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(I), static_cast<const T*>(F),
+                                            static_cast<T*>(O), pb, prefetch, order);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,8 +585,8 @@ extern "C" int conv_launch(const void* I, const void* F, void* O, int N, int H, 
                            int K, int R, int S, int dtype, int b_npq, int b_k, int b_c,
                            int rs_unroll, int c_split, int acc32, int order, int prefetch,
                            void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || K <= 0 || R <= 0 || S <= 0 || b_c <= 0 ||
-      b_c % 8 || rs_unroll <= 0 || c_split <= 0 || c_split > 65535 || prefetch < 1 ||
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || K <= 0 || R <= 0 || S <= 0 || b_c < 8 ||
+      (b_c & (b_c - 1)) || rs_unroll <= 0 || c_split <= 0 || c_split > 65535 || prefetch < 1 ||
       prefetch > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long npq = (long long)N * H * W;
@@ -381,9 +612,8 @@ extern "C" int conv_launch(const void* I, const void* F, void* O, int N, int H, 
   pb.vec_f = (K % V == 0) && (reinterpret_cast<uintptr_t>(F) % 16 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (acc32)
-      return launch_bm<__nv_bfloat16, true>(b_npq, b_k, I, F, O, pb, c_split, order, prefetch, s);
-    return launch_bm<__nv_bfloat16, false>(b_npq, b_k, I, F, O, pb, c_split, order, prefetch, s);
+    if (acc32) return launch_bm<bf16, true>(b_npq, b_k, I, F, O, pb, c_split, order, prefetch, s);
+    return launch_bm<bf16, false>(b_npq, b_k, I, F, O, pb, c_split, order, prefetch, s);
   }
   if (dtype == 1 && acc32)
     return launch_bm<float, true>(b_npq, b_k, I, F, O, pb, c_split, order, prefetch, s);

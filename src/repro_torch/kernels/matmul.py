@@ -24,6 +24,10 @@ launches = 0
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
+# fp32 bytes of rounded acc32=0 sub-dots the plain version forms at once
+# (all of them would take K/bk*k_unroll * M*N words: 8 GB at M=N=K=3186)
+PLAIN_BLOCK_BYTES = 1 << 30
+
 
 def _check(a: torch.Tensor, b: torch.Tensor, cfg: Mapping[str, int]) -> None:
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -78,7 +82,8 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, cfg: Mapping[str, int]
     K-range ``[s*kps*bk, (s+1)*kps*bk)``.  ``acc32=1``: fp32 sum, one cast.
     ``acc32=0``: each sub-dot of ``bk / k_unroll`` elements is summed in
     fp32 and rounded to the IO dtype, then added to the running sum, which
-    is rounded again.
+    is rounded again; the sub-dots are formed at most
+    :data:`PLAIN_BLOCK_BYTES` of fp32 at a time (at least one per split).
     """
     M, K = a.shape
     N = b.shape[1]
@@ -95,8 +100,11 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, cfg: Mapping[str, int]
     n_sub = Kp // (ks * sub)                                  # per split
     a4 = af.reshape(M, ks, n_sub, sub).permute(1, 2, 0, 3)    # (ks,S,M,sub)
     b4 = bf.reshape(ks, n_sub, sub, N)                        # (ks,S,sub,N)
-    subs = torch.matmul(a4, b4).to(a.dtype)                   # rounded sub-dots
     acc = torch.zeros((ks, M, N), dtype=a.dtype, device=a.device)
-    for j in range(n_sub):
-        acc = (acc.float() + subs[:, j].float()).to(a.dtype)
+    step = max(1, PLAIN_BLOCK_BYTES // (4 * ks * M * N))
+    for j0 in range(0, n_sub, step):
+        subs = torch.matmul(a4[:, j0:j0 + step],
+                            b4[:, j0:j0 + step]).to(a.dtype)  # rounded
+        for j in range(subs.shape[1]):
+            acc = (acc.float() + subs[:, j].float()).to(a.dtype)
     return acc

@@ -67,11 +67,16 @@ def shrink_gemm_cfg(cfg: Mapping[str, int], M: int, N: int, K: int
 
 def matmul(a: torch.Tensor, b: torch.Tensor,
            cfg: Optional[Mapping[str, int]] = None) -> torch.Tensor:
-    """C = A @ B through the parameterised GEMM."""
+    """C = A @ B through the parameterised GEMM.  An operand in another
+    layout (a transposed view, A stored (K, M) or B stored (N, K)) is made
+    row-major first, since the kernel reads row-major operands only: that
+    copy is the relayout a transposed operand costs (the reference takes
+    any layout, as JAX arrays have none).  Contiguous operands, as serving
+    passes them, go through as they are."""
     M, K = a.shape
     N = b.shape[1]
     cfg = shrink_gemm_cfg(cfg or {}, M, N, K)
-    parts = _matmul.gemm(a, b, cfg)
+    parts = _matmul.gemm(a.contiguous(), b.contiguous(), cfg)
     if cfg["k_split"] == 1:
         return parts[0]
     return parts.float().sum(dim=0).to(a.dtype)

@@ -19,13 +19,18 @@ def same_padding(R: int, S: int) -> tuple:
 def conv2d_ref(i: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """SAME-padded stride-1 conv.  i (N,H,W,C), f (R,S,C,K) -> (N,H,W,K).
 
-    Full fp32 on any device: cuDNN's TF32 is switched off for the call.
+    Full fp32 on any device.  cuDNN is switched off for the call: on the
+    card PyTorch's own im2col of one image at a time and fp32 GEMM compute
+    it (no TF32 unless ``torch.backends.cuda.matmul.allow_tf32`` is set),
+    in memory that follows the shape; cuDNN takes whatever workspace its
+    first heuristic choice asks for (14 GB for a 50 MB fp32 input on an
+    H100, tools/tune_draw_cost.py).
     """
     pt, pb, pl, pr = same_padding(f.shape[0], f.shape[1])
     x = torch.nn.functional.pad(i.float().permute(0, 3, 1, 2),
                                 (pl, pr, pt, pb))
     w = f.float().permute(3, 2, 0, 1)                       # (K, C, R, S)
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    with torch.backends.cudnn.flags(enabled=False):
         out = torch.nn.functional.conv2d(x, w)
     return out.permute(0, 2, 3, 1).to(i.dtype)
 

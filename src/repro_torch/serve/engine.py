@@ -7,10 +7,18 @@ positions, and finished requests (EOS or length budget) free their slot.
 Inactive slots decode too, on token 0 at position 0, and their output is
 discarded — the batch keeps one shape, as in the reference.
 
-PyTorch runs eagerly, so the reference's ``jax.jit`` programs and its
-trace-time telemetry capture have no counterpart here.  Retuning, routing,
-admission policies, deadlines, tracing and the status endpoint are not
-ported yet.
+On CUDA each decode tick replays one captured CUDA graph, the port's
+counterpart of the reference's ``jax.jit`` of ``decode_step``: the tick is
+captured once for the engine's fixed (slots, max_len) batch, with static
+token and position buffers that are filled before each replay, and
+dispatch resolves every config at capture, as the reference's does at
+trace time.  A new store generation (``serving_state().generation``)
+forces a re-capture.  Prefill stays eager (prompt lengths vary), and so
+does every tick on the CPU.  A capture or replay that fails raises; it
+never falls back to the eager tick, which stays a method
+(:meth:`Engine.decode_eager`) for comparison.  The reference's trace-time
+telemetry capture, retuning, routing, admission policies, deadlines,
+tracing and the status endpoint are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import ModelConfig, decode_step, init_cache, prefill
-from repro_torch.tunedb.store import RecordStore, install_store
+from repro_torch.tunedb.store import RecordStore, install_store, serving_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +88,16 @@ class Engine:
         self._gen.manual_seed(serve_cfg.seed)
         self.ticks = 0
         self.prefills = 0
+        # the decode graph (CUDA), its static inputs and output, and the
+        # store generation its configs were resolved under
+        self.captures = 0
+        self.replays = 0
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_gen = -1
+        self._static: Optional[Tuple[torch.Tensor, ...]] = None
+        # the tick generate runs: the graph on CUDA, eager on the CPU
+        self.decode = (self.decode_graph if self.device.type == "cuda"
+                       else self.decode_eager)
         cap = serve_cfg.tick_times_cap
         self.tick_times: Deque[Tuple[float, float]] = collections.deque(
             maxlen=cap if cap > 0 else None)
@@ -108,6 +126,47 @@ class Engine:
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0].cpu(
             ).numpy()
 
+    # -- decode tick -------------------------------------------------------------
+    def decode_eager(self, last: torch.Tensor, idx: torch.Tensor
+                     ) -> torch.Tensor:
+        """One decode tick, op by op: last (slots, 1) tokens at positions
+        idx (slots,) -> logits (slots, V)."""
+        return decode_step(self.params, self.cfg, last, self.cache, idx)[0]
+
+    def decode_graph(self, last: torch.Tensor, idx: torch.Tensor
+                     ) -> torch.Tensor:
+        """The same tick replayed from a CUDA graph.  The returned logits
+        are the graph's static output: read them before the next tick."""
+        gen = serving_state().generation
+        if self._graph is None or self._graph_gen != gen:
+            self._capture(last, idx)
+            self._graph_gen = gen
+        s_last, s_idx, logits = self._static
+        s_last.copy_(last)
+        s_idx.copy_(idx)
+        self._graph.replay()
+        self.replays += 1
+        return logits
+
+    def _capture(self, last: torch.Tensor, idx: torch.Tensor) -> None:
+        """Capture :meth:`decode_eager` on static buffers holding this
+        tick's inputs.  One eager warm-up on a side stream first (lazy
+        library state must exist before capture); it writes this tick's
+        K/V rows, which the replay then writes again with the same
+        values."""
+        self._graph = self._static = None
+        s_last, s_idx = last.clone(), idx.clone()
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.decode_eager(s_last, s_idx)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits = self.decode_eager(s_last, s_idx)
+        self._graph, self._static = graph, (s_last, s_idx, logits)
+        self.captures += 1
+
     # -- main loop --------------------------------------------------------------
     def generate(self, prompts: List[np.ndarray], max_new: int = 32
                  ) -> List[List[int]]:
@@ -134,8 +193,7 @@ class Engine:
                 device=self.device)
             idx = torch.as_tensor(self.lengths, dtype=torch.long,
                                   device=self.device)
-            logits, _ = decode_step(self.params, self.cfg, last, self.cache,
-                                    idx)
+            logits = self.decode(last, idx)
             toks = self._sample(logits[:, : self.cfg.vocab])
             self.ticks += 1
 

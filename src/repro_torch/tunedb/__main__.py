@@ -20,15 +20,15 @@
 ``dtype_bits`` (16), ``trans_a``/``trans_b`` (0) and ``causal`` (1).
 
 The training draws come from the reference's ``workload_inputs``
-distribution whatever the ``--shape``s are.  For attention and SSD on the
-card that distribution does not fit: it draws attention up to B=64,
-Hq=64, Lq=Lkv=32768, D=256 (q alone 68.7 GB in bf16; with k and v past
-the card's 80 GB) and SSD up to B=64, L=65536; the first eight attention
-draws of seed 0 include calls of 3e13-7e13 FLOPs, seconds each with this
-kernel before the correctness gate's plain version and oracle run at the
-same size.  So these two spaces are tuned on the card from draws around
-the model's shapes (``chip_smoke.py`` does so with the library's pieces),
-and with this CLI on the CPU (``--device cpu``: shrunken instances).
+distribution whatever the ``--shape``s are.  That distribution reaches
+past the card (attention up to B=64, Hq=64, Lq=Lkv=32768, D=256: q alone
+68.7 GB in bf16; SSD up to B=64, L=65536; conv calls of petaFLOPs), so on
+the card a draw whose call exceeds ``core.backend.FLOP_BUDGET``, whose
+tensors, the correctness gate's plain version and fp32 oracle included,
+exceed ``MEM_SHARE`` of the free device memory, or (SSD) whose gate oracle
+exceeds ``SSD_STEP_BUDGET`` sequential steps is dropped and drawn again
+(``CudaEventBackend.fits``); the CPU backend refuses nothing, so there
+the draws are the reference's.
 
 The records carry ``backend_fingerprint`` of the timing backend, which
 names the package, the backend class and the device (not ``--seed``, which

@@ -147,13 +147,22 @@ def test_split_partials_follow_the_reference_channel_boundaries():
 def test_conv_space_legality_follows_smem_and_registers():
     big = {"b_npq": 128, "b_k": 128, "b_c": 64, "rs_unroll": 4, "c_split": 1,
            "order": 0, "acc32": 1, "prefetch": 3}
-    assert conv_smem_bytes(big, 16) == 3 * 4 * (128 * 64 + 64 * 128) * 2 \
-        + 12 * 128
+    # bf16 stage rows are padded to an odd number of 16-byte units (b_c=64
+    # -> 72 elements, b_k=128 -> 136); fp32 rows are not
+    assert conv_smem_bytes(big, 16) == 3 * 4 * (128 * 72 + 64 * 136) * 2 \
+        + 16 * 128
+    assert conv_smem_bytes(big, 32) == 3 * 4 * (128 * 64 + 64 * 128) * 4 \
+        + 16 * 128
+    assert conv_smem_bytes({**big, "b_c": 8}, 16) == \
+        3 * 4 * (128 * 8 + 8 * 136) * 2 + 16 * 128
     assert conv_smem_bytes(big, 16) > SMEM_PER_BLOCK
     assert not conv_fits(big, 16)
     fits = {**big, "rs_unroll": 1, "prefetch": 2}
     assert conv_smem_bytes(fits, 32) <= SMEM_PER_BLOCK and conv_fits(fits, 32)
-    assert conv_regs_per_thread({**fits, "acc32": 0}) == 128 + 16 + 48
+    assert conv_regs_per_thread(fits, 32) == 64 + 16 + 85
+    # bf16: a warp owns 32 x 64 of a 128 x 128 tile, 64 fp32 accumulators
+    # a thread (128 with the acc32=0 sub-dot), fitted to ptxas -v
+    assert conv_regs_per_thread({**fits, "acc32": 0}, 16) == 128 + 12 + 88
     # fp32 IO needs the fp32 accumulator
     assert not conv_fits({**fits, "acc32": 0}, 32)
     # every config the space calls launchable obeys both limits
@@ -161,7 +170,7 @@ def test_conv_space_legality_follows_smem_and_registers():
         for bits in (16, 32):
             if conv_fits(cfg, bits):
                 assert conv_smem_bytes(cfg, bits) <= SMEM_PER_BLOCK
-                assert conv_regs_per_thread(cfg) <= 255
+                assert conv_regs_per_thread(cfg, bits) <= 255
 
 
 def test_conv_space_rejects_tiles_larger_than_the_problem():

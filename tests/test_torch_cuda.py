@@ -66,13 +66,22 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     assert torch.equal(out, torch.full_like(out, 576.0))
 
 
-# (N, H, W, C, K, R, S): Table 5's C=1 / 5x20, K=174, and a ragged one
+# (N, H, W, C, K, R, S): Table 5's C=1 / 5x20, K=174 and K=87 (element
+# loads of the filter rows, odd output rows), and a ragged one
 CONV_SHAPES = [(16, 79, 341, 1, 32, 5, 20), (16, 128, 39, 64, 174, 5, 5),
-               (3, 5, 7, 20, 24, 4, 2)]
+               (16, 256, 19, 128, 87, 5, 5), (3, 5, 7, 20, 24, 4, 2)]
+# the bf16 body's cases: b_c=8 (one m16n8k8 step a window), acc32=0, the
+# smallest (16 x 16, one warp) and the largest (128 x 128, 8 warps) tiles
 CONV_CONFIGS = [
     dict(tops.DEFAULT_CONV),
     {"b_npq": 128, "b_k": 32, "b_c": 8, "rs_unroll": 4, "c_split": 2,
      "order": 1, "acc32": 0, "prefetch": 3},
+    {"b_npq": 16, "b_k": 16, "b_c": 16, "rs_unroll": 2, "c_split": 1,
+     "order": 0, "acc32": 0, "prefetch": 2},
+    {"b_npq": 128, "b_k": 128, "b_c": 64, "rs_unroll": 1, "c_split": 1,
+     "order": 1, "acc32": 1, "prefetch": 2},
+    {"b_npq": 128, "b_k": 128, "b_c": 8, "rs_unroll": 2, "c_split": 1,
+     "order": 0, "acc32": 0, "prefetch": 3},
 ]
 
 
@@ -227,3 +236,67 @@ def test_backend_times_attention_and_ssd_behind_the_gate(cuda):
     assert backend.measure("ssd", dict(tops.DEFAULT_SSD),
                            ssd_input(1, 512, 16, 64, 128)) > 0
     assert kattention.launches > a0 and kssd.launches > s0
+
+
+def test_graph_decode_tokens_equal_the_eager_tick(cuda):
+    """The engine serves decode ticks from one captured CUDA graph; the
+    same requests through its eager tick give the same greedy tokens."""
+    import numpy as np
+
+    from repro_torch.configs import smollm_135m
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tunedb.store import clear_store
+
+    clear_store()
+    cfg = smollm_135m.SMOKE
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 9, 3, 12, 7)]
+    eng = Engine(cfg, params, ServeConfig(max_len=64, slots=3), device=cuda)
+    graph = eng.generate(prompts, max_new=8)
+    assert eng.captures == 1 and eng.replays == eng.ticks > 0
+    again = eng.generate(prompts, max_new=8)          # no re-capture
+    assert eng.captures == 1 and again == graph
+    eager = Engine(cfg, params, ServeConfig(max_len=64, slots=3),
+                   device=cuda)
+    eager.decode = eager.decode_eager
+    assert eager.generate(prompts, max_new=8) == graph
+    assert eager.captures == 0
+
+
+@pytest.mark.parametrize("name", ["gemm", "conv", "attention", "ssd"])
+def test_largest_accepted_draws_peak_inside_their_footprint(cuda, name):
+    """The card's draw budget counts enough memory: the two draws of the
+    tuning CLI's pool (seed 0, 512 draws, the card's ``fits``) with the
+    largest ``footprint_bytes``, labelled through the gate and the timer
+    under their legal config with the most split partials, peak below
+    it."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.core.backend import footprint_bytes
+    from repro_torch.core.dataset import workload_pool
+    from repro_torch.core.space import SPACES, ConfigRejected
+
+    space = SPACES[name]
+    fits = CudaEventBackend(device=cuda).fits
+    pool = workload_pool(space, 512, np.random.default_rng(0), fits)
+    for x in sorted(pool, key=lambda x: footprint_bytes(name, x))[-2:]:
+        cfg = max(space.enumerate_legal(x),
+                  key=lambda c: c.get("k_split", c.get("c_split", 1)))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        backend = CheckedBackend(CudaEventBackend(device=cuda))
+        try:
+            backend.measure(name, cfg, x)
+        except ConfigRejected:
+            pass                    # the gate ran: its peak still counts
+        peak = torch.cuda.max_memory_allocated() - base
+        del backend
+        assert peak <= footprint_bytes(name, x), (x, cfg, peak)

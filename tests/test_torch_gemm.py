@@ -162,3 +162,70 @@ def test_a_k_cut_to_512_hides_the_drift_of_the_full_reduction():
         want = tref.matmul_ref(a.float(), b.float())
         errs.append(float((got - want).abs().max() / want.abs().max()))
     assert errs[0] <= 2e-2 < errs[1], errs
+
+
+# -- transposed operands: what the trans_a / trans_b labels time ---------------
+
+@pytest.mark.parametrize("trans_a,trans_b", [(0, 1), (1, 0), (1, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_takes_transposed_views(trans_a, trans_b, dtype):
+    """``ops.matmul`` on A stored (K, M) or B stored (N, K), passed as
+    ``.t()`` views, equals ``matmul_ref`` on the logical operands."""
+    M, N, K = 17, 130, 300
+    rng = np.random.default_rng(trans_a + 2 * trans_b)
+    a = rng.normal(size=(M, K)).astype(np.float32)
+    b = (rng.normal(size=(K, N)) / K ** 0.5).astype(np.float32)
+    td = getattr(torch, dtype)
+    ta, tb = torch.from_numpy(a).to(td), torch.from_numpy(b).to(td)
+    va = ta.t().contiguous().t() if trans_a else ta
+    vb = tb.t().contiguous().t() if trans_b else tb
+    assert va.is_contiguous() == (not trans_a)
+    assert vb.is_contiguous() == (not trans_b)
+    got = tops.matmul(va, vb, {"k_split": 2})
+    want = tref.matmul_ref(ta, tb)
+    assert got.shape == (M, N)
+    assert _rel(got.float().numpy(), want.float().numpy()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("trans_a,trans_b", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_backend_operands_have_the_layout_the_flags_say(trans_a, trans_b):
+    from repro_torch.core.backend import CudaEventBackend
+    be = CudaEventBackend(device="cpu")
+    x = gemm_input(24, 40, 56, 16, trans_a, trans_b)
+    (a, b), = be._operand_sets("gemm", x)
+    assert a.shape == (24, 56) and b.shape == (56, 40)
+    # row-major (K, M) storage seen as (M, K): strides (1, M)
+    assert a.stride() == ((1, 24) if trans_a else (56, 1))
+    assert b.stride() == ((1, 56) if trans_b else (40, 1))
+
+
+def test_gated_timed_transposed_sample_goes_through_checked_backend():
+    """A ``trans_a=1, trans_b=1`` sample is gated (on the logical product)
+    and timed on the CPU through ``CheckedBackend``, its operands stored
+    transposed."""
+    from repro_torch.core.backend import CheckedBackend, CudaEventBackend
+    be = CheckedBackend(CudaEventBackend(device="cpu"))
+    x = gemm_input(48, 80, 96, 16, True, True)
+    cfg = {"bm": 32, "bn": 32, "bk": 32, "k_unroll": 1, "k_split": 2,
+           "order": 0, "acc32": 1, "prefetch": 2}
+    assert be.measure("gemm", cfg, x) > 0
+    assert be.time_us("gemm", cfg, x) > 0
+    (a, b), = be.timer._operand_sets("gemm", x)
+    assert not a.is_contiguous() and not b.is_contiguous()
+
+
+@pytest.mark.parametrize("block_subs", [1, 3])
+def test_plain_acc32_0_forms_its_sub_dots_in_blocks(monkeypatch, block_subs):
+    """The plain version's rounded sub-dots, formed a bounded block at a
+    time, give the very bits they gave all at once."""
+    rng = np.random.default_rng(4)
+    M, N, K = 24, 40, 448
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    cfg = {**tops.DEFAULT_GEMM, "bk": 64, "k_unroll": 2, "k_split": 2,
+           "acc32": 0}
+    whole = kmatmul.matmul_plain(a, b, cfg)
+    monkeypatch.setattr(kmatmul, "PLAIN_BLOCK_BYTES",
+                        block_subs * 4 * cfg["k_split"] * M * N)
+    assert torch.equal(kmatmul.matmul_plain(a, b, cfg), whole)

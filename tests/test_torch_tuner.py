@@ -288,3 +288,112 @@ def test_tuner_loop_for_attention_and_ssd_on_the_cpu(name, inputs, tmp_path):
     rec = store.get(name, inputs, backend=backend_fingerprint(backend))
     assert rec is not None and rec.config == cfg and rec.tflops > 0
     assert "device=cpu" in rec.backend
+
+
+# -- the card's per-draw budgets (the CPU backend refuses nothing) -------------
+
+def test_draw_budget_refuses_just_past_the_flop_budget():
+    from repro_torch.core.backend import FLOP_BUDGET, draw_fits
+    free = 80e9
+    # 2 * 5000^3 = 2.5e11 FLOPs: exactly the budget
+    assert FLOP_BUDGET == 2.5e11
+    inside = {"M": 5000, "N": 5000, "K": 5000, "dtype_bits": 16,
+              "trans_a": 0, "trans_b": 0}
+    assert draw_fits("gemm", inside, free)
+    assert not draw_fits("gemm", {**inside, "K": 5001}, free)
+    attn = {"B": 1, "Hq": 8, "Hkv": 8, "Lq": 4096, "Lkv": 4096, "D": 128,
+            "dtype_bits": 16, "causal": 0}          # 4*8*4096^2*128 = 6.9e10
+    assert draw_fits("attention", attn, free)
+    assert not draw_fits("attention", {**attn, "Hq": 32, "Hkv": 8}, free)
+
+
+@pytest.mark.parametrize("name,inputs", [
+    ("attention", {"B": 2, "Hq": 8, "Hkv": 2, "Lq": 128, "Lkv": 8192,
+                   "D": 64, "dtype_bits": 16, "causal": 1}),
+    ("ssd", {"B": 4, "L": 2048, "H": 16, "P": 64, "S": 64,
+             "dtype_bits": 16}),
+    ("conv", {"N": 8, "H": 54, "W": 54, "C": 64, "K": 64, "R": 3, "S": 3,
+              "dtype_bits": 16}),
+    ("gemm", {"M": 4096, "N": 4096, "K": 64, "dtype_bits": 32,
+              "trans_a": 1, "trans_b": 0}),
+])
+def test_draw_budget_refuses_just_past_the_memory_share(name, inputs):
+    from repro_torch.core.backend import (MEM_SHARE, draw_fits,
+                                          footprint_bytes)
+    need = footprint_bytes(name, inputs)
+    assert need > 0
+    just = int(need / MEM_SHARE) + 1
+    assert draw_fits(name, inputs, just)
+    assert not draw_fits(name, inputs, just - int(2 / MEM_SHARE))
+
+
+def test_draw_budget_refuses_just_past_the_ssd_oracle_steps():
+    """The SSD gate oracle's steps, weighted by the state size, are held
+    to their own budget whatever the FLOPs and the memory."""
+    from repro_torch.core.backend import (SSD_STATE_PER_STEP,
+                                          SSD_STEP_BUDGET, draw_fits,
+                                          ssd_oracle_steps)
+    free = 80e9
+    assert SSD_STEP_BUDGET == 4096 and SSD_STATE_PER_STEP == 1 << 23
+    # B*H*P*S = 2**23: each step counts twice, so L = 2048 is the budget
+    big = {"B": 8, "L": 2048, "H": 16, "P": 256, "S": 256, "dtype_bits": 16}
+    assert ssd_oracle_steps(big) == 4096
+    assert draw_fits("ssd", big, free)
+    assert not draw_fits("ssd", {**big, "L": 2049}, free)
+    # a small state: about one step a time step
+    small = {"B": 1, "L": 4080, "H": 16, "P": 32, "S": 64, "dtype_bits": 16}
+    assert 4080 < ssd_oracle_steps(small) <= 4096
+    assert draw_fits("ssd", small, free)
+    assert not draw_fits("ssd", {**small, "L": 4090}, free)
+    # the budget is SSD's alone: an attention draw of the same L passes
+    attn = {"B": 1, "Hq": 8, "Hkv": 8, "Lq": 1, "Lkv": 65536, "D": 64,
+            "dtype_bits": 16, "causal": 1}
+    assert draw_fits("attention", attn, free)
+
+
+def test_draw_budget_on_an_80gb_card():
+    """The reference's largest draws are refused, the targets the port
+    tunes on the card are not."""
+    from repro_torch.core.backend import draw_fits
+    free = 79e9
+    huge_attn = {"B": 64, "Hq": 64, "Hkv": 8, "Lq": 32768, "Lkv": 32768,
+                 "D": 256, "dtype_bits": 16, "causal": 1}
+    huge_conv = {"N": 32, "H": 128, "W": 256, "C": 1024, "K": 2048, "R": 5,
+                 "S": 20, "dtype_bits": 16}
+    huge_ssd = {"B": 64, "L": 65536, "H": 64, "P": 128, "S": 256,
+                "dtype_bits": 16}
+    for name, x in (("attention", huge_attn), ("conv", huge_conv),
+                    ("ssd", huge_ssd)):
+        assert not draw_fits(name, x, free)
+    smollm_decode = {"B": 4, "Hq": 9, "Hkv": 3, "Lq": 1, "Lkv": 256,
+                     "D": 64, "dtype_bits": 16, "causal": 1}
+    qwen_prefill = {"B": 1, "Hq": 40, "Hkv": 8, "Lq": 4096, "Lkv": 4096,
+                    "D": 128, "dtype_bits": 16, "causal": 1}
+    mamba_layer = {"B": 1, "L": 2048, "H": 64, "P": 64, "S": 128,
+                   "dtype_bits": 16}
+    conv11 = {"N": 16, "H": 128, "W": 39, "C": 64, "K": 174, "R": 5,
+              "S": 5, "dtype_bits": 16}
+    for name, x in (("attention", smollm_decode), ("attention", qwen_prefill),
+                    ("ssd", mamba_layer), ("conv", conv11)):
+        assert draw_fits(name, x, free)
+
+
+@pytest.mark.parametrize("name", ["gemm", "conv", "attention", "ssd"])
+def test_cpu_backend_keeps_the_reference_pool(name):
+    """On the CPU nothing is refused: the pool is the reference's
+    ``workload_inputs`` draw for draw, and the draws after it match too."""
+    from repro_torch.core.backend import CudaEventBackend
+    be = CudaEventBackend(device="cpu")
+    space = port_space(name)
+    trng, jrng = np.random.default_rng(3), np.random.default_rng(3)
+    got = tdataset.workload_pool(space, 64, trng, be.fits)
+    want = jgenerative.workload_inputs(jspace.SPACES[name], 64, jrng)
+    assert got == [dict(x) for x in want]
+    assert trng.integers(1 << 30) == jrng.integers(1 << 30)
+
+
+def test_refused_draws_are_drawn_again():
+    space = port_space("attention")
+    fits = lambda s, x: x["B"] * x["Lq"] * x["Lkv"] <= 1 << 22
+    pool = tdataset.workload_pool(space, 32, np.random.default_rng(0), fits)
+    assert len(pool) == 32 and all(fits("attention", x) for x in pool)
