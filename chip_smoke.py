@@ -9,10 +9,14 @@ exits non-zero:
   1. device     the card's name and ``nvidia-smi`` name / power limit
   2. build      every CUDA kernel (gemm.cu, conv.cu, attention.cu, ssd.cu)
                 from ``csrc/``, one nvcc per source, in parallel; the
-                ``ptxas -v`` report: no attention or conv kernel that a
-                legal config launches spills
-  3. gemm       the GEMM kernel against its plain version (and the fp32
-                oracle) at the serving path's shapes, several configs
+                ``ptxas -v`` report: no GEMM, attention or conv kernel that
+                a legal config launches spills
+  3. gemm       the GEMM kernel against its plain version (and the reduced
+                result against the fp32 oracle) at the serving path's
+                shapes, two ragged unaligned ones (M=5 and 130) and Table
+                4's LINPACK 512, under configs that cover every bf16 warp
+                layout (bm x bn) and acc32=0; the split-K reduction pass
+                against its plain version (bf16 within one ulp)
   4. conv       the conv kernel against its plain version (and the fp32
                 oracle) at the paper's 14 Table 5 shapes, full size (C=1,
                 K=174 and K=87 among them), under configs that cover b_c=8,
@@ -40,10 +44,16 @@ exits non-zero:
                 (GEMM, conv) or the ops default's (attention, SSD), the
                 plain version, the library call the port never makes
                 (``torch.matmul``; ``F.conv2d`` channels-last on cuDNN;
-                SDPA) and the bound max(bytes/HBM, FLOPs/peak); for
-                attention also the achieved TFLOP/s (prefill) or GB/s
-                (decode), the share of the bound, and the tuned config's
-                registers and spills
+                SDPA) and the bound max(bytes/HBM, FLOPs/peak); for the
+                GEMM also the kernel alone and the split-K reduction pass
+                alone beside ``ops.matmul``; for attention also the
+                achieved TFLOP/s (prefill) or GB/s (decode), the share of
+                the bound, and the tuned config's registers and spills
+                gemm-table4: the paper's 17 Table 4 GEMMs in bf16 under the
+                vendor heuristic's config (a transposed A or B as a
+                transposed view, so its relayout is timed), against
+                ``torch.matmul`` and the bound, with TFLOP/s; printed, not
+                held (the results are held to the fp32 oracle)
   9. serve      SmolLM-135M at full width (30 layers, bf16, random weights
                 from a seed) through ``Engine.generate`` from the tuned store,
                 each decode tick replayed from the engine's CUDA graph; the
@@ -51,12 +61,15 @@ exits non-zero:
                 projection's GEMM config on the exact tier and the decode KV
                 split count from the tuned attention record; then the same
                 requests with the eager tick: the same greedy tokens, tok/s
-                and median tick of both
+                and median tick of both; the traced graph run's GEMM kernels
+                number 210 x (prefills + replays), its reduction passes one
+                per split-K projection of each prefill and replay
  10. model      prefill + 4 decode steps through the kernel path and again
                 through the plain path on the card; logits must agree
  11. profile    a decode tick: eager wall time, host enqueue time, and the
                 device time of the same tick replayed from a CUDA graph
- 12. kernels    one JSON line summarising every ported kernel
+ 12. kernels    one JSON line summarising every hand-written kernel (the
+                four ported TPU kernels and the GEMM's split-K reduction)
 
 Each path (tune, serve) runs with every launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails.
@@ -98,7 +111,7 @@ from repro_torch.core.space import (ATTENTION_SPACE, CONV_SPACE,  # noqa: E402
                                     GEMM_SPACE, SSD_SPACE, ConfigRejected,
                                     attention_fits, attention_head_tile,
                                     attention_input, conv_fits, conv_input,
-                                    gemm_input, ssd_input)
+                                    gemm_fits, gemm_input, ssd_input)
 from repro_torch.core.tuner import InputAwareTuner  # noqa: E402
 from repro_torch.kernels import _build, dispatch, ops  # noqa: E402
 from repro_torch.kernels import attention as kattention  # noqa: E402
@@ -119,8 +132,11 @@ SLICE_NK = {(576, 576): 2, (192, 576): 2, (1536, 576): 2, (576, 1536): 1}
 SLICE_M = (4, 32)                  # decode (4 slots) and prefill (32 tokens)
 GEMMS_PER_LAYER = sum(SLICE_NK.values())
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+REDUCE_TOL_FP32 = 1e-6
 LOGIT_TOL = 3e-2
 
+# every bf16 warp layout (bm x bn: 1 warp at 16 x 32 to 8 at 128 x 128),
+# acc32=0 with sub-dots of 64 elements, k_unroll up to 4, every k_split
 CHECK_CONFIGS = {
     "default": dict(ops.DEFAULT_GEMM),
     "k_split=2": {"bm": 32, "bn": 64, "bk": 64, "k_unroll": 1, "k_split": 2,
@@ -132,7 +148,53 @@ CHECK_CONFIGS = {
                            "prefetch": 2},
     "order=1": {"bm": 64, "bn": 32, "bk": 64, "k_unroll": 4, "k_split": 2,
                 "order": 1, "acc32": 1, "prefetch": 1},
+    "16x32,acc32=0": {"bm": 16, "bn": 32, "bk": 128, "k_unroll": 2,
+                      "k_split": 1, "order": 0, "acc32": 0, "prefetch": 2},
+    "16x128,k_split=8": {"bm": 16, "bn": 128, "bk": 64, "k_unroll": 2,
+                         "k_split": 8, "order": 1, "acc32": 1,
+                         "prefetch": 3},
+    "32x32,acc32=0,k_split=2": {"bm": 32, "bn": 32, "bk": 64, "k_unroll": 1,
+                                "k_split": 2, "order": 1, "acc32": 0,
+                                "prefetch": 3},
+    "64x64,acc32=0": {"bm": 64, "bn": 64, "bk": 128, "k_unroll": 2,
+                      "k_split": 1, "order": 0, "acc32": 0, "prefetch": 2},
+    "64x128,bk=32": {"bm": 64, "bn": 128, "bk": 32, "k_unroll": 1,
+                     "k_split": 4, "order": 0, "acc32": 1, "prefetch": 3},
+    "128x32,acc32=0,k_split=2": {"bm": 128, "bn": 32, "bk": 64,
+                                 "k_unroll": 1, "k_split": 2, "order": 1,
+                                 "acc32": 0, "prefetch": 2},
+    "128x64,acc32=0,bk=256": {"bm": 128, "bn": 64, "bk": 256, "k_unroll": 4,
+                              "k_split": 1, "order": 0, "acc32": 0,
+                              "prefetch": 1},
+    "128x128,acc32=0": {"bm": 128, "bn": 128, "bk": 128, "k_unroll": 2,
+                        "k_split": 1, "order": 1, "acc32": 0, "prefetch": 3},
 }
+# the GEMM check's shapes beyond the serving path's: ragged and unaligned
+# (K and N not multiples of 8: element loads), small and large M; and
+# Table 4's LINPACK 512 (no tile shrinks there)
+GEMM_EXTRA_SHAPES = [(5, 100, 300), (130, 100, 300), (512, 512, 512)]
+
+# the paper's Table 4: (M, N, K, trans_a, trans_b, suite)
+# (benchmarks/bench_gemm.py)
+TABLE4 = [
+    (512, 512, 512, 0, 1, "LINPACK"),
+    (1024, 1024, 1024, 0, 1, "LINPACK"),
+    (2048, 2048, 2048, 0, 1, "LINPACK"),
+    (2560, 16, 2560, 0, 0, "DeepBench-F"),
+    (2560, 32, 2560, 0, 0, "DeepBench-F"),
+    (2560, 64, 2560, 0, 0, "DeepBench-F"),
+    (2560, 128, 2560, 0, 0, "DeepBench-F"),
+    (2560, 16, 2560, 1, 0, "DeepBench-B"),
+    (2560, 32, 2560, 1, 0, "DeepBench-B"),
+    (2560, 64, 2560, 1, 0, "DeepBench-B"),
+    (2560, 128, 2560, 1, 0, "DeepBench-B"),
+    (32, 32, 60000, 0, 1, "ICA"),
+    (64, 64, 60000, 0, 1, "ICA"),
+    (256, 256, 60000, 0, 1, "ICA"),
+    (4096, 4096, 32, 0, 1, "LAPACK"),
+    (3456, 3456, 32, 0, 1, "LAPACK"),
+    (896, 896, 32, 0, 1, "LAPACK"),
+]
 
 # the paper's Table 5 (DeepBench): (N, P(H), Q(W), K, C, R, S, name)
 TABLE5 = [
@@ -257,28 +319,32 @@ def card_peaks(name: str) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Send ``ops.matmul`` / ``ops.conv2d`` / ``ops.flash_attention`` /
-    ``ops.ssd_scan`` through the kernels' plain versions, on the card,
-    under the same configs: the reference the kernel paths are held to.
-    The port itself has no switch for this; only the checks and timings
-    here make it."""
-    saved = (kmatmul.gemm, kconv.conv, kattention.attention, kssd.ssd)
+    """Send ``ops.matmul`` (its split-K reduction too) / ``ops.conv2d`` /
+    ``ops.flash_attention`` / ``ops.ssd_scan`` through the kernels' plain
+    versions, on the card, under the same configs: the reference the
+    kernel paths are held to.  The port itself has no switch for this;
+    only the checks and timings here make it."""
+    saved = (kmatmul.gemm, kmatmul.splitk_reduce, kconv.conv,
+             kattention.attention, kssd.ssd)
     kmatmul.gemm, kconv.conv = kmatmul.matmul_plain, kconv.conv2d_plain
+    kmatmul.splitk_reduce = kmatmul.splitk_reduce_plain
     kattention.attention, kssd.ssd = kattention.attention_plain, kssd.ssd_plain
     try:
         yield
     finally:
-        kmatmul.gemm, kconv.conv, kattention.attention, kssd.ssd = saved
+        (kmatmul.gemm, kmatmul.splitk_reduce, kconv.conv,
+         kattention.attention, kssd.ssd) = saved
 
 
 def reset_launches() -> None:
-    kmatmul.launches = kconv.launches = 0
+    kmatmul.launches = kmatmul.reduce_launches = kconv.launches = 0
     kattention.launches = kssd.launches = 0
 
 
 def read_launches() -> dict:
-    return {"gemm": kmatmul.launches, "conv": kconv.launches,
-            "attention": kattention.launches, "ssd": kssd.launches}
+    return {"gemm": kmatmul.launches, "gemm_reduce": kmatmul.reduce_launches,
+            "conv": kconv.launches, "attention": kattention.launches,
+            "ssd": kssd.launches}
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -439,6 +505,16 @@ def attention_kernel(usage: dict, cfg: dict, D: int, bits: int) -> str:
                                f"{cfg['b_kv']}EE")
 
 
+def gemm_kernel(usage: dict, cfg: dict, bits: int) -> str:
+    """The GEMM kernel that ``cfg`` launches: the mma.sync body in bf16,
+    the CUDA-core body in fp32."""
+    if bits == 16:
+        return ptxas_kernel(usage, f"gemm_mma_kernelILi{cfg['bm']}ELi"
+                                   f"{cfg['bn']}ELb{cfg['acc32']}E")
+    return ptxas_kernel(usage, f"gemm_simt_kernelILi{cfg['bm']}ELi"
+                               f"{cfg['bn']}EE")
+
+
 def conv_kernel(usage: dict, cfg: dict, bits: int) -> str:
     """The conv kernel that ``cfg`` launches: the mma.sync body in bf16,
     the CUDA-core body (acc32=1) in fp32."""
@@ -463,8 +539,14 @@ def phase_build() -> None:
         f"{name}.cu {len(u)} kernels, {max(r for r, _ in u.values())} "
         f"registers at most, {len(spills[name])} spill"
         for name, u in usage.items()))
-    # every attention and conv kernel some legal config launches: no spill
-    launched = {"attention": {}, "conv": {}}
+    # every GEMM, attention and conv kernel some legal config launches: no
+    # spill
+    launched = {"gemm": {}, "attention": {}, "conv": {}}
+    for cfg in GEMM_SPACE.enumerate():
+        for bits in (16, 32):
+            if gemm_fits(cfg, bits):
+                launched["gemm"][gemm_kernel(usage["gemm"], cfg, bits)] = (
+                    cfg, bits)
     for cfg in ATTENTION_SPACE.enumerate():
         for bits, D in ((16, 64), (16, 128), (16, 256), (32, 64)):
             if attention_fits(cfg, bits, D):
@@ -486,13 +568,30 @@ def phase_build() -> None:
         for name, k in launched.items()))
 
 
+def ulp_distance(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest distance in units of the last place between two bf16
+    tensors: their bit patterns mapped to integers in the order of the
+    values (+0 and -0 both 0)."""
+    b = torch.stack([got, want]).contiguous().view(torch.int16).long()
+    b = torch.where(b >= 0, b, -(1 << 15) - b)
+    return int((b[0] - b[1]).abs().max())
+
+
 def phase_gemm_check(dev: torch.device) -> dict:
+    """The GEMM kernel's partials against its plain version's under every
+    check config at every check shape, bf16 and (acc32=1) fp32; the
+    reduced result against the fp32 oracle; and, where the config splits
+    K, the reduction pass on the kernel's partials against its plain
+    version.  Both sum in fp32 and round once, in orders that may differ:
+    bf16 within one ulp; fp32 within :data:`REDUCE_TOL_FP32` of the
+    largest sum (near zero a reordered fp32 sum is many ulps off)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    worst = {"abs": 0.0, "rel": 0.0}
+    worst = {"abs": 0.0, "rel": 0.0, "reduce_abs": 0.0, "reduce_ulp": 0,
+             "reduce_fp32_rel": 0.0}
     shapes = [(M, N, K) for M in SLICE_M for (N, K) in SLICE_NK]
-    shapes.append((5, 100, 300))       # ragged, unaligned: element loads
-    n = 0
+    shapes += GEMM_EXTRA_SHAPES
+    n = n_reduce = 0
     for M, N, K in shapes:
         for cname, cfg in CHECK_CONFIGS.items():
             for dtype in (torch.bfloat16, torch.float32):
@@ -501,7 +600,8 @@ def phase_gemm_check(dev: torch.device) -> dict:
                 a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
                 b = (torch.randn((K, N), generator=gen, device=dev)
                      / K ** 0.5).to(dtype)
-                small = ops.shrink_gemm_cfg(cfg, M, N, K)
+                small = ops.shrink_gemm_cfg(cfg, M, N, K,
+                                            torch.finfo(dtype).bits)
                 got = kmatmul.gemm(a, b, small)
                 want = kmatmul.matmul_plain(a, b, small)
                 torch.cuda.synchronize()
@@ -512,16 +612,41 @@ def phase_gemm_check(dev: torch.device) -> dict:
                         f"{TOL[dtype]} at M={M} N={N} K={K} {dtype} {cname}")
                 worst["abs"] = max(worst["abs"], ea)
                 worst["rel"] = max(worst["rel"], er)
+                if small["k_split"] > 1:
+                    red = kmatmul.splitk_reduce(got)
+                    red_want = kmatmul.splitk_reduce_plain(got)
+                    torch.cuda.synchronize()
+                    ea_r, er_r = rel_err(red, red_want)
+                    if dtype == torch.bfloat16:
+                        ulps = ulp_distance(red, red_want)
+                        worst["reduce_ulp"] = max(worst["reduce_ulp"], ulps)
+                        bad = ulps > 1
+                    else:
+                        worst["reduce_fp32_rel"] = max(
+                            worst["reduce_fp32_rel"], er_r)
+                        bad = er_r > REDUCE_TOL_FP32
+                    if bad:
+                        raise AssertionError(
+                            f"split-K reduction vs plain: rel err "
+                            f"{er_r:.3e} at M={M} N={N} K={K} {dtype} "
+                            f"{cname}")
+                    worst["reduce_abs"] = max(worst["reduce_abs"], ea_r)
+                    n_reduce += 1
                 _, er_ref = rel_err(ops.matmul(a, b, cfg), matmul_ref(a, b))
                 if er_ref > TOL[dtype]:
                     raise AssertionError(
                         f"gemm vs matmul_ref: rel err {er_ref:.3e} at "
                         f"M={M} N={N} K={K} {dtype} {cname}")
                 n += 1
-    phase("gemm", f"{n} kernel-vs-plain checks passed; max abs err "
-          f"{worst['abs']:.3e}, max rel err {worst['rel']:.3e} "
-          f"(tolerance bf16 {TOL[torch.bfloat16]}, fp32 "
-          f"{TOL[torch.float32]})")
+    phase("gemm", f"{n} kernel-vs-plain checks passed over {len(shapes)} "
+          f"shapes and {len(CHECK_CONFIGS)} configs (every bf16 warp "
+          f"layout); max abs err {worst['abs']:.3e}, max rel err "
+          f"{worst['rel']:.3e} (tolerance bf16 {TOL[torch.bfloat16]}, fp32 "
+          f"{TOL[torch.float32]}); every result within the tolerance of the "
+          f"fp32 oracle; {n_reduce} split-K reduction passes vs plain: bf16 "
+          f"at most {worst['reduce_ulp']} ulp apart (held to 1), fp32 max "
+          f"rel err {worst['reduce_fp32_rel']:.3e} (held to "
+          f"{REDUCE_TOL_FP32}); max abs err {worst['reduce_abs']:.3e}")
     return worst
 
 
@@ -838,10 +963,22 @@ def phase_tune(backend, store: RecordStore, fp: str, dev: torch.device
     return {"stats": stats}
 
 
+def reduce_bound(ks: int, M: int, N: int, dtype: torch.dtype, peaks: dict
+                 ) -> dict:
+    """The split-K reduction: ``ks`` partials read once, the sum written
+    once; (ks - 1)·M·N fp32 adds."""
+    bpe = torch.finfo(dtype).bits // 8
+    return bound((ks + 1) * M * N * bpe, (ks - 1) * M * N, torch.float32,
+                 peaks)
+
+
 def phase_times(dev: torch.device, peaks: dict, label: str) -> tuple:
     """Per shape: the tuned config (dispatch's exact tier), the vendor
     heuristic's config, the plain version under the tuned config, the
-    library call and the bound."""
+    library call and the bound.  For the GEMM also the kernel alone and,
+    where the tuned config splits K, the reduction pass alone on its
+    partials, beside its plain version, ``parts.sum(dim=0)`` (one PyTorch
+    call that computes the same function) and its bound."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     gemm_lib = VendorHeuristicLibrary.gemm(GEMM_SPACE)
@@ -859,23 +996,53 @@ def phase_times(dev: torch.device, peaks: dict, label: str) -> tuple:
             n_calls = min(1000, max(20, math.ceil(2.5 * L2_BYTES / b_bytes)))
             bs = [torch.randn((K, N), generator=gen, device=dev).to(dtype)
                   for _ in range(n_calls)]
+            run = ops.shrink_gemm_cfg(cfg, M, N, K)
+            ks = run["k_split"]
             kernel = time_ms(lambda i: ops.matmul(a, bs[i], cfg), n_calls)
+            alone = time_ms(lambda i: kmatmul.gemm(a, bs[i], run), n_calls)
             heuristic = time_ms(lambda i: ops.matmul(a, bs[i], heur), n_calls)
             with plain_kernels():
                 plain = time_ms(lambda i: ops.matmul(a, bs[i], cfg), n_calls)
             library = time_ms(lambda i: torch.matmul(a, bs[i]), n_calls)
+            red = {"reduce_ms": 0.0, "reduce_plain_ms": 0.0,
+                   "reduce_library_ms": 0.0, "reduce_t_bytes": 0.0,
+                   "reduce_t_ops": 0.0}
+            if ks > 1:
+                parts = kmatmul.gemm(a, bs[0], run)
+                _, er = rel_err(parts.sum(dim=0),
+                                kmatmul.splitk_reduce_plain(parts))
+                if er > TOL[dtype]:
+                    raise AssertionError(f"parts.sum disagrees with the "
+                                         f"plain reduction: rel err {er:.3e}")
+                rb = reduce_bound(ks, M, N, dtype, peaks)
+                red = {"reduce_ms": time_ms(
+                           lambda i: kmatmul.splitk_reduce(parts), n_calls),
+                       "reduce_plain_ms": time_ms(
+                           lambda i: kmatmul.splitk_reduce_plain(parts),
+                           n_calls),
+                       "reduce_library_ms": time_ms(
+                           lambda i: parts.sum(dim=0), n_calls),
+                       "reduce_t_bytes": rb["t_bytes"],
+                       "reduce_t_ops": rb["t_ops"]}
             del bs
             gemm_rows.append({"M": M, "N": N, "K": K, "tier": tier,
-                              "cfg": cfg, "heuristic_cfg": heur,
-                              "kernel_ms": kernel, "heuristic_ms": heuristic,
+                              "cfg": cfg, "k_split": ks,
+                              "heuristic_cfg": heur, "kernel_ms": kernel,
+                              "gemm_ms": alone, **red,
+                              "heuristic_ms": heuristic,
                               "plain_ms": plain, "library_ms": library,
                               **gemm_bound(M, N, K, dtype, peaks)})
             r = gemm_rows[-1]
             phase("times", f"gemm M={M} N={N} K={K} bf16 tier={tier} "
-                  f"tuned {kernel * 1e3:.2f} us, heuristic "
-                  f"{heuristic * 1e3:.2f} us, plain {plain * 1e3:.2f} us, "
-                  f"torch.matmul {library * 1e3:.2f} us, bound "
-                  f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) [{label}]")
+                  f"tuned {cfg} (k_split {ks}): ops.matmul "
+                  f"{kernel * 1e3:.2f} us (kernel alone {alone * 1e3:.2f} "
+                  f"us, reduction pass alone {r['reduce_ms'] * 1e3:.2f} us; "
+                  f"its plain version {r['reduce_plain_ms'] * 1e3:.2f} us, "
+                  f"parts.sum {r['reduce_library_ms'] * 1e3:.2f} us), "
+                  f"heuristic {heuristic * 1e3:.2f} us, plain "
+                  f"{plain * 1e3:.2f} us, torch.matmul {library * 1e3:.2f} "
+                  f"us, bound {r['bound_ms'] * 1e3:.2f} us "
+                  f"({r['bound_by']}) [{label}]")
     conv_lib = VendorHeuristicLibrary.conv(CONV_SPACE)
     conv_rows = []
     for x, row in zip(CONV_SHAPES, TABLE5):
@@ -914,6 +1081,57 @@ def phase_times(dev: torch.device, peaks: dict, label: str) -> tuple:
               f"{plain:.3f} ms, F.conv2d {library:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{label}]")
     return gemm_rows, conv_rows
+
+
+def phase_gemm_table4(dev: torch.device, peaks: dict, label: str) -> list:
+    """The paper's Table 4 in bf16 under the vendor heuristic's config:
+    ``ops.matmul`` (a transposed operand passed as a transposed view, so
+    its relayout is part of the call), ``torch.matmul`` on the same views,
+    the bound and TFLOP/s.  Times are printed, not held; every result is
+    held to the fp32 oracle (the heuristic's configs accumulate in fp32)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    bf16 = torch.bfloat16
+    lib = VendorHeuristicLibrary.gemm(GEMM_SPACE)
+    rows = []
+    for M, N, K, ta, tb, suite in TABLE4:
+        x = gemm_input(M, N, K, 16, ta, tb)
+        cfg = lib.select(x)
+        n_calls = max(2, min(20, math.ceil(2.5 * L2_BYTES
+                                           / ((M * K + K * N) * 2))))
+        sets = []
+        for _ in range(n_calls):
+            a = torch.randn((K, M) if ta else (M, K), generator=gen,
+                            device=dev).to(bf16)
+            b = (torch.randn((N, K) if tb else (K, N), generator=gen,
+                             device=dev) / K ** 0.5).to(bf16)
+            sets.append((a.t() if ta else a, b.t() if tb else b))
+        _, er = rel_err(ops.matmul(*sets[0], cfg), matmul_ref(*sets[0]))
+        if er > TOL[bf16] or not cfg["acc32"]:
+            raise AssertionError(f"Table 4 {suite} M={M} N={N} K={K} under "
+                                 f"{cfg}: rel err {er:.3e} vs matmul_ref")
+        kernel = time_ms(lambda i: ops.matmul(*sets[i], cfg), n_calls)
+        library = time_ms(lambda i: torch.matmul(*sets[i]), n_calls)
+        del sets
+        bnd = gemm_bound(M, N, K, bf16, peaks)
+        flops = 2.0 * M * N * K
+        rows.append({"suite": suite, "M": M, "N": N, "K": K, "trans_a": ta,
+                     "trans_b": tb, "cfg": cfg,
+                     "run_cfg": ops.shrink_gemm_cfg(cfg, M, N, K),
+                     "kernel_ms": kernel, "library_ms": library,
+                     "tflops": flops / (kernel * 1e-3) / 1e12,
+                     "library_tflops": flops / (library * 1e-3) / 1e12,
+                     "bound_share": bnd["bound_ms"] / kernel, "rel_err": er,
+                     **bnd})
+        r = rows[-1]
+        phase("gemm-table4", f"{suite} M={M} N={N} K={K} trans_a={ta} "
+              f"trans_b={tb} heuristic {cfg}: ops.matmul {kernel:.4f} ms "
+              f"({r['tflops']:.1f} TFLOP/s, {100 * r['bound_share']:.1f}% "
+              f"of the bound), torch.matmul {library:.4f} ms "
+              f"({r['library_tflops']:.1f} TFLOP/s), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); rel err vs the "
+              f"fp32 oracle {er:.3e} [{label}]")
+    return rows
 
 
 def phase_times_attention_ssd(dev: torch.device, peaks: dict, label: str
@@ -1012,16 +1230,19 @@ def per_tick(rows: list, key: str, n_layers: int) -> float:
                for r in rows if r["M"] == 4)
 
 
-# demangled ("...::gemm_kernel<...>") or mangled ("...11gemm_kernelI...")
-GEMM_KERNEL = re.compile(r"(^|[\s:]|\d)gemm_kernel(\b|I)")
+# demangled ("...::gemm_mma_kernel<...>") or mangled
+# ("...15gemm_mma_kernelI..."): the bf16 and fp32 GEMM bodies, and the
+# split-K reduction pass (``csrc/gemm.cu``)
+GEMM_KERNEL = re.compile(r"(^|[\s:]|\d)gemm_(mma|simt)_kernel(\b|I)")
+REDUCE_KERNEL = re.compile(r"(^|[\s:]|\d)splitk_reduce_kernel(\b|I)")
 
 
-def device_gemm_launches(prof) -> int:
-    """GEMM kernels (``csrc/gemm.cu`` ``gemm_kernel``) a profiler session
+def device_launches(prof, pattern: re.Pattern) -> int:
+    """Kernels whose name matches ``pattern`` that a profiler session
     traced on the device, graph replays included."""
     return sum(1 for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA
-               and GEMM_KERNEL.search(ev.name))
+               and pattern.search(ev.name))
 
 
 def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
@@ -1034,8 +1255,10 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     210 GEMMs every time; a replay runs the captured launches on the device
     and calls nothing on the host.  So the graph run is traced with the
     torch profiler (CUDA activity only), and the GEMM kernels it counts on
-    the device must be 210 x (prefills + replays); tok/s and the median
-    tick come from a second, untraced graph run of the same requests."""
+    the device must be 210 x (prefills + replays), its split-K reduction
+    passes one per projection whose tuned config splits K (at M=32 for a
+    prefill, M=4 for a tick); tok/s and the median tick come from a
+    second, untraced graph run of the same requests."""
     sc = ServeConfig(max_len=256, slots=4, tunedb=str(store_path),
                      tunedb_backend=fp, record_tick_times=True)
     eng = Engine(cfg, params, sc)
@@ -1043,6 +1266,12 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     warm = [rng.integers(0, cfg.vocab, 32) for _ in range(2)]
     prompts = [rng.integers(0, cfg.vocab, 32) for _ in range(8)]
     per_fwd = GEMMS_PER_LAYER * cfg.n_layers        # 210 GEMMs a forward
+    # reduction passes a forward launches: projections whose tuned config
+    # splits K, at the prefill's M=32 and the tick's M=4
+    red_fwd = {M: cfg.n_layers * sum(SLICE_NK[(r["N"], r["K"])]
+                                     for r in gemm_rows
+                                     if r["M"] == M and r["k_split"] > 1)
+               for M in SLICE_M}
 
     def run(what: str, batch: list, max_new: int, trace: bool = False
             ) -> dict:
@@ -1059,11 +1288,14 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
             outs = eng.generate(batch, max_new=max_new)
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        device = device_gemm_launches(prof) if trace else None
+        device = ((device_launches(prof, GEMM_KERNEL),
+                   device_launches(prof, REDUCE_KERNEL)) if trace
+                  else (None, None))
         ticks, prefills, captures, replays = (
             now - b for now, b in zip((eng.ticks, eng.prefills, eng.captures,
                                        eng.replays), before))
         got = {"launches": kmatmul.launches,
+               "reduce_launches": kmatmul.reduce_launches,
                "tiers": {t: c for (sp, t), c in dispatch.tier_counts.items()
                          if sp == "gemm"},
                "attn_tiers": {t: c for (sp, t), c in
@@ -1080,6 +1312,8 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
             raise AssertionError(f"{what}: {replays} replays for {ticks} ticks")
         want_gemm = per_fwd * (prefills + traced)
         want = {"launches": want_gemm,
+                "reduce_launches": red_fwd[32] * prefills
+                + red_fwd[4] * traced,
                 "tiers": {"exact": want_gemm},
                 "attn_tiers": {"exact": cfg.n_layers * traced} if traced
                 else {}}
@@ -1089,7 +1323,9 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                                  f"prefills, {ticks} ticks, {captures} "
                                  f"captures, {replays} replays)")
         return {"outs": outs, "wall": wall, "ticks": ticks,
-                "counts": read_launches(), "device_launches": device,
+                "counts": read_launches(), "device_launches": device[0],
+                "device_reduce_launches": device[1],
+                "reduce_launches": got["reduce_launches"],
                 "prefills": prefills, "captures": captures,
                 "replays": replays, "launches": got["launches"],
                 "tok_s": sum(len(o) for o in outs) / wall,
@@ -1111,6 +1347,13 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
         raise AssertionError(f"graph run re-captured {g['captures']} times "
                              "with the store unchanged")
     want_device = per_fwd * (g["prefills"] + g["replays"])
+    want_reduce = red_fwd[32] * g["prefills"] + red_fwd[4] * g["replays"]
+    if g["device_reduce_launches"] != want_reduce:
+        raise AssertionError(f"graph run: {g['device_reduce_launches']} "
+                             f"split-K reduction passes traced on the "
+                             f"device, want {want_reduce} ({red_fwd[32]} a "
+                             f"prefill x {g['prefills']} + {red_fwd[4]} a "
+                             f"tick x {g['replays']} replays)")
     if g["device_launches"] != want_device:
         raise AssertionError(f"graph run: {g['device_launches']} GEMM kernels "
                              f"traced on the device, want {want_device} "
@@ -1131,8 +1374,9 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     splits = resolve_decode_splits(
         B=sc.slots, Hq=cfg.n_heads, Hkv=cfg.n_kv, Lkv=sc.max_len,
         D=cfg.head_dim, dtype_bits=16, default=cfg.decode_kv_splits)
-    tuned, heur = (per_tick(gemm_rows, k, cfg.n_layers)
-                   for k in ("kernel_ms", "heuristic_ms"))
+    tuned, alone, red, heur = (per_tick(gemm_rows, k, cfg.n_layers)
+                               for k in ("kernel_ms", "gemm_ms", "reduce_ms",
+                                         "heuristic_ms"))
     phase("serve", f"{cfg.name} ({cfg.n_layers}L d={cfg.d_model} bf16): "
           f"{len(prompts)} requests x 16 tokens; capture at the warm-up: "
           f"{per_fwd} GEMMs and {cfg.n_layers} split-count lookups, all "
@@ -1140,16 +1384,22 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
           f"({g['replays']} replays, 0 captures), {g['launches']} GEMM "
           f"launches from the host (prefills, all exact) and "
           f"{g['device_launches']} GEMM kernels traced on the device (210 x "
-          f"(prefills + replays)); decode KV splits {splits} from the tuned "
+          f"(prefills + replays)); split-K reduction passes: "
+          f"{g['reduce_launches']} from the host, "
+          f"{g['device_reduce_launches']} traced on the device ({red_fwd[32]} "
+          f"a prefill, {red_fwd[4]} a tick); decode KV splits {splits} from the tuned "
           f"attention record (default {cfg.decode_kv_splits}); graph "
           f"(untraced run) {timed['tok_s']:.1f} tok/s, median tick "
           f"{timed['tick_ms']:.2f} ms; eager {e['tok_s']:.1f} tok/s, median "
           f"tick {e['tick_ms']:.2f} ms ({e['launches']} GEMM launches, all "
           f"exact); the 8 requests' greedy tokens equal; GEMM per decode "
-          f"tick {tuned:.3f} ms under tuned configs, {heur:.3f} ms under the "
-          f"heuristic's [{label}]")
+          f"tick {tuned:.3f} ms under tuned configs (kernel alone "
+          f"{alone:.3f} ms, reduction passes alone {red:.3f} ms), "
+          f"{heur:.3f} ms under the heuristic's [{label}]")
     return {"launches": g["launches"],
             "device_launches": g["device_launches"],
+            "reduce_launches": g["reduce_launches"],
+            "device_reduce_launches": g["device_reduce_launches"],
             "tokens_per_s": timed["tok_s"], "tick_ms": timed["tick_ms"],
             "eager_tokens_per_s": e["tok_s"], "eager_tick_ms": e["tick_ms"],
             "splits": splits, "engine": eng, "counts": g["counts"]}
@@ -1191,14 +1441,43 @@ def phase_profile(eng, cfg, dev: torch.device, label: str) -> dict:
         e1.record()
         e1.synchronize()
         devs.append(e0.elapsed_time(e1))
+    # the replayed tick's kernels by kind, traced over a few replays: the
+    # device time of the GEMM kernels, the split-K reduction passes and
+    # the rest, per tick; what none of them covers is the gaps between
+    # the graph's kernels
+    reps = 5
+    kinds = {"gemm": [0.0, 0], "gemm_reduce": [0.0, 0], "other": [0.0, 0]}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = ("gemm" if GEMM_KERNEL.search(ev.name) else "gemm_reduce"
+                if REDUCE_KERNEL.search(ev.name) else "other")
+        kinds[kind][0] += ev.time_range.elapsed_us() / 1e3 / reps
+        kinds[kind][1] += 1
     out = {"wall_ms": 1e3 * statistics.median(walls),
            "enqueue_ms": 1e3 * statistics.median(enqueues),
-           "device_ms": statistics.median(devs)}
+           "device_ms": statistics.median(devs),
+           "kernels_ms": {k: v[0] for k, v in kinds.items()},
+           "kernels_per_tick": {k: v[1] / reps for k, v in kinds.items()}}
+    busy = sum(out["kernels_ms"].values())
     phase("profile", f"decode tick (4 slots, 30 layers): eager wall "
           f"{out['wall_ms']:.2f} ms, host enqueue {out['enqueue_ms']:.2f} "
           f"ms, device (CUDA graph replay) {out['device_ms']:.2f} ms, "
           f"device busy {100 * out['device_ms'] / out['wall_ms']:.1f}% of "
-          f"the eager tick [{label}]")
+          f"the eager tick; in the replayed tick (profiler, {reps} "
+          f"replays): GEMM kernels {out['kernels_ms']['gemm']:.3f} ms "
+          f"({out['kernels_per_tick']['gemm']:.0f} a tick), reduction "
+          f"passes {out['kernels_ms']['gemm_reduce']:.3f} ms "
+          f"({out['kernels_per_tick']['gemm_reduce']:.0f}), other kernels "
+          f"{out['kernels_ms']['other']:.3f} ms "
+          f"({out['kernels_per_tick']['other']:.0f}); kernels busy "
+          f"{busy:.3f} ms, {100 * busy / out['device_ms']:.1f}% of the "
+          f"replay [{label}]")
     return out
 
 
@@ -1241,12 +1520,15 @@ def phase_model(cfg, params, dev: torch.device) -> float:
 REPLACES = {"gemm": "src/repro/kernels/matmul.py:36",
             "conv": "src/repro/kernels/conv.py:38",
             "attention": "src/repro/kernels/attention.py:29",
-            "ssd": "src/repro/kernels/ssd.py:28"}
+            "ssd": "src/repro/kernels/ssd.py:28",
+            "gemm_reduce": "src/repro/kernels/ops.py:61"}
 
 
 def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
                  ) -> dict:
-    """One row per ported kernel.  GEMM: times summed over one decode
+    """One row per hand-written kernel: the four ported TPU kernels, then
+    the GEMM's split-K reduction pass (``gemm_reduce``).  GEMM and its
+    reduction: times summed over one decode
     tick's projections; conv: summed over the 14 Table 5 shapes, one call
     each; attention and SSD: summed over their tune targets, one call each.
     ``ms`` is the tuned config's kernel time.  ``launches`` is the count on
@@ -1288,6 +1570,26 @@ def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
             "per": per[name],
             "shapes": [{k: r[k] for k in r if k not in ("t_bytes", "t_ops")}
                        for r in rows[name]]})
+    # the GEMM's split-K reduction pass, over the same decode tick
+    tot = lambda key: per_tick(rows["gemm"], key, n_layers)
+    t_bytes, t_ops = tot("reduce_t_bytes"), tot("reduce_t_ops")
+    out.append({
+        "name": "gemm_reduce", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gemm.cu",
+        "replaces": REPLACES["gemm_reduce"],
+        "note": "not a TPU kernel: the reference sums the split-K partials "
+                "with parts.sum(axis=0) in ops.matmul",
+        "launches": launches["serve"]["gemm_reduce"],
+        "launches_by_path": {p: c["gemm_reduce"] for p, c in launches.items()},
+        "max_abs_err": worst["gemm"]["reduce_abs"],
+        "max_ulp": worst["gemm"]["reduce_ulp"],
+        "ms": tot("reduce_ms"), "plain_ms": tot("reduce_plain_ms"),
+        "library_ms": tot("reduce_library_ms"),
+        "library": "parts.sum(dim=0)",
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "per": "one decode tick: the projections at M=4 whose tuned config "
+               "splits K"})
     return {"kernels": out}
 
 
@@ -1323,6 +1625,7 @@ def main() -> int:
             raise AssertionError(f"tune path launches {launches['tune']}")
         phase("tune", f"launches on the tune path: {launches['tune']}")
         gemm_rows, conv_rows = phase_times(dev, peaks, label)
+        table4 = phase_gemm_table4(dev, peaks, label)
         attn_rows, ssd_rows = phase_times_attention_ssd(dev, peaks, label)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -1336,6 +1639,12 @@ def main() -> int:
             "ssd": ssd_rows}
     line = kernels_line(rows, worst, launches, cfg.n_layers)
     line["kernels"][0]["device_launches"] = serve["device_launches"]
+    # ms, plain_ms and library_ms time C = A @ B (ops.matmul, the split-K
+    # reduction pass included); gemm_ms is the GEMM kernel alone
+    line["kernels"][0]["gemm_ms"] = per_tick(gemm_rows, "gemm_ms",
+                                             cfg.n_layers)
+    line["kernels"][0]["table4"] = table4
+    line["kernels"][-1]["device_launches"] = serve["device_reduce_launches"]
     print(json.dumps(line), flush=True)
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

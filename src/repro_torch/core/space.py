@@ -8,12 +8,16 @@ legality predicates follow the card, not the TPU's VMEM and lane tiling.
 
 GEMM:
 
-  bm, bn      CTA output tile; 256 threads as a 16x16 grid, each thread
-              owns (bm/16) x (bn/16) outputs in registers
+  bm, bn      CTA output tile.  bf16: warps sized to the tile, each on a
+              min(bm, 32) x (bn, or bn/2 from 64 up) block of mma.sync
+              fragments (1 warp at 16 x 32, 8 at 128 x 128), stage rows
+              padded for ldmatrix (:func:`mma_pitch`).  fp32: the 16 x 16
+              CUDA-core thread grid, each thread (bm/16) x (bn/16) outputs
   bk          K-extent of one shared-memory stage
   k_unroll    sub-dots per stage (with acc32=0 each sub-dot is rounded to
               the IO dtype before it is added, as on the TPU)
-  k_split     split-K partial outputs, materialized and reduced by ops.py
+  k_split     split-K partial outputs, materialized by the kernel and
+              summed by one reduction pass (``matmul.splitk_reduce``)
   order       CTA raster: 0 = n fastest (m-major), 1 = m fastest
   acc32       fp32 accumulator (1) or IO-dtype running sum (0)
   prefetch    shared-memory stages of the cp.async ring
@@ -75,12 +79,21 @@ from typing import Callable, Dict, Iterable, List, Mapping, Tuple
 # ---------------------------------------------------------------------------
 SMEM_PER_BLOCK = 232_448        # max dynamic shared memory (after opt-in)
 SMEM_DEFAULT = 48 * 1024        # above this the launcher opts in
-# every kernel's CTA runs at most 256 threads (the GEMM's and the fp32
-# bodies' 16 x 16 grid; the bf16 conv and attention bodies size their warps
-# to the tile, 1 to 8 warps), so a thread may hold up to 255 registers and
+# every kernel's CTA runs at most 256 threads (the fp32 bodies' 16 x 16
+# grid; the bf16 GEMM, conv and attention bodies size their warps to the
+# tile, 1 to 8 warps), so a thread may hold up to 255 registers and
 # the block still fits the SM's 65,536
 MAX_REGS_PER_THREAD = 255
-GEMM_REG_OVERHEAD = 40          # addressing / loop registers, estimated
+# GEMM (both bodies): addressing, loop and load registers; fitted to the
+# ptxas -v report so that the estimate equals it at the 128 x 128 tile
+# (bf16 156 registers, 224 with acc32=0; fp32 128).  It bounds every bf16
+# instantiation but the one- and two-warp 16 x 32 and 16 x 64 tiles (122
+# to 128 registers, up to 24 above it); the fp32 bodies use 60 to 128.  No
+# GEMM kernel comes near the 255 a thread may hold, so the estimate
+# refuses nothing the kernels could run; chip_smoke.py's build phase holds
+# every kernel a legal config launches to no spills.
+GEMM_REG_OVERHEAD = 48
+GEMM_MMA_REG_OVERHEAD = 80
 # conv (both bodies): addressing, the window and halo arithmetic and, in
 # bf16, the rounding temporaries; fitted to the ptxas -v report so that the
 # estimate bounds every instantiation and equals it at the 128 x 128 tile
@@ -144,19 +157,43 @@ def _round_up(a: int, b: int) -> int:
     return _ceil_div(a, b) * b
 
 
+def mma_pitch(n: int) -> int:
+    """Row pitch (elements) of a bf16 stage row of ``n`` elements in the
+    mma.sync bodies: an odd number of 16-byte units, so an ldmatrix phase's
+    eight rows hit distinct banks (``mma_pitch`` in ``csrc/mma.cuh``)."""
+    return n if (n // 8) % 2 else n + 8
+
+
+def mma_warp_tile(rows: int, cols: int) -> Tuple[int, int]:
+    """(rows, columns) of the output block one warp of a bf16 mma.sync body
+    owns in a ``rows`` x ``cols`` CTA tile (``MmaTile`` in
+    ``csrc/mma.cuh``)."""
+    return min(rows, 32), cols if cols < 64 else cols // 2
+
+
 def gemm_smem_bytes(cfg: Mapping[str, int], dtype_bits: int) -> int:
-    """Dynamic shared memory of one CTA: ``prefetch`` stages of A and B."""
+    """Dynamic shared memory of one CTA: ``prefetch`` stages of the A
+    (bm x bk) and B (bk x bn) tiles; bf16 rows padded by
+    :func:`mma_pitch`."""
     bpe = dtype_bits // 8
-    return cfg["prefetch"] * (cfg["bm"] * cfg["bk"]
-                              + cfg["bk"] * cfg["bn"]) * bpe
+    bk, bn = cfg["bk"], cfg["bn"]
+    pa, pb = (mma_pitch(bk), mma_pitch(bn)) if dtype_bits == 16 else (bk, bn)
+    return cfg["prefetch"] * (cfg["bm"] * pa + bk * pb) * bpe
 
 
-def gemm_regs_per_thread(cfg: Mapping[str, int]) -> int:
-    """Estimated registers: fp32 accumulators (doubled for the acc32=0
-    sub-dot), one A column and one B row fragment, plus overhead."""
+def gemm_regs_per_thread(cfg: Mapping[str, int], dtype_bits: int) -> int:
+    """Estimated registers.  bf16: the warp block's fp32 accumulator
+    fragments (doubled, and 4 rounding temporaries, for the acc32=0
+    sub-dot), the A fragments of one k-step and one B pair, plus overhead.
+    fp32: accumulators, one A column and one B row fragment, plus
+    overhead."""
+    if dtype_bits == 16:
+        wm, wn = mma_warp_tile(cfg["bm"], cfg["bn"])
+        acc = wm * wn // 32 * (1 if cfg["acc32"] else 2)
+        rounding = 0 if cfg["acc32"] else 4
+        return acc + rounding + wm // 16 * 4 + 4 + GEMM_MMA_REG_OVERHEAD
     tm, tn = cfg["bm"] // 16, cfg["bn"] // 16
-    acc = tm * tn * (1 if cfg["acc32"] else 2)
-    return acc + tm + tn + GEMM_REG_OVERHEAD
+    return tm * tn + tm + tn + GEMM_REG_OVERHEAD
 
 
 def gemm_fits(cfg: Mapping[str, int], dtype_bits: int) -> bool:
@@ -167,7 +204,7 @@ def gemm_fits(cfg: Mapping[str, int], dtype_bits: int) -> bool:
         return False
     if gemm_smem_bytes(cfg, dtype_bits) > SMEM_PER_BLOCK:
         return False
-    if gemm_regs_per_thread(cfg) > MAX_REGS_PER_THREAD:
+    if gemm_regs_per_thread(cfg, dtype_bits) > MAX_REGS_PER_THREAD:
         return False
     # sub-dots are whole 16-element slices of a stage
     if cfg["bk"] % (cfg["k_unroll"] * 16):
@@ -219,34 +256,20 @@ def conv_out_shape(inputs: Mapping[str, int]) -> Tuple[int, int]:
     return inputs["H"], inputs["W"]
 
 
-def conv_mma_pitch(n: int) -> int:
-    """Row pitch (elements) of a bf16 conv stage row of ``n`` elements: an
-    odd number of 16-byte units, so an ldmatrix phase's eight rows hit
-    distinct banks (``mma_pitch`` in ``conv.cu``)."""
-    return n if (n // 8) % 2 else n + 8
-
-
 def conv_smem_bytes(cfg: Mapping[str, int], dtype_bits: int) -> int:
     """Dynamic shared memory of one CTA: ``prefetch`` stages of
     ``rs_unroll`` windows (input tile + filter tile each; bf16 rows padded
-    by :func:`conv_mma_pitch`), plus the tile's row table (p, q and a
+    by :func:`mma_pitch`), plus the tile's row table (p, q and a
     64-bit offset per output pixel: 16 bytes)."""
     bpe = dtype_bits // 8
     b_c, b_k = cfg["b_c"], cfg["b_k"]
     if dtype_bits == 16:
-        pa, pf = conv_mma_pitch(b_c), conv_mma_pitch(b_k)
+        pa, pf = mma_pitch(b_c), mma_pitch(b_k)
     else:
         pa, pf = b_c, b_k
     window = cfg["b_npq"] * pa + b_c * pf
     return cfg["prefetch"] * cfg["rs_unroll"] * window * bpe \
         + 16 * cfg["b_npq"]
-
-
-def conv_warp_tile(cfg: Mapping[str, int]) -> Tuple[int, int]:
-    """(rows, columns) of the output block one warp of the bf16 body owns
-    (``MmaTile`` in ``conv.cu``)."""
-    return min(cfg["b_npq"], 32), cfg["b_k"] if cfg["b_k"] < 64 \
-        else cfg["b_k"] // 2
 
 
 def conv_regs_per_thread(cfg: Mapping[str, int], dtype_bits: int) -> int:
@@ -256,7 +279,7 @@ def conv_regs_per_thread(cfg: Mapping[str, int], dtype_bits: int) -> int:
     accumulators (doubled for acc32=0), one input column and one filter
     row fragment."""
     if dtype_bits == 16:
-        wm, wn = conv_warp_tile(cfg)
+        wm, wn = mma_warp_tile(cfg["b_npq"], cfg["b_k"])
         acc = wm * wn // 32 * (1 if cfg["acc32"] else 2)
         return acc + wm // 16 * 4 + 4 + CONV_MMA_REG_OVERHEAD
     tm, tn = cfg["b_npq"] // 16, cfg["b_k"] // 16

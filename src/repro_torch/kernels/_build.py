@@ -31,7 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the entry points, per source file
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
-    "gemm": {"gemm_launch": (_I, [_P, _P, _P] + [_I] * 12 + [_P])},
+    "gemm": {"gemm_launch": (_I, [_P, _P, _P] + [_I] * 12 + [_P]),
+             "splitk_reduce_launch": (_I, [_P, _P] + [_I] * 4 + [_P])},
     "conv": {"conv_launch": (_I, [_P, _P, _P] + [_I] * 16 + [_P])},
     "attention": {"attention_launch": (_I, [_P] * 4 + [_I] * 12
                                        + [ctypes.c_float, _P])},

@@ -130,11 +130,6 @@ struct Problem {
   int vec_i, vec_f;    // 16-byte copies possible for input / filter rows
 };
 
-// Row pitch, in bf16 elements, of a bf16 stage row of n elements: an odd
-// number of 16-byte units (n + 8 where n / 8 is even), so the eight rows an
-// ldmatrix phase reads start in eight distinct bank groups.
-__host__ __device__ constexpr int mma_pitch(int n) { return (n / 8) % 2 ? n : n + 8; }
-
 // Load stage `t` (C slab t / groups, window group t % groups) of this CTA:
 // for each of the group's windows, the (BM x bc) input tile (rows of pitch
 // pa) and the (bc x BN) filter tile (rows of pitch pf).  Out-of-range
@@ -232,62 +227,6 @@ __device__ __forceinline__ int2 tile_of(int BM, int BN, const Problem& pb, int o
 // ---------------------------------------------------------------------------
 // bf16: mma.sync tensor cores
 // ---------------------------------------------------------------------------
-
-// Warps sized to the CTA tile: a warp owns kWM x kWN outputs, kMT x kNT
-// m16n8 fragments.
-template <int BM, int BN> struct MmaTile {
-  static constexpr int kWM = BM < 32 ? BM : 32;
-  static constexpr int kWarpsM = BM / kWM;          // 1, 1, 2, 4
-  static constexpr int kWarpsN = BN < 64 ? 1 : 2;
-  static constexpr int kWN = BN / kWarpsN;          // 16, 32, 32, 64
-  static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
-  static constexpr int kMT = kWM / 16;
-  static constexpr int kNT = kWN / 8;
-  static constexpr int kPF = mma_pitch(BN);        // filter-tile row pitch
-};
-
-// c += this warp's block of one window's sub-dot: As (rows of pitch pa) is
-// the (BM x bc) input tile, Bs (rows of pitch pf) the (bc x BN) filter
-// tile; the warp's block starts at row wm0, column wn0.  Fragment layout of
-// m16n8k16 (lane = 4*g + t4): an A fragment holds rows g and g+8; C element
-// e of n-tile j is (row g + 8*(e/2), column 8j + 2*t4 + e%2).
-template <int MT, int NT>
-__device__ __forceinline__ void window_dot(float (&c)[MT][NT][4], const bf16* As, const bf16* Bs,
-                                           int bc, int pa, int pf, int wm0, int wn0, int lane) {
-  if (bc == 8) {  // one m16n8k8 step
-    uint32_t a[MT][2];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) ldsm_x2(a[i], As + (wm0 + 16 * i + (lane & 15)) * pa);
-#pragma unroll
-    for (int jp = 0; jp < NT / 2; ++jp) {
-      uint32_t b[2];
-      ldsm_x2_trans(b, Bs + (lane & 7) * pf + wn0 + 16 * jp + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        mma_bf16_k8(c[i][2 * jp], a[i], b[0]);
-        mma_bf16_k8(c[i][2 * jp + 1], a[i], b[1]);
-      }
-    }
-    return;
-  }
-  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8, b_col = (lane >> 4) * 8;
-  for (int kk = 0; kk < bc; kk += 16) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-      ldsm_x4(a[i], As + (wm0 + 16 * i + (lane & 15)) * pa + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int jp = 0; jp < NT / 2; ++jp) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, Bs + (kk + b_row) * pf + wn0 + 16 * jp + b_col);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        mma_bf16(c[i][2 * jp], a[i], b[0], b[1]);
-        mma_bf16(c[i][2 * jp + 1], a[i], b[2], b[3]);
-      }
-    }
-  }
-}
 
 // One CTA per SM in the launch bounds: without it ptxas capped some
 // instantiations at 64 registers and spilled.

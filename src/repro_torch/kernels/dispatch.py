@@ -399,7 +399,8 @@ def _gate_runs(space_name: str, cfg: Mapping[str, int],
     it (split partials summed in fp32)."""
     bits = small.get("dtype_bits", 16)
     if space_name == "gemm":
-        run = ops.shrink_gemm_cfg(cfg, small["M"], small["N"], small["K"])
+        run = ops.shrink_gemm_cfg(cfg, small["M"], small["N"], small["K"],
+                                  bits)
         return (lambda *x: _matmul.gemm(*x, run).float().sum(dim=0),
                 lambda *x: _matmul.matmul_plain(*x, run).float().sum(dim=0))
     if space_name == "conv":

@@ -1,4 +1,5 @@
-"""Parameterised GEMM: the CUDA kernel's wrapper and its plain version.
+"""Parameterised GEMM and its split-K reduction: the CUDA kernels' wrappers
+and their plain versions.
 
 Replaces ``repro.kernels.matmul`` (``_gemm_kernel`` / ``matmul_pallas``).
 ``gemm(a, b, cfg)`` returns the ``(k_split, M, N)`` partials of ``a @ b`` in
@@ -6,6 +7,10 @@ the IO dtype.  On a CUDA tensor it launches ``csrc/gemm.cu`` (or raises); on
 a CPU tensor it runs :func:`matmul_plain`, which repeats the kernel's
 blocking in PyTorch: the same split-K boundaries, the same partials in the
 IO dtype and, with ``acc32=0``, the same per-sub-dot rounding.
+``splitk_reduce(parts)`` sums the partials in fp32 and rounds once (the
+reference's ``parts.sum(axis=0)`` in ``repro.kernels.ops.matmul``): on a
+CUDA tensor one launch of ``gemm.cu``'s reduction pass, on a CPU tensor
+:func:`splitk_reduce_plain`.
 """
 
 from __future__ import annotations
@@ -19,8 +24,10 @@ from repro_torch.device import on_cuda
 
 from . import _build
 
-# kernel launches since the last reset (the serving path's proof of use)
+# kernel launches since the last reset (the serving path's proof of use):
+# the GEMM kernel's and the split-K reduction pass's
 launches = 0
+reduce_launches = 0
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -108,3 +115,37 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, cfg: Mapping[str, int]
         for j in range(subs.shape[1]):
             acc = (acc.float() + subs[:, j].float()).to(a.dtype)
     return acc
+
+
+def splitk_reduce(parts: torch.Tensor) -> torch.Tensor:
+    """(k_split, M, N) partials -> (M, N) in their dtype: summed in fp32 in
+    split order, rounded once."""
+    global reduce_launches
+    if parts.dim() != 3 or parts.dtype not in _DTYPES or 0 in parts.shape:
+        raise ValueError(f"splitk_reduce wants non-empty bf16 or fp32 "
+                         f"(k_split, M, N) partials; got {parts.dtype} "
+                         f"{tuple(parts.shape)}")
+    if parts.device.type == "cpu":
+        return splitk_reduce_plain(parts)
+    if not on_cuda(parts):
+        raise ValueError(f"splitk_reduce runs on cuda or cpu, not "
+                         f"{parts.device}")
+    if not parts.is_contiguous():
+        raise ValueError("splitk_reduce wants contiguous partials")
+    ks, M, N = parts.shape
+    out = torch.empty((M, N), dtype=parts.dtype, device=parts.device)
+    lib = _build.load("gemm")
+    with torch.cuda.device(parts.device):
+        stream = torch.cuda.current_stream(parts.device).cuda_stream
+        rc = lib.splitk_reduce_launch(parts.data_ptr(), out.data_ptr(), ks, M,
+                                      N, _DTYPES[parts.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"split-K reduction launch failed: CUDA error "
+                           f"{rc} for {tuple(parts.shape)}")
+    reduce_launches += 1
+    return out
+
+
+def splitk_reduce_plain(parts: torch.Tensor) -> torch.Tensor:
+    """The reduction pass's arithmetic in PyTorch, on any device."""
+    return parts.float().sum(dim=0).to(parts.dtype)

@@ -1,5 +1,6 @@
 """Kernel entry points: config defaulting, block shrinking, the reduction of
-split-K / split-C partials.
+split-K (``matmul.splitk_reduce``, a kernel of its own on the card) and
+split-C partials.
 
 Mirrors ``repro.kernels.ops`` (``matmul``, ``conv2d``, ``flash_attention``,
 ``ssd_scan``).  The kernels mask ragged edges, the conv's SAME halo, KV
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.core.space import (ATTENTION_PARAMS, CONV_PARAMS,
                                     GEMM_PARAMS, SSD_PARAMS, attention_fits,
-                                    ssd_fits)
+                                    gemm_fits, ssd_fits)
 
 from . import attention as _attention
 from . import conv as _conv
@@ -40,14 +41,17 @@ _MIN_BN = min(GEMM_PARAMS["bn"])
 _MIN_BK = min(GEMM_PARAMS["bk"])
 
 
-def shrink_gemm_cfg(cfg: Mapping[str, int], M: int, N: int, K: int
-                    ) -> Dict[str, int]:
+def shrink_gemm_cfg(cfg: Mapping[str, int], M: int, N: int, K: int,
+                    dtype_bits: int = 16) -> Dict[str, int]:
     """Shrink tiles larger than the problem, keeping any config runnable.
 
     A tile halves while it exceeds its dimension (down to the space's
     smallest tile), ``bk`` before ``k_split`` so the split parallelism
     survives on short K, and ``k_unroll`` halves until its sub-dots are
-    whole 16-element slices of ``bk``.
+    whole 16-element slices of ``bk``; then, while the config does not
+    fit the CTA at this IO width (the default's 128 x 128 x 128 tiles in
+    two fp32 stages), ``prefetch`` drops.  A legal config is left as it
+    is.
     """
     cfg = {**DEFAULT_GEMM, **cfg}
     bm, bn, bk, ks = cfg["bm"], cfg["bn"], cfg["bk"], cfg["k_split"]
@@ -62,7 +66,10 @@ def shrink_gemm_cfg(cfg: Mapping[str, int], M: int, N: int, K: int
     ku = cfg["k_unroll"]
     while ku > 1 and bk % (ku * 16):
         ku //= 2
-    return {**cfg, "bm": bm, "bn": bn, "bk": bk, "k_split": ks, "k_unroll": ku}
+    out = {**cfg, "bm": bm, "bn": bn, "bk": bk, "k_split": ks, "k_unroll": ku}
+    while out["prefetch"] > 1 and not gemm_fits(out, dtype_bits):
+        out["prefetch"] -= 1
+    return out
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor,
@@ -75,11 +82,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     passes them, go through as they are."""
     M, K = a.shape
     N = b.shape[1]
-    cfg = shrink_gemm_cfg(cfg or {}, M, N, K)
+    cfg = shrink_gemm_cfg(cfg or {}, M, N, K, _dtype_bits(a.dtype))
     parts = _matmul.gemm(a.contiguous(), b.contiguous(), cfg)
     if cfg["k_split"] == 1:
         return parts[0]
-    return parts.float().sum(dim=0).to(a.dtype)
+    return _matmul.splitk_reduce(parts)
 
 
 _MIN_BNPQ = min(CONV_PARAMS["b_npq"])

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: kernel vs plain version (and the
 fp32 oracle) at the serving path's, the conv tuning path's and the
-attention and SSD tuning paths' shapes, and the timing backend.
+attention and SSD tuning paths' shapes, the GEMM's split-K reduction pass,
+and the timing backend.
 Skips without a GPU; on a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -55,10 +56,82 @@ def test_gemm_kernel_matches_plain(cuda, shape, cfg):
     assert float(err) <= 2e-2
 
 
+# every bf16 warp layout of the mma.sync body (1 warp at 16 x 32 to 8 at
+# 128 x 128), bm and bn not shrunk to the problem: the kernel masks rows
+# and columns past M and N itself
+MMA_LAYOUTS = [(bm, bn) for bm in (16, 32, 64, 128) for bn in (32, 64, 128)]
+MMA_SHAPES = SHAPES + [(5, 100, 300)]     # ragged, unaligned: element loads
+
+
+@pytest.mark.parametrize("k_unroll", [1, 2, 4])
+@pytest.mark.parametrize("acc32", [0, 1])
+@pytest.mark.parametrize("layout", MMA_LAYOUTS)
+def test_gemm_mma_layout_matches_plain(cuda, layout, acc32, k_unroll):
+    """The bf16 body under one warp layout, acc32 and k_unroll (sub-dots
+    of 64 / k_unroll elements) against the plain version at 2e-2, at the 8
+    serving shapes and a ragged unaligned one."""
+    bm, bn = layout
+    i = MMA_LAYOUTS.index(layout)
+    cfg = {"bm": bm, "bn": bn, "bk": 64, "k_unroll": k_unroll,
+           "k_split": 2, "order": i % 2, "acc32": acc32,
+           "prefetch": 1 + i % 3}
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(bm + bn + acc32 + k_unroll)
+    for M, N, K in MMA_SHAPES:
+        a = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+        b = (torch.randn((K, N), generator=gen, device=cuda)
+             / K ** 0.5).bfloat16()
+        got = kmatmul.gemm(a, b, cfg)
+        want = kmatmul.matmul_plain(a, b, cfg)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (2, M, N)
+        assert _rel(got, want) <= 2e-2, (M, N, K)
+
+
+def _ulp_distance(got, want):
+    """Largest distance in ulps between two bf16 tensors (bit patterns
+    mapped to integers in value order; +0 and -0 both 0)."""
+    b = torch.stack([got, want]).contiguous().view(torch.int16).long()
+    b = torch.where(b >= 0, b, -(1 << 15) - b)
+    return int((b[0] - b[1]).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 4, 576), (8, 32, 1536), (8, 4, 192),
+                                   (4, 5, 99), (3, 130, 1001)])
+def test_splitk_reduce_matches_plain(cuda, shape, dtype):
+    """The reduction pass against its plain version: bf16 within one ulp
+    (both sum in fp32 and round once, in orders that may differ); fp32
+    within 1e-6 of the largest sum.  Odd lengths take the element path."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sum(shape))
+    parts = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    got = kmatmul.splitk_reduce(parts)
+    want = kmatmul.splitk_reduce_plain(parts)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == shape[1:]
+    if dtype == torch.bfloat16:
+        assert _ulp_distance(got, want) <= 1
+    else:
+        assert _rel(got, want) <= 1e-6
+
+
+def test_split_call_launches_one_kernel_and_one_reduction(cuda):
+    a = torch.randn((4, 576), device=cuda).bfloat16()
+    b = torch.randn((576, 192), device=cuda).bfloat16()
+    for ks, reductions in ((1, 0), (2, 1), (8, 1)):
+        g0, r0 = kmatmul.launches, kmatmul.reduce_launches
+        tops.matmul(a, b, {"bm": 16, "bn": 64, "bk": 64, "k_split": ks})
+        torch.cuda.synchronize()
+        assert (kmatmul.launches - g0, kmatmul.reduce_launches - r0) == (
+            1, reductions), ks
+
+
 def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version called for a CUDA tensor")
     monkeypatch.setattr(kmatmul, "matmul_plain", boom)
+    monkeypatch.setattr(kmatmul, "splitk_reduce_plain", boom)
     a = torch.ones((4, 576), device=cuda, dtype=torch.bfloat16)
     b = torch.ones((576, 192), device=cuda, dtype=torch.bfloat16)
     out = tops.matmul(a, b, {"k_split": 2})

@@ -7,9 +7,12 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
-from repro_torch.core.space import (GEMM_SPACE, SMEM_DEFAULT, SMEM_PER_BLOCK,
-                                    gemm_fits, gemm_input, gemm_is_legal,
-                                    gemm_smem_bytes)
+from repro_torch.core.space import (GEMM_MMA_REG_OVERHEAD, GEMM_SPACE,
+                                    MAX_REGS_PER_THREAD, SMEM_DEFAULT,
+                                    SMEM_PER_BLOCK, gemm_fits, gemm_input,
+                                    gemm_is_legal, gemm_regs_per_thread,
+                                    gemm_smem_bytes, mma_pitch,
+                                    mma_warp_tile)
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -131,17 +134,21 @@ def test_default_and_smem_limit_are_legal():
 
 
 def test_shrink_keeps_every_config_launchable():
-    rng = np.random.default_rng(0)
-    cfgs = list(GEMM_SPACE.enumerate())
-    picks = rng.choice(len(cfgs), size=200, replace=False)
-    for i in picks:
-        cfg = cfgs[i]
-        if not gemm_fits(cfg, 16):
-            continue
-        for M, N, K in [(1, 8, 16), (4, 192, 576), (33, 70, 100)]:
-            small = tops.shrink_gemm_cfg(cfg, M, N, K)
-            assert gemm_fits(small, 16), (cfg, small)
-            assert small["bk"] * small["k_split"] <= max(K, small["bk"])
+    for bits in (16, 32):
+        for cfg in GEMM_SPACE.enumerate():
+            if not gemm_fits(cfg, bits):
+                continue
+            for M, N, K in [(1, 8, 16), (4, 192, 576), (5, 100, 300),
+                            (33, 70, 100)]:
+                small = tops.shrink_gemm_cfg(cfg, M, N, K, bits)
+                assert gemm_fits(small, bits), (cfg, small)
+                assert small["bk"] * small["k_split"] <= max(K, small["bk"])
+        # the default's two stages of 128 x 128 x 128 tiles exceed a CTA's
+        # shared memory in fp32; at a shape that keeps the tiles, one stage
+        # fits
+        big = tops.shrink_gemm_cfg({}, 512, 512, 512, bits)
+        assert gemm_fits(big, bits)
+        assert big["prefetch"] == (2 if bits == 16 else 1)
 
 
 def test_a_k_cut_to_512_hides_the_drift_of_the_full_reduction():
@@ -229,3 +236,122 @@ def test_plain_acc32_0_forms_its_sub_dots_in_blocks(monkeypatch, block_subs):
     monkeypatch.setattr(kmatmul, "PLAIN_BLOCK_BYTES",
                         block_subs * 4 * cfg["k_split"] * M * N)
     assert torch.equal(kmatmul.matmul_plain(a, b, cfg), whole)
+
+
+# -- the mma.sync body's space helpers -----------------------------------------
+
+def test_mma_pitch_pads_to_an_odd_count_of_16_byte_units():
+    """A bf16 stage row's pitch: bk in 32..256 and bn in 32..128 are even
+    counts of 16-byte units, so each gets 8 elements more."""
+    for n, want in ((16, 24), (24, 24), (32, 40), (64, 72), (128, 136),
+                    (256, 264)):
+        assert mma_pitch(n) == want
+        assert (mma_pitch(n) // 8) % 2 == 1
+
+
+@pytest.mark.parametrize("bm,bn,tile,warps", [
+    (16, 32, (16, 32), 1), (16, 64, (16, 32), 2), (16, 128, (16, 64), 2),
+    (32, 32, (32, 32), 1), (64, 128, (32, 64), 4), (128, 32, (32, 32), 4),
+    (128, 128, (32, 64), 8)])
+def test_mma_warp_tile(bm, bn, tile, warps):
+    """A warp owns min(bm, 32) x (bn, or bn/2 from 64 up) outputs: 1 warp
+    at 16 x 32, 8 at 128 x 128 (``MmaTile`` in ``csrc/mma.cuh``)."""
+    assert mma_warp_tile(bm, bn) == tile
+    assert bm // tile[0] * (bn // tile[1]) == warps
+
+
+def test_gemm_smem_counts_the_padded_bf16_pitch():
+    cfg = {"bm": 128, "bn": 128, "bk": 64, "k_unroll": 1, "k_split": 1,
+           "order": 0, "acc32": 1, "prefetch": 3}
+    assert gemm_smem_bytes(cfg, 16) == 3 * (128 * 72 + 64 * 136) * 2
+    assert gemm_smem_bytes(cfg, 32) == 3 * (128 * 64 + 64 * 128) * 4
+
+
+def test_gemm_register_estimate_counts_the_warp_fragments():
+    """bf16: the warp block's fp32 fragments (doubled, plus 4 rounding
+    temporaries, with acc32=0), the A fragments of one k-step and a B pair,
+    plus the fitted overhead; at 128 x 128 the count the ptxas -v report
+    gives for sm_90a (bf16 156, 224 with acc32=0; fp32 128)."""
+    big = {"bm": 128, "bn": 128, "bk": 64, "k_unroll": 1, "k_split": 1,
+           "order": 0, "acc32": 1, "prefetch": 2}
+    assert gemm_regs_per_thread(big, 16) == 32 * 64 // 32 + 8 + 4 \
+        + GEMM_MMA_REG_OVERHEAD == 156
+    assert gemm_regs_per_thread({**big, "acc32": 0}, 16) == 224
+    assert gemm_regs_per_thread(big, 32) == 128
+    small = {**big, "bm": 16, "bn": 32}
+    assert gemm_regs_per_thread(small, 16) == 16 + 4 + 4 \
+        + GEMM_MMA_REG_OVERHEAD
+
+
+def _refusals(cfg, bits):
+    """Why the kernel cannot launch ``cfg`` at IO width ``bits``."""
+    why = []
+    if gemm_smem_bytes(cfg, bits) > SMEM_PER_BLOCK:
+        why.append("shared memory")
+    if gemm_regs_per_thread(cfg, bits) > MAX_REGS_PER_THREAD:
+        why.append("registers")
+    if cfg["bk"] % (cfg["k_unroll"] * 16):
+        why.append("sub-dot not whole k16 steps")
+    if bits == 32 and not cfg["acc32"]:
+        why.append("fp32 needs acc32")
+    return why
+
+
+@pytest.mark.parametrize("bits", [16, 32])
+def test_every_config_fits_or_is_refused_for_a_stated_reason(bits):
+    counts = {}
+    for cfg in GEMM_SPACE.enumerate():
+        why = _refusals(cfg, bits)
+        assert gemm_fits(cfg, bits) == (not why), (cfg, why)
+        for w in why or ["fits"]:
+            counts[w] = counts.get(w, 0) + 1
+    # the padded bf16 rows refuse a few more configs than unpadded ones
+    # would; no config is refused for registers
+    assert counts["fits"] > 0 and "registers" not in counts, counts
+
+
+# -- the split-K reduction -------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k_split", [2, 8])
+def test_split_k_reduction_matches_jax(k_split, dtype):
+    """``ops.matmul`` with its plain split-K reduction (the CPU's path)
+    against the JAX ``ops.matmul`` in interpret mode, both splitting K=2048
+    at the same boundaries (bk=128), on the same numpy inputs."""
+    M, N, K = 24, 128, 2048
+    rng = np.random.default_rng(k_split)
+    a = rng.normal(size=(M, K)).astype(np.float32)
+    b = (rng.normal(size=(K, N)) / K ** 0.5).astype(np.float32)
+    cfg = {"bm": 32, "bn": 128, "bk": 128, "k_unroll": 1,
+           "k_split": k_split, "order": 0, "acc32": 1, "prefetch": 2}
+    assert tops.shrink_gemm_cfg(cfg, M, N, K)["k_split"] == k_split
+    want = np.asarray(jops.matmul(jnp.asarray(a, dtype), jnp.asarray(b, dtype),
+                                  cfg, interpret=True), np.float32)
+    td = getattr(torch, dtype)
+    got = tops.matmul(torch.from_numpy(a).to(td), torch.from_numpy(b).to(td),
+                      cfg)
+    assert got.dtype == td
+    assert _rel(got.float().numpy(), want) < TOL[dtype]
+
+
+def test_splitk_reduce_on_the_cpu_is_its_plain_version():
+    rng = np.random.default_rng(5)
+    parts = torch.from_numpy(rng.normal(size=(8, 5, 7)).astype(np.float32))
+    before = kmatmul.reduce_launches
+    for dtype in (torch.float32, torch.bfloat16):
+        p = parts.to(dtype)
+        got = kmatmul.splitk_reduce(p)
+        assert got.dtype == dtype and got.shape == (5, 7)
+        assert torch.equal(got, kmatmul.splitk_reduce_plain(p))
+        # the fp32 sum in split order, rounded once
+        want = p[0].float()
+        for s in range(1, 8):
+            want = want + p[s].float()
+        torch.testing.assert_close(got.float(), want.to(dtype).float(),
+                                   rtol=1e-6 if dtype == torch.float32
+                                   else 2 ** -8, atol=0)
+    assert kmatmul.reduce_launches == before    # no kernel on the CPU
+    with pytest.raises(ValueError):
+        kmatmul.splitk_reduce(parts[0])
+    with pytest.raises(ValueError):
+        kmatmul.splitk_reduce(parts.to(torch.float16))
