@@ -9,8 +9,8 @@ exits non-zero:
   1. device     the card's name and ``nvidia-smi`` name / power limit
   2. build      every CUDA kernel (gemm.cu, conv.cu, attention.cu, ssd.cu)
                 from ``csrc/``, one nvcc per source, in parallel; the
-                ``ptxas -v`` report: no GEMM, attention or conv kernel that
-                a legal config launches spills
+                ``ptxas -v`` report: no GEMM, attention, conv or SSD kernel
+                that a legal config launches spills
   3. gemm       the GEMM kernel against its plain version (and the reduced
                 result against the fp32 oracle) at the serving path's
                 shapes, two ragged unaligned ones (M=5 and 130) and Table
@@ -29,7 +29,9 @@ exits non-zero:
                 packed rows straddling two heads, decode at GQA 5 over a
                 ragged cache and at GQA 8
   6. ssd        the SSD kernel against its plain version and the sequential
-                fp32 oracle, bf16 and fp32, several configs, a ragged L
+                fp32 oracle, bf16 and fp32, several configs (chunk 16 and
+                256 among them), a ragged L, and P=24 S=40 (multiples of 8
+                that the bf16 body computes at 16)
   7. tune       the offline loop on the card for all four spaces: fit the
                 sampler, label a dataset with CheckedBackend(CudaEventBackend)
                 (the gate, then the kernels timed), train the MLP, run a
@@ -48,7 +50,9 @@ exits non-zero:
                 GEMM also the kernel alone and the split-K reduction pass
                 alone beside ``ops.matmul``; for attention also the
                 achieved TFLOP/s (prefill) or GB/s (decode), the share of
-                the bound, and the tuned config's registers and spills
+                the bound, and the tuned config's registers and spills;
+                for SSD the TFLOP/s by 4·B·L·H·P·S, the share of the bound
+                and the kernel's registers and spills
                 gemm-table4: the paper's 17 Table 4 GEMMs in bf16 under the
                 vendor heuristic's config (a transposed A or B as a
                 transposed view, so its relayout is timed), against
@@ -111,7 +115,8 @@ from repro_torch.core.space import (ATTENTION_SPACE, CONV_SPACE,  # noqa: E402
                                     GEMM_SPACE, SSD_SPACE, ConfigRejected,
                                     attention_fits, attention_head_tile,
                                     attention_input, conv_fits, conv_input,
-                                    gemm_fits, gemm_input, ssd_input)
+                                    gemm_fits, gemm_input, ssd_fits,
+                                    ssd_input)
 from repro_torch.core.tuner import InputAwareTuner  # noqa: E402
 from repro_torch.kernels import _build, dispatch, ops  # noqa: E402
 from repro_torch.kernels import attention as kattention  # noqa: E402
@@ -266,6 +271,7 @@ SSD_CHECKS = [
     ("mamba2-1.3b layer", (1, 2048, 64, 64, 128)),
     ("ragged L=1000", (2, 1000, 8, 64, 128)),
     ("jamba-v0.1 layer, L=1024", (1, 1024, 128, 64, 128)),
+    ("P=24 S=40, ragged L=97", (2, 97, 4, 24, 40)),
 ]
 SSD_CHECK_CONFIGS = {
     "default": dict(ops.DEFAULT_SSD),
@@ -419,6 +425,11 @@ def attention_bound(x: dict, dtype: torch.dtype, peaks: dict) -> dict:
     return bound((qo + kv) * bpe, problem_flops("attention", x), dtype, peaks)
 
 
+def ssd_flops(x: dict) -> float:
+    """4·B·L·H·P·S: the least work any form of the scan does (ssd_bound)."""
+    return 4.0 * x["B"] * x["L"] * x["H"] * x["P"] * x["S"]
+
+
 def ssd_bound(x: dict, dtype: torch.dtype, peaks: dict) -> dict:
     """x, dt, B, C (and fp32 a) read once, y written once; 4·B·L·H·P·S
     FLOPs, the least any form of the scan does: every step and head adds
@@ -431,7 +442,7 @@ def ssd_bound(x: dict, dtype: torch.dtype, peaks: dict) -> dict:
     bl = x["B"] * x["L"]
     nbytes = (2 * bl * x["H"] * x["P"] + bl * x["H"] + 2 * bl * x["S"]) * bpe \
         + 4 * x["H"]
-    return bound(nbytes, 4.0 * bl * x["H"] * x["P"] * x["S"], dtype, peaks)
+    return bound(nbytes, ssd_flops(x), dtype, peaks)
 
 
 def attention_operands(x: dict, dtype: torch.dtype, gen: torch.Generator,
@@ -525,6 +536,13 @@ def conv_kernel(usage: dict, cfg: dict, bits: int) -> str:
                                f"{cfg['b_k']}ELb1E")
 
 
+def ssd_kernel(usage: dict, bits: int) -> str:
+    """The SSD kernel that a config launches: the mma.sync body in bf16,
+    the CUDA-core body in fp32 (one kernel each, whatever the config)."""
+    return ptxas_kernel(usage, "ssd_mma_kernel" if bits == 16
+                        else "ssd_kernelIfE")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build(KERNELS)
@@ -539,9 +557,9 @@ def phase_build() -> None:
         f"{name}.cu {len(u)} kernels, {max(r for r, _ in u.values())} "
         f"registers at most, {len(spills[name])} spill"
         for name, u in usage.items()))
-    # every GEMM, attention and conv kernel some legal config launches: no
-    # spill
-    launched = {"gemm": {}, "attention": {}, "conv": {}}
+    # every GEMM, attention, conv and SSD kernel some legal config
+    # launches: no spill
+    launched = {"gemm": {}, "attention": {}, "conv": {}, "ssd": {}}
     for cfg in GEMM_SPACE.enumerate():
         for bits in (16, 32):
             if gemm_fits(cfg, bits):
@@ -557,6 +575,10 @@ def phase_build() -> None:
             if conv_fits(cfg, bits):
                 launched["conv"][conv_kernel(usage["conv"], cfg, bits)] = (
                     cfg, bits)
+    for cfg in SSD_SPACE.enumerate():
+        for bits in (16, 32):
+            if ssd_fits(cfg, bits, 64, 128):
+                launched["ssd"][ssd_kernel(usage["ssd"], bits)] = (cfg, bits)
     for name, kernels in launched.items():
         spilled = [v for k, v in kernels.items() if usage[name][k][1]]
         if spilled:
@@ -786,8 +808,8 @@ def phase_ssd_check(dev: torch.device) -> dict:
                 n += 1
             del args, oracle
     phase("ssd", f"{n} kernel-vs-plain and kernel-vs-oracle checks passed "
-          f"over {len(SSD_CHECKS)} shapes (a ragged L included); max abs err "
-          f"{worst['abs']:.3e}, max rel err {worst['rel']:.3e} vs plain; max "
+          f"over {len(SSD_CHECKS)} shapes (ragged L, P=24 S=40 included); "
+          f"max abs err {worst['abs']:.3e}, max rel err {worst['rel']:.3e} vs plain; max "
           f"rel err {worst['oracle_rel']:.3e} vs the sequential fp32 oracle "
           f"(tolerance bf16 {TOL[torch.bfloat16]}; fp32 {TOL[torch.float32]} "
           f"vs plain, {ORACLE_TOL_FP32['ssd']} vs the oracle)")
@@ -1145,6 +1167,8 @@ def phase_times_attention_ssd(dev: torch.device, peaks: dict, label: str
     bf16 = torch.bfloat16
     attn_rows, ssd_rows = [], []
     usage = _build.ptxas_usage("attention")
+    ssd_usage = _build.ptxas_usage("ssd")
+    ssd_regs, ssd_spill = ssd_usage[ssd_kernel(ssd_usage, 16)]
     for name, x, off in ATTN_TARGETS:
         cfg, tier = dispatch._resolve_cfg("attention", x)
         one = attention_operands(x, bf16, gen, dev)
@@ -1208,18 +1232,26 @@ def phase_times_attention_ssd(dev: torch.device, peaks: dict, label: str
         with plain_kernels():
             plain = time_ms(run(cfg), min(n_calls, 2))
         del sets, one
+        bnd = ssd_bound(x, bf16, peaks)
         ssd_rows.append({"name": name, **x, "tier": tier, "cfg": cfg,
                          "default_cfg": ops.shrink_ssd_cfg(
                              {}, x["L"], x["H"], x["P"], x["S"], 16),
                          "kernel_ms": kernel, "default_ms": default,
                          "plain_ms": plain, "library_ms": None,
-                         **ssd_bound(x, bf16, peaks)})
+                         "flops": ssd_flops(x),
+                         "tflops": ssd_flops(x) / (kernel * 1e-3) / 1e12,
+                         "bound_share": bnd["bound_ms"] / kernel,
+                         "registers": ssd_regs, "spill_bytes": ssd_spill,
+                         **bnd})
         r = ssd_rows[-1]
         phase("times", f"ssd {name} (B={x['B']} L={x['L']} H={x['H']} "
               f"P={x['P']} S={x['S']}) bf16 tier={tier} tuned {cfg} "
-              f"{kernel:.4f} ms, ops default {default:.4f} ms, plain "
-              f"{plain:.4f} ms, no single PyTorch call computes it, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{label}]")
+              f"{kernel:.4f} ms ({r['tflops']:.2f} TFLOP/s by 4·B·L·H·P·S, "
+              f"{100 * r['bound_share']:.2f}% of the bound; {ssd_regs} "
+              f"registers, {ssd_spill} bytes spilled), ops default "
+              f"{default:.4f} ms, plain {plain:.4f} ms, no single PyTorch "
+              f"call computes it, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) [{label}]")
     return attn_rows, ssd_rows
 
 
@@ -1570,6 +1602,9 @@ def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
             "per": per[name],
             "shapes": [{k: r[k] for k in r if k not in ("t_bytes", "t_ops")}
                        for r in rows[name]]})
+        if name == "ssd":
+            # the rate by 4·B·L·H·P·S over the targets' summed time
+            out[-1]["tflops"] = tot("flops") / (tot("kernel_ms") * 1e-3) / 1e12
     # the GEMM's split-K reduction pass, over the same decode tick
     tot = lambda key: per_tick(rows["gemm"], key, n_layers)
     t_bytes, t_ops = tot("reduce_t_bytes"), tot("reduce_t_ops")

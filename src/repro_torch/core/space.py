@@ -460,23 +460,40 @@ SSD_PARAMS: Dict[str, Tuple[int, ...]] = {
 }
 
 SSD_INPUTS = ("B", "L", "H", "P", "S", "dtype_bits")   # P=head dim, S=state dim
-SSD_ROW_TILE = 16       # chunk rows whose scores the kernel holds at once
+SSD_ROW_TILE = 16       # chunk rows whose scores the fp32 body holds at once
 
 
 def ssd_smem_bytes(cfg: Mapping[str, int], dtype_bits: int, P: int, S: int
                    ) -> int:
-    """Dynamic shared memory of one CTA, as ``ssd.cu`` lays it out:
-    ``prefetch`` stages of the chunk's x (``b_heads`` x P per step), dt,
-    and B and C rows (S plus 16 bytes each); the fp32 state (``b_heads``
-    x S x P); one tile of :data:`SSD_ROW_TILE` score rows (fp32, chunk + 4
-    wide: the chunk x chunk scores are never held whole); the per-head
-    cumulative decays and state weights."""
+    """Dynamic shared memory of one CTA, as ``ssd.cu`` lays it out.
+
+    Both bodies: ``prefetch`` stages of the chunk's x (``b_heads`` x P per
+    step), dt, and B and C rows (S plus 16 bytes each); the fp32 state
+    (``b_heads`` x P x S); the per-head cumulative decays and state weights.
+    fp32 (the CUDA-core body) adds one tile of :data:`SSD_ROW_TILE` score
+    rows (fp32, chunk + 4 wide: the chunk x chunk scores are never held
+    whole).  bf16 (the ``mma.sync`` body) holds no score tile; it pads the
+    x rows to an odd number of 16-byte units and the state rows to S16 + 8
+    floats (S16 = S rounded up to 16) where the padded layout fits, so it
+    fits wherever the fp32-tile layout would; the padded layout also holds
+    a bf16 copy of the state (``b_heads`` x P16 x (S16 + 8), P16 = P
+    rounded up to 16) for the read-out's ldmatrix.
+    """
     bpe = dtype_bits // 8
-    c, bh = cfg["chunk"], cfg["b_heads"]
-    stage = c * bh * P * bpe + _round_up(c * bh * bpe, 16) \
-        + 2 * c * (S * bpe + 16)
-    return cfg["prefetch"] * stage + bh * S * P * 4 \
-        + SSD_ROW_TILE * (c + 4) * 4 + 2 * bh * c * 4
+    c, bh, stages = cfg["chunk"], cfg["b_heads"], cfg["prefetch"]
+
+    def total(x_row: int, state_row: int, extra: int) -> int:
+        stage = c * x_row * bpe + _round_up(c * bh * bpe, 16) \
+            + 2 * c * (S * bpe + 16)
+        return stages * stage + bh * P * state_row * 4 + extra \
+            + 2 * bh * c * 4
+
+    if dtype_bits != 16:
+        return total(bh * P, S, SSD_ROW_TILE * (c + 4) * 4)
+    x_pad = 8 if (bh * P // 8) % 2 == 0 else 0
+    state_copy = bh * _round_up(P, 16) * (_round_up(S, 16) + 8) * 2
+    padded = total(bh * P + x_pad, _round_up(S, 16) + 8, state_copy)
+    return padded if padded <= SMEM_PER_BLOCK else total(bh * P, S, 0)
 
 
 def ssd_fits(cfg: Mapping[str, int], dtype_bits: int, P: int, S: int) -> bool:

@@ -8,6 +8,18 @@ runs :func:`ssd_plain`, which repeats the kernel's chunked algorithm in
 PyTorch: the same chunks of ``chunk`` steps, the exponent masked before the
 exp, the fp32 state carried across chunks, and a ragged L as zero steps
 (dt = 0 is the identity).
+
+The kernel has two bodies.  bf16 runs all four chunk products on
+``mma.sync`` tensor cores (C·Bᵀ, the masked scores W times x, the
+read-out C·state, the state update (wt⊙x)ᵀ·B) and rounds to bf16 at three
+points beyond the IO: the score tile W, the weighted wt⊙x, and the copy of
+the state read at the read-out; every sum and the carried state stay fp32.
+The plain version keeps those three in fp32; ``tests/test_torch_ssd.py``
+emulates the rounding points and holds them to the reference at 2e-2.
+What bounds the bf16 body on an H100 is the serial chunk loop of each CTA
+(four CTA barriers a chunk, H / b_heads CTAs at B = 1), not its products or
+its bytes.  fp32 keeps the first version's CUDA-core body (fmaf loops, a
+sequential cumsum).
 """
 
 from __future__ import annotations

@@ -85,6 +85,68 @@ def test_ssd_scan_matches_jax_kernel_and_oracle(name, shape, cfg, dtype):
     assert _rel(got, oracle) <= TOL[dtype]
 
 
+def _mma_body_emulation(x, dt, a, bm, cm, chunk):
+    """The bf16 ``mma.sync`` body's arithmetic in fp32 with its three bf16
+    rounding points: the score tile W, the weighted wt * x of the state
+    update, and the copy of the state read at the read-out (the carried
+    state stays fp32).  x, dt, B and C are bf16 already."""
+    bf = lambda t: t.to(torch.bfloat16).float()
+    B, L, H, P = x.shape
+    n = -(-L // chunk)
+    pad = n * chunk - L
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    bf_, cf = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+               for t in (bm, cm))
+    causal = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    state = torch.zeros((B, H, P, bm.shape[-1]))
+    ys = []
+    for ci in range(n):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        xc, dtc, bc, cc = xf[:, sl], dtf[:, sl], bf_[:, sl], cf[:, sl]
+        cum = torch.cumsum(dtc * a.float(), dim=1)              # (B, c, H)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]          # (B, i, j, H)
+        diff = torch.where(causal[None, :, :, None], diff,
+                           torch.full_like(diff, float("-inf")))
+        cb = torch.einsum("bis,bjs->bij", cc, bc)
+        w = bf(cb[..., None] * torch.exp(diff) * dtc[:, None])  # (B, i, j, H)
+        y = torch.einsum("bijh,bjhp->bihp", w, xc)
+        y = y + torch.exp(cum)[..., None] * torch.einsum(
+            "bis,bhps->bihp", cc, bf(state))
+        ys.append(y)
+        wt = torch.exp(cum[:, -1:] - cum) * dtc                 # (B, c, H)
+        u = bf(wt[..., None] * xc)
+        state = state * torch.exp(cum[:, -1])[:, :, None, None] \
+            + torch.einsum("bjhp,bjs->bhps", u, bc)
+    return torch.cat(ys, dim=1)[:, :L].to(torch.bfloat16)
+
+
+# the card tests' SSD shapes (tests/test_torch_cuda.py) and a 4-head
+# mamba2-wide layer
+MMA_SHAPES = [(1, 300, 8, 64, 128), (2, 97, 4, 24, 40), (2, 40, 8, 32, 64),
+              (1, 512, 4, 64, 128)]
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 256])
+@pytest.mark.parametrize("shape", MMA_SHAPES)
+def test_mma_body_rounding_stays_within_the_bf16_tolerance(shape, chunk):
+    """Rounding W, wt * x and the read-out's state to bf16 (the tensor-core
+    body's operands) keeps y within 2e-2 of the reference's sequential
+    oracle and of its Pallas kernel at the chunk the port launches."""
+    B, L, H, P, S = shape
+    arrs = _inputs(*shape, seed=11)
+    cfg = tops.shrink_ssd_cfg({"chunk": chunk, "b_heads": 1, "acc32": 1,
+                               "prefetch": 1}, L, H, P, S, 16)
+    got = _mma_body_emulation(*_torch(arrs, "bfloat16"), cfg["chunk"])
+    got = got.float().numpy()
+    oracle = np.asarray(jref.ssd_ref(*_jax_args(arrs, "bfloat16")),
+                        np.float32)
+    want = np.asarray(jops.ssd_scan(*_jax_args(arrs, "bfloat16"), cfg,
+                                    interpret=True), np.float32)
+    assert _rel(got, oracle) <= TOL["bfloat16"]
+    assert _rel(got, want) <= TOL["bfloat16"]
+
+
 @pytest.mark.parametrize("L", [1, 37, 130])
 def test_ragged_l_equals_the_unpadded_result(L):
     """A ragged last chunk is masked by length: the first L steps of a
@@ -137,10 +199,23 @@ def test_acc32_and_b_heads_do_not_change_the_arithmetic():
 
 def test_ssd_space_legality_follows_shared_memory():
     cfg = {"chunk": 128, "b_heads": 1, "acc32": 1, "prefetch": 2}
-    stage = 128 * 64 * 2 + 128 * 2 + 2 * 128 * (128 * 2 + 16)
-    assert ssd_smem_bytes(cfg, 16, 64, 128) == 2 * stage + 64 * 128 * 4 \
-        + 16 * 132 * 4 + 2 * 128 * 4
+    # bf16 (the mma.sync body): x rows padded to 72 (64 / 8 is even), B/C
+    # rows of S + 8, the fp32 state's rows padded to 128 + 8 and its bf16
+    # copy, no score tile
+    stage = 128 * 72 * 2 + 128 * 2 + 2 * 128 * (128 * 2 + 16)
+    assert ssd_smem_bytes(cfg, 16, 64, 128) == 2 * stage + 64 * 136 * 4 \
+        + 64 * 136 * 2 + 2 * 128 * 4
+    # fp32 (the CUDA-core body): unpadded rows and a 16-row fp32 score tile
+    stage32 = 128 * 64 * 4 + 128 * 4 + 2 * 128 * (128 * 4 + 16)
+    assert ssd_smem_bytes(cfg, 32, 64, 128) == 2 * stage32 \
+        + 64 * 128 * 4 + 16 * 132 * 4 + 2 * 128 * 4
     assert ssd_fits(cfg, 16, 64, 128)
+    # where the padded layout (and the state's copy) does not fit, the
+    # unpadded one does: 4 heads of chunk 16 and 3 stages
+    four = {"chunk": 16, "b_heads": 4, "acc32": 1, "prefetch": 3}
+    stage4 = 16 * 256 * 2 + 64 * 2 + 2 * 16 * (128 * 2 + 16)
+    assert ssd_smem_bytes(four, 16, 64, 128) == 3 * stage4 \
+        + 4 * 64 * 128 * 4 + 2 * 4 * 16 * 4
     # chunk 256 holds only at one stage and one head at mamba2's P, S
     big = {"chunk": 256, "b_heads": 1, "acc32": 1, "prefetch": 1}
     assert ssd_fits(big, 16, 64, 128)
@@ -153,6 +228,38 @@ def test_ssd_space_legality_follows_shared_memory():
             if ssd_fits(c, bits, P, S):
                 assert ssd_smem_bytes(c, bits, P, S) <= SMEM_PER_BLOCK
     assert FITS["ssd"](cfg, ssd_input(1, 2048, 64, 64, 128))
+
+
+def _first_version_smem_bytes(cfg, dtype_bits, P, S):
+    """The CTA's bytes under the first version's layout, the same for both
+    dtypes: unpadded x rows, B/C rows of S + 16 bytes, the fp32 state and
+    a 16-row fp32 score tile."""
+    bpe = dtype_bits // 8
+    c, bh = cfg["chunk"], cfg["b_heads"]
+    stage = c * bh * P * bpe + -(-c * bh * bpe // 16) * 16 \
+        + 2 * c * (S * bpe + 16)
+    return cfg["prefetch"] * stage + bh * S * P * 4 + 16 * (c + 4) * 4 \
+        + 2 * bh * c * 4
+
+
+@pytest.mark.parametrize("bits", [16, 32])
+def test_ssd_fits_admits_every_config_it_admitted_before(bits):
+    """The bf16 layout drops the score tile and pads only where the pads
+    fit, so every config that fit under the first version's layout still
+    fits (fp32 keeps that layout byte for byte), at every P and S that are
+    multiples of 8 up to 512."""
+    for cfg in SSD_SPACE.enumerate():
+        if bits == 32 and not cfg["acc32"]:
+            continue
+        for P in range(8, 520, 8):
+            for S in range(8, 520, 8):
+                before = _first_version_smem_bytes(cfg, bits, P, S)
+                now = ssd_smem_bytes(cfg, bits, P, S)
+                if bits == 32:
+                    assert now == before
+                if before <= SMEM_PER_BLOCK:
+                    assert now <= SMEM_PER_BLOCK, (cfg, P, S)
+                    assert ssd_fits(cfg, bits, P, S)
 
 
 @pytest.mark.parametrize("P,S", [(20, 32), (16, 36)])
