@@ -42,7 +42,21 @@ exits non-zero:
                 jamba-v0.1 layer), then serve every tuned shape through
                 ``dispatch`` from it; every job must succeed, every call
                 resolve exact and agree with the fp32 oracle at full size
-  8. times      per shape: the tuned config's kernel time, the heuristic's
+  8. models     the tuner's model tier on the card: label 48 random legal
+                configs at each tuned GEMM shape through the gated timer
+                (``collect_samples``), train the GEMM regressor from the
+                store's log, save it beside the store and load it back;
+                serve 8 requests of prompt lengths nobody tuned (9-200)
+                from an engine that finds the artifacts: the untuned
+                prefills' GEMMs resolve on the model tier, the rest exact;
+                graph and eager ticks give the same greedy tokens; the
+                100-token prefill's logits agree with the plain version's;
+                then at the four projections and M in {1, 8, 17, 48, 100,
+                128}: the model's pick, the best of its top 6 re-measured,
+                the nearest tuned record's config, the heuristic's and
+                ``torch.matmul``, timed; every pick passes the gate at its
+                whole shape
+  9. times      per shape: the tuned config's kernel time, the heuristic's
                 (GEMM, conv) or the ops default's (attention, SSD), the
                 plain version, the library call the port never makes
                 (``torch.matmul``; ``F.conv2d`` channels-last on cuDNN;
@@ -58,25 +72,28 @@ exits non-zero:
                 transposed view, so its relayout is timed), against
                 ``torch.matmul`` and the bound, with TFLOP/s; printed, not
                 held (the results are held to the fp32 oracle)
-  9. serve      SmolLM-135M at full width (30 layers, bf16, random weights
+ 10. serve      SmolLM-135M at full width (30 layers, bf16, random weights
                 from a seed) through ``Engine.generate`` from the tuned store,
                 each decode tick replayed from the engine's CUDA graph; the
                 capture (at the warm-up) and every prefill resolve each
                 projection's GEMM config on the exact tier and the decode KV
                 split count from the tuned attention record; then the same
                 requests with the eager tick: the same greedy tokens, tok/s
-                and median tick of both; the traced graph run's GEMM kernels
-                number 210 x (prefills + replays), its reduction passes one
-                per split-K projection of each prefill and replay
- 10. model      prefill + 4 decode steps through the kernel path and again
+                and median tick of both; the graph run gives the device
+                210 x (prefills + replays) GEMM kernels and one reduction
+                pass per split-K projection of each prefill and replay
+                (the captured graph's kernel nodes, read through the driver
+                API, times the replays, plus the prefills' launches)
+ 11. model      prefill + 4 decode steps through the kernel path and again
                 through the plain path on the card; logits must agree
- 11. profile    a decode tick: eager wall time, host enqueue time, and the
+ 12. profile    a decode tick: eager wall time, host enqueue time, and the
                 device time of the same tick replayed from a CUDA graph
- 12. kernels    one JSON line summarising every hand-written kernel (the
+ 13. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
 
-Each path (tune, serve) runs with every launch count set to 0 just before
-it and read just after; a kernel of the path that never launched fails.
+Each path (tune, models, serve) runs with every launch count set to 0 just
+before it and read just after; a kernel of the path that never launched
+fails.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -87,6 +104,7 @@ prints no result.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import re
@@ -128,6 +146,9 @@ from repro_torch.kernels.ref import (attention_ref, conv2d_ref,  # noqa: E402
 from repro_torch.models import decode_step, init_cache, init_params, prefill  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.serve.flash_decode import resolve_decode_splits  # noqa: E402
+from repro_torch.tunedb.model import (ModelSet, clear_models,  # noqa: E402
+                                      collect_samples, default_models_dir,
+                                      train_models)
 from repro_torch.tunedb.session import TuningSession  # noqa: E402
 from repro_torch.tunedb.store import RecordStore, clear_store, install_store  # noqa: E402
 
@@ -304,6 +325,15 @@ TUNE_HIDDEN = (64, 128, 64)
 TUNE_EPOCHS = 60
 TUNE_BATCH = 32
 TUNE_TOP_K = 6
+
+# the models phase: samples labelled per tuned GEMM shape (the reference
+# CLI's default), the untuned M of the four projections, the configs the
+# re-measured column measures, and the serve run's prompt lengths
+MODEL_PER_SHAPE = 48
+MODEL_EPOCHS = 30
+MODEL_M = (1, 8, 17, 48, 100, 128)
+MODEL_TOP_K = 6
+MODEL_PROMPTS = (9, 17, 32, 48, 64, 100, 128, 200)
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and FLOP/s per IO dtype
 H100_SXM = {"hbm": 3.35e12, torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -985,6 +1015,165 @@ def phase_tune(backend, store: RecordStore, fp: str, dev: torch.device
     return {"stats": stats}
 
 
+def gemm_weights(M: int, N: int, K: int, gen: torch.Generator,
+                 dev: torch.device) -> tuple:
+    """A (M, K) operand and enough (K, N) weight copies that one pass over
+    them exceeds L2 (in a forward every weight matrix is read cold)."""
+    a = torch.randn((M, K), generator=gen, device=dev).bfloat16()
+    n_calls = min(1000, max(20, math.ceil(2.5 * L2_BYTES / (K * N * 2))))
+    bs = [torch.randn((K, N), generator=gen, device=dev).bfloat16()
+          for _ in range(n_calls)]
+    return a, bs
+
+
+def phase_models(backend, store: RecordStore, store_path: Path, fp: str,
+                 cfg, params, dev: torch.device, label: str) -> dict:
+    """The tuner's model tier on the card.  Label ``MODEL_PER_SHAPE``
+    random legal configs at each tuned GEMM shape (gated, timed:
+    ``collect_samples``), train the GEMM regressor from the store's whole
+    log, save it beside the store and load it back.  Serve requests of
+    prompt lengths nobody tuned from an engine that finds the artifacts:
+    every prefill GEMM whose shape has no record resolves on the model
+    tier, the rest (32-token prefills, the capture's ticks) exact; the
+    graph tick's greedy tokens equal the eager tick's; the 100-token
+    prefill's logits agree with the plain version's.  Then, at the four
+    projections and M in ``MODEL_M``, time (a) the model's pick, (b) the
+    best of its top ``MODEL_TOP_K`` re-measured, (c) the nearest tuned
+    record's config (what dispatch served before the model tier), (d) the
+    heuristic's config and (e) ``torch.matmul``; each pick (a) and (b)
+    must pass ``dispatch.check_config`` at its whole shape."""
+    reset_launches()
+    t0 = time.perf_counter()
+    n_samples = collect_samples(store, backend, per_shape=MODEL_PER_SHAPE,
+                                space="gemm")
+    t1 = time.perf_counter()
+    trained = train_models(store, space="gemm", backend=fp,
+                           hidden=TUNE_HIDDEN, epochs=MODEL_EPOCHS)
+    t2 = time.perf_counter()
+    models_dir = default_models_dir(store_path)
+    trained.save(models_dir)
+    models = ModelSet.load(models_dir)
+    if len(models) != 1 or models.skipped:
+        raise AssertionError(f"models: {len(models)} loaded from "
+                             f"{models_dir}, skipped {models.skipped}")
+    meta = models.resolve_model("gemm", fp).meta
+    phase("models", f"gemm: {n_samples} samples labelled on the card "
+          f"({MODEL_PER_SHAPE} per tuned shape, gated), {meta['n_samples']} "
+          f"in the training set with the tune phase's records and samples; "
+          f"MLP {TUNE_HIDDEN}, {MODEL_EPOCHS} epochs, val MSE "
+          f"{meta['val_mse']:.4f} (log2 TFLOPS); collect {t1 - t0:.1f} s, "
+          f"train {t2 - t1:.1f} s")
+
+    serve = models_serve(store_path, fp, cfg, params, dev)
+    picks = models_picks(models, backend, store, fp, cfg, dev, label)
+    return {"counts": serve["counts"], "samples": n_samples, "meta": meta,
+            **serve, **picks}
+
+
+def models_serve(store_path: Path, fp: str, cfg, params, dev: torch.device
+                 ) -> dict:
+    """The models phase's serve run: prompt lengths nobody tuned, from an
+    engine that finds the store's artifacts (see :func:`phase_models`)."""
+    eng = Engine(cfg, params, ServeConfig(max_len=256, slots=4,
+                                          tunedb=str(store_path),
+                                          tunedb_backend=fp))
+    if eng.tunedb_models is None or len(eng.tunedb_models) != 1:
+        raise AssertionError("the engine did not find the model artifacts")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in MODEL_PROMPTS]
+    per_fwd = GEMMS_PER_LAYER * cfg.n_layers
+    dispatch.reset_counts()
+    outs = eng.generate(prompts, max_new=16)
+    torch.cuda.synchronize()
+    tiers = {t: c for (sp, t), c in dispatch.tier_counts.items()
+             if sp == "gemm"}
+    tuned_len = sum(1 for n in MODEL_PROMPTS if n in SLICE_M)
+    want = {"exact": per_fwd * (tuned_len + 2 * eng.captures),
+            "model": per_fwd * (len(MODEL_PROMPTS) - tuned_len)}
+    if eng.captures != 1 or tiers != want:
+        raise AssertionError(f"models serve: GEMM resolutions {tiers}, want "
+                             f"{want} ({eng.captures} captures)")
+    counts = read_launches()
+    eng.decode = eng.decode_eager
+    try:
+        eager = eng.generate(prompts, max_new=16)
+    finally:
+        eng.decode = eng.decode_graph
+    if eager != outs or [len(o) for o in outs] != [16] * len(prompts):
+        raise AssertionError("models serve: greedy tokens from the graph "
+                             "tick differ from the eager tick's")
+    tokens = torch.as_tensor(prompts[MODEL_PROMPTS.index(100)][None],
+                             device=dev)
+    got = prefill(params, cfg, {"tokens": tokens},
+                  init_cache(cfg, 1, 256, dev))[0]
+    with plain_kernels():
+        plain = prefill(params, cfg, {"tokens": tokens},
+                        init_cache(cfg, 1, 256, dev))[0]
+    torch.cuda.synchronize()
+    _, logit_err = rel_err(got, plain)
+    if not (torch.isfinite(got).all() and logit_err <= LOGIT_TOL):
+        raise AssertionError(f"models: 100-token prefill logits vs plain rel "
+                             f"err {logit_err:.3e}")
+    phase("models", f"serve: {len(prompts)} requests of prompt lengths "
+          f"{list(MODEL_PROMPTS)} x 16 tokens; GEMM resolutions {tiers} "
+          f"({len(prompts)} prefills, 1 capture); launches "
+          f"{counts}; graph and eager ticks give the same greedy tokens; "
+          f"100-token prefill logits vs plain rel err {logit_err:.3e} "
+          f"(tolerance {LOGIT_TOL})")
+    return {"counts": counts, "logit_err": logit_err}
+
+
+def models_picks(models: ModelSet, backend, store: RecordStore, fp: str,
+                 cfg, dev: torch.device, label: str) -> dict:
+    """(a)-(e) of :func:`phase_models` at the shapes nobody tuned."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    lib = VendorHeuristicLibrary.gemm(GEMM_SPACE)
+    remeasure = ModelSet(measurer=backend.measure,
+                         remeasure_top_k=MODEL_TOP_K)
+    remeasure.models.update(models.models)
+    legal = dispatch._LEGAL["gemm"]
+    cols = ("model", "remeasured", "nearest", "heuristic", "library")
+    rows = []
+    for M in MODEL_M:
+        for (N, K) in SLICE_NK:
+            x = gemm_input(M, N, K, 16)
+            picks = {"model": models.predict("gemm", x, backend=fp),
+                     "remeasured": remeasure.predict("gemm", x, backend=fp)}
+            if None in picks.values():
+                raise AssertionError(f"models: no pick at {x}: {picks}")
+            picks = {k: v[0] for k, v in picks.items()}
+            for what in ("model", "remeasured"):
+                dispatch.check_config("gemm", picks[what], x, device=dev)
+            picks["nearest"] = store.nearest("gemm", x, backend=fp,
+                                             legal=legal).config
+            picks["heuristic"] = lib.select(x)
+            a, bs = gemm_weights(M, N, K, gen, dev)
+            ms = {k: time_ms(lambda i, c=c: ops.matmul(a, bs[i], c), len(bs))
+                  for k, c in picks.items()}
+            ms["library"] = time_ms(lambda i: torch.matmul(a, bs[i]), len(bs))
+            del a, bs
+            rows.append({"M": M, "N": N, "K": K, "picks": picks, "ms": ms})
+            phase("models", f"gemm M={M} N={N} K={K}: model "
+                  f"{picks['model']} {ms['model'] * 1e3:.2f} us, "
+                  f"re-measured top-{MODEL_TOP_K} {picks['remeasured']} "
+                  f"{ms['remeasured'] * 1e3:.2f} us, nearest record "
+                  f"{picks['nearest']} {ms['nearest'] * 1e3:.2f} us, "
+                  f"heuristic {ms['heuristic'] * 1e3:.2f} us, torch.matmul "
+                  f"{ms['library'] * 1e3:.2f} us [{label}]")
+    sums = {M: {c: sum(r["ms"][c] * SLICE_NK[(r["N"], r["K"])] * cfg.n_layers
+                       for r in rows if r["M"] == M) for c in cols}
+            for M in MODEL_M}
+    for M, t in sums.items():
+        phase("models", f"M={M}, one forward's "
+              f"{GEMMS_PER_LAYER * cfg.n_layers} GEMMs: model "
+              f"{t['model']:.3f} ms, re-measured {t['remeasured']:.3f} ms, "
+              f"nearest record {t['nearest']:.3f} ms, heuristic "
+              f"{t['heuristic']:.3f} ms, torch.matmul {t['library']:.3f} ms "
+              f"[{label}]; every pick passed the gate at its whole shape")
+    return {"rows": rows, "sums": sums}
+
+
 def reduce_bound(ks: int, M: int, N: int, dtype: torch.dtype, peaks: dict
                  ) -> dict:
     """The split-K reduction: ``ks`` partials read once, the sum written
@@ -1011,13 +1200,10 @@ def phase_times(dev: torch.device, peaks: dict, label: str) -> tuple:
             x = gemm_input(M, N, K, 16)
             cfg, tier = dispatch._resolve_cfg("gemm", x)
             heur = gemm_lib.select(x)
-            a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
             # cycle through enough weight copies that the set exceeds L2:
             # in a decode tick every weight matrix is read cold
-            b_bytes = K * N * 2
-            n_calls = min(1000, max(20, math.ceil(2.5 * L2_BYTES / b_bytes)))
-            bs = [torch.randn((K, N), generator=gen, device=dev).to(dtype)
-                  for _ in range(n_calls)]
+            a, bs = gemm_weights(M, N, K, gen, dev)
+            n_calls = len(bs)
             run = ops.shrink_gemm_cfg(cfg, M, N, K)
             ks = run["k_split"]
             kernel = time_ms(lambda i: ops.matmul(a, bs[i], cfg), n_calls)
@@ -1269,12 +1455,57 @@ GEMM_KERNEL = re.compile(r"(^|[\s:]|\d)gemm_(mma|simt)_kernel(\b|I)")
 REDUCE_KERNEL = re.compile(r"(^|[\s:]|\d)splitk_reduce_kernel(\b|I)")
 
 
-def device_launches(prof, pattern: re.Pattern) -> int:
-    """Kernels whose name matches ``pattern`` that a profiler session
-    traced on the device, graph replays included."""
-    return sum(1 for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and pattern.search(ev.name))
+def _cu(fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} returned CUresult {rc}")
+
+
+CU_GRAPH_NODE_TYPE_KERNEL, CU_GRAPH_NODE_TYPE_GRAPH = 0, 4
+
+
+def graph_kernel_names(graph) -> list:
+    """The function names of a captured CUDA graph's kernel nodes (child
+    graphs included), read from its ``cudaGraph_t`` through the driver
+    API: the kernels that every replay gives the device."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, sz = ctypes.c_void_p, ctypes.c_size_t
+    cu.cuGraphGetNodes.argtypes = [vp, vp, ctypes.POINTER(sz)]
+    cu.cuGraphNodeGetType.argtypes = [vp, ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphKernelNodeGetParams_v2.argtypes = [vp, vp]
+    cu.cuGraphChildGraphNodeGetGraph.argtypes = [vp, ctypes.POINTER(vp)]
+    cu.cuFuncGetName.argtypes = [ctypes.POINTER(ctypes.c_char_p), vp]
+    for fn in (cu.cuGraphGetNodes, cu.cuGraphNodeGetType,
+               cu.cuGraphKernelNodeGetParams_v2,
+               cu.cuGraphChildGraphNodeGetGraph, cu.cuFuncGetName):
+        fn.restype = ctypes.c_int
+
+    def walk(handle: int) -> list:
+        n = sz(0)
+        _cu(cu.cuGraphGetNodes, handle, None, ctypes.byref(n))
+        nodes = (vp * n.value)()
+        _cu(cu.cuGraphGetNodes, handle, nodes, ctypes.byref(n))
+        names = []
+        for node in nodes[:n.value]:
+            kind = ctypes.c_int(-1)
+            _cu(cu.cuGraphNodeGetType, node, ctypes.byref(kind))
+            if kind.value == CU_GRAPH_NODE_TYPE_GRAPH:
+                child = vp()
+                _cu(cu.cuGraphChildGraphNodeGetGraph, node,
+                    ctypes.byref(child))
+                names += walk(child.value)
+            elif kind.value == CU_GRAPH_NODE_TYPE_KERNEL:
+                # CUDA_KERNEL_NODE_PARAMS_v2 (under 128 bytes): the
+                # CUfunction comes first
+                params = (ctypes.c_byte * 256)()
+                _cu(cu.cuGraphKernelNodeGetParams_v2, node, params)
+                name = ctypes.c_char_p()
+                _cu(cu.cuFuncGetName, ctypes.byref(name),
+                    ctypes.c_void_p.from_buffer(params).value)
+                names.append(name.value.decode())
+        return names
+
+    return walk(graph.raw_cuda_graph())
 
 
 def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
@@ -1285,12 +1516,14 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     the host sees a tick's 210 GEMMs and 30 split-count lookups when the
     tick is captured (and in the capture's eager warm-up), each prefill's
     210 GEMMs every time; a replay runs the captured launches on the device
-    and calls nothing on the host.  So the graph run is traced with the
-    torch profiler (CUDA activity only), and the GEMM kernels it counts on
-    the device must be 210 x (prefills + replays), its split-K reduction
-    passes one per projection whose tuned config splits K (at M=32 for a
-    prefill, M=4 for a tick); tok/s and the median tick come from a
-    second, untraced graph run of the same requests."""
+    and calls nothing on the host.  So the device's count of a graph run is
+    read from the captured graph itself: its GEMM and split-K reduction
+    kernel nodes (:func:`graph_kernel_names`) times the replays, plus the
+    prefills' launches.  It must be 210 x (prefills + replays) GEMM
+    kernels, and one reduction pass per projection whose tuned config
+    splits K (at M=32 for a prefill, M=4 for a tick).  A second graph run of
+    the same requests must give the same tokens; tok/s and the median tick
+    come from it."""
     sc = ServeConfig(max_len=256, slots=4, tunedb=str(store_path),
                      tunedb_backend=fp, record_tick_times=True)
     eng = Engine(cfg, params, sc)
@@ -1305,24 +1538,16 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                                      if r["M"] == M and r["k_split"] > 1)
                for M in SLICE_M}
 
-    def run(what: str, batch: list, max_new: int, trace: bool = False
-            ) -> dict:
+    def run(what: str, batch: list, max_new: int) -> dict:
         before = (eng.ticks, eng.prefills, eng.captures, eng.replays)
         eng.tick_times.clear()
         torch.cuda.synchronize()
-        prof = torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) if trace \
-            else contextlib.nullcontext()
         reset_launches()
         dispatch.reset_counts()
         t0 = time.perf_counter()
-        with prof:
-            outs = eng.generate(batch, max_new=max_new)
-            torch.cuda.synchronize()
+        outs = eng.generate(batch, max_new=max_new)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        device = ((device_launches(prof, GEMM_KERNEL),
-                   device_launches(prof, REDUCE_KERNEL)) if trace
-                  else (None, None))
         ticks, prefills, captures, replays = (
             now - b for now, b in zip((eng.ticks, eng.prefills, eng.captures,
                                        eng.replays), before))
@@ -1355,8 +1580,7 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                                  f"prefills, {ticks} ticks, {captures} "
                                  f"captures, {replays} replays)")
         return {"outs": outs, "wall": wall, "ticks": ticks,
-                "counts": read_launches(), "device_launches": device[0],
-                "device_reduce_launches": device[1],
+                "counts": read_launches(),
                 "reduce_launches": got["reduce_launches"],
                 "prefills": prefills, "captures": captures,
                 "replays": replays, "launches": got["launches"],
@@ -1364,37 +1588,44 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                 "tick_ms": statistics.median(t[1] for t in eng.tick_times)
                 * 1e3}
 
-    # the profiler (CUPTI) is started once before the capture: a graph
-    # captured before CUPTI was initialised may replay untraced
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]):
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
     # warm-up: the engine captures its decode tick here, once
     w = run("warm-up", warm, 2)
     if w["captures"] != 1:
         raise AssertionError(f"warm-up: {w['captures']} captures, want 1")
-    g = run("graph", prompts, 16, trace=True)
+    g = run("graph", prompts, 16)
     if g["captures"]:
         raise AssertionError(f"graph run re-captured {g['captures']} times "
                              "with the store unchanged")
+    # the kernels the device was given: each replay runs the captured
+    # graph's nodes; the prefills launch from the host (all the run's host
+    # launches: a replay launches nothing there)
+    nodes = graph_kernel_names(eng.graph)
+    tick_gemm = sum(1 for n in nodes if GEMM_KERNEL.search(n))
+    tick_reduce = sum(1 for n in nodes if REDUCE_KERNEL.search(n))
+    if (tick_gemm, tick_reduce) != (per_fwd, red_fwd[4]):
+        raise AssertionError(f"captured tick: {tick_gemm} GEMM and "
+                             f"{tick_reduce} split-K reduction kernel nodes "
+                             f"of {len(nodes)}, want {per_fwd} and "
+                             f"{red_fwd[4]}")
+    g["device_launches"] = tick_gemm * g["replays"] + g["launches"]
+    g["device_reduce_launches"] = (tick_reduce * g["replays"]
+                                   + g["reduce_launches"])
     want_device = per_fwd * (g["prefills"] + g["replays"])
     want_reduce = red_fwd[32] * g["prefills"] + red_fwd[4] * g["replays"]
     if g["device_reduce_launches"] != want_reduce:
         raise AssertionError(f"graph run: {g['device_reduce_launches']} "
-                             f"split-K reduction passes traced on the "
+                             f"split-K reduction passes given to the "
                              f"device, want {want_reduce} ({red_fwd[32]} a "
                              f"prefill x {g['prefills']} + {red_fwd[4]} a "
                              f"tick x {g['replays']} replays)")
     if g["device_launches"] != want_device:
         raise AssertionError(f"graph run: {g['device_launches']} GEMM kernels "
-                             f"traced on the device, want {want_device} "
+                             f"given to the device, want {want_device} "
                              f"({per_fwd} x ({g['prefills']} prefills + "
                              f"{g['replays']} replays))")
-    timed = run("graph (untraced)", prompts, 16)
+    timed = run("graph (again)", prompts, 16)
     if timed["outs"] != g["outs"] or timed["captures"]:
-        raise AssertionError("the untraced graph run differs from the traced "
-                             "one")
+        raise AssertionError("the second graph run differs from the first")
     eng.decode = eng.decode_eager
     try:
         e = run("eager", prompts, 16)
@@ -1406,28 +1637,37 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     splits = resolve_decode_splits(
         B=sc.slots, Hq=cfg.n_heads, Hkv=cfg.n_kv, Lkv=sc.max_len,
         D=cfg.head_dim, dtype_bits=16, default=cfg.decode_kv_splits)
-    tuned, alone, red, heur = (per_tick(gemm_rows, k, cfg.n_layers)
-                               for k in ("kernel_ms", "gemm_ms", "reduce_ms",
-                                         "heuristic_ms"))
+    # the tick's GEMM time under tuned configs, where the rows were timed
+    timed_rows = all("kernel_ms" in r for r in gemm_rows)
+    if timed_rows:
+        tuned, alone, red, heur = (per_tick(gemm_rows, k, cfg.n_layers)
+                                   for k in ("kernel_ms", "gemm_ms",
+                                             "reduce_ms", "heuristic_ms"))
+        tick_gemm_ms = (f"; GEMM per decode tick {tuned:.3f} ms under tuned "
+                        f"configs (kernel alone {alone:.3f} ms, reduction "
+                        f"passes alone {red:.3f} ms), {heur:.3f} ms under "
+                        f"the heuristic's")
+    else:
+        tick_gemm_ms = ""
     phase("serve", f"{cfg.name} ({cfg.n_layers}L d={cfg.d_model} bf16): "
           f"{len(prompts)} requests x 16 tokens; capture at the warm-up: "
           f"{per_fwd} GEMMs and {cfg.n_layers} split-count lookups, all "
           f"exact; graph run: {g['prefills']} prefills + {g['ticks']} ticks "
           f"({g['replays']} replays, 0 captures), {g['launches']} GEMM "
-          f"launches from the host (prefills, all exact) and "
-          f"{g['device_launches']} GEMM kernels traced on the device (210 x "
-          f"(prefills + replays)); split-K reduction passes: "
-          f"{g['reduce_launches']} from the host, "
-          f"{g['device_reduce_launches']} traced on the device ({red_fwd[32]} "
-          f"a prefill, {red_fwd[4]} a tick); decode KV splits {splits} from the tuned "
-          f"attention record (default {cfg.decode_kv_splits}); graph "
-          f"(untraced run) {timed['tok_s']:.1f} tok/s, median tick "
-          f"{timed['tick_ms']:.2f} ms; eager {e['tok_s']:.1f} tok/s, median "
-          f"tick {e['tick_ms']:.2f} ms ({e['launches']} GEMM launches, all "
-          f"exact); the 8 requests' greedy tokens equal; GEMM per decode "
-          f"tick {tuned:.3f} ms under tuned configs (kernel alone "
-          f"{alone:.3f} ms, reduction passes alone {red:.3f} ms), "
-          f"{heur:.3f} ms under the heuristic's [{label}]")
+          f"launches from the host (prefills, all exact); the captured tick "
+          f"holds {tick_gemm} GEMM and {tick_reduce} reduction kernel nodes "
+          f"of {len(nodes)}, so {g['device_launches']} GEMM kernels given "
+          f"to the device (210 x (prefills + replays)); split-K reduction "
+          f"passes: {g['reduce_launches']} from the host, "
+          f"{g['device_reduce_launches']} given to the device "
+          f"({red_fwd[32]} a prefill, {red_fwd[4]} a tick); decode KV splits "
+          f"{splits} from the tuned attention record (default "
+          f"{cfg.decode_kv_splits}); graph (second run) "
+          f"{timed['tok_s']:.1f} tok/s, median tick {timed['tick_ms']:.2f} "
+          f"ms; eager {e['tok_s']:.1f} tok/s, median tick "
+          f"{e['tick_ms']:.2f} ms ({e['launches']} GEMM launches, all "
+          f"exact); the 8 requests' greedy tokens equal{tick_gemm_ms} "
+          f"[{label}]")
     return {"launches": g["launches"],
             "device_launches": g["device_launches"],
             "reduce_launches": g["reduce_launches"],
@@ -1459,6 +1699,12 @@ def phase_profile(eng, cfg, dev: torch.device, label: str) -> dict:
         enqueues.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    # the profiler (CUPTI) is started once before the capture: a graph
+    # captured before CUPTI was initialised may replay untraced
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         tick()
@@ -1567,9 +1813,10 @@ def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
     the kernel's own path (serve for the GEMM, tune for the rest): the
     wrapper's count, so for serving the prefills' GEMMs (a replayed tick
     launches from the graph, not the wrapper; the GEMM row's
-    ``device_launches`` is the count of GEMM kernels the profiler traced on
-    the device in the same run, replays included); ``launches_by_path``
-    gives every path's."""
+    ``device_launches`` is the count of GEMM kernels given to the device in
+    the same run, replays included: the captured tick's GEMM nodes times
+    the replays, plus the prefills'); ``launches_by_path`` gives every
+    path's."""
     per = {"gemm": "one decode tick: 210 projections at M=4, tuned configs",
            "conv": "the 14 Table 5 shapes, bf16, one call each, tuned configs",
            "attention": "the 4 attention targets, bf16, one call each, tuned "
@@ -1659,17 +1906,24 @@ def main() -> int:
         if not all(launches["tune"].values()):
             raise AssertionError(f"tune path launches {launches['tune']}")
         phase("tune", f"launches on the tune path: {launches['tune']}")
-        gemm_rows, conv_rows = phase_times(dev, peaks, label)
-        table4 = phase_gemm_table4(dev, peaks, label)
-        attn_rows, ssd_rows = phase_times_attention_ssd(dev, peaks, label)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         params = init_params(cfg, gen)
+        models = phase_models(backend, store, store_path, fp, cfg, params,
+                              dev, label)
+        launches["models"] = models["counts"]
+        if not (launches["models"]["gemm"]
+                and launches["models"]["gemm_reduce"]):
+            raise AssertionError(f"models path launches {launches['models']}")
+        gemm_rows, conv_rows = phase_times(dev, peaks, label)
+        table4 = phase_gemm_table4(dev, peaks, label)
+        attn_rows, ssd_rows = phase_times_attention_ssd(dev, peaks, label)
         serve = phase_serve(cfg, params, store_path, fp, gemm_rows, label)
         launches["serve"] = serve["counts"]
         phase_model(cfg, params, dev)
         phase_profile(serve.pop("engine"), cfg, dev, label)
         clear_store()
+        clear_models()
     rows = {"gemm": gemm_rows, "conv": conv_rows, "attention": attn_rows,
             "ssd": ssd_rows}
     line = kernels_line(rows, worst, launches, cfg.n_layers)

@@ -5,23 +5,28 @@ Every ``matmul``/``matmul2``/``conv2d``/``flash_attention``/``ssd_scan``
 resolves an input-aware config for its shape (the paper's §6 runtime) and
 runs the matching ``ops`` entry point with it: the CUDA kernel for a CUDA
 tensor, its plain version for a CPU tensor.  Resolution follows
-``repro.kernels.dispatch._resolve_cfg`` without the plan and model tiers:
+``repro.kernels.dispatch._resolve_cfg`` without the plan tier:
 
   0. tuner    an installed tuner (``core.tuner.install_tuner``) answers
               through its ``best_config``: a training or benchmark process
   1. exact    the installed store's record for this shape (and fingerprint)
-  2. nearest  the closest tuned shape within the store's log2 radius
-  3. degraded the space's own vendor-style heuristics (the GEMM menu for
+  2. model    the installed performance model (``tunedb.model.ModelSet``)
+              scores every legal config of the shape in one forward pass
+              and its pick is memoized per shape (the paper's §6 answer for
+              a shape nobody tuned)
+  3. nearest  the closest tuned shape within the store's log2 radius
+  4. degraded the space's own vendor-style heuristics (the GEMM menu for
               GEMMs, the conv menu for convolutions), one warning per space;
               attention and SSD have no vendor menu, so their degraded tier
               returns no config and the ops defaults apply (the reference's
               rule)
 
-A record whose config the kernel cannot launch (a TPU-tuned ``bn=1024``,
-conv ``b_k=512``, attention ``b_kv=2048`` or SSD ``chunk=512``, say) never
-reaches the kernel: an exact one is passed over with one warning, and the
-nearest tier only considers launchable records.  With no store installed
-the ops defaults apply (tier ``none``).
+A record or a model pick whose config the kernel cannot launch (a
+TPU-tuned ``bn=1024``, conv ``b_k=512``, attention ``b_kv=2048`` or SSD
+``chunk=512``, say) never reaches the kernel: it is passed over with one
+warning per serving generation, and the nearest tier only considers
+launchable records.  With neither a store nor models installed the ops
+defaults apply (tier ``none``).
 
 ``check_config`` is the tuner's correctness gate: it runs a config's kernel
 at a shape (on the card the whole shape, on the CPU the reference's
@@ -111,19 +116,19 @@ def _heuristic_cfg(space: str, inputs: Mapping[str, int]
 def _resolve_cfg(space: str, inputs: Mapping[str, int]
                  ) -> Tuple[Optional[Dict[str, int]], str]:
     """``(config, tier)`` for one call; tier is one of ``tuner``/``none``/
-    ``exact``/``nearest``/``degraded``."""
+    ``exact``/``model``/``nearest``/``degraded``."""
     tuner = get_tuner(space)
     if tuner is not None:
         tier_counts[(space, "tuner")] += 1
         return tuner.best_config(inputs, remeasure=False), "tuner"
     state = serving_state()
-    store, fp = state.store, state.fingerprint
-    if store is None:
+    store, models, fp = state.store, state.models, state.fingerprint
+    if store is None and models is None:
         tier_counts[(space, "none")] += 1
         return None, "none"
     legal = _LEGAL.get(space)
     cfg = tier = None
-    rec = store.get(space, inputs, backend=fp)
+    rec = store.get(space, inputs, backend=fp) if store is not None else None
     if rec is not None:
         if legal is None or legal(rec.config, inputs):
             cfg, tier = dict(rec.config), "exact"
@@ -131,15 +136,26 @@ def _resolve_cfg(space: str, inputs: Mapping[str, int]
             _warn_once((state.generation, "illegal", space),
                        f"tunedb: record config {rec.config} for {space} "
                        f"shape {dict(inputs)} cannot launch on sm_90a; "
-                       "falling through to the nearest launchable record")
-    if cfg is None:
+                       "falling through to the model and nearest tiers")
+    if cfg is None and models is not None:
+        got = models.predict(space, inputs, backend=fp)
+        if got is not None:
+            if legal is None or legal(got[0], inputs):
+                cfg, tier = dict(got[0]), "model"
+            else:
+                _warn_once((state.generation, "illegal-model", space),
+                           f"tunedb: model pick {got[0]} for {space} shape "
+                           f"{dict(inputs)} cannot launch on sm_90a; "
+                           "falling through to the nearest launchable "
+                           "record")
+    if cfg is None and store is not None:
         rec = store.nearest(space, inputs, backend=fp, legal=legal)
         if rec is not None:
             cfg, tier = dict(rec.config), "nearest"
     if cfg is None:
         _warn_once((state.generation, "untuned", space),
-                   f"tunedb: no launchable record or neighbor for a {space} "
-                   f"shape {dict(inputs)}; serving on "
+                   f"tunedb: no launchable record, model pick or neighbor "
+                   f"for a {space} shape {dict(inputs)}; serving on "
                    + ("vendor heuristics" if space in _HEURISTIC_MAKERS
                       else "the ops defaults"))
         cfg, tier = _heuristic_cfg(space, inputs), "degraded"

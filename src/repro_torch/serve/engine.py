@@ -12,13 +12,16 @@ counterpart of the reference's ``jax.jit`` of ``decode_step``: the tick is
 captured once for the engine's fixed (slots, max_len) batch, with static
 token and position buffers that are filled before each replay, and
 dispatch resolves every config at capture, as the reference's does at
-trace time.  A new store generation (``serving_state().generation``)
-forces a re-capture.  Prefill stays eager (prompt lengths vary), and so
-does every tick on the CPU.  A capture or replay that fails raises; it
+trace time.  A new serving generation (``serving_state().generation``:
+another store or model set installed) forces a re-capture.  The graph
+keeps its node list (:attr:`Engine.graph`), so a caller can count the
+kernels a replay gives the device.  Prefill stays eager (prompt lengths
+vary), and so does every tick on the CPU.  A capture or replay that fails raises; it
 never falls back to the eager tick, which stays a method
 (:meth:`Engine.decode_eager`) for comparison.  The reference's trace-time
 telemetry capture, retuning, routing, admission policies, deadlines,
-tracing and the status endpoint are not ported yet.
+tracing, the status endpoint, dispatch plans and the model tier's
+deferred re-measurement are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import ModelConfig, decode_step, init_cache, prefill
-from repro_torch.tunedb.store import RecordStore, install_store, serving_state
+from repro_torch.tunedb.model import ModelSet, default_models_dir
+from repro_torch.tunedb.store import (RecordStore, install_serving,
+                                      serving_state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,8 +51,18 @@ class ServeConfig:
     temperature: float = 0.0        # 0 => greedy
     seed: int = 0
     tunedb: Optional[str] = None    # warm-start: tuning-record store path
+    # model artifacts dir for the model tier; None finds `<tunedb>.models/`
+    # beside the store, "" turns the tier off
+    tunedb_models: Optional[str] = None
     # pin dispatch lookups to one backend fingerprint; None = any backend
     tunedb_backend: Optional[str] = None
+    # the model tier's confidence gates (tunedb.model.ModelSet): decline
+    # when the top-1 beats the top-2 by less than this relative margin
+    # (0 trusts every argmax) ...
+    tunedb_margin: float = 0.0
+    # ... or when an input feature lies more than this many training
+    # standard deviations off (0 turns the gate off)
+    tunedb_max_z: float = 6.0
     # keep (start perf_counter, wall seconds) of each decode tick
     record_tick_times: bool = False
     tick_times_cap: int = 4096      # newest ticks kept; 0 keeps all
@@ -67,19 +82,34 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg, self.sc = cfg, serve_cfg
         self.params = _to_device(params, self.device)
-        # warm start: the store becomes the port's process-wide dispatch
-        # store, pinned to tunedb_backend; a missing file serves on the
-        # heuristics tier (dispatch warns once)
+        # warm start: the store and its model artifacts become the port's
+        # process-wide dispatch state, pinned to tunedb_backend, in one
+        # install; a missing file serves on the heuristics tier (dispatch
+        # warns once).  The models are installed even when there are none
+        # (None), so an earlier engine's regressors never serve this
+        # store's traffic.  No measurer is installed: serving never
+        # measures.
         self.tunedb_store: Optional[RecordStore] = None
-        if serve_cfg.tunedb:
-            path = pathlib.Path(serve_cfg.tunedb)
-            if not path.exists():
-                warnings.warn(f"tunedb store {path} does not exist; serving "
-                              "starts with an empty store (heuristics "
-                              "fallback)", RuntimeWarning, stacklevel=2)
-            self.tunedb_store = RecordStore.open(path)
-            install_store(self.tunedb_store,
-                          fingerprint=serve_cfg.tunedb_backend)
+        self.tunedb_models: Optional[ModelSet] = None
+        if serve_cfg.tunedb or serve_cfg.tunedb_models:
+            swap = {"fingerprint": serve_cfg.tunedb_backend}
+            models_dir = serve_cfg.tunedb_models
+            if serve_cfg.tunedb:
+                path = pathlib.Path(serve_cfg.tunedb)
+                if not path.exists():
+                    warnings.warn(f"tunedb store {path} does not exist; "
+                                  "serving starts with an empty store "
+                                  "(heuristics fallback)", RuntimeWarning,
+                                  stacklevel=2)
+                self.tunedb_store = swap["store"] = RecordStore.open(path)
+                if models_dir is None:
+                    models_dir = default_models_dir(path)
+            models = ModelSet.load(models_dir) if models_dir else ModelSet()
+            models.margin_threshold = serve_cfg.tunedb_margin
+            models.max_feature_z = serve_cfg.tunedb_max_z
+            if len(models):
+                self.tunedb_models = models
+            install_serving(models=self.tunedb_models, **swap)
         self.cache = init_cache(cfg, serve_cfg.slots, serve_cfg.max_len,
                                 self.device)
         self.lengths = np.zeros(serve_cfg.slots, np.int64)
@@ -126,6 +156,16 @@ class Engine:
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0].cpu(
             ).numpy()
 
+    @property
+    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        """The captured decode tick (None before the first CUDA tick).  It
+        keeps its ``cudaGraph_t`` (``raw_cuda_graph()``): the kernels each
+        replay gives the device can be read from its nodes.  Serving itself
+        needs only the instantiated graph; the kept ``cudaGraph_t`` (a
+        second host copy per capture) is there for that exact count of the
+        replayed kernels, which chip_smoke.py's serve phase checks."""
+        return self._graph
+
     # -- decode tick -------------------------------------------------------------
     def decode_eager(self, last: torch.Tensor, idx: torch.Tensor
                      ) -> torch.Tensor:
@@ -161,9 +201,10 @@ class Engine:
         with torch.cuda.stream(side):
             self.decode_eager(s_last, s_idx)
         torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph):
             logits = self.decode_eager(s_last, s_idx)
+        graph.instantiate()
         self._graph, self._static = graph, (s_last, s_idx, logits)
         self.captures += 1
 

@@ -1,10 +1,17 @@
-"""``python -m repro_torch.tunedb`` — tune shapes into a record store.
+"""``python -m repro_torch.tunedb`` — tune shapes into a record store and
+train the performance models that serve the shapes nobody tuned.
 
-  tune   train (or load) an input-aware tuner whose labels are timings of
-         the port's own kernels (``CheckedBackend(CudaEventBackend)``: the
-         correctness gate, then CUDA events on the card), run a tuning
-         session over explicit ``--shape`` jobs, and append one record per
-         shape (plus the measured top-k losers as ``sample`` records)
+  tune     train (or load) an input-aware tuner whose labels are timings of
+           the port's own kernels (``CheckedBackend(CudaEventBackend)``: the
+           correctness gate, then CUDA events on the card), run a tuning
+           session over explicit ``--shape`` jobs, and append one record per
+           shape (plus the measured top-k losers as ``sample`` records)
+  train    label ``--samples-per-shape`` random legal configs at every
+           tuned shape through the same gated backend (``sample`` records),
+           then train one regressor per (space, backend) from the store's
+           whole log into ``<store>.models/`` (dispatch's model tier)
+  predict  the model's pick (and top-k) for a ``--shape``; reads artifacts
+  models   the artifacts' metadata as JSON; reads artifacts
 
   $ python -m repro_torch.tunedb tune --space gemm --shape M=4,N=576,K=576 \\
         --store tunedb.jsonl                                   # on the card
@@ -15,6 +22,10 @@
         --shape B=4,Hq=9,Hkv=3,Lq=1,Lkv=256,D=64 --store tunedb.jsonl
   $ python -m repro_torch.tunedb tune --space ssd --train-samples 64 \\
         --shape B=1,L=2048,H=64,P=64,S=128 --store tunedb.jsonl
+  $ python -m repro_torch.tunedb train --space gemm --store tunedb.jsonl
+  $ python -m repro_torch.tunedb predict --space gemm --shape M=100,N=576,K=576 \\
+        --store tunedb.jsonl
+  $ python -m repro_torch.tunedb models --store tunedb.jsonl
 
 ``--space`` is one of gemm, conv, attention, ssd; a ``--shape`` may omit
 ``dtype_bits`` (16), ``trans_a``/``trans_b`` (0) and ``causal`` (1).
@@ -34,13 +45,14 @@ The records carry ``backend_fingerprint`` of the timing backend, which
 names the package, the backend class and the device (not ``--seed``, which
 seeds the training draws and the regressor); serving pins its lookups to
 the same string (``repro_torch.launch.serve`` does by default).
-The reference's other subcommands (train/predict/models, retune/watch,
-fleet, plan, trace, stats/export/merge, fsck) are not ported yet.
+The reference's other subcommands (retune/watch, fleet, plan, trace,
+stats/export/merge, fsck) are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import Dict, List, Optional
 
@@ -108,6 +120,89 @@ def _cmd_tune(args: argparse.Namespace) -> int:
     return 1 if report.failed else 0
 
 
+def _cmd_train(args: argparse.Namespace) -> int:
+    from repro_torch.core.backend import CheckedBackend, CudaEventBackend
+
+    from .model import collect_samples, default_models_dir, train_models
+    from .store import RecordStore
+
+    store = RecordStore.open(args.store)
+    if not store.records():
+        print(f"[tunedb] store {args.store} has no records; run `tune` first",
+              file=sys.stderr)
+        return 1
+    if args.samples_per_shape > 0:
+        backend = CheckedBackend(CudaEventBackend(device=args.device))
+        n = collect_samples(store, backend, per_shape=args.samples_per_shape,
+                            space=args.space, seed=args.seed)
+        print(f"[tunedb] collected {n} exploration samples "
+              f"({args.samples_per_shape}/shape) on {backend.fingerprint}")
+    models = train_models(store, space=args.space, hidden=args.hidden,
+                          epochs=args.epochs, seed=args.seed,
+                          min_samples=args.min_samples, verbose=True)
+    if not len(models):
+        print("[tunedb] no (space, backend) group had enough samples; "
+              "try --samples-per-shape", file=sys.stderr)
+        return 1
+    out = args.models_dir or default_models_dir(args.store)
+    models.save(out)
+    print(f"[tunedb] saved {len(models)} model(s) -> {out}")
+    for key, meta in models.stats()["models"].items():
+        mse = meta["val_mse"]
+        print(f"[tunedb]   {key}: {meta['n_samples']} samples, "
+              f"val mse {'n/a' if mse is None else f'{mse:.4f}'}")
+    return 0
+
+
+def _cmd_predict(args: argparse.Namespace) -> int:
+    from repro_torch.core.space import SPACES
+
+    from .model import ModelSet, default_models_dir
+
+    space = SPACES[args.space]
+    models = ModelSet.load(args.models_dir or default_models_dir(args.store))
+    pm = models.resolve_model(args.space, args.backend)
+    if pm is None:
+        have = sorted(f"{s}/{b}" for s, b in models.models)
+        print(f"[tunedb] no model for space {args.space!r}"
+              + (f" backend {args.backend!r}" if args.backend else "")
+              + f"; available: {have or 'none'} (run `train` first)",
+              file=sys.stderr)
+        return 1
+    for spec in args.shape:
+        inputs = parse_shape(spec, space)
+        try:
+            res = pm.predict_config(inputs, top_k=args.top_k)
+        except ValueError as e:          # no legal configuration
+            print(f"[tunedb] predict failed for {spec!r}: {e}",
+                  file=sys.stderr)
+            return 1
+        print(json.dumps({
+            "space": args.space, "backend": pm.backend, "inputs": inputs,
+            "config": res.best,
+            "predicted_tflops": round(res.predicted_tflops, 3),
+            "n_candidates": res.n_candidates,
+            "top_k": [{"config": c, "predicted_tflops": round(p, 3)}
+                      for c, p in res.top_k],
+        }, sort_keys=True))
+    return 0
+
+
+def _cmd_models(args: argparse.Namespace) -> int:
+    from .model import ModelSet, default_models_dir
+
+    models = ModelSet.load(args.models_dir or default_models_dir(args.store))
+    print(json.dumps(models.stats(), indent=1, sort_keys=True))
+    return 0 if len(models) or not models.skipped else 1
+
+
+def _hidden(spec: str):
+    try:
+        return tuple(int(x) for x in spec.split(",") if x)
+    except ValueError:
+        raise SystemExit(f"bad --hidden {spec!r} (want e.g. 64,128,64)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m repro_torch.tunedb",
                                 description=__doc__.splitlines()[0])
@@ -135,6 +230,43 @@ def build_parser() -> argparse.ArgumentParser:
                    help="load a trained tuner dir instead of training")
     t.add_argument("--save-tuner", default=None)
     t.set_defaults(fn=_cmd_tune)
+
+    tr = sub.add_parser("train", help="train performance models from a store")
+    tr.add_argument("--store", required=True, help="JSONL record store")
+    tr.add_argument("--models-dir", default=None,
+                    help="artifact dir (default: <store>.models/)")
+    tr.add_argument("--space", default=None,
+                    choices=["gemm", "conv", "attention", "ssd"],
+                    help="restrict to one space (default: all in the store)")
+    tr.add_argument("--device", default=None,
+                    help="where samples are labelled: cuda (default) or cpu")
+    tr.add_argument("--samples-per-shape", type=int, default=48,
+                    help="label this many random legal configs per tuned "
+                         "shape before training (0 = harvest only)")
+    tr.add_argument("--min-samples", type=int, default=24,
+                    help="skip (space, backend) groups smaller than this")
+    tr.add_argument("--epochs", type=int, default=30)
+    tr.add_argument("--hidden", type=_hidden, default=(64, 128, 64),
+                    help="MLP hidden sizes, e.g. 64,128,64")
+    tr.add_argument("--seed", type=int, default=0)
+    tr.set_defaults(fn=_cmd_train)
+
+    pr = sub.add_parser("predict", help="model-guided config for a shape")
+    pr.add_argument("--store", required=True, help="JSONL record store")
+    pr.add_argument("--models-dir", default=None)
+    pr.add_argument("--space", default="gemm",
+                    choices=["gemm", "conv", "attention", "ssd"])
+    pr.add_argument("--backend", default=None,
+                    help="backend fingerprint (default: newest model)")
+    pr.add_argument("--shape", action="append", required=True,
+                    help="shape to predict for, e.g. M=100,N=576,K=576")
+    pr.add_argument("--top-k", type=int, default=5)
+    pr.set_defaults(fn=_cmd_predict)
+
+    mo = sub.add_parser("models", help="list persisted model artifacts")
+    mo.add_argument("--store", required=True, help="JSONL record store")
+    mo.add_argument("--models-dir", default=None)
+    mo.set_defaults(fn=_cmd_models)
     return p
 
 

@@ -8,10 +8,12 @@ by cheap shape tuples instead of sha1 digests; lookups are exact per
 
 The port's serving state (:func:`install_store` / :func:`serving_state`)
 is its own: installing a store here touches nothing of the reference's
-dispatcher.  Quarantine/fsck, merge/export, dispatch plans and the model
-tier are not ported yet.  Records of source ``"sample"`` (a tuning
-session's measured losers, training data for a performance model) are kept
-in the file but never indexed, so serving never resolves them.
+dispatcher.  Quarantine/fsck, merge/export and dispatch plans are not
+ported yet.  Records of source ``"sample"`` (a tuning session's measured
+losers and ``tunedb.model.collect_samples``' labellings, training data for
+the performance models) are kept in the file but never indexed, so serving
+never resolves them; :meth:`RecordStore.training_records` reads them back
+for ``tunedb.model.harvest``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import pathlib
 import threading
 import time
 import zlib
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple)
 
 SCHEMA_VERSION = 1
 
@@ -126,8 +129,9 @@ _MEMO_MISS = object()
 class RecordStore:
     """Append-only JSONL store of :class:`TuneRecord`, indexed in memory.
 
-    ``path=None`` keeps the store in memory.  Lines that do not parse (a
-    torn tail, a CRC mismatch) are skipped and counted in ``n_skipped``.
+    ``path=None`` keeps the store in memory, with every record added (the
+    training log).  Lines that do not parse (a torn tail, a CRC mismatch)
+    are skipped and counted in ``n_skipped``.
     """
 
     def __init__(self, path: Optional[os.PathLike] = None):
@@ -138,6 +142,8 @@ class RecordStore:
         # (space, shape) -> latest record of any backend
         self._latest: Dict[Tuple[str, ShapeKey], TuneRecord] = {}
         self._nearest_memo: Dict[tuple, Optional[TuneRecord]] = {}
+        # an in-memory store's training log: every record added, in order
+        self._all: List[TuneRecord] = []
         self.n_lines = 0
         self.n_skipped = 0
         self._needs_newline = False
@@ -148,19 +154,26 @@ class RecordStore:
     def open(cls, path: os.PathLike) -> "RecordStore":
         return cls(path)
 
-    def _load(self) -> None:
+    def _parse(self) -> Iterator[Optional[TuneRecord]]:
+        """The file's records in order; ``None`` for a line that does not
+        parse (a torn tail, a CRC mismatch)."""
         with self.path.open("r", encoding="utf-8") as fh:
             for line in fh:
                 line = line.strip()
                 if not line:
                     continue
                 try:
-                    rec = TuneRecord.from_json(line)
+                    yield TuneRecord.from_json(line)
                 except (ValueError, TypeError, KeyError):
-                    self.n_skipped += 1
-                    continue
-                self.n_lines += 1
-                self._admit(rec)
+                    yield None
+
+    def _load(self) -> None:
+        for rec in self._parse():
+            if rec is None:
+                self.n_skipped += 1
+                continue
+            self.n_lines += 1
+            self._admit(rec)
         with self.path.open("rb") as fh:
             fh.seek(0, os.SEEK_END)
             if fh.tell():
@@ -198,6 +211,8 @@ class RecordStore:
                     fh.flush()
                     os.fsync(fh.fileno())
                 self.n_lines += 1
+            else:
+                self._all.append(rec)
             self._admit(rec)
         return rec
 
@@ -222,6 +237,35 @@ class RecordStore:
         """The latest served record per (backend, space, shape)."""
         with self._lock:
             return list(self._index.values())
+
+    def training_records(self, *, space: Optional[str] = None,
+                         backend: Optional[str] = None) -> List[TuneRecord]:
+        """The whole measurement log in file order, superseded re-tunes
+        and ``sample`` records included: what ``tunedb.model.harvest``
+        trains on.  A disk-backed store parses its file again (a serving
+        process does not hold the sample log), skipping lines that do not
+        parse."""
+        def keep(r: TuneRecord) -> bool:
+            return ((space is None or r.space == space)
+                    and (backend is None or r.backend == backend))
+
+        if self.path is None:
+            with self._lock:
+                return [r for r in self._all if keep(r)]
+        if not self.path.exists():
+            return []
+        return [r for r in self._parse() if r is not None and keep(r)]
+
+    def backends(self) -> List[str]:
+        """The backend fingerprints that have served records."""
+        with self._lock:
+            return sorted({b for b, _, _ in self._index})
+
+    def invalidate_memos(self) -> None:
+        """Drop the nearest-lookup memo (a serving-state install calls
+        this)."""
+        with self._lock:
+            self._nearest_memo.clear()
 
     def nearest(self, space: str, inputs: Mapping[str, int], *,
                 backend: Optional[str] = None,
@@ -266,31 +310,55 @@ class RecordStore:
 
 @dataclasses.dataclass(frozen=True)
 class ServingState:
-    """What dispatch reads, swapped as one object: the store, the backend
-    fingerprint lookups are pinned to (None = any), and a generation number
-    that every install bumps (dispatch keys its warn-once latches on it)."""
+    """What dispatch reads, swapped as one object: the store, the
+    performance models (``tunedb.model.ModelSet``), the backend fingerprint
+    lookups are pinned to (None = any), and a generation number that every
+    install bumps (dispatch keys its warn-once latches on it, the engine
+    re-captures its decode graph on it)."""
 
     store: Optional[RecordStore] = None
+    models: Optional[object] = None
     fingerprint: Optional[str] = None
     generation: int = 0
 
 
 _STATE = ServingState()
 _STATE_LOCK = threading.Lock()
+_KEEP = object()          # sentinel: leave this field as installed
 
 
 def serving_state() -> ServingState:
     return _STATE
 
 
-def install_store(store: Optional[RecordStore], *,
-                  fingerprint: Optional[str] = None) -> ServingState:
-    """Make ``store`` the port's dispatch store (``None`` uninstalls)."""
+def install_serving(*, store: object = _KEEP, models: object = _KEEP,
+                    fingerprint: object = _KEEP) -> ServingState:
+    """Swap any subset of the port's serving state in one step.  Fields
+    left at the default keep their installed value; the generation bumps
+    either way, and the incoming store's and models' memos are dropped so
+    no resolution of the old generation leaks into the new one."""
     global _STATE
     with _STATE_LOCK:
-        _STATE = ServingState(store=store, fingerprint=fingerprint,
-                              generation=_STATE.generation + 1)
-        return _STATE
+        cur = _STATE
+        new = ServingState(
+            store=cur.store if store is _KEEP else store,
+            models=cur.models if models is _KEEP else models,
+            fingerprint=cur.fingerprint if fingerprint is _KEEP
+            else fingerprint,
+            generation=cur.generation + 1)
+        for obj in (new.store, new.models):
+            invalidate = getattr(obj, "invalidate_memos", None)
+            if callable(invalidate):
+                invalidate()
+        _STATE = new
+        return new
+
+
+def install_store(store: Optional[RecordStore], *,
+                  fingerprint: Optional[str] = None) -> ServingState:
+    """Make ``store`` the port's dispatch store (``None`` uninstalls),
+    pinned to ``fingerprint``; the installed models stay."""
+    return install_serving(store=store, fingerprint=fingerprint)
 
 
 def clear_store() -> None:

@@ -373,3 +373,84 @@ def test_largest_accepted_draws_peak_inside_their_footprint(cuda, name):
         peak = torch.cuda.max_memory_allocated() - base
         del backend
         assert peak <= footprint_bytes(name, x), (x, cfg, peak)
+
+
+@pytest.fixture(scope="module")
+def card_models():
+    """A GEMM regressor trained on the card: records at the 8 serving
+    shapes, 6 gated samples labelled at each (``collect_samples``), a
+    small MLP (``train_models``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: samples are labelled on the card")
+    from repro_torch.tunedb.model import collect_samples, train_models
+    from repro_torch.tunedb.store import RecordStore, TuneRecord
+    backend = CheckedBackend(CudaEventBackend(device=torch.device("cuda")))
+    store = RecordStore()
+    for M, N, K in SHAPES:
+        x = gemm_input(M, N, K, 16)
+        cfg = tops.shrink_gemm_cfg(tops.DEFAULT_GEMM, M, N, K)
+        store.add(TuneRecord(space="gemm", inputs=x, config=cfg,
+                             tflops=backend.measure("gemm", cfg, x),
+                             backend=backend.fingerprint))
+    before = kmatmul.launches
+    n = collect_samples(store, backend, per_shape=6, space="gemm")
+    launched = kmatmul.launches - before
+    models = train_models(store, space="gemm", hidden=(16, 16), epochs=5,
+                          min_samples=8)
+    return {"backend": backend, "store": store, "models": models, "n": n,
+            "launched": launched}
+
+
+def test_collect_samples_and_train_on_the_card(card_models):
+    samples = [r for r in card_models["store"].training_records()
+               if r.source == "sample"]
+    fp = card_models["backend"].fingerprint
+    assert 40 <= card_models["n"] == len(samples) <= 6 * len(SHAPES)
+    assert card_models["launched"] > 0
+    assert all(r.backend == fp and r.tflops > 0 for r in samples)
+    assert list(card_models["models"].models) == [("gemm", fp)]
+    assert card_models["models"].resolve_model("gemm", fp).meta[
+        "n_samples"] == len(samples) + len(SHAPES)
+
+
+@pytest.mark.parametrize("nk", [(576, 576), (192, 576), (1536, 576),
+                                (576, 1536)])
+@pytest.mark.parametrize("M", [8, 48])
+def test_model_tier_picks_pass_the_gate(card_models, M, nk):
+    """Each pick the model tier serves for a SmolLM-135M projection at a
+    batch nobody tuned passes the correctness gate at its whole shape."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.tunedb.store import RecordStore, install_serving
+    x = gemm_input(M, nk[0], nk[1], 16)
+    install_serving(store=RecordStore(), models=card_models["models"],
+                    fingerprint=card_models["backend"].fingerprint)
+    try:
+        cfg, tier = dispatch._resolve_cfg("gemm", x)
+    finally:
+        install_serving(store=None, models=None, fingerprint=None)
+    assert tier == "model"
+    dispatch.check_config("gemm", cfg, x, device="cuda")
+
+
+def test_a_measuring_resolution_under_capture_raises(card_models):
+    """A model set with a measurer never measures while the current stream
+    captures a CUDA graph: the resolution raises, and the same shape
+    resolves (measuring) once the capture is over."""
+    from repro_torch.tunedb.model import ModelSet
+    measured = []
+    models = ModelSet(measurer=lambda *a: measured.append(a) or 1.0,
+                      remeasure_top_k=3)
+    models.models.update(card_models["models"].models)
+    fp = card_models["backend"].fingerprint
+    x = gemm_input(17, 576, 576, 16)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream()):
+        graph.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="captured"):
+                models.predict("gemm", x, backend=fp)
+        finally:
+            graph.capture_end()
+    assert not measured
+    assert models.predict("gemm", x, backend=fp) is not None
+    assert len(measured) == 3

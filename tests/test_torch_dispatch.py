@@ -1,18 +1,25 @@
 """The port's record store and config tiers against the JAX package's:
 the same JSONL file opens in both, and the same installed store resolves
-the same config and tier for exact and nearest shapes."""
+the same config and tier for exact and nearest shapes; with the same
+reference-trained performance model installed in both, a shape nobody
+tuned resolves on the model tier, the port's pick being the reference
+model's argmax over the port's launchable configs."""
 
 import dataclasses
 import warnings
 
 import pytest
 
+import repro.tunedb.model as jmodel
 import repro.tunedb.store as jstore
+from repro.core.space import SPACES as JSPACES
 from repro.core.tuner import clear_tuners
 from repro.kernels import dispatch as jdispatch
-from repro_torch.core.space import gemm_fits, gemm_input
+from repro_torch.core.search import enumerate_legal
+from repro_torch.core.space import GEMM_SPACE, gemm_fits, gemm_input
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.kernels import matmul as kmatmul
+from repro_torch.tunedb import model as tmodel
 from repro_torch.tunedb import store as tstore
 
 FP = "repro_torch-cuda-test"
@@ -41,12 +48,12 @@ def _clean_serving_state():
     clear_tuners()
     jstore.install_serving(store=None, models=None, fingerprint=None,
                            build_plan=False)
-    tstore.clear_store()
+    tstore.install_serving(store=None, models=None, fingerprint=None)
     assert all(gemm_fits(cfg, 16) for cfg in (CFG_A, CFG_B, CFG_C))
     yield
     jstore.install_serving(store=None, models=None, fingerprint=None,
                            build_plan=False)
-    tstore.clear_store()
+    tstore.install_serving(store=None, models=None, fingerprint=None)
 
 
 def _write_jax_store(path):
@@ -98,22 +105,58 @@ QUERIES = [
     (gemm_input(300, 4096, 4096, 16), "nearest"),
     (gemm_input(4, 192, 576, 16), "degraded"),
     (gemm_input(32, 576, 576, 32), "degraded"),     # dtype must match
+    # with the reference's model installed in both (see below)
+    (gemm_input(100, 576, 576, 16), "model"),
+    (gemm_input(48, 1536, 576, 16), "model"),
+    (gemm_input(512, 4096, 4096, 16), "exact"),     # exact beats the model
 ]
+# the model cases: the queries from the first "model" one on
+MODEL_CASES = next(i for i, (_, t) in enumerate(QUERIES) if t == "model")
+
+
+@pytest.fixture(scope="module")
+def reference_models(tmp_path_factory):
+    """A tiny GEMM regressor trained by the reference on made-up samples of
+    FP at configs legal in both spaces, saved as an artifact."""
+    jstore_mem = jstore.RecordStore()
+    for t, M in enumerate((32, 64, 128)):
+        for N in (576, 1536):
+            x = gemm_input(M, N, 576, 16)
+            legal = [c for c in enumerate_legal(GEMM_SPACE, x)
+                     if JSPACES["gemm"].is_legal(c, x)]
+            for j, c in enumerate(legal[::9]):
+                jstore_mem.add(jstore.TuneRecord(
+                    space="gemm", inputs=x, config=c, backend=FP,
+                    tflops=0.01 * M * c["bn"] / (c["k_split"] + j % 3),
+                    source="sample", created_at=1.0 + t))
+    models = jmodel.train_models(jstore_mem, space="gemm", hidden=(8,),
+                                 epochs=2, min_samples=8)
+    return models.save(tmp_path_factory.mktemp("models"))
 
 
 @pytest.mark.parametrize("inputs,tier", QUERIES)
-def test_tiers_match_the_reference(tmp_path, inputs, tier):
+def test_tiers_match_the_reference(tmp_path, request, inputs, tier):
     path = tmp_path / "db.jsonl"
     _write_jax_store(path)
-    jstore.install_serving(store=jstore.RecordStore.open(path), models=None,
-                           fingerprint=FP, build_plan=False)
-    tstore.install_store(tstore.RecordStore.open(path), fingerprint=FP)
+    jmodels = tmodels = None
+    if QUERIES.index((inputs, tier)) >= MODEL_CASES:
+        d = request.getfixturevalue("reference_models")
+        jmodels, tmodels = jmodel.ModelSet.load(d), tmodel.ModelSet.load(d)
+    jstore.install_serving(store=jstore.RecordStore.open(path),
+                           models=jmodels, fingerprint=FP, build_plan=False)
+    tstore.install_serving(store=tstore.RecordStore.open(path),
+                           models=tmodels, fingerprint=FP)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         jcfg, jtier = jdispatch._resolve_cfg("gemm", inputs)
         tcfg, ttier = tdispatch._resolve_cfg("gemm", inputs)
     assert jtier == ttier == tier
-    if tier != "degraded":          # heuristics differ by design (menus)
+    if tier == "model":             # the spaces differ: argmax over the port's
+        pm = jmodels.resolve_model("gemm", FP)
+        want = pm.predict_config(inputs, candidates=enumerate_legal(
+            GEMM_SPACE, inputs)).best
+        assert tcfg == want and tmodels.hits == 1
+    elif tier != "degraded":        # heuristics differ by design (menus)
         assert tcfg == jcfg
     assert gemm_fits(tcfg, inputs["dtype_bits"])
 

@@ -5,6 +5,7 @@ writes are what serving looks up — under one fingerprint that names the
 package and the device.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -19,12 +20,13 @@ from repro.tunedb.session import backend_fingerprint as jax_fingerprint
 from repro_torch.core.backend import CheckedBackend, CudaEventBackend
 from repro_torch.core.generative import CategoricalSampler
 from repro_torch.core.dataset import generate_dataset
-from repro_torch.core.search import exhaustive_search
+from repro_torch.core.search import enumerate_legal, exhaustive_search
 from repro_torch.core.space import (GEMM_SPACE, SPACES, ConfigRejected,
                                     attention_input, conv_input, gemm_input,
                                     ssd_input)
 from repro_torch.core.tuner import InputAwareTuner
 from repro_torch.kernels import dispatch as tdispatch
+from repro_torch.tunedb import model as tmodel
 from repro_torch.tunedb import store as tstore
 from repro_torch.tunedb.__main__ import main as cli_main
 from repro_torch.tunedb.session import TuningSession, backend_fingerprint
@@ -39,7 +41,7 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-    tstore.clear_store()
+    tstore.install_serving(store=None, models=None, fingerprint=None)
 
 
 def _cli(*args):
@@ -317,3 +319,60 @@ def test_session_without_remeasure_never_records_a_rejected_winner(
                            remeasure=False).run([shape])
     assert (report.tuned, report.failed) == (0, 1) and calls
     assert "ConfigRejected" in report.errors[0] and store.n_lines == 0
+
+
+def test_cli_tune_train_predict_models_round_trip_on_cpu(tmp_path, capsys):
+    """``tune`` -> ``train --device cpu`` -> ``predict`` -> ``models`` on one
+    store file: train labels samples at the tuned shapes through the gated
+    plain versions and writes ``<store>.models/``, which predict and models
+    read."""
+    db = tmp_path / "db.jsonl"
+    assert cli_main(["tune", "--device", "cpu", "--space", "gemm",
+                     "--store", str(db), "--train-samples", "64",
+                     "--epochs", "2", "--workers", "1", "--top-k", "4",
+                     "--shape", "M=32,N=192,K=576",
+                     "--shape", "M=128,N=192,K=576"]) == 0
+    assert cli_main(["train", "--device", "cpu", "--store", str(db),
+                     "--space", "gemm", "--samples-per-shape", "12",
+                     "--min-samples", "8", "--epochs", "3",
+                     "--hidden", "16,16"]) == 0
+    assert tmodel.default_models_dir(db).is_dir()
+    fp = CudaEventBackend(device="cpu").fingerprint
+    samples = [r for r in tstore.RecordStore.open(db).training_records()
+               if r.source == "sample"]
+    assert len(samples) >= 24 and {r.backend for r in samples} == {fp}
+    capsys.readouterr()
+    assert cli_main(["predict", "--store", str(db), "--shape",
+                     "M=64,N=192,K=576", "--top-k", "3"]) == 0
+    out = json.loads(capsys.readouterr().out.strip())
+    assert out["backend"] == fp and out["predicted_tflops"] > 0
+    assert GEMM_SPACE.is_legal(out["config"], out["inputs"])
+    assert len(out["top_k"]) == 3 and out["top_k"][0]["config"] == out["config"]
+    assert cli_main(["models", "--store", str(db)]) == 0
+    stats = json.loads(capsys.readouterr().out)
+    assert list(stats["models"]) == [f"gemm/{fp}"]
+    assert stats["skipped_artifacts"] == []
+
+
+@pytest.mark.parametrize("case,err", [("no model", "no model"),
+                                      ("no legal config", "predict failed")])
+def test_cli_predict_fails_cleanly(tmp_path, capsys, case, err):
+    db = tmp_path / "db.jsonl"
+    shape = "M=64,N=192,K=576"
+    if case == "no legal config":
+        store = tstore.RecordStore(db)
+        rng = np.random.default_rng(0)
+        for M in (32, 128):
+            x = gemm_input(M, 192, 576)
+            legal = enumerate_legal(GEMM_SPACE, x)
+            for i in rng.permutation(len(legal))[:12]:
+                store.add(tstore.TuneRecord(
+                    space="gemm", inputs=x, config=legal[int(i)],
+                    tflops=float(rng.uniform(1, 2)), backend="b",
+                    source="sample"))
+        tmodel.train_models(store, hidden=(8,), epochs=1, min_samples=8
+                            ).save(tmodel.default_models_dir(db))
+        shape += ",dtype_bits=8"            # no kernel runs 8-bit operands
+    capsys.readouterr()
+    assert cli_main(["predict", "--store", str(db), "--shape", shape]) == 1
+    assert err in capsys.readouterr().err
