@@ -41,16 +41,24 @@ exits non-zero:
                 qwen3-14b prefill and decode; SSD: a mamba2-1.3b and a
                 jamba-v0.1 layer), then serve every tuned shape through
                 ``dispatch`` from it; every job must succeed, every call
-                resolve exact and agree with the fp32 oracle at full size
+                be a hit of the install's dispatch plan on an entry
+                compiled from the shape's exact record, and agree with the
+                fp32 oracle at full size
   8. models     the tuner's model tier on the card: label 48 random legal
                 configs at each tuned GEMM shape through the gated timer
-                (``collect_samples``), train the GEMM regressor from the
+                (``collect_samples``; the samples go into the installed
+                store, so its plan must stand aside: a tuned shape
+                resolves exact), train the GEMM regressor from the
                 store's log, save it beside the store and load it back;
                 serve 8 requests of prompt lengths nobody tuned (9-200)
-                from an engine that finds the artifacts: the untuned
-                prefills' GEMMs resolve on the model tier, the rest exact;
-                graph and eager ticks give the same greedy tokens; the
+                from an engine that finds the artifacts: each untuned
+                prefill shape resolves on the model tier once and is
+                promoted into the plan, every other resolution is a plan
+                hit; graph and eager ticks give the same greedy tokens; the
                 100-token prefill's logits agree with the plain version's;
+                a reinstall compiles the telemetry's hot set into the
+                plan, and a second serve books no model-tier resolution
+                and gives the same tokens;
                 then at the four projections and M in {1, 8, 17, 48, 100,
                 128}: the model's pick, the best of its top 6 re-measured,
                 the nearest tuned record's config, the heuristic's and
@@ -75,25 +83,46 @@ exits non-zero:
  10. serve      SmolLM-135M at full width (30 layers, bf16, random weights
                 from a seed) through ``Engine.generate`` from the tuned store,
                 each decode tick replayed from the engine's CUDA graph; the
-                capture (at the warm-up) and every prefill resolve each
-                projection's GEMM config on the exact tier and the decode KV
-                split count from the tuned attention record; then the same
-                requests with the eager tick: the same greedy tokens, tok/s
-                and median tick of both; the graph run gives the device
-                210 x (prefills + replays) GEMM kernels and one reduction
-                pass per split-K projection of each prefill and replay
-                (the captured graph's kernel nodes, read through the driver
-                API, times the replays, plus the prefills' launches)
- 11. model      prefill + 4 decode steps through the kernel path and again
+                engine's install compiles a dispatch plan (its entries by
+                tier and compile ms printed), and the capture (at the
+                warm-up) and every prefill resolve each projection's GEMM
+                config and the decode KV split count as plan hits, each
+                served shape's entry its tuned record's config (tier
+                exact); then
+                the same requests with the eager tick: the same greedy
+                tokens, tok/s and median tick of both; the graph run gives
+                the device 210 x (prefills + replays) GEMM kernels and one
+                reduction pass per split-K projection of each prefill and
+                replay (the captured graph's kernel nodes, read through the
+                driver API, times the replays, plus the prefills'
+                launches), and the shape telemetry counts the same 210 x
+                (prefills + replays) GEMM calls and 30 split-count lookups
+                a replay, per shape as the eager run counts them
+ 11. plans      the serve phase's generation exported as a plan artifact
+                (``<store>.plan/<generation>/``), loaded back (ms against
+                the compile's), then a fresh engine with only the artifact
+                (no store, no models) serves the same requests: the store
+                run's greedy tokens, every resolution a plan hit, every
+                served shape planned as its tuned record's config; a
+                rejected artifact fails the phase
+ 12. host cost  us per ``dispatch._resolve_cfg`` over a decode tick's 210
+                GEMM and 30 split-count shapes, plan hit against the slow
+                path (``install_serving(build_plan=False)``: exact), median
+                of 5 x 10,000 calls; the eager prefill of a 32-token prompt
+                with and without the plan
+ 13. admission  the models phase's 8 lengths mixed with tuned 32-token
+                prompts, FIFO and ``admission="store"``: the same tokens
+                per request; admission orders and bucket decisions printed
+ 14. model      prefill + 4 decode steps through the kernel path and again
                 through the plain path on the card; logits must agree
- 12. profile    a decode tick: eager wall time, host enqueue time, and the
+ 15. profile    a decode tick: eager wall time, host enqueue time, and the
                 device time of the same tick replayed from a CUDA graph
- 13. kernels    one JSON line summarising every hand-written kernel (the
+ 16. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
 
-Each path (tune, models, serve) runs with every launch count set to 0 just
-before it and read just after; a kernel of the path that never launched
-fails.
+Each path (tune, models, serve, plans, admission) runs with every launch
+count set to 0 just before it and read just after; a kernel of the path
+that never launched fails.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -105,6 +134,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import json
 import math
 import re
@@ -113,6 +143,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -122,8 +153,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.backend import (CheckedBackend, CudaEventBackend,  # noqa: E402
-                                      problem_flops)
+from repro_torch.core.backend import (HBM_GBPS, PEAK_BF16_TFLOPS,  # noqa: E402
+                                      PEAK_FP32_TFLOPS, CheckedBackend,
+                                      CudaEventBackend, problem_flops)
 from repro_torch.core.dataset import Dataset  # noqa: E402
 from repro_torch.core.features import Featurizer  # noqa: E402
 from repro_torch.core.generative import CategoricalSampler  # noqa: E402
@@ -149,8 +181,13 @@ from repro_torch.serve.flash_decode import resolve_decode_splits  # noqa: E402
 from repro_torch.tunedb.model import (ModelSet, clear_models,  # noqa: E402
                                       collect_samples, default_models_dir,
                                       train_models)
+from repro_torch.tunedb.plans import (default_plan_dir, export_plan,  # noqa: E402
+                                      load_plan, read_manifest)
 from repro_torch.tunedb.session import TuningSession  # noqa: E402
-from repro_torch.tunedb.store import RecordStore, clear_store, install_store  # noqa: E402
+from repro_torch.tunedb.store import (RecordStore, clear_store,  # noqa: E402
+                                      install_serving, install_store,
+                                      launchable, serving_state, shape_key)
+from repro_torch.tunedb.telemetry import get_telemetry  # noqa: E402
 
 # (N, K) of the serving path's projections and their count per layer:
 # q and o (576x576), k and v (576->192), gate and up (576->1536), down
@@ -335,8 +372,10 @@ MODEL_M = (1, 8, 17, 48, 100, 128)
 MODEL_TOP_K = 6
 MODEL_PROMPTS = (9, 17, 32, 48, 64, 100, 128, 200)
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s and FLOP/s per IO dtype
-H100_SXM = {"hbm": 3.35e12, torch.bfloat16: 989e12, torch.float32: 67e12}
+# the H100 SXM's data-sheet peaks (dense, ``core.backend``): HBM bytes/s
+# and FLOP/s per IO dtype
+H100_SXM = {"hbm": HBM_GBPS * 1e9, torch.bfloat16: PEAK_BF16_TFLOPS * 1e12,
+            torch.float32: PEAK_FP32_TFLOPS * 1e12}
 
 L2_BYTES = 50 * 1024 * 1024
 
@@ -932,8 +971,9 @@ def attention_dims(x: dict) -> tuple:
 def phase_tune(backend, store: RecordStore, fp: str, dev: torch.device
                ) -> dict:
     """The tuning path: all four spaces tuned into ``store``, then every
-    tuned shape served through ``dispatch`` from it: each on the exact
-    tier, within the bf16 tolerance of the plain version under the same
+    tuned shape served through ``dispatch`` from it: each a hit of the
+    plan the install compiles, on an entry compiled from the shape's exact
+    record, within the bf16 tolerance of the plain version under the same
     config and of the fp32 oracle, at full size."""
     gemm_targets = [gemm_input(M, N, K, 16) for M in SLICE_M
                     for (N, K) in SLICE_NK]
@@ -946,6 +986,7 @@ def phase_tune(backend, store: RecordStore, fp: str, dev: torch.device
              tune_space(SSD_SPACE, [x for _, x in SSD_TARGETS],
                         ("B", "L", "H"), backend, store)]
     install_store(store, fingerprint=fp)
+    plan = serving_state().plan
     dispatch.reset_counts()
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
@@ -965,6 +1006,10 @@ def phase_tune(backend, store: RecordStore, fp: str, dev: torch.device
     worst = {"plain": 0.0, "oracle": 0.0}
     for space, name, x, args, off in cases:
         cfg = store.get(space, x, backend=fp).config
+        if plan.lookup(space, shape_key(x)) != (cfg, "exact"):
+            raise AssertionError(f"plan entry of {space} {name}: "
+                                 f"{plan.lookup(space, shape_key(x))}, want "
+                                 f"the exact record's {cfg}")
         if space == "gemm":
             out, want_shape = dispatch.matmul(*args), (x["M"], x["N"])
             with plain_kernels():
@@ -999,16 +1044,18 @@ def phase_tune(backend, store: RecordStore, fp: str, dev: torch.device
         worst = {k: max(worst[k], er[k]) for k in worst}
         del args, out, plain, oracle
     tiers = dict(dispatch.tier_counts)
-    want_tiers = {("gemm", "exact"): len(gemm_targets),
-                  ("conv", "exact"): len(CONV_SHAPES),
-                  ("attention", "exact"): len(ATTN_TARGETS),
-                  ("ssd", "exact"): len(SSD_TARGETS)}
+    want_tiers = {("gemm", "plan"): len(gemm_targets),
+                  ("conv", "plan"): len(CONV_SHAPES),
+                  ("attention", "plan"): len(ATTN_TARGETS),
+                  ("ssd", "plan"): len(SSD_TARGETS)}
     if tiers != want_tiers:
         raise AssertionError(f"dispatch tiers {tiers}")
     phase("tune", f"dispatch.matmul over the 8 GEMM, dispatch.conv2d over "
           f"the 14 Table 5, dispatch.flash_attention over the "
           f"{len(ATTN_TARGETS)} attention and dispatch.ssd_scan over the "
-          f"{len(SSD_TARGETS)} SSD shapes from the tuned store: all exact; "
+          f"{len(SSD_TARGETS)} SSD shapes from the tuned store: all plan "
+          f"hits on entries compiled from the exact records "
+          f"({plan.stats()['tiers']}, compiled in {plan.compile_ms:.2f} ms); "
           f"max rel err {worst['plain']:.3e} vs the plain version under the "
           f"same config, {worst['oracle']:.3e} vs the fp32 oracle (tolerance "
           f"{TOL[torch.bfloat16]})")
@@ -1047,6 +1094,17 @@ def phase_models(backend, store: RecordStore, store_path: Path, fp: str,
     n_samples = collect_samples(store, backend, per_shape=MODEL_PER_SHAPE,
                                 space="gemm")
     t1 = time.perf_counter()
+    # the samples went into the installed store: its plan stands aside
+    plan = serving_state().plan
+    x0 = gemm_input(SLICE_M[0], *next(iter(SLICE_NK)), 16)
+    tier = dispatch._resolve_cfg("gemm", x0)[1]
+    if plan.store_version == store.version or tier != "exact":
+        raise AssertionError(f"models: plan at store version "
+                             f"{plan.store_version}, store at {store.version}"
+                             f"; a tuned shape resolved on tier {tier}")
+    phase("models", f"collect_samples appended to the installed store "
+          f"(version {plan.store_version} -> {store.version}): the plan "
+          f"stands aside, a tuned shape resolves on the exact tier")
     trained = train_models(store, space="gemm", backend=fp,
                            hidden=TUNE_HIDDEN, epochs=MODEL_EPOCHS)
     t2 = time.perf_counter()
@@ -1073,23 +1131,29 @@ def phase_models(backend, store: RecordStore, store_path: Path, fp: str,
 def models_serve(store_path: Path, fp: str, cfg, params, dev: torch.device
                  ) -> dict:
     """The models phase's serve run: prompt lengths nobody tuned, from an
-    engine that finds the store's artifacts (see :func:`phase_models`)."""
+    engine that finds the store's artifacts (see :func:`phase_models`).
+    Each untuned length's 4 distinct projection shapes resolve on the
+    model tier once and are promoted into the plan's overlay, so their
+    repeats are plan hits.  Then a reinstall compiles the telemetry's hot
+    set (every GEMM shape it saw) into the plan's base table, and a second
+    serve of the same prompts books no model-tier resolution and gives
+    the same tokens."""
     eng = Engine(cfg, params, ServeConfig(max_len=256, slots=4,
                                           tunedb=str(store_path),
                                           tunedb_backend=fp))
     if eng.tunedb_models is None or len(eng.tunedb_models) != 1:
         raise AssertionError("the engine did not find the model artifacts")
-    rng = np.random.default_rng(5)
-    prompts = [rng.integers(0, cfg.vocab, n) for n in MODEL_PROMPTS]
+    prompts = model_prompts(cfg)
     per_fwd = GEMMS_PER_LAYER * cfg.n_layers
     dispatch.reset_counts()
     outs = eng.generate(prompts, max_new=16)
     torch.cuda.synchronize()
     tiers = {t: c for (sp, t), c in dispatch.tier_counts.items()
              if sp == "gemm"}
-    tuned_len = sum(1 for n in MODEL_PROMPTS if n in SLICE_M)
-    want = {"exact": per_fwd * (tuned_len + 2 * eng.captures),
-            "model": per_fwd * (len(MODEL_PROMPTS) - tuned_len)}
+    untuned = [n for n in MODEL_PROMPTS if n not in SLICE_M]
+    n_model = len(SLICE_NK) * len(untuned)
+    want = {"plan": per_fwd * (len(MODEL_PROMPTS) + 2 * eng.captures)
+            - n_model, "model": n_model}
     if eng.captures != 1 or tiers != want:
         raise AssertionError(f"models serve: GEMM resolutions {tiers}, want "
                              f"{want} ({eng.captures} captures)")
@@ -1116,11 +1180,49 @@ def models_serve(store_path: Path, fp: str, cfg, params, dev: torch.device
                              f"err {logit_err:.3e}")
     phase("models", f"serve: {len(prompts)} requests of prompt lengths "
           f"{list(MODEL_PROMPTS)} x 16 tokens; GEMM resolutions {tiers} "
-          f"({len(prompts)} prefills, 1 capture); launches "
-          f"{counts}; graph and eager ticks give the same greedy tokens; "
-          f"100-token prefill logits vs plain rel err {logit_err:.3e} "
-          f"(tolerance {LOGIT_TOL})")
+          f"({len(prompts)} prefills, 1 capture: each of the {len(untuned)} "
+          f"untuned lengths' {len(SLICE_NK)} shapes on the model tier once, "
+          f"then promoted); launches {counts}; graph and eager ticks give "
+          f"the same greedy tokens; 100-token prefill logits vs plain rel "
+          f"err {logit_err:.3e} (tolerance {LOGIT_TOL})")
+
+    # reinstall: the telemetry's hot set compiles into the base table
+    state = serving_state()
+    hot_k = len(get_telemetry().hot_shapes("gemm", 1 << 20))
+    install_serving(store=state.store, models=state.models, fingerprint=fp,
+                    plan_hot_k=hot_k)
+    plan = serving_state().plan
+    for n in untuned:
+        for (N, K) in SLICE_NK:
+            entry = plan.lookup("gemm", shape_key(gemm_input(n, N, K, 16)))
+            if entry is None or entry[1] != "model":
+                raise AssertionError(f"reinstalled plan: M={n} N={N} K={K} "
+                                     f"-> {entry}, want a model entry")
+    captures = eng.captures
+    dispatch.reset_counts()
+    again = eng.generate(prompts, max_new=16)
+    torch.cuda.synchronize()
+    tiers2 = {t: c for (sp, t), c in dispatch.tier_counts.items()
+              if sp == "gemm"}
+    recaptured = eng.captures - captures
+    want2 = {"plan": per_fwd * (len(MODEL_PROMPTS) + 2 * recaptured)}
+    if again != outs or tiers2 != want2 or recaptured != 1:
+        raise AssertionError(f"models second serve: GEMM resolutions "
+                             f"{tiers2}, want {want2} ({recaptured} "
+                             f"captures); tokens equal: {again == outs}")
+    phase("models", f"reinstall with plan_hot_k={hot_k} (the GEMM shapes "
+          f"the telemetry saw): plan {plan.stats()['tiers']} in "
+          f"{plan.compile_ms:.1f} ms; second serve of the same requests: "
+          f"GEMM resolutions {tiers2} (0 on the model tier, 1 re-capture "
+          f"for the new generation), the same greedy tokens")
     return {"counts": counts, "logit_err": logit_err}
+
+
+def model_prompts(cfg) -> list:
+    """The models phase's requests: one of each length nobody tuned
+    (and one of the tuned 32)."""
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, cfg.vocab, n) for n in MODEL_PROMPTS]
 
 
 def models_picks(models: ModelSet, backend, store: RecordStore, fp: str,
@@ -1132,7 +1234,7 @@ def models_picks(models: ModelSet, backend, store: RecordStore, fp: str,
     remeasure = ModelSet(measurer=backend.measure,
                          remeasure_top_k=MODEL_TOP_K)
     remeasure.models.update(models.models)
-    legal = dispatch._LEGAL["gemm"]
+    legal = functools.partial(launchable, "gemm")
     cols = ("model", "remeasured", "nearest", "heuristic", "library")
     rows = []
     for M in MODEL_M:
@@ -1508,6 +1610,22 @@ def graph_kernel_names(graph) -> list:
     return walk(graph.raw_cuda_graph())
 
 
+def check_plan_exact(plan, store: RecordStore, fp: str, shapes, what: str
+                     ) -> None:
+    """Every served (space, shape key) in ``shapes`` is planned as its
+    tuned record's config on tier ``exact``: a plan hit ran the record's
+    config, not a model's, nearest or promoted one."""
+    for space, key in shapes:
+        rec = store.get(space, dict(key), backend=fp)
+        got = plan.lookup(space, key)
+        if rec is None or got != (rec.config, "exact"):
+            raise AssertionError(f"{what}: plan entry of {space} "
+                                 f"{dict(key)} is {got}, want the tuned "
+                                 f"record's "
+                                 f"{rec.config if rec else None} on tier "
+                                 f"exact")
+
+
 def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                 label: str) -> dict:
     """Serve 8 requests from the tuned store with the engine's CUDA-graph
@@ -1523,10 +1641,28 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     kernels, and one reduction pass per projection whose tuned config
     splits K (at M=32 for a prefill, M=4 for a tick).  A second graph run of
     the same requests must give the same tokens; tok/s and the median tick
-    come from it."""
+    come from it.
+
+    The engine's install compiles a dispatch plan: every GEMM and
+    split-count resolution (prefill, capture and warm-up) must be a plan
+    hit, and every served shape's entry its tuned record's config on tier
+    ``exact`` (:func:`check_plan_exact`).  The shape telemetry counts
+    executions: each run's window must hold 210 GEMM calls per prefill
+    and per replay (eager: per tick), 30 split-count lookups per replay
+    (tick), so the graph run's GEMM count equals the kernels given to the
+    device; the eager run's per-shape
+    counts equal the graph run's."""
     sc = ServeConfig(max_len=256, slots=4, tunedb=str(store_path),
                      tunedb_backend=fp, record_tick_times=True)
     eng = Engine(cfg, params, sc)
+    plan = serving_state().plan
+    if plan is None or plan.source != "compiled":
+        raise AssertionError("the serve engine installed no compiled plan")
+    phase("serve", f"plan compiled at install: {len(plan)} entries "
+          f"{plan.stats()['tiers']} in {plan.compile_ms:.1f} ms (exact "
+          f"records under the fingerprint, then the telemetry's hot set "
+          f"through the model and nearest tiers)")
+    tel = get_telemetry()
     rng = np.random.default_rng(0)
     warm = [rng.integers(0, cfg.vocab, 32) for _ in range(2)]
     prompts = [rng.integers(0, cfg.vocab, 32) for _ in range(8)]
@@ -1544,10 +1680,12 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
         torch.cuda.synchronize()
         reset_launches()
         dispatch.reset_counts()
+        prev = tel.snapshot()
         t0 = time.perf_counter()
         outs = eng.generate(batch, max_new=max_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        window = tel.diff(prev)
         ticks, prefills, captures, replays = (
             now - b for now, b in zip((eng.ticks, eng.prefills, eng.captures,
                                        eng.replays), before))
@@ -1571,14 +1709,25 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
         want = {"launches": want_gemm,
                 "reduce_launches": red_fwd[32] * prefills
                 + red_fwd[4] * traced,
-                "tiers": {"exact": want_gemm},
-                "attn_tiers": {"exact": cfg.n_layers * traced} if traced
+                "tiers": {"plan": want_gemm},
+                "attn_tiers": {"plan": cfg.n_layers * traced} if traced
                 else {}}
         if got != want:
             raise AssertionError(f"{what}: host-side GEMM launches and "
                                  f"resolutions {got}, want {want} ({prefills} "
                                  f"prefills, {ticks} ticks, {captures} "
                                  f"captures, {replays} replays)")
+        # executions the telemetry counts: each prefill, each tick (a
+        # replay, or an eager tick), never a capture or its warm-up
+        tel_got = {sp: window[sp].window_calls if sp in window else 0
+                   for sp in ("gemm", "attention")}
+        tel_want = {"gemm": per_fwd * (prefills + ticks),
+                    "attention": cfg.n_layers * ticks}
+        if tel_got != tel_want:
+            raise AssertionError(f"{what}: telemetry counted {tel_got}, want "
+                                 f"{tel_want}")
+        shapes = {(sp, shape_key(i)): c for sp, d in window.items()
+                  for i, c in d.window_shapes}
         return {"outs": outs, "wall": wall, "ticks": ticks,
                 "counts": read_launches(),
                 "reduce_launches": got["reduce_launches"],
@@ -1586,7 +1735,7 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                 "replays": replays, "launches": got["launches"],
                 "tok_s": sum(len(o) for o in outs) / wall,
                 "tick_ms": statistics.median(t[1] for t in eng.tick_times)
-                * 1e3}
+                * 1e3, "telemetry": tel_got, "shapes": shapes}
 
     # warm-up: the engine captures its decode tick here, once
     w = run("warm-up", warm, 2)
@@ -1634,6 +1783,16 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     if e["outs"] != g["outs"]:
         raise AssertionError("greedy tokens from the graph tick differ from "
                              "the eager tick's")
+    if g["telemetry"]["gemm"] != g["device_launches"]:
+        raise AssertionError(f"graph run: telemetry counted "
+                             f"{g['telemetry']['gemm']} GEMM calls, the "
+                             f"device was given {g['device_launches']}")
+    if e["shapes"] != g["shapes"]:
+        raise AssertionError("per-shape telemetry of the eager run differs "
+                             "from the graph run's")
+    # every shape served (the prefills' M=32 GEMMs, the tick's M=4 GEMMs
+    # and its split-count lookup) hit its tuned record's config
+    check_plan_exact(plan, eng.tunedb_store, fp, g["shapes"], "serve")
     splits = resolve_decode_splits(
         B=sc.slots, Hq=cfg.n_heads, Hkv=cfg.n_kv, Lkv=sc.max_len,
         D=cfg.head_dim, dtype_bits=16, default=cfg.decode_kv_splits)
@@ -1652,9 +1811,13 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     phase("serve", f"{cfg.name} ({cfg.n_layers}L d={cfg.d_model} bf16): "
           f"{len(prompts)} requests x 16 tokens; capture at the warm-up: "
           f"{per_fwd} GEMMs and {cfg.n_layers} split-count lookups, all "
-          f"exact; graph run: {g['prefills']} prefills + {g['ticks']} ticks "
-          f"({g['replays']} replays, 0 captures), {g['launches']} GEMM "
-          f"launches from the host (prefills, all exact); the captured tick "
+          f"plan hits; graph run: {g['prefills']} prefills + {g['ticks']} "
+          f"ticks ({g['replays']} replays, 0 captures), {g['launches']} "
+          f"GEMM launches from the host (prefills, all plan hits); "
+          f"telemetry counted {g['telemetry']['gemm']} GEMM calls and "
+          f"{g['telemetry']['attention']} split-count lookups "
+          f"({len(g['shapes'])} shapes; the eager run's per-shape counts "
+          f"equal); the captured tick "
           f"holds {tick_gemm} GEMM and {tick_reduce} reduction kernel nodes "
           f"of {len(nodes)}, so {g['device_launches']} GEMM kernels given "
           f"to the device (210 x (prefills + replays)); split-K reduction "
@@ -1666,7 +1829,7 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
           f"{timed['tok_s']:.1f} tok/s, median tick {timed['tick_ms']:.2f} "
           f"ms; eager {e['tok_s']:.1f} tok/s, median tick "
           f"{e['tick_ms']:.2f} ms ({e['launches']} GEMM launches, all "
-          f"exact); the 8 requests' greedy tokens equal{tick_gemm_ms} "
+          f"plan hits); the 8 requests' greedy tokens equal{tick_gemm_ms} "
           f"[{label}]")
     return {"launches": g["launches"],
             "device_launches": g["device_launches"],
@@ -1674,7 +1837,197 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
             "device_reduce_launches": g["device_reduce_launches"],
             "tokens_per_s": timed["tok_s"], "tick_ms": timed["tick_ms"],
             "eager_tokens_per_s": e["tok_s"], "eager_tick_ms": e["tick_ms"],
-            "splits": splits, "engine": eng, "counts": g["counts"]}
+            "splits": splits, "engine": eng, "counts": g["counts"],
+            "prompts": prompts, "outs": g["outs"],
+            "telemetry": g["telemetry"], "shapes": g["shapes"]}
+
+
+def phase_plans(cfg, params, store_path: Path, serve: dict, label: str
+                ) -> dict:
+    """Export the serve phase's generation as a plan artifact under
+    ``<store>.plan/<generation>/``, load it back (timed against the
+    install's compile), then serve the serve phase's requests from a fresh
+    engine holding only the artifact (no store, no models): the same
+    greedy tokens as the store-served graph run, every GEMM and
+    split-count resolution a plan hit.  A rejected artifact fails here:
+    the engine's warning is an error in this phase."""
+    state = serving_state()
+    plan, eng = state.plan, serve["engine"]
+    dest = export_plan(plan, default_plan_dir(store_path),
+                       store=eng.tunedb_store, generation=state.generation)
+    t0 = time.perf_counter()
+    loaded = load_plan(dest)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    manifest = read_manifest(dest)
+    if len(loaded) != len(plan) or loaded.digest != manifest.digest:
+        raise AssertionError(f"plans: {len(loaded)} entries loaded of "
+                             f"{len(plan)}")
+    prompts = serve["prompts"]
+    reset_launches()
+    dispatch.reset_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        cold = Engine(cfg, params, ServeConfig(max_len=256, slots=4,
+                                               plan_dir=str(dest)))
+    st = serving_state()
+    if not (st.store is None and st.models is None
+            and st.plan.source == "loaded"
+            and st.plan.digest == manifest.digest):
+        raise AssertionError(f"plans: the cold engine installed {st}")
+    # the artifact plans every shape the serve phase served as its tuned
+    # record's config
+    check_plan_exact(st.plan, eng.tunedb_store, eng.sc.tunedb_backend,
+                     serve["shapes"], "plans")
+    outs = cold.generate(prompts, max_new=16)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    tiers = dict(dispatch.tier_counts)
+    per_fwd = GEMMS_PER_LAYER * cfg.n_layers
+    want = {("gemm", "plan"): per_fwd * (cold.prefills + 2 * cold.captures),
+            ("attention", "plan"): cfg.n_layers * 2 * cold.captures}
+    if outs != serve["outs"] or tiers != want or not counts["gemm"]:
+        raise AssertionError(f"plans: plan-only tokens equal "
+                             f"{outs == serve['outs']}, resolutions {tiers} "
+                             f"(want {want}), launches {counts}")
+    phase("plans", f"exported generation {state.generation} ({len(plan)} "
+          f"entries {plan.stats()['tiers']}, {plan.stats()['promoted']} "
+          f"promoted) to <store>.plan/{dest.name}/, digest "
+          f"{manifest.digest[:19]}...; load {load_ms:.2f} ms against the "
+          f"install's compile {plan.compile_ms:.2f} ms; plan-only cold "
+          f"start (no store, no models; the artifact is keyed to "
+          f"{manifest.fingerprint}): {len(prompts)} requests give the "
+          f"store-served "
+          f"graph run's greedy tokens; resolutions {tiers}; launches "
+          f"{counts} [{label}]")
+    return {"counts": counts, "load_ms": load_ms,
+            "compile_ms": plan.compile_ms, "entries": len(plan)}
+
+
+RESOLVE_CALLS = 10_000
+RESOLVE_REPS = 5
+
+
+def time_resolutions(shapes: list) -> float:
+    """µs per ``dispatch._resolve_cfg`` call over :data:`RESOLVE_CALLS`
+    calls cycling through ``shapes``."""
+    t0 = time.perf_counter()
+    for i in range(RESOLVE_CALLS):
+        space, x = shapes[i % len(shapes)]
+        dispatch._resolve_cfg(space, x)
+    return (time.perf_counter() - t0) / RESOLVE_CALLS * 1e6
+
+
+def phase_host_cost(cfg, params, serve: dict, fp: str, dev: torch.device,
+                    label: str) -> dict:
+    """What the plan saves on the host: µs per ``_resolve_cfg`` call over
+    a decode tick's 210 GEMM and 30 split-count shapes (the captured
+    tick's, in its order), as plan hits and on the slow path (the same
+    store and models installed with ``build_plan=False``: tier exact),
+    median of :data:`RESOLVE_REPS` rounds; and the eager prefill of a
+    32-token prompt, ms, with and without the plan, median of 10 each.
+    The two states alternate round by round; the plan is the installed
+    one, re-installed as it is (no compile between timings), and each
+    install is followed by one untimed prefill."""
+    eng = serve["engine"]
+    shapes = eng._decode_shapes
+    n_gemm = sum(1 for sp, _ in shapes if sp == "gemm")
+    if (n_gemm, len(shapes) - n_gemm) != (GEMMS_PER_LAYER * cfg.n_layers,
+                                          cfg.n_layers):
+        raise AssertionError(f"host cost: the captured tick holds "
+                             f"{n_gemm} GEMM of {len(shapes)} shapes")
+    store, models = eng.tunedb_store, eng.tunedb_models
+    plan = serving_state().plan
+    tokens = torch.as_tensor(serve["prompts"][0][None], device=dev)
+    single = init_cache(cfg, 1, 256, dev)
+
+    def install(planned: bool) -> None:
+        install_serving(store=store, models=models, fingerprint=fp,
+                        plan=plan if planned else None, build_plan=False)
+
+    def prefill_ms() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, cfg, {"tokens": tokens}, single)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    res, pre = {True: [], False: []}, {True: [], False: []}
+    for _ in range(RESOLVE_REPS):
+        for planned in (True, False):
+            install(planned)
+            dispatch.reset_counts()
+            res[planned].append(time_resolutions(shapes))
+            tier = "plan" if planned else "exact"
+            if set(t for _, t in dispatch.tier_counts) != {tier}:
+                raise AssertionError(f"host cost: tiers "
+                                     f"{dict(dispatch.tier_counts)}, want "
+                                     f"all {tier}")
+    for _ in range(5):
+        for planned in (True, False):
+            install(planned)
+            prefill_ms()                    # untimed, after the install
+            pre[planned] += [prefill_ms() for _ in range(2)]
+    install(True)
+    res = {k: statistics.median(v) for k, v in res.items()}
+    pre_ms = {k: statistics.median(v) for k, v in pre.items()}
+    phase("host cost", f"_resolve_cfg over a tick's {n_gemm} GEMM and "
+          f"{len(shapes) - n_gemm} split-count shapes, median of "
+          f"{RESOLVE_REPS} x {RESOLVE_CALLS} calls: plan hit "
+          f"{res[True]:.3f} us, slow path (exact tier, no plan) "
+          f"{res[False]:.3f} us a call; eager prefill of a 32-token prompt "
+          f"{pre_ms[True]:.2f} ms with the plan, {pre_ms[False]:.2f} ms "
+          f"without (median of 10 each, alternated; all: "
+          f"{[round(v, 2) for v in pre[True]]} / "
+          f"{[round(v, 2) for v in pre[False]]}) [{label}]")
+    return {"resolve_us": res, "prefill_ms": pre_ms}
+
+
+ADMISSION_NEW = 8
+
+
+def phase_admission(cfg, params, store_path: Path, fp: str, label: str
+                    ) -> dict:
+    """The models phase's 8 prompt lengths mixed with tuned 32-token
+    prompts, served with FIFO admission and with store-aware admission
+    (``admission="store"``, the H100's peaks): every request's greedy
+    tokens must be the same under both; the admission orders and the
+    bucket decisions at each length's projections are printed."""
+    rng = np.random.default_rng(7)
+    mixed = []
+    for i, prompt in enumerate(model_prompts(cfg)):
+        mixed.append(prompt)
+        if i % 2:
+            mixed.append(rng.integers(0, cfg.vocab, 32))
+    runs = {}
+    for policy in ("fifo", "store"):
+        eng = Engine(cfg, params, ServeConfig(
+            max_len=256, slots=4, tunedb=str(store_path), tunedb_backend=fp,
+            admission=policy))
+        reset_launches()
+        outs = eng.generate(mixed, max_new=ADMISSION_NEW)
+        torch.cuda.synchronize()
+        runs[policy] = (outs, list(eng.admitted), read_launches(), eng)
+    if runs["store"][0] != runs["fifo"][0]:
+        raise AssertionError("admission: store-aware admission changed a "
+                             "request's tokens")
+    if not runs["store"][2]["gemm"]:
+        raise AssertionError(f"admission launches {runs['store'][2]}")
+    adm = runs["store"][3].admission
+    decisions = {}
+    for n in sorted(set(len(p) for p in mixed)):
+        got = [adm.bucket("gemm", gemm_input(n, N, K, 16))
+               for (N, K) in SLICE_NK]
+        decisions[n] = sorted({d if d != "padded" else f"padded to M={x['M']}"
+                               for x, d in got})
+    phase("admission", f"{len(mixed)} requests ({len(MODEL_PROMPTS)} "
+          f"lengths nobody tuned but the model serves, and "
+          f"{len(mixed) - len(MODEL_PROMPTS)} more of the tuned 32) x "
+          f"{ADMISSION_NEW} tokens: FIFO admitted lengths "
+          f"{runs['fifo'][1]}, store-aware {runs['store'][1]}; every "
+          f"request's greedy tokens equal; bucket decisions per length "
+          f"{decisions} (hit {adm.hits}, padded {adm.padded}, exact "
+          f"{adm.exact}); launches {runs['store'][2]} [{label}]")
+    return {"counts": runs["store"][2], "order": runs["store"][1]}
 
 
 def phase_profile(eng, cfg, dev: torch.device, label: str) -> dict:
@@ -1920,6 +2273,14 @@ def main() -> int:
         attn_rows, ssd_rows = phase_times_attention_ssd(dev, peaks, label)
         serve = phase_serve(cfg, params, store_path, fp, gemm_rows, label)
         launches["serve"] = serve["counts"]
+        serve_state = serving_state()
+        plans = phase_plans(cfg, params, store_path, serve, label)
+        launches["plans"] = plans["counts"]
+        install_serving(store=serve_state.store, models=serve_state.models,
+                        fingerprint=fp, plan=serve_state.plan)
+        phase_host_cost(cfg, params, serve, fp, dev, label)
+        admission = phase_admission(cfg, params, store_path, fp, label)
+        launches["admission"] = admission["counts"]
         phase_model(cfg, params, dev)
         phase_profile(serve.pop("engine"), cfg, dev, label)
         clear_store()

@@ -59,6 +59,25 @@ from repro_torch.tunedb.session import backend_fingerprint
 from repro_torch.tunedb.store import shape_key
 
 L2_BYTES = 50 * 1024 * 1024     # H100 L2: operand copies rotate past it
+
+# H100 SXM data-sheet peaks (dense), the port's target card: what bound
+# times and store-aware admission's roofline divide by (the reference's
+# ``core.backend`` holds a TPU v5e's under the same names)
+PEAK_BF16_TFLOPS = 989.0
+PEAK_FP32_TFLOPS = 67.0
+HBM_GBPS = 3350.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Peaks:
+    """A chip's dense peak rates: TFLOP/s per IO dtype and HBM GB/s."""
+
+    bf16_tflops: float
+    fp32_tflops: float
+    hbm_gbps: float
+
+
+H100_SXM = Peaks(PEAK_BF16_TFLOPS, PEAK_FP32_TFLOPS, HBM_GBPS)
 WARMUP = 1                      # eager calls before a measurement
 REPS = 5                        # timed graph replays; the median is kept
 MIN_WINDOW_MS = 2.0             # device time one timed graph replay spans

@@ -2,31 +2,39 @@
 through tuned configs and the kernels.
 
 Every ``matmul``/``matmul2``/``conv2d``/``flash_attention``/``ssd_scan``
-resolves an input-aware config for its shape (the paper's §6 runtime) and
-runs the matching ``ops`` entry point with it: the CUDA kernel for a CUDA
+records its shape into the shape telemetry (``tunedb.telemetry``),
+resolves an input-aware config for it (the paper's §6 runtime) and runs
+the matching ``ops`` entry point with it: the CUDA kernel for a CUDA
 tensor, its plain version for a CPU tensor.  Resolution follows
-``repro.kernels.dispatch._resolve_cfg`` without the plan tier:
+``repro.kernels.dispatch._resolve_cfg``:
 
-  0. tuner    an installed tuner (``core.tuner.install_tuner``) answers
-              through its ``best_config``: a training or benchmark process
-  1. exact    the installed store's record for this shape (and fingerprint)
-  2. model    the installed performance model (``tunedb.model.ModelSet``)
-              scores every legal config of the shape in one forward pass
-              and its pick is memoized per shape (the paper's §6 answer for
-              a shape nobody tuned)
-  3. nearest  the closest tuned shape within the store's log2 radius
-  4. degraded the space's own vendor-style heuristics (the GEMM menu for
-              GEMMs, the conv menu for convolutions), one warning per space;
-              attention and SSD have no vendor menu, so their degraded tier
-              returns no config and the ops defaults apply (the reference's
-              rule)
+  tuner     an installed tuner (``core.tuner.install_tuner``) answers
+            through its ``best_config``: a training or benchmark process
+  plan      the generation's frozen dispatch plan (``tunedb.store.
+            DispatchPlan``, compiled or loaded at install): one dict probe.
+            It stands aside while the store has records newer than the
+            plan; a miss falls through to the slow path below, whose
+            answer is promoted into the plan
+  exact     the installed store's record for this shape (and fingerprint)
+  model     the installed performance model (``tunedb.model.ModelSet``)
+            scores every legal config of the shape in one forward pass
+            and its pick is memoized per shape (the paper's §6 answer for
+            a shape nobody tuned)
+  nearest   the closest tuned shape within the store's log2 radius
+  degraded  the space's own vendor-style heuristics (the GEMM menu for
+            GEMMs, the conv menu for convolutions), one warning per space;
+            attention and SSD have no vendor menu, so their degraded tier
+            returns no config and the ops defaults apply (the reference's
+            rule)
 
 A record or a model pick whose config the kernel cannot launch (a
 TPU-tuned ``bn=1024``, conv ``b_k=512``, attention ``b_kv=2048`` or SSD
 ``chunk=512``, say) never reaches the kernel: it is passed over with one
 warning per serving generation, and the nearest tier only considers
-launchable records.  With neither a store nor models installed the ops
-defaults apply (tier ``none``).
+launchable records.  A plan holds only launchable configs (a compiled,
+promoted or loaded entry alike), so a plan hit never skips that rule.
+With neither a store, models nor a plan installed the ops defaults apply
+(tier ``none``).
 
 ``check_config`` is the tuner's correctness gate: it runs a config's kernel
 at a shape (on the card the whole shape, on the CPU the reference's
@@ -37,6 +45,7 @@ fp32 oracle.
 from __future__ import annotations
 
 import collections
+import functools
 import warnings
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -44,12 +53,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.heuristics import VendorHeuristicLibrary
-from repro_torch.core.space import (FITS, SPACES, ConfigRejected,
-                                    attention_input, conv_input, gemm_input,
-                                    ssd_input)
+from repro_torch.core.space import (SPACES, ConfigRejected, attention_input,
+                                    conv_input, gemm_input, ssd_input)
 from repro_torch.core.tuner import get_tuner
 from repro_torch.device import DeviceLike, on_cuda  # noqa: F401  (on_tpu)
-from repro_torch.tunedb.store import serving_state, shape_key
+from repro_torch.tunedb.store import launchable, serving_state, shape_key
+from repro_torch.tunedb.telemetry import record_shape
 
 from . import attention as _attention
 from . import conv as _conv
@@ -83,11 +92,6 @@ def reset_counts() -> None:
     tier_counts.clear()
 
 
-# every space has a ported kernel: a record's config must launch on it (at
-# the call's dtype, and head/state dims for attention and SSD), also where
-# only host code reads it (the decode split count from an attention record)
-_LEGAL = dict(FITS)
-
 # each space's vendor menu: a conv shape never gets a GEMM tile
 _HEURISTIC_MAKERS = {"gemm": VendorHeuristicLibrary.gemm,
                      "conv": VendorHeuristicLibrary.conv}
@@ -116,21 +120,46 @@ def _heuristic_cfg(space: str, inputs: Mapping[str, int]
 def _resolve_cfg(space: str, inputs: Mapping[str, int]
                  ) -> Tuple[Optional[Dict[str, int]], str]:
     """``(config, tier)`` for one call; tier is one of ``tuner``/``none``/
-    ``exact``/``model``/``nearest``/``degraded``."""
+    ``plan``/``exact``/``model``/``nearest``/``degraded``."""
     tuner = get_tuner(space)
     if tuner is not None:
         tier_counts[(space, "tuner")] += 1
         return tuner.best_config(inputs, remeasure=False), "tuner"
     state = serving_state()
-    store, models, fp = state.store, state.models, state.fingerprint
-    if store is None and models is None:
+    store, models, fp, plan = (state.store, state.models, state.fingerprint,
+                               state.plan)
+    if store is None and models is None and plan is None:
         tier_counts[(space, "none")] += 1
         return None, "none"
-    legal = _LEGAL.get(space)
+    key = None
+    if plan is not None and (store is None
+                             or store.version == plan.store_version):
+        key = shape_key(inputs)
+        entry = plan.lookup(space, key)
+        if entry is not None:            # tier 0: frozen plan hit
+            cfg, tier = entry
+            plan.hits += 1
+            # the entry's own tier keeps its credit, as on the slow path
+            if store is not None:
+                if tier == "exact":
+                    store.hits += 1
+                else:
+                    store.misses += 1
+                    if tier == "nearest":
+                        store.nearest_hits += 1
+            if tier == "model" and models is not None:
+                models.hits = getattr(models, "hits", 0) + 1
+            tier_counts[(space, "plan")] += 1
+            return dict(cfg), "plan"
+        plan.misses += 1
+    # a record's or a model's config must launch on the space's kernel (at
+    # the call's dtype, and head/state dims for attention and SSD), also
+    # where only host code reads it (the decode split count from an
+    # attention record): the plan's own rule, ``store.launchable``
     cfg = tier = None
     rec = store.get(space, inputs, backend=fp) if store is not None else None
     if rec is not None:
-        if legal is None or legal(rec.config, inputs):
+        if launchable(space, rec.config, inputs):
             cfg, tier = dict(rec.config), "exact"
         else:
             _warn_once((state.generation, "illegal", space),
@@ -140,7 +169,7 @@ def _resolve_cfg(space: str, inputs: Mapping[str, int]
     if cfg is None and models is not None:
         got = models.predict(space, inputs, backend=fp)
         if got is not None:
-            if legal is None or legal(got[0], inputs):
+            if launchable(space, got[0], inputs):
                 cfg, tier = dict(got[0]), "model"
             else:
                 _warn_once((state.generation, "illegal-model", space),
@@ -149,10 +178,15 @@ def _resolve_cfg(space: str, inputs: Mapping[str, int]
                            "falling through to the nearest launchable "
                            "record")
     if cfg is None and store is not None:
-        rec = store.nearest(space, inputs, backend=fp, legal=legal)
+        rec = store.nearest(space, inputs, backend=fp,
+                            legal=functools.partial(launchable, space))
         if rec is not None:
             cfg, tier = dict(rec.config), "nearest"
-    if cfg is None:
+    if cfg is not None:
+        if key is not None and (store is None
+                                or store.version == plan.store_version):
+            plan.promote(space, key, cfg, tier)
+    else:
         _warn_once((state.generation, "untuned", space),
                    f"tunedb: no launchable record, model pick or neighbor "
                    f"for a {space} shape {dict(inputs)}; serving on "
@@ -168,10 +202,16 @@ def _tuned_cfg(space: str, inputs: Mapping[str, int]
     return _resolve_cfg(space, inputs)[0]
 
 
+def _record(space: str, inputs: Mapping[str, int]) -> None:
+    """Count one call of ``space`` at ``inputs`` in the shape telemetry."""
+    record_shape(space, inputs)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Model-facing 2-D GEMM through the tuned config."""
     inputs = gemm_input(a.shape[0], b.shape[1], a.shape[1],
                         _dtype_bits(a.dtype))
+    _record("gemm", inputs)
     cfg = _tuned_cfg("gemm", inputs)
     return ops.matmul(a, b, cfg)
 
@@ -189,6 +229,7 @@ def conv2d(i: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     N, H, W, C = i.shape
     R, S, _, K = f.shape
     inputs = conv_input(N, H, W, C, K, R, S, _dtype_bits(i.dtype))
+    _record("conv", inputs)
     return ops.conv2d(i, f, _tuned_cfg("conv", inputs))
 
 
@@ -199,6 +240,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Hq, Lq, D = q.shape
     inputs = attention_input(B, Hq, k.shape[1], Lq, k.shape[2], D,
                              _dtype_bits(q.dtype), causal)
+    _record("attention", inputs)
     return ops.flash_attention(q, k, v, _tuned_cfg("attention", inputs),
                                causal=causal, q_offset=q_offset)
 
@@ -209,6 +251,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     the tuned config."""
     B, L, H, P = x.shape
     inputs = ssd_input(B, L, H, P, bm.shape[-1], _dtype_bits(x.dtype))
+    _record("ssd", inputs)
     return ops.ssd_scan(x, dt, a, bm, cm, _tuned_cfg("ssd", inputs))
 
 

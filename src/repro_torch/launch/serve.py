@@ -2,6 +2,8 @@
 
   python -m repro_torch.launch.serve --arch smollm-135m            # on cuda
   python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu
+  python -m repro_torch.launch.serve --tunedb db.jsonl \
+      --plan-dir db.jsonl.plan/00000001 --admission store
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.models import init_params
 from repro_torch.serve import Engine, ServeConfig
+from repro_torch.tunedb.store import serving_state
 
 
 def main(argv=None) -> None:
@@ -38,6 +41,15 @@ def main(argv=None) -> None:
                    help="pin dispatch to one backend fingerprint (default "
                         "with --tunedb: the one `python -m repro_torch."
                         "tunedb tune` writes on this device)")
+    p.add_argument("--plan-dir", default=None,
+                   help="serve from this plan artifact (`python -m "
+                        "repro_torch.tunedb plan export`) instead of "
+                        "compiling a plan at install; without --tunedb the "
+                        "engine serves plan-only")
+    p.add_argument("--admission", choices=["fifo", "store"], default="fifo",
+                   help="'store' admits first the requests whose prompt "
+                        "length's prefill shapes the plan or the store "
+                        "covers, and groups equal lengths")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -50,8 +62,8 @@ def main(argv=None) -> None:
     params = init_params(cfg, gen)
     eng = Engine(cfg, params, ServeConfig(
         max_len=args.max_len, slots=args.slots, temperature=args.temperature,
-        seed=0, tunedb=args.tunedb,
-        tunedb_backend=fingerprint), device=device)
+        seed=0, tunedb=args.tunedb, tunedb_backend=fingerprint,
+        plan_dir=args.plan_dir, admission=args.admission), device=device)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, args.prompt_len)
                for _ in range(args.requests)]
@@ -66,6 +78,11 @@ def main(argv=None) -> None:
           f"{dt:.2f}s ({total / dt:.1f} tok/s, {eng.ticks} decode ticks, "
           f"{eng.prefills} prefills, {kmatmul.launches} GEMM kernel "
           "launches)")
+    plan = serving_state().plan
+    if plan is not None:
+        st = plan.stats()
+        print(f"plan: {st['source']}, {st['entries']} entries {st['tiers']}, "
+              f"{st['hits']} hits, {st['misses']} misses")
 
 
 if __name__ == "__main__":

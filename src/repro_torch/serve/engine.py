@@ -13,15 +13,33 @@ captured once for the engine's fixed (slots, max_len) batch, with static
 token and position buffers that are filled before each replay, and
 dispatch resolves every config at capture, as the reference's does at
 trace time.  A new serving generation (``serving_state().generation``:
-another store or model set installed) forces a re-capture.  The graph
-keeps its node list (:attr:`Engine.graph`), so a caller can count the
-kernels a replay gives the device.  Prefill stays eager (prompt lengths
-vary), and so does every tick on the CPU.  A capture or replay that fails raises; it
-never falls back to the eager tick, which stays a method
-(:meth:`Engine.decode_eager`) for comparison.  The reference's trace-time
-telemetry capture, retuning, routing, admission policies, deadlines,
-tracing, the status endpoint, dispatch plans and the model tier's
-deferred re-measurement are not ported yet.
+another store, model set or plan installed) forces a re-capture; a
+promotion into the plan's overlay does not.  The graph keeps its node
+list (:attr:`Engine.graph`), so a caller can count the kernels a replay
+gives the device.  Prefill stays eager (prompt lengths vary), and so does
+every tick on the CPU.  A capture or replay that fails raises; it never
+falls back to the eager tick, which stays a method
+(:meth:`Engine.decode_eager`) for comparison.
+
+The engine's install carries the store, the model artifacts and a
+dispatch plan in one generation: compiled from them, or loaded from a
+plan artifact (``ServeConfig.plan_dir``; a rejected artifact warns and a
+plan is compiled instead; without a store the engine serves plan-only).
+
+Shape telemetry counts executions of the served program: eager prefills
+and eager ticks record through dispatch as they run; a graph tick's
+shapes are collected once at capture (neither the capture pass nor its
+warm-up counts) and counted on every replay.  Every layer's call counts,
+as the device runs them: the reference under its defaults (layers under
+``lax.scan``) counts a scanned layer body once a forward, so each of its
+counts is the port's over the layer count, and the two agree call for
+call with its ``unroll_scan=True, remat=False``.  Under
+``admission="store"`` (:class:`StoreAwareAdmission`) each prompt length's
+first prefill is captured too, and pending requests are ranked by how
+many of their length's prefill shapes the plan or the store covers.
+Retuning, routing, deadlines and load shedding, tracing, the status
+endpoint and the model tier's deferred re-measurement are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -31,16 +49,21 @@ import dataclasses
 import pathlib
 import time
 import warnings
-from typing import Any, Deque, List, Optional, Tuple
+from typing import (Any, Deque, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
+from repro_torch.core.backend import H100_SXM, Peaks
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import ModelConfig, decode_step, init_cache, prefill
 from repro_torch.tunedb.model import ModelSet, default_models_dir
+from repro_torch.tunedb.plans import (PlanArtifactError, check_freshness,
+                                      load_plan, read_manifest)
 from repro_torch.tunedb.store import (RecordStore, install_serving,
-                                      serving_state)
+                                      serving_state, shape_key)
+from repro_torch.tunedb.telemetry import get_telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +86,206 @@ class ServeConfig:
     # ... or when an input feature lies more than this many training
     # standard deviations off (0 turns the gate off)
     tunedb_max_z: float = 6.0
+    # a plan artifact directory (``tunedb plan export``) to serve from
+    # instead of compiling a plan at install; a rejected artifact warns
+    # and a plan is compiled from the store instead
+    plan_dir: Optional[str] = None
+    # "fifo" admits pending requests in arrival order; "store" prefers
+    # those whose prompt length's prefill shapes the plan or the store
+    # covers and groups equal lengths (every request is still served)
+    admission: str = "fifo"
     # keep (start perf_counter, wall seconds) of each decode tick
     record_tick_times: bool = False
     tick_times_cap: int = 4096      # newest ticks kept; 0 keeps all
+
+
+def _ceil_div(x: int, t: int) -> int:
+    return -(-x // t)
+
+
+def _roofline_time_s(space: str, cfg: Mapping[str, int],
+                     inputs: Mapping[str, int], peaks: Peaks
+                     ) -> Optional[float]:
+    """``max(compute, memory)`` time of ``cfg`` at ``inputs`` at the
+    chip's ``peaks``, the block schedule charged as the reference charges
+    it: compute over the ceil-padded grid, A/B traffic in whole blocks per
+    grid step, the output unpadded.  ``None`` for spaces without a
+    roofline (conv, SSD)."""
+    bits = int(inputs.get("dtype_bits", 16))
+    bpe = max(bits // 8, 1)
+    peak = (peaks.bf16_tflops if bits <= 16 else peaks.fp32_tflops) * 1e12
+    hbm = peaks.hbm_gbps * 1e9
+    if space == "gemm":
+        m, n, k = int(inputs["M"]), int(inputs["N"]), int(inputs["K"])
+        bm = int(cfg.get("bm") or m)
+        bn = int(cfg.get("bn") or n)
+        bk = int(cfg.get("bk") or k)
+        mp = _ceil_div(m, bm) * bm
+        np_ = _ceil_div(n, bn) * bn
+        kp = _ceil_div(k, bk) * bk
+        t_c = 2.0 * mp * np_ * kp / peak
+        a_bytes = _ceil_div(n, bn) * mp * kp * bpe      # A slab per N step
+        b_bytes = _ceil_div(m, bm) * kp * np_ * bpe     # B slab per M step
+        out_bytes = m * n * bpe
+        return max(t_c, (a_bytes + b_bytes + out_bytes) / hbm)
+    if space == "attention":
+        b = int(inputs.get("B", 1))
+        hq = int(inputs.get("Hq", 1))
+        hkv = int(inputs.get("Hkv", hq))
+        lq, lkv = int(inputs["Lq"]), int(inputs["Lkv"])
+        d = int(inputs.get("D", 64))
+        frac = 0.5 if inputs.get("causal") else 1.0
+        bq = int(cfg.get("b_q") or lq)
+        bkv = int(cfg.get("b_kv") or lkv)
+        lqp = _ceil_div(lq, bq) * bq
+        lkvp = _ceil_div(lkv, bkv) * bkv
+        t_c = 4.0 * b * hq * lqp * lkvp * d * frac / peak
+        qo_bytes = 2 * b * hq * lq * d * bpe            # Q read + O write
+        kv_bytes = 2 * b * hkv * lkv * d * bpe
+        return max(t_c, (qo_bytes + kv_bytes) / hbm)
+    return None
+
+
+def _useful_flops(space: str, inputs: Mapping[str, int]) -> Optional[float]:
+    if space == "gemm":
+        return 2.0 * inputs["M"] * inputs["N"] * inputs["K"]
+    if space == "attention":
+        frac = 0.5 if inputs.get("causal") else 1.0
+        return (4.0 * inputs.get("B", 1) * inputs.get("Hq", 1)
+                * inputs["Lq"] * inputs["Lkv"] * inputs.get("D", 64) * frac)
+    return None
+
+
+def _roofline_floor(space: str, near, inputs: Mapping[str, int],
+                    peaks: Peaks) -> float:
+    """Projected TFLOP/s of the nearest record's config at this shape: the
+    record's measured number scaled by the roofline's ratio of useful
+    throughput here to at the record's own shape (the recorded number
+    itself where the space has no roofline)."""
+    t_q = _roofline_time_s(space, near.config, inputs, peaks)
+    t_r = _roofline_time_s(space, near.config, near.inputs, peaks)
+    u_q = _useful_flops(space, inputs)
+    u_r = _useful_flops(space, near.inputs)
+    if not t_q or not t_r or not u_q or not u_r:
+        return near.tflops
+    return near.tflops * (u_q / t_q) / (u_r / t_r)
+
+
+# the dims admission may pad up to a tuned record's (padding M is exact),
+# and the most relative extra work a padded shape may cost
+_PAD_DIMS = ("M",)
+_MAX_PAD = 1.0
+
+
+class StoreAwareAdmission:
+    """Store-aware admission: prefer shapes the dispatch plan serves.
+
+    Both decisions come from recorded numbers only (no measurement on the
+    admission path), as in the reference:
+
+    * :meth:`bucket`: for one work shape, whether to pad its
+      :data:`_PAD_DIMS` up to a tuned record's shape.  Padding a GEMM's M
+      is exact, so the question is throughput: the padded run delivers
+      the record's TFLOP/s times the useful fraction; the exact shape gets
+      its nearest record's config at the roofline floor
+      (:func:`_roofline_floor`, divided by ``peaks``).  Never past
+      :data:`_MAX_PAD` relative extra work.
+    * :meth:`pick`: which pending request to admit next.  Prompt lengths
+      whose captured prefill shapes the plan or the store covers score
+      highest, the last admitted length gets a bonus (plan entries reused
+      back to back), unknown lengths sit in the middle; arrival order
+      breaks ties.  Every request is still served.
+
+    ``peaks`` defaults to the H100 SXM's (``core.backend.H100_SXM``); the
+    counters ``hits`` / ``exact`` / ``padded`` count :meth:`bucket`'s
+    decisions.
+    """
+
+    def __init__(self, *, peaks: Peaks = H100_SXM):
+        self.peaks = peaks
+        self.hits = 0
+        self.padded = 0
+        self.exact = 0
+        self._score_memo: Dict[tuple, float] = {}
+
+    def bucket(self, space: str, inputs: Mapping[str, int]
+               ) -> Tuple[Dict[str, int], str]:
+        """(dispatch shape, "hit" | "exact" | "padded") for one work item."""
+        state = serving_state()
+        store = state.store
+        if store is None:
+            return dict(inputs), "exact"
+        fp = state.fingerprint
+        if store.contains(space, inputs, backend=fp):
+            self.hits += 1
+            return dict(inputs), "hit"
+        floor = 0.0
+        near = store.nearest(space, inputs, backend=fp, count=False)
+        if near is not None:
+            floor = _roofline_floor(space, near, inputs, self.peaks)
+        best_rec, best_eff = None, floor
+        for rec in store.neighbors(space, inputs):
+            if fp is not None and rec.backend != fp:
+                continue
+            work, ok = 1.0, True
+            for k, v in inputs.items():
+                rv = rec.inputs[k]
+                if k in _PAD_DIMS:
+                    if rv < v:
+                        ok = False
+                        break
+                    work *= v / rv
+                elif rv != v:
+                    ok = False
+                    break
+            if not ok or work * (1.0 + _MAX_PAD) < 1.0:
+                continue
+            eff = rec.tflops * work       # recorded TFLOP/s, usefully spent
+            if eff > best_eff:
+                best_rec, best_eff = rec, eff
+        if best_rec is None:
+            self.exact += 1
+            return dict(inputs), "exact"
+        self.padded += 1
+        return dict(best_rec.inputs), "padded"
+
+    def _length_score(self, n: int, prefill_shapes: Mapping[int, list],
+                      state) -> float:
+        shapes = prefill_shapes.get(n)
+        if not shapes:
+            return 0.5                    # unknown length
+        memo_key = (state.generation, n)
+        score = self._score_memo.get(memo_key)
+        if score is not None:
+            return score
+        hits = 0
+        for space, inputs in shapes:
+            entry = (state.plan.lookup(space, shape_key(inputs))
+                     if state.plan is not None else None)
+            if entry is not None or (
+                    state.store is not None
+                    and state.store.contains(space, inputs,
+                                             backend=state.fingerprint)):
+                hits += 1
+        score = hits / len(shapes)
+        if len(self._score_memo) > 1024:
+            self._score_memo.clear()
+        self._score_memo[memo_key] = score
+        return score
+
+    def pick(self, pending: Sequence, prefill_shapes: Mapping[int, list],
+             last_len: Optional[int] = None) -> int:
+        """Index into ``pending`` of the request to admit next."""
+        state = serving_state()
+        best_i, best_score = 0, -1.0
+        for i, req in enumerate(pending):
+            n = len(req.prompt)
+            score = self._length_score(n, prefill_shapes, state)
+            if last_len is not None and n == last_len:
+                score += 0.25             # plan-entry reuse
+            if score > best_score + 1e-9:  # stable: arrival order
+                best_i, best_score = i, score
+        return best_i
 
 
 @dataclasses.dataclass
@@ -91,7 +311,10 @@ class Engine:
         # measures.
         self.tunedb_store: Optional[RecordStore] = None
         self.tunedb_models: Optional[ModelSet] = None
-        if serve_cfg.tunedb or serve_cfg.tunedb_models:
+        if serve_cfg.admission not in ("fifo", "store"):
+            raise ValueError(f"admission {serve_cfg.admission!r}: want "
+                             "'fifo' or 'store'")
+        if serve_cfg.tunedb or serve_cfg.tunedb_models or serve_cfg.plan_dir:
             swap = {"fingerprint": serve_cfg.tunedb_backend}
             models_dir = serve_cfg.tunedb_models
             if serve_cfg.tunedb:
@@ -109,6 +332,11 @@ class Engine:
             models.max_feature_z = serve_cfg.tunedb_max_z
             if len(models):
                 self.tunedb_models = models
+            if serve_cfg.plan_dir is not None:
+                # one install carries the store (none: plan-only), the
+                # models and the artifact's plan
+                swap["store"] = self.tunedb_store
+                swap["plan"] = self._load_plan(serve_cfg.plan_dir)
             install_serving(models=self.tunedb_models, **swap)
         self.cache = init_cache(cfg, serve_cfg.slots, serve_cfg.max_len,
                                 self.device)
@@ -131,6 +359,32 @@ class Engine:
         cap = serve_cfg.tick_times_cap
         self.tick_times: Deque[Tuple[float, float]] = collections.deque(
             maxlen=cap if cap > 0 else None)
+        # the shapes a captured decode tick runs (counted once a replay)
+        # and, under store-aware admission, each prompt length's first
+        # prefill
+        self._decode_shapes: List[Tuple[str, Dict[str, int]]] = []
+        self._prefill_shapes: Dict[int, List[Tuple[str, Dict[str, int]]]] = {}
+        self.admission = (StoreAwareAdmission()
+                          if serve_cfg.admission == "store" else None)
+        self._last_admit_len: Optional[int] = None
+        # the last generate's prompt lengths in the order it admitted them
+        self.admitted: List[int] = []
+
+    def _load_plan(self, plan_dir: str):
+        """The artifact's plan, or None (and a warning) when it is
+        rejected: the install then compiles one."""
+        try:
+            plan = load_plan(plan_dir)
+            note = check_freshness(read_manifest(plan_dir), self.tunedb_store)
+            if note:
+                warnings.warn(f"plan artifact {plan_dir}: {note}",
+                              RuntimeWarning, stacklevel=3)
+            return plan
+        except PlanArtifactError as e:
+            warnings.warn(f"plan artifact {plan_dir} rejected ({e}); "
+                          "compiling a plan from the store instead",
+                          RuntimeWarning, stacklevel=3)
+            return None
 
     # -- prefill ---------------------------------------------------------------
     def _prefill_one(self, slot: int, req: Request) -> None:
@@ -143,7 +397,17 @@ class Engine:
                                     "v": kv["v"][:, slot:slot + 1]}}}
         tokens = torch.as_tensor(req.prompt[None], dtype=torch.long,
                                  device=self.device)
-        logits, _ = prefill(self.params, self.cfg, {"tokens": tokens}, single)
+        n = len(req.prompt)
+        if self.admission is None or n in self._prefill_shapes:
+            logits, _ = prefill(self.params, self.cfg, {"tokens": tokens},
+                                single)
+        else:
+            # the length's first prefill under store-aware admission:
+            # counted as it runs, and its shapes kept for pick
+            with get_telemetry().capture() as cap:
+                logits, _ = prefill(self.params, self.cfg,
+                                    {"tokens": tokens}, single)
+            self._prefill_shapes[n] = cap.shapes
         self.prefills += 1
         self.lengths[slot] = len(req.prompt)
         self.slot_req[slot] = req
@@ -186,6 +450,7 @@ class Engine:
         s_idx.copy_(idx)
         self._graph.replay()
         self.replays += 1
+        get_telemetry().record_ticks(self._decode_shapes)
         return logits
 
     def _capture(self, last: torch.Tensor, idx: torch.Tensor) -> None:
@@ -193,19 +458,23 @@ class Engine:
         tick's inputs.  One eager warm-up on a side stream first (lazy
         library state must exist before capture); it writes this tick's
         K/V rows, which the replay then writes again with the same
-        values."""
+        values.  Neither pass is a served tick, so neither counts in the
+        telemetry; the capture's shapes are counted on each replay."""
         self._graph = self._static = None
+        tel = get_telemetry()
         s_last, s_idx = last.clone(), idx.clone()
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), tel.capture(count=False):
             self.decode_eager(s_last, s_idx)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
-            logits = self.decode_eager(s_last, s_idx)
+        with tel.capture(count=False) as cap:
+            with torch.cuda.graph(graph):
+                logits = self.decode_eager(s_last, s_idx)
         graph.instantiate()
         self._graph, self._static = graph, (s_last, s_idx, logits)
+        self._decode_shapes = cap.shapes
         self.captures += 1
 
     # -- main loop --------------------------------------------------------------
@@ -213,8 +482,10 @@ class Engine:
                  ) -> List[List[int]]:
         """Continuous-batching loop: admit -> decode tick -> retire."""
         sc = self.sc
+        tel = get_telemetry()
         queue = [Request(np.asarray(p, np.int64), max_new) for p in prompts]
         pending = list(queue)
+        self.admitted = []
         active = 0
         while pending or active:
             while pending:                       # admit into free slots
@@ -222,7 +493,14 @@ class Engine:
                              if r is None), None)
                 if slot is None:
                     break
-                self._prefill_one(slot, pending.pop(0))
+                nxt = 0
+                if self.admission is not None and len(pending) > 1:
+                    nxt = self.admission.pick(pending, self._prefill_shapes,
+                                              last_len=self._last_admit_len)
+                req = pending.pop(nxt)
+                self._last_admit_len = len(req.prompt)
+                self.admitted.append(len(req.prompt))
+                self._prefill_one(slot, req)
                 active += 1
             if active == 0:
                 break
@@ -237,6 +515,7 @@ class Engine:
             logits = self.decode(last, idx)
             toks = self._sample(logits[:, : self.cfg.vocab])
             self.ticks += 1
+            tel.drain_pending()          # one fold of the rings a tick
 
             for s, req in enumerate(self.slot_req):
                 if req is None:

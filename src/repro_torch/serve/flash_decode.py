@@ -18,7 +18,9 @@ def resolve_decode_splits(*, B: int, Hq: int, Hkv: int, Lkv: int, D: int,
                           dtype_bits: int, causal: int = 1,
                           default: int = 1) -> int:
     """Split count from the tuned attention config's ``b_kv`` for the decode
-    shape (``Lkv // b_kv``); ``default`` when nothing tuned resolves (the
+    shape (``Lkv // b_kv``), the shape recorded in the telemetry first (so
+    decode-split traffic is mined into plans like every kernel call);
+    ``default`` when nothing tuned resolves (the
     attention space has no vendor menu: its degraded tier returns no
     config) or the block does not tile ``Lkv``.  A record tuned at this
     exact shape resolves on the exact tier; one whose config the attention
@@ -29,6 +31,7 @@ def resolve_decode_splits(*, B: int, Hq: int, Hkv: int, Lkv: int, D: int,
     inputs = {"B": int(B), "Hq": int(Hq), "Hkv": int(Hkv), "Lq": 1,
               "Lkv": int(Lkv), "D": int(D), "dtype_bits": int(dtype_bits),
               "causal": int(causal)}
+    dispatch._record("attention", inputs)
     cfg = dispatch._tuned_cfg("attention", inputs)
     if cfg is None:
         return default

@@ -1,6 +1,7 @@
-"""Tuning database of the port: the record store and serving state, tuning
-sessions, and the performance models of dispatch's model tier (a subset
-of ``repro.tunedb``)."""
+"""Tuning database of the port: the record store, serving state and frozen
+dispatch plans, shape telemetry, plan artifacts, tuning sessions, and the
+performance models of dispatch's model tier (a subset of
+``repro.tunedb``)."""
 
 from .model import (MODEL_SCHEMA_VERSION, ModelArtifactError, ModelSet,
                     PerfModel, backend_slug, clear_models, collect_samples,
@@ -8,13 +9,18 @@ from .model import (MODEL_SCHEMA_VERSION, ModelArtifactError, ModelSet,
                     train_models)
 from .session import (TuneJob, TuningSession, backend_fingerprint,
                       record_from_search)
-from .store import (RecordStore, ServingState, TuneRecord, clear_store,
-                    install_serving, install_store, serving_state)
+from .store import (PLAN_HOT_K, DispatchPlan, RecordStore, ServingState,
+                    TuneRecord, clear_store, compile_plan, install_serving,
+                    install_store, serving_state, shape_key)
+from .telemetry import (ShapeTelemetry, clear_telemetry, get_telemetry,
+                        record_shape)
 
-__all__ = ["MODEL_SCHEMA_VERSION", "ModelArtifactError", "ModelSet",
-           "PerfModel", "RecordStore", "ServingState", "TuneJob",
-           "TuneRecord", "TuningSession", "backend_fingerprint",
-           "backend_slug", "clear_models", "clear_store", "collect_samples",
-           "default_models_dir", "get_models", "harvest", "install_models",
+__all__ = ["MODEL_SCHEMA_VERSION", "PLAN_HOT_K", "DispatchPlan",
+           "ModelArtifactError", "ModelSet", "PerfModel", "RecordStore",
+           "ServingState", "ShapeTelemetry", "TuneJob", "TuneRecord",
+           "TuningSession", "backend_fingerprint", "backend_slug",
+           "clear_models", "clear_store", "clear_telemetry",
+           "collect_samples", "compile_plan", "default_models_dir",
+           "get_models", "get_telemetry", "harvest", "install_models",
            "install_serving", "install_store", "record_from_search",
-           "serving_state", "train_models"]
+           "record_shape", "serving_state", "shape_key", "train_models"]

@@ -1,5 +1,6 @@
-"""``python -m repro_torch.tunedb`` — tune shapes into a record store and
-train the performance models that serve the shapes nobody tuned.
+"""``python -m repro_torch.tunedb`` — tune shapes into a record store,
+train the performance models that serve the shapes nobody tuned, and
+export the frozen dispatch plans serving starts from.
 
   tune     train (or load) an input-aware tuner whose labels are timings of
            the port's own kernels (``CheckedBackend(CudaEventBackend)``: the
@@ -12,6 +13,13 @@ train the performance models that serve the shapes nobody tuned.
            whole log into ``<store>.models/`` (dispatch's model tier)
   predict  the model's pick (and top-k) for a ``--shape``; reads artifacts
   models   the artifacts' metadata as JSON; reads artifacts
+  plan export   compile the store (its records, the model tier and a
+           ``--telemetry`` dump's hot set) into a plan artifact under
+           ``<store>.plan/<generation>/`` (``ServeConfig.plan_dir``)
+  plan inspect  verify an artifact (schema, digest) and print its manifest
+  stats    the store's statistics (and a ``--telemetry`` dump's) as JSON
+  export   write a compacted store: the latest record per shape
+  merge    fold stores into one (``--out``)
 
   $ python -m repro_torch.tunedb tune --space gemm --shape M=4,N=576,K=576 \\
         --store tunedb.jsonl                                   # on the card
@@ -26,6 +34,11 @@ train the performance models that serve the shapes nobody tuned.
   $ python -m repro_torch.tunedb predict --space gemm --shape M=100,N=576,K=576 \\
         --store tunedb.jsonl
   $ python -m repro_torch.tunedb models --store tunedb.jsonl
+  $ python -m repro_torch.tunedb plan export --store tunedb.jsonl \
+        --telemetry shapes.json                 # -> tunedb.jsonl.plan/00000001
+  $ python -m repro_torch.tunedb plan inspect tunedb.jsonl.plan/00000001
+  $ python -m repro_torch.tunedb stats --store tunedb.jsonl
+  $ python -m repro_torch.tunedb merge a.jsonl b.jsonl --out all.jsonl
 
 ``--space`` is one of gemm, conv, attention, ssd; a ``--shape`` may omit
 ``dtype_bits`` (16), ``trans_a``/``trans_b`` (0) and ``causal`` (1).
@@ -45,14 +58,17 @@ The records carry ``backend_fingerprint`` of the timing backend, which
 names the package, the backend class and the device (not ``--seed``, which
 seeds the training draws and the regressor); serving pins its lookups to
 the same string (``repro_torch.launch.serve`` does by default).
-The reference's other subcommands (retune/watch, fleet, plan, trace,
-stats/export/merge, fsck) are not ported yet.
+The reference's other subcommands (retune/watch, fleet, plan publish /
+follow, trace, diff, serve-status, fsck) and ``stats --json`` are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import pathlib
 import sys
 from typing import Dict, List, Optional
 
@@ -196,6 +212,93 @@ def _cmd_models(args: argparse.Namespace) -> int:
     return 0 if len(models) or not models.skipped else 1
 
 
+def _compile_plan_from_args(args: argparse.Namespace):
+    """(store, DispatchPlan) compiled from --store/--models-dir/--telemetry."""
+    from .model import ModelSet, default_models_dir
+    from .store import RecordStore, compile_plan
+    from .telemetry import ShapeTelemetry
+
+    store = RecordStore.open(args.store)
+    models = None
+    if not args.no_models:
+        mdir = pathlib.Path(args.models_dir or default_models_dir(args.store))
+        if mdir.is_dir():
+            loaded = ModelSet.load(mdir)
+            if len(loaded):
+                models = loaded
+    telemetry = None
+    if args.telemetry and os.path.exists(args.telemetry):
+        telemetry = ShapeTelemetry.load(args.telemetry)
+    plan = compile_plan(store, models, args.backend,
+                        telemetry=telemetry, hot_k=args.hot_k)
+    if plan is None or not len(plan):
+        raise SystemExit(f"[tunedb] nothing to plan: store {args.store} has "
+                         "no serving records under this fingerprint")
+    return store, plan
+
+
+def _cmd_plan_export(args: argparse.Namespace) -> int:
+    from .plans import PlanArtifactError, default_plan_dir, export_plan
+
+    store, plan = _compile_plan_from_args(args)
+    out = args.out or default_plan_dir(store.path)
+    try:
+        dest = export_plan(plan, out, store=store,
+                           generation=args.generation)
+    except PlanArtifactError as e:
+        print(f"[tunedb] plan export refused: {e}", file=sys.stderr)
+        return 1
+    print(f"[tunedb] exported plan ({len(plan)} entries) -> {dest}")
+    return 0
+
+
+def _cmd_plan_inspect(args: argparse.Namespace) -> int:
+    from .plans import PlanArtifactError, load_plan, read_manifest
+
+    try:
+        manifest = read_manifest(args.plan_dir)
+        plan = load_plan(args.plan_dir)      # digest and schema verified
+    except PlanArtifactError as e:
+        print(f"[tunedb] plan artifact rejected: {e}", file=sys.stderr)
+        return 1
+    out = dict(manifest.to_dict())
+    out["verified"] = True
+    out["tiers"] = plan.stats()["tiers"]
+    print(json.dumps(out, indent=1, sort_keys=True))
+    return 0
+
+
+def _cmd_stats(args: argparse.Namespace) -> int:
+    from .store import RecordStore
+    from .telemetry import ShapeTelemetry
+
+    out = {"store": RecordStore.open(args.store).stats()}
+    if args.telemetry and os.path.exists(args.telemetry):
+        out["telemetry"] = ShapeTelemetry.load(args.telemetry).stats()
+    print(json.dumps(out, indent=1, sort_keys=True, default=str))
+    return 0
+
+
+def _cmd_export(args: argparse.Namespace) -> int:
+    from .store import RecordStore
+
+    n = RecordStore.open(args.store).export(args.out)
+    print(f"[tunedb] exported {n} records -> {args.out}")
+    return 0
+
+
+def _cmd_merge(args: argparse.Namespace) -> int:
+    from .store import RecordStore
+
+    merged = RecordStore.open(args.out)
+    total = 0
+    for path in args.stores:
+        total += merged.merge(RecordStore.open(path))
+    print(f"[tunedb] merged {total} records from {len(args.stores)} "
+          f"stores -> {args.out} ({len(merged)} shapes)")
+    return 0
+
+
 def _hidden(spec: str):
     try:
         return tuple(int(x) for x in spec.split(",") if x)
@@ -267,6 +370,48 @@ def build_parser() -> argparse.ArgumentParser:
     mo.add_argument("--store", required=True, help="JSONL record store")
     mo.add_argument("--models-dir", default=None)
     mo.set_defaults(fn=_cmd_models)
+
+    pl = sub.add_parser("plan", help="frozen dispatch-plan artifacts")
+    psub = pl.add_subparsers(dest="plan_cmd", required=True)
+    pe = psub.add_parser(
+        "export", help="compile a store into a versioned plan artifact")
+    pe.add_argument("--store", required=True, help="JSONL record store")
+    pe.add_argument("--models-dir", default=None,
+                    help="model artifacts consulted for the hot set "
+                         "(default: <store>.models/)")
+    pe.add_argument("--no-models", action="store_true",
+                    help="compile from records and nearest only")
+    pe.add_argument("--telemetry", default=None,
+                    help="telemetry dump whose hot set is pre-resolved")
+    pe.add_argument("--backend", default=None,
+                    help="fingerprint the plan is keyed to (default: any)")
+    pe.add_argument("--hot-k", type=int, default=32,
+                    help="hot shapes per space to pre-resolve")
+    pe.add_argument("--out", default=None,
+                    help="artifact root (default: <store>.plan/)")
+    pe.add_argument("--generation", type=int, default=None,
+                    help="explicit generation number (default: next free)")
+    pe.set_defaults(fn=_cmd_plan_export)
+    pi = psub.add_parser(
+        "inspect", help="verify (schema, digest) and print a plan artifact")
+    pi.add_argument("plan_dir", help="one generation's artifact directory")
+    pi.set_defaults(fn=_cmd_plan_inspect)
+
+    st = sub.add_parser("stats", help="print store/telemetry statistics")
+    st.add_argument("--store", required=True, help="JSONL record store")
+    st.add_argument("--telemetry", default=None,
+                    help="a telemetry dump (ShapeTelemetry.save)")
+    st.set_defaults(fn=_cmd_stats)
+
+    ex = sub.add_parser("export", help="compact a store (latest per shape)")
+    ex.add_argument("--store", required=True, help="JSONL record store")
+    ex.add_argument("--out", required=True)
+    ex.set_defaults(fn=_cmd_export)
+
+    me = sub.add_parser("merge", help="fold stores into one")
+    me.add_argument("stores", nargs="+")
+    me.add_argument("--out", required=True)
+    me.set_defaults(fn=_cmd_merge)
     return p
 
 

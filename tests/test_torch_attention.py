@@ -424,7 +424,8 @@ def attn_store():
     store = tstore.RecordStore()
     store.add(tstore.TuneRecord(space="attention", inputs=DECODE,
                                 config=CFG_DECODE, tflops=1.0, backend=FP))
-    tstore.install_store(store, fingerprint=FP)
+    tstore.install_serving(store=store, fingerprint=FP,
+                           build_plan=False)
     tdispatch.reset_counts()
     yield store
     tstore.clear_store()

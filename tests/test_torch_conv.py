@@ -306,7 +306,8 @@ def conv_store():
     store = tstore.RecordStore()
     store.add(tstore.TuneRecord(space="conv", inputs=conv_input(*TUNED),
                                 config=CFG_SPLIT, tflops=1.0, backend=FP))
-    tstore.install_store(store, fingerprint=FP)
+    tstore.install_serving(store=store, fingerprint=FP,
+                           build_plan=False)
     tdispatch.reset_counts()
     yield store
     tstore.clear_store()

@@ -423,7 +423,8 @@ def test_model_tier_picks_pass_the_gate(card_models, M, nk):
     from repro_torch.tunedb.store import RecordStore, install_serving
     x = gemm_input(M, nk[0], nk[1], 16)
     install_serving(store=RecordStore(), models=card_models["models"],
-                    fingerprint=card_models["backend"].fingerprint)
+                    fingerprint=card_models["backend"].fingerprint,
+                    build_plan=False)
     try:
         cfg, tier = dispatch._resolve_cfg("gemm", x)
     finally:
@@ -454,3 +455,101 @@ def test_a_measuring_resolution_under_capture_raises(card_models):
     assert not measured
     assert models.predict("gemm", x, backend=fp) is not None
     assert len(measured) == 3
+
+
+def _smoke_engine_params(cuda, splits=4):
+    import dataclasses
+
+    from repro_torch.configs import smollm_135m
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(smollm_135m.SMOKE, decode_kv_splits=splits)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    return cfg, init_params(cfg, gen)
+
+
+def test_graph_and_eager_ticks_count_the_same_telemetry(cuda):
+    """Neither the capture pass nor its warm-up counts: a graph run counts
+    each shape once per replay and per prefill, exactly as the eager tick
+    counts it on the same requests."""
+    import numpy as np
+
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tunedb.store import clear_store
+    from repro_torch.tunedb.telemetry import clear_telemetry, get_telemetry
+
+    clear_store()
+    cfg, params = _smoke_engine_params(cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 9, 3, 12, 7)]
+    tel = get_telemetry()
+    views = []
+    for eager in (False, True):
+        eng = Engine(cfg, params, ServeConfig(max_len=64, slots=3),
+                     device=cuda)
+        if eager:
+            eng.decode = eng.decode_eager
+        clear_telemetry()
+        eng.generate(prompts, max_new=6)
+        per_fwd = 7 * cfg.n_layers
+        assert tel.total("gemm") == per_fwd * (eng.prefills + eng.ticks)
+        assert tel.total("attention") == cfg.n_layers * eng.ticks
+        assert eng.captures == (0 if eager else 1)
+        views.append({s: tel.hot_shapes(s, 100) for s in tel.spaces()})
+    assert views[0] == views[1]
+    clear_telemetry()
+
+
+def test_plan_only_engine_serves_the_store_tokens(cuda, tmp_path):
+    """An artifact of the store-served engine's plan serves the same greedy
+    tokens with no store installed, every GEMM on the plan tier."""
+    import numpy as np
+
+    from repro_torch.core.search import enumerate_legal
+    from repro_torch.core.space import GEMM_SPACE, gemm_fits
+    from repro_torch.kernels import dispatch
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tunedb import plans
+    from repro_torch.tunedb import store as tstore
+    from repro_torch.tunedb.telemetry import clear_telemetry
+
+    cfg, params = _smoke_engine_params(cuda, splits=1)
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim
+    db = tmp_path / "db.jsonl"
+    store = tstore.RecordStore(db)
+    rng = np.random.default_rng(2)
+    lens = (6, 11)
+    for M in lens + (2,):
+        for N, K in ((q, cfg.d_model), (kv, cfg.d_model),
+                     (cfg.d_ff, cfg.d_model), (cfg.d_model, cfg.d_ff)):
+            x = gemm_input(M, N, K, 32)
+            legal = [c for c in enumerate_legal(GEMM_SPACE, x)
+                     if gemm_fits(c, 32)]
+            store.add(tstore.TuneRecord(
+                space="gemm", inputs=x,
+                config=legal[int(rng.integers(len(legal)))], tflops=1.0,
+                backend="card-test"))
+    prompts = [rng.integers(0, cfg.vocab, n) for n in lens]
+    clear_telemetry()
+
+    def serve(**kw):
+        eng = Engine(cfg, params, ServeConfig(
+            max_len=32, slots=2, tunedb_models="",
+            tunedb_backend="card-test", **kw), device=cuda)
+        dispatch.reset_counts()
+        out = eng.generate(prompts, max_new=5)
+        assert {t for (sp, t) in dispatch.tier_counts
+                if sp == "gemm"} == {"plan"}
+        return eng, out
+
+    try:
+        eng, stored = serve(tunedb=str(db))
+        dest = plans.export_plan(tstore.serving_state().plan,
+                                 plans.default_plan_dir(db),
+                                 store=eng.tunedb_store)
+        _, planned = serve(plan_dir=str(dest))
+        assert tstore.serving_state().store is None
+        assert tstore.serving_state().plan.source == "loaded"
+        assert planned == stored
+    finally:
+        tstore.install_serving(store=None, models=None, fingerprint=None)

@@ -145,7 +145,7 @@ def test_tiers_match_the_reference(tmp_path, request, inputs, tier):
     jstore.install_serving(store=jstore.RecordStore.open(path),
                            models=jmodels, fingerprint=FP, build_plan=False)
     tstore.install_serving(store=tstore.RecordStore.open(path),
-                           models=tmodels, fingerprint=FP)
+                           models=tmodels, fingerprint=FP, build_plan=False)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         jcfg, jtier = jdispatch._resolve_cfg("gemm", inputs)
@@ -169,7 +169,8 @@ def test_tpu_only_config_falls_through_and_warns_once(tmp_path):
                              tflops=9.0, backend=FP))
     ts.add(tstore.TuneRecord(space="gemm", inputs=gemm_input(48, 576, 576, 16),
                              config=CFG_A, tflops=1.0, backend=FP))
-    tstore.install_store(ts, fingerprint=FP)
+    tstore.install_serving(store=ts, fingerprint=FP,
+                           build_plan=False)
     with pytest.warns(RuntimeWarning, match="cannot launch") as rec:
         cfg, tier = tdispatch._resolve_cfg("gemm", shape)
     assert tier == "nearest" and cfg == CFG_A
@@ -182,7 +183,8 @@ def test_tpu_only_config_falls_through_and_warns_once(tmp_path):
     ts2 = tstore.RecordStore()
     ts2.add(tstore.TuneRecord(space="gemm", inputs=shape, config=CFG_TPU,
                               tflops=9.0, backend=FP))
-    tstore.install_store(ts2, fingerprint=FP)
+    tstore.install_serving(store=ts2, fingerprint=FP,
+                           build_plan=False)
     before = kmatmul.launches
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)

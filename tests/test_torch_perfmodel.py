@@ -21,6 +21,7 @@ from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.kernels import ref as tref
 from repro_torch.tunedb import model as tmodel
 from repro_torch.tunedb import store as tstore
+from repro_torch.tunedb.telemetry import clear_telemetry
 
 FP = "repro_torch-cuda-test"
 # shapes the made-up records were "tuned" at (the reference's space has no
@@ -234,7 +235,7 @@ def test_dispatch_serves_an_untuned_shape_from_the_model_tier(artifacts):
     predict = pm.predict_config
     pm.predict_config = lambda *a, **k: scans.append(a) or predict(*a, **k)
     tstore.install_serving(store=tstore.RecordStore(), models=models,
-                           fingerprint=FP)
+                           fingerprint=FP, build_plan=False)
     rng = np.random.default_rng(0)
     a = torch.as_tensor(rng.normal(size=(100, 576)), dtype=torch.bfloat16)
     b = torch.as_tensor(rng.normal(size=(576, 192)) / 24.0,
@@ -268,7 +269,8 @@ def test_a_pick_that_cannot_launch_falls_through_to_nearest_once():
     store.add(tstore.TuneRecord(space="gemm", inputs=TUNED[1], config=good,
                                 tflops=1.0, backend=FP))
     stub = _StubModels(tpu)
-    tstore.install_serving(store=store, models=stub, fingerprint=FP)
+    tstore.install_serving(store=store, models=stub, fingerprint=FP,
+                           build_plan=False)
     x = gemm_input(40, 576, 576, 16)
     with pytest.warns(RuntimeWarning, match="cannot launch") as rec:
         assert tdispatch._resolve_cfg("gemm", x) == (good, "nearest")
@@ -278,7 +280,7 @@ def test_a_pick_that_cannot_launch_falls_through_to_nearest_once():
         assert tdispatch._resolve_cfg("gemm", x) == (good, "nearest")
     assert stub.calls == 2
     # a new generation warns again
-    tstore.install_serving(models=stub)
+    tstore.install_serving(models=stub, build_plan=False)
     with pytest.warns(RuntimeWarning, match="cannot launch"):
         tdispatch._resolve_cfg("gemm", x)
 
@@ -286,6 +288,8 @@ def test_a_pick_that_cannot_launch_falls_through_to_nearest_once():
 def test_install_serving_swaps_in_one_generation_and_drops_memos(artifacts):
     models = tmodel.ModelSet.load(artifacts["port"])
     store = tstore.RecordStore()
+    # no hot set: the installs' plans scan no shape into the memo
+    clear_telemetry()
     gen = tstore.serving_state().generation
     tstore.install_serving(store=store, models=models, fingerprint=FP)
     assert models.predict("gemm", UNTUNED[0], backend=FP) is not None

@@ -20,6 +20,7 @@ from repro.serve import ServeConfig as JServeConfig
 from repro_torch.configs import smollm_135m as tconfigs
 from repro_torch.serve import Engine as TEngine
 from repro_torch.serve import ServeConfig as TServeConfig
+from repro_torch.tunedb.telemetry import clear_telemetry
 from repro_torch.weights import params_from_jax
 
 REPO = Path(__file__).resolve().parents[1]
@@ -112,6 +113,7 @@ def test_engine_finds_the_store_models_or_turns_the_tier_off(
     from repro_torch.tunedb import store as tstore
     db = tmp_path / "db.jsonl"
     _smoke_models(db)
+    clear_telemetry()           # no earlier test's shapes in the plan
     tcfg = tconfigs.SMOKE
     gen = torch.Generator()
     gen.manual_seed(0)
@@ -134,7 +136,9 @@ def test_engine_finds_the_store_models_or_turns_the_tier_off(
             out = eng.generate(prompts, max_new=4)
         assert [len(o) for o in out] == [4, 4]
         tiers = {t for (sp, t) in tdispatch.tier_counts if sp == "gemm"}
-        assert tiers == {tier}
+        # a shape's first model pick is promoted into the engine's plan,
+        # so its repeats are plan hits; a degraded call is never promoted
+        assert tiers == ({tier, "plan"} if tier == "model" else {tier})
         if models_dir is None:
             models = eng.tunedb_models
             assert models is not first.tunedb_models and len(models) == 1
@@ -145,3 +149,291 @@ def test_engine_finds_the_store_models_or_turns_the_tier_off(
             assert eng.tunedb_models is None and state.models is None
     finally:
         tstore.install_serving(store=None, models=None, fingerprint=None)
+
+
+# ---------------------------------------------------------------------------
+# The serving lookup's plan tier: telemetry, plan artifacts, admission
+# ---------------------------------------------------------------------------
+
+FP = "repro_torch-cuda-test"
+_CFG_BUCKET = {"bm": 16, "bn": 64, "bk": 64, "k_unroll": 1, "k_split": 1,
+               "order": 0, "acc32": 1, "prefetch": 1}
+
+
+def _both_engines_params(splits=1, **jextra):
+    jcfg = dataclasses.replace(jconfigs.SMOKE, decode_kv_splits=splits,
+                               **jextra)
+    tcfg = dataclasses.replace(tconfigs.SMOKE, decode_kv_splits=splits)
+    jp = jinit_params(jcfg, jax.random.PRNGKey(1))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg, "cpu")
+    return jcfg, jp, tcfg, tp
+
+
+def _telemetry_view(tel):
+    return {s: tel.hot_shapes(s, 1000) for s in tel.spaces()}
+
+
+def test_engine_telemetry_matches_the_jax_engine():
+    """The same prompts through both engines count the same shapes the
+    same number of times: the reference counts its jitted programs' traces
+    and replays, the port its eager prefills and ticks as they run.  The
+    reference runs its layers under ``lax.scan`` and ``jax.checkpoint``,
+    whose body traces once for all layers; with ``unroll_scan`` and no
+    ``remat`` each layer is a call of its own, as in the port (and as the
+    kernels run on the device)."""
+    import repro.tunedb.telemetry as jtel
+    from repro_torch.tunedb import telemetry as ttel
+    jcfg, jp, tcfg, tp = _both_engines_params(splits=4, unroll_scan=True,
+                                                  remat=False)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tcfg.vocab, n) for n in PROMPT_LENS + (9,)]
+    jtel.clear_telemetry()
+    ttel.clear_telemetry()
+    try:
+        JEngine(jcfg, jp, JServeConfig(max_len=64, slots=3)).generate(
+            prompts, max_new=6)
+        eng = TEngine(tcfg, tp, TServeConfig(max_len=64, slots=3),
+                      device="cpu")
+        eng.generate(prompts, max_new=6)
+        want = _telemetry_view(jtel.get_telemetry())
+        assert _telemetry_view(ttel.get_telemetry()) == want
+        per_fwd = 7 * tcfg.n_layers
+        assert (ttel.get_telemetry().total("gemm")
+                == per_fwd * (len(prompts) + eng.ticks))
+        assert (ttel.get_telemetry().total("attention")
+                == tcfg.n_layers * eng.ticks)
+        # FIFO admission keeps no prefill shapes: only pick reads them
+        assert eng._prefill_shapes == {}
+    finally:
+        jtel.clear_telemetry()
+        ttel.clear_telemetry()
+
+
+def test_engine_telemetry_under_the_reference_defaults_scales_by_layers(
+        tmp_path):
+    """Under its defaults (layers under ``lax.scan`` and
+    ``jax.checkpoint``) the reference counts a scanned layer body once a
+    forward; the port counts each layer's call, as the device runs them.
+    So every port count is the reference's times the layer count: the
+    same shapes in the same hot-shape order, and a plan compiled from a
+    merge of both packages' dumps is the plan compiled from the port's
+    alone."""
+    import repro.tunedb.telemetry as jtel
+    from repro_torch.tunedb import store as tstore
+    from repro_torch.tunedb import telemetry as ttel
+    jcfg, jp, tcfg, tp = _both_engines_params(splits=4)
+    assert jcfg.unroll_scan is False and jcfg.remat is True
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tcfg.vocab, n) for n in PROMPT_LENS + (9,)]
+    jtel.clear_telemetry()
+    ttel.clear_telemetry()
+    try:
+        JEngine(jcfg, jp, JServeConfig(max_len=64, slots=3)).generate(
+            prompts, max_new=6)
+        jtel.get_telemetry().save(tmp_path / "ref.json")
+        TEngine(tcfg, tp, TServeConfig(max_len=64, slots=3),
+                device="cpu").generate(prompts, max_new=6)
+        port = ttel.get_telemetry()
+        ref = ttel.ShapeTelemetry.load(tmp_path / "ref.json")
+        assert port.spaces() == ref.spaces() == ["attention", "gemm"]
+        for space in port.spaces():
+            assert port.hot_shapes(space, 1000) == [
+                (i, c * tcfg.n_layers) for i, c in ref.hot_shapes(space, 1000)]
+        merged = ttel.ShapeTelemetry()
+        merged.merge(port)
+        merged.merge(ref)
+        # a store holding one prompt length and the tick: the hot set's
+        # four tick shapes are exact, its next two (the 9-token prompts',
+        # served twice) resolve on the nearest tier at compile time
+        store = _smoke_store(tmp_path / "db.jsonl", (5,), slots=3)
+        tables = [tstore.compile_plan(store, None, FP, telemetry=tel,
+                                      hot_k=6)._table
+                  for tel in (port, merged)]
+        assert tables[0] == tables[1]
+        assert {t for _, t in tables[0].values()} == {"exact", "nearest"}
+    finally:
+        jtel.clear_telemetry()
+        ttel.clear_telemetry()
+
+
+def _smoke_store(db, lengths, slots, seed=0, backend=FP):
+    """Records of the SMOKE config's fp32 projection GEMMs at prompt
+    lengths ``lengths`` and the decode tick's M = ``slots``, each under a
+    random launchable config, written by the port."""
+    from repro_torch.core.search import enumerate_legal
+    from repro_torch.core.space import GEMM_SPACE, gemm_input
+    from repro_torch.tunedb import store as tstore
+    cfg = tconfigs.SMOKE
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim
+    store = tstore.RecordStore(db)
+    rng = np.random.default_rng(seed)
+    for t, M in enumerate(sorted(set(lengths) | {slots})):
+        for j, (N, K) in enumerate(((q, cfg.d_model), (kv, cfg.d_model),
+                                    (cfg.d_ff, cfg.d_model),
+                                    (cfg.d_model, cfg.d_ff))):
+            x = gemm_input(M, N, K, 32)
+            legal = enumerate_legal(GEMM_SPACE, x)
+            store.add(tstore.TuneRecord(
+                space="gemm", inputs=x,
+                config=legal[int(rng.integers(len(legal)))],
+                tflops=float(rng.uniform(1, 2)), backend=backend,
+                created_at=1000.0 + 10 * t + j))
+    return store
+
+
+def test_plan_dir_cold_start_and_plan_only_serve_the_same_tokens(tmp_path):
+    """A store-served engine compiles a plan and serves every GEMM from
+    it; its plan exported as an artifact serves the same tokens cold
+    (``plan_dir`` with the store, every resolution a plan hit) and
+    plan-only (no store); a damaged artifact warns and the engine compiles
+    a plan from the store instead."""
+    from repro_torch.kernels import dispatch as tdispatch
+    from repro_torch.models import init_params
+    from repro_torch.tunedb import plans as tplans
+    from repro_torch.tunedb import store as tstore
+    db = tmp_path / "db.jsonl"
+    lens = (5, 9)
+    _smoke_store(db, lens, slots=2)
+    clear_telemetry()
+    tcfg = tconfigs.SMOKE
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = init_params(tcfg, gen)
+    prompts = [np.arange(n) % tcfg.vocab for n in lens]
+
+    def serve(**kw):
+        eng = TEngine(tcfg, params, TServeConfig(
+            max_len=32, slots=2, tunedb_models="", tunedb_backend=FP, **kw),
+            device="cpu")
+        tdispatch.reset_counts()
+        out = eng.generate(prompts, max_new=4)
+        return eng, out, dict(tdispatch.tier_counts)
+
+    try:
+        eng, base, tiers = serve(tunedb=str(db))
+        plan = tstore.serving_state().plan
+        assert plan.source == "compiled" and plan.stats()["tiers"] == {
+            "exact": 12}
+        per_fwd = 7 * tcfg.n_layers
+        assert tiers == {("gemm", "plan"): per_fwd * (len(lens) + eng.ticks)}
+        dest = tplans.export_plan(plan, tplans.default_plan_dir(db),
+                                  store=eng.tunedb_store)
+        for kw in ({"tunedb": str(db), "plan_dir": str(dest)},
+                   {"plan_dir": str(dest)}):
+            eng, out, tiers = serve(**kw)
+            state = tstore.serving_state()
+            assert state.plan.source == "loaded" and out == base
+            assert state.store is eng.tunedb_store
+            assert (state.store is None) == ("tunedb" not in kw)
+            assert tiers == {("gemm", "plan"):
+                             per_fwd * (len(lens) + eng.ticks)}
+        (dest / tplans.ENTRIES_NAME).write_text("{}\n")
+        with pytest.warns(RuntimeWarning, match="rejected"):
+            eng, out, tiers = serve(tunedb=str(db), plan_dir=str(dest))
+        assert tstore.serving_state().plan.source == "compiled"
+        assert out == base and set(tiers) == {("gemm", "plan")}
+    finally:
+        tstore.install_serving(store=None, models=None, fingerprint=None)
+
+
+def test_store_admission_matches_the_reference_and_keeps_tokens(tmp_path):
+    """``admission="store"`` with the reference's peaks admits the same
+    prompt lengths in the same order as the reference's engine and makes
+    the same bucket decisions; every request's tokens equal its FIFO
+    tokens."""
+    import repro.tunedb.store as jstore
+    import repro.tunedb.telemetry as jtel
+    from repro.core.backend import (HBM_GBPS, PEAK_BF16_TFLOPS,
+                                    PEAK_FP32_TFLOPS)
+    from repro.serve.engine import StoreAwareAdmission as JAdmission
+    from repro_torch.core.backend import Peaks
+    from repro_torch.core.space import gemm_input
+    from repro_torch.serve.engine import StoreAwareAdmission as TAdmission
+    from repro_torch.tunedb import store as tstore
+    from repro_torch.tunedb import telemetry as ttel
+    db = tmp_path / "db.jsonl"
+    # tuned: length 3 and the tick (M=2); 24 and 30 have no neighbour
+    # within the store's radius, so neither package plans them
+    _smoke_store(db, (3,), slots=2)
+    jcfg, jp, tcfg, tp = _both_engines_params()
+    rng = np.random.default_rng(3)
+    lens = (24, 3, 30, 3, 24, 3, 30)
+    prompts = [rng.integers(0, tcfg.vocab, n) for n in lens]
+    ref_peaks = Peaks(PEAK_BF16_TFLOPS, PEAK_FP32_TFLOPS, HBM_GBPS)
+    jtel.clear_telemetry()
+    ttel.clear_telemetry()
+    try:
+        jeng = JEngine(jcfg, jp, JServeConfig(
+            max_len=64, slots=2, tunedb=str(db), tunedb_models="",
+            tunedb_backend=FP, admission="store"))
+        order = []
+        prefill_one = jeng._prefill_one
+        jeng._prefill_one = lambda slot, req: (
+            order.append(len(req.prompt)), prefill_one(slot, req))[1]
+        jeng.generate(prompts, max_new=3)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            fifo = TEngine(tcfg, tp, TServeConfig(
+                max_len=64, slots=2, tunedb=str(db), tunedb_models="",
+                tunedb_backend=FP), device="cpu").generate(prompts, max_new=3)
+            eng = TEngine(tcfg, tp, TServeConfig(
+                max_len=64, slots=2, tunedb=str(db), tunedb_models="",
+                tunedb_backend=FP, admission="store"), device="cpu")
+            eng.admission = TAdmission(peaks=ref_peaks)
+            out = eng.generate(prompts, max_new=3)
+        assert eng.admitted == order and order != list(lens)
+        assert set(eng._prefill_shapes) == set(lens)
+        assert out == fifo
+        # bucket decisions at the SMOKE projections from a store whose M=16
+        # records run far faster than its M=8 ones, installed in both
+        db2 = tmp_path / "bucket.jsonl"
+        t = 0
+        for M, tflops in ((8, 1.0), (16, 40.0)):
+            for N, K in ((72, 72), (24, 72), (192, 72), (72, 192)):
+                x = gemm_input(M, N, K, 32)
+                tstore.RecordStore(db2).add(tstore.TuneRecord(
+                    space="gemm", inputs=x, config=_CFG_BUCKET,
+                    tflops=tflops, backend=FP, created_at=1000.0 + t))
+                t += 1
+        jstore.install_serving(store=jstore.RecordStore.open(db2),
+                               fingerprint=FP)
+        tstore.install_serving(store=tstore.RecordStore.open(db2),
+                               fingerprint=FP)
+        jadm, tadm = JAdmission(), TAdmission(peaks=ref_peaks)
+        decisions = []
+        for M in (1, 4, 8, 10, 12, 16, 24, 40):
+            for N, K in ((72, 72), (24, 72), (192, 72), (72, 192)):
+                x = gemm_input(M, N, K, 32)
+                jgot, tgot = jadm.bucket("gemm", x), tadm.bucket("gemm", x)
+                assert tgot == jgot, x
+                decisions.append(tgot[1])
+        assert {"hit", "padded", "exact"} <= set(decisions)
+        assert (tadm.padded, tadm.exact) == (jadm.padded, jadm.exact)
+    finally:
+        jstore.install_serving(store=None, models=None, fingerprint=None,
+                               build_plan=False)
+        tstore.install_serving(store=None, models=None, fingerprint=None)
+        jtel.clear_telemetry()
+        ttel.clear_telemetry()
+
+
+def test_launcher_serves_from_a_plan_artifact_on_cpu(tmp_path, capsys):
+    from repro_torch.launch import serve
+    from repro_torch.tunedb import plans as tplans
+    from repro_torch.tunedb import store as tstore
+    db = tmp_path / "db.jsonl"
+    store = _smoke_store(db, (6,), slots=2)
+    try:
+        tstore.install_serving(store=store, fingerprint=FP)
+        dest = tplans.export_plan(tstore.serving_state().plan,
+                                  tplans.default_plan_dir(db), store=store)
+        serve.main(["--smoke", "--device", "cpu", "--requests", "3",
+                    "--slots", "2", "--prompt-len", "6", "--max-new", "3",
+                    "--max-len", "32", "--plan-dir", str(dest),
+                    "--admission", "store"])
+    finally:
+        tstore.install_serving(store=None, models=None, fingerprint=None)
+    out = capsys.readouterr().out
+    assert "3 requests, 9 tokens" in out
+    assert "plan: loaded, 8 entries {'exact': 8}" in out
+    assert ", 0 misses" in out

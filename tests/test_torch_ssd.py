@@ -389,7 +389,8 @@ def ssd_store():
     store = tstore.RecordStore()
     store.add(tstore.TuneRecord(space="ssd", inputs=TUNED, config=CFG_TUNED,
                                 tflops=1.0, backend=FP))
-    tstore.install_store(store, fingerprint=FP)
+    tstore.install_serving(store=store, fingerprint=FP,
+                           build_plan=False)
     tdispatch.reset_counts()
     yield store
     tstore.clear_store()

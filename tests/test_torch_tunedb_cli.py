@@ -106,7 +106,8 @@ def test_cli_tunes_the_decode_shape_that_decode_splits_resolve_exact(
     rec = store.get("attention", attention_input(4, 9, 3, 1, 256, 64),
                     backend=fp)
     assert rec is not None and rec.inputs["causal"] == 1
-    tstore.install_store(store, fingerprint=fp)
+    tstore.install_serving(store=store, fingerprint=fp,
+                           build_plan=False)
     tdispatch.reset_counts()
     n = resolve_decode_splits(B=4, Hq=9, Hkv=3, Lkv=256, D=64, dtype_bits=16,
                               default=16)
@@ -149,7 +150,8 @@ def test_session_stores_measured_losers_as_samples_that_never_serve(tmp_path):
     assert winner.backend == fp == backend.fingerprint
     assert reopened.get("gemm", shape, backend=fp).config == winner.config
     assert [r.source for r in reopened.records()] == ["session"]
-    tstore.install_store(reopened, fingerprint=fp)
+    tstore.install_serving(store=reopened, fingerprint=fp,
+                           build_plan=False)
     tdispatch.reset_counts()
     cfg, tier = tdispatch._resolve_cfg("gemm", shape)
     assert (cfg, tier) == (winner.config, "exact")
@@ -249,7 +251,8 @@ def test_cli_seed_leaves_the_fingerprint_the_launcher_pins(tmp_path,
     with pytest.raises(Stop):
         serve.main(["--smoke", "--device", "cpu", "--tunedb", str(path)])
     store = tstore.RecordStore.open(path)
-    tstore.install_store(store, fingerprint=seen["fp"])
+    tstore.install_serving(store=store, fingerprint=seen["fp"],
+                           build_plan=False)
     tdispatch.reset_counts()
     cfg, tier = tdispatch._resolve_cfg("gemm", shape)
     assert tier == "exact"
@@ -376,3 +379,94 @@ def test_cli_predict_fails_cleanly(tmp_path, capsys, case, err):
     capsys.readouterr()
     assert cli_main(["predict", "--store", str(db), "--shape", shape]) == 1
     assert err in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# plan export / plan inspect / stats / export / merge against the reference
+# ---------------------------------------------------------------------------
+
+_CFGS = [{"bm": 32, "bn": 128, "bk": 128, "k_unroll": 1, "k_split": 2,
+          "order": 0, "acc32": 1, "prefetch": 2},
+         {"bm": 64, "bn": 128, "bk": 256, "k_unroll": 2, "k_split": 1,
+          "order": 1, "acc32": 0, "prefetch": 1},
+         {"bm": 16, "bn": 64, "bk": 64, "k_unroll": 1, "k_split": 4,
+          "order": 0, "acc32": 1, "prefetch": 1}]
+
+
+def _mixed_store(path, seed, t0):
+    """Served records (re-tunes of one shape among them, two backends) and
+    a few samples, in a numpy-seeded order."""
+    rng = np.random.default_rng(seed)
+    store = tstore.RecordStore(path)
+    shapes = [gemm_input(M, N, 576) for M in (4, 32, 100) for N in (192, 576)]
+    for t in range(14):
+        x = shapes[int(rng.integers(len(shapes)))]
+        store.add(tstore.TuneRecord(
+            space="gemm", inputs=x, config=_CFGS[int(rng.integers(3))],
+            tflops=float(rng.uniform(1, 50)),
+            backend=("b1", "b2")[int(rng.integers(2))],
+            source=("tuner", "session", "sample")[int(rng.integers(3))],
+            created_at=t0 + float(rng.integers(0, 40))))
+    return store
+
+
+def _ref_cli(argv):
+    from repro.tunedb.__main__ import main as jcli_main
+    return jcli_main(list(argv))
+
+
+def test_cli_export_and_merge_match_the_reference(tmp_path, capsys):
+    a, b = tmp_path / "a.jsonl", tmp_path / "b.jsonl"
+    _mixed_store(a, 0, 1000.0)
+    _mixed_store(b, 1, 1020.0)
+    for name, run in (("t", cli_main), ("j", _ref_cli)):
+        assert run(["export", "--store", str(a), "--out",
+                    str(tmp_path / f"{name}-export.jsonl")]) == 0
+        assert run(["merge", str(a), str(b), "--out",
+                    str(tmp_path / f"{name}-merged.jsonl")]) == 0
+    out = capsys.readouterr().out
+    assert out.count("[tunedb] exported") == 2
+    assert (tmp_path / "t-export.jsonl").read_bytes() == (
+        tmp_path / "j-export.jsonl").read_bytes()
+    merged = {n: (tmp_path / f"{n}-merged.jsonl").read_text().splitlines()
+              for n in "tj"}
+    assert merged["t"] == merged["j"] and len(merged["t"]) > 0
+    assert all(json.loads(line)["merged_from"] in (str(a), str(b))
+               for line in merged["t"])
+
+
+def test_cli_plan_export_inspect_and_stats_round_trip(tmp_path, capsys):
+    from repro_torch.tunedb import plans as tplans
+    from repro_torch.tunedb import telemetry as ttel
+    db = tmp_path / "db.jsonl"
+    _mixed_store(db, 2, 1000.0)
+    tel = ttel.ShapeTelemetry()
+    for M, n in ((40, 9), (4, 5), (100, 3)):
+        tel.record("gemm", gemm_input(M, 576, 576), n=n)
+    shapes = tmp_path / "shapes.json"
+    tel.save(shapes)
+    capsys.readouterr()
+    assert cli_main(["plan", "export", "--store", str(db), "--backend", "b1",
+                     "--telemetry", str(shapes), "--no-models"]) == 0
+    assert "exported plan" in capsys.readouterr().out
+    dest = tplans.default_plan_dir(db) / "00000001"
+    inspected = {}
+    for name, run in (("t", cli_main), ("j", _ref_cli)):
+        assert run(["plan", "inspect", str(dest)]) == 0
+        inspected[name] = json.loads(capsys.readouterr().out)
+    assert inspected["t"] == inspected["j"]
+    assert inspected["t"]["verified"] and inspected["t"]["fingerprint"] == "b1"
+    assert set(inspected["t"]["tiers"]) <= {"exact", "nearest"}
+    plan = tplans.load_plan(dest)
+    assert len(plan) == inspected["t"]["n_entries"]
+    (dest / tplans.ENTRIES_NAME).write_bytes(b"")
+    assert cli_main(["plan", "inspect", str(dest)]) == 1
+    assert "rejected" in capsys.readouterr().err
+    stats = {}
+    for name, run in (("t", cli_main), ("j", _ref_cli)):
+        assert run(["stats", "--store", str(db), "--telemetry",
+                    str(shapes)]) == 0
+        stats[name] = json.loads(capsys.readouterr().out)
+    assert stats["t"] == stats["j"]
+    assert stats["t"]["telemetry"]["spaces"]["gemm"] == {"shapes": 3,
+                                                         "calls": 17}
