@@ -51,14 +51,18 @@ exits non-zero:
                 resolves exact), train the GEMM regressor from the
                 store's log, save it beside the store and load it back;
                 serve 8 requests of prompt lengths nobody tuned (9-200)
-                from an engine that finds the artifacts: each untuned
-                prefill shape resolves on the model tier once and is
-                promoted into the plan, every other resolution is a plan
-                hit; graph and eager ticks give the same greedy tokens; the
-                100-token prefill's logits agree with the plain version's;
-                a reinstall compiles the telemetry's hot set into the
-                plan, and a second serve books no model-tier resolution
-                and gives the same tokens;
+                from an engine that finds the artifacts: each length's
+                prefill graph and the tick graph are captured, each
+                capture and its warm-up resolving a forward and no replay
+                any; each untuned prefill shape resolves on the model tier
+                once and is promoted into the plan, every other resolution
+                is a plan hit; the 8 prefill graphs' pool bytes printed;
+                graphs and the eager prefill and tick give the same greedy
+                tokens; the 100-token prefill's logits agree with the plain
+                version's; a reinstall compiles the telemetry's hot set
+                into the plan, and a second serve (every graph captured
+                again) books no model-tier resolution and gives the same
+                tokens;
                 then at the four projections and M in {1, 8, 17, 48, 100,
                 128}: the model's pick, the best of its top 6 re-measured,
                 the nearest tuned record's config, the heuristic's and
@@ -82,22 +86,23 @@ exits non-zero:
                 held (the results are held to the fp32 oracle)
  10. serve      SmolLM-135M at full width (30 layers, bf16, random weights
                 from a seed) through ``Engine.generate`` from the tuned store,
-                each decode tick replayed from the engine's CUDA graph; the
-                engine's install compiles a dispatch plan (its entries by
-                tier and compile ms printed), and the capture (at the
-                warm-up) and every prefill resolve each projection's GEMM
-                config and the decode KV split count as plan hits, each
-                served shape's entry its tuned record's config (tier
-                exact); then
-                the same requests with the eager tick: the same greedy
-                tokens, tok/s and median tick of both; the graph run gives
-                the device 210 x (prefills + replays) GEMM kernels and one
-                reduction pass per split-K projection of each prefill and
-                replay (the captured graph's kernel nodes, read through the
-                driver API, times the replays, plus the prefills'
-                launches), and the shape telemetry counts the same 210 x
-                (prefills + replays) GEMM calls and 30 split-count lookups
-                a replay, per shape as the eager run counts them
+                every prefill and decode tick replayed from the engine's
+                CUDA graphs (a warm-up run captures the tick and the
+                32-token prefill); the engine's install compiles a dispatch
+                plan (its entries by tier and compile ms printed), and
+                every capture, its warm-up and every eager forward resolve
+                each projection's GEMM config and the decode KV split count
+                as plan hits, each served shape's entry its tuned record's
+                config (tier exact); then the same requests with the eager
+                prefill and tick: the same greedy tokens, tok/s and median
+                tick of both; the measured graph run launches no GEMM from
+                the host and gives the device 210 x (prefills + replays)
+                GEMM kernels and one reduction pass per split-K projection
+                of each prefill and tick (each graph's kernel nodes, read
+                through the driver API, times its replays), and the shape
+                telemetry counts the same 210 x (prefills + replays) GEMM
+                calls and 30 split-count lookups a tick, per shape as the
+                eager run counts them
  11. plans      the serve phase's generation exported as a plan artifact
                 (``<store>.plan/<generation>/``), loaded back (ms against
                 the compile's), then a fresh engine with only the artifact
@@ -108,19 +113,45 @@ exits non-zero:
  12. host cost  us per ``dispatch._resolve_cfg`` over a decode tick's 210
                 GEMM and 30 split-count shapes, plan hit against the slow
                 path (``install_serving(build_plan=False)``: exact), median
-                of 5 x 10,000 calls; the eager prefill of a 32-token prompt
-                with and without the plan
- 13. admission  the models phase's 8 lengths mixed with tuned 32-token
+                of 5 x 10,000 calls; the 32-token prefill as a graph replay
+                (with the merge into the slot) and eager with and without
+                the plan, median of 10 each, alternated; the graph's
+                capture ms
+ 13. prefill parity  the graph prefill against the eager prefill at prompt
+                lengths 200, 100, 32 and 9: logits bitwise equal, the same
+                greedy token, the slot's cache rows equal and zero past n
+ 14. admission  the models phase's 8 lengths mixed with tuned 32-token
                 prompts, FIFO and ``admission="store"``: the same tokens
                 per request; admission orders and bucket decisions printed
- 14. model      prefill + 4 decode steps through the kernel path and again
+ 15. measure    the model tier's deferred re-measurement: the models
+                phase's 8 prompts served with ``measure="wallclock"`` and
+                a top-6 re-measure from a plan holding only the store's
+                records; the calibration GEMM measured; the queue's stats,
+                the drain ms per tick and the tick wall with and without
+                a drain printed; after the drain every drained shape
+                resolves on tier plan to its measured winner; a forward's
+                GEMMs at the drained lengths timed under the winners, the
+                blind argmax and the nearest record; after a reinstall a
+                second serve's graph prefill logits agree with the plain
+                version's
+ 16. degradation  request deadlines and load shedding (2 slots):
+                ``shed_threshold=3`` on 6 requests sheds the 3 newest and
+                serves the 3 oldest whole, healthy at the end;
+                ``request_deadline_s=0`` rejects every request unserved;
+                ``request_deadline_s=3600`` gives the tokens of none
+ 17. model      prefill + 4 decode steps through the kernel path and again
                 through the plain path on the card; logits must agree
- 15. profile    a decode tick: eager wall time, host enqueue time, and the
-                device time of the same tick replayed from a CUDA graph
- 16. kernels    one JSON line summarising every hand-written kernel (the
+ 18. profile    a decode tick: eager wall time, host enqueue time, and the
+                device time of the same tick replayed from a CUDA graph;
+                the replay traced until a round's kernel events are the
+                captured graph's kernel nodes, replay by replay and name by
+                name (at most 5 rounds), then its kernels by name (ms and
+                count a tick, in order of time)
+ 19. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
 
-Each path (tune, models, serve, plans, admission) runs with every launch
+Each path (tune, models, serve, plans, admission, measure,
+degradation) runs with every launch
 count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
 
@@ -132,6 +163,7 @@ prints no result.  Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
@@ -187,7 +219,8 @@ from repro_torch.tunedb.session import TuningSession  # noqa: E402
 from repro_torch.tunedb.store import (RecordStore, clear_store,  # noqa: E402
                                       install_serving, install_store,
                                       launchable, serving_state, shape_key)
-from repro_torch.tunedb.telemetry import get_telemetry  # noqa: E402
+from repro_torch.tunedb.telemetry import (clear_telemetry,  # noqa: E402
+                                          get_telemetry)
 
 # (N, K) of the serving path's projections and their count per layer:
 # q and o (576x576), k and v (576->192), gate and up (576->1536), down
@@ -1152,20 +1185,43 @@ def models_serve(store_path: Path, fp: str, cfg, params, dev: torch.device
              if sp == "gemm"}
     untuned = [n for n in MODEL_PROMPTS if n not in SLICE_M]
     n_model = len(SLICE_NK) * len(untuned)
-    want = {"plan": per_fwd * (len(MODEL_PROMPTS) + 2 * eng.captures)
-            - n_model, "model": n_model}
-    if eng.captures != 1 or tiers != want:
+    # each graph's capture and its warm-up resolve a forward; a replay
+    # resolves nothing (the untuned shapes on the model tier once, at
+    # their length's warm-up, then from the plan's overlay)
+    traced = 2 * (eng.prefill_captures + eng.captures)
+    want = {"plan": per_fwd * traced - n_model, "model": n_model}
+    if (eng.captures, eng.prefill_captures) != (1, len(MODEL_PROMPTS)) \
+            or tiers != want:
         raise AssertionError(f"models serve: GEMM resolutions {tiers}, want "
-                             f"{want} ({eng.captures} captures)")
+                             f"{want} ({eng.captures} tick and "
+                             f"{eng.prefill_captures} prefill captures)")
+    pool_bytes = eng.prefill_graph_bytes()
+    pool = pool_makeup(eng.prefill_pool_segments())
+    if pool["bytes"] != pool_bytes:
+        raise AssertionError(f"models: pool segments {pool}, {pool_bytes} "
+                             "bytes")
+    # the largest split-K partials buffer (k_split, M, N) bf16 each
+    # length's graph allocates, under the configs it was captured with
+    partials = {}
+    for n in MODEL_PROMPTS:
+        sizes = []
+        for (N, K) in SLICE_NK:
+            entry = serving_state().plan.lookup(
+                "gemm", shape_key(gemm_input(n, N, K, 16)))
+            if entry is None:
+                raise AssertionError(f"models: M={n} N={N} K={K} not planned")
+            sizes.append(entry[0]["k_split"] * n * N * 2
+                         if entry[0]["k_split"] > 1 else 0)
+        partials[n] = max(sizes)
     counts = read_launches()
-    eng.decode = eng.decode_eager
+    eng.prefill, eng.decode = eng.prefill_eager, eng.decode_eager
     try:
         eager = eng.generate(prompts, max_new=16)
     finally:
-        eng.decode = eng.decode_graph
+        eng.prefill, eng.decode = eng.prefill_graph, eng.decode_graph
     if eager != outs or [len(o) for o in outs] != [16] * len(prompts):
-        raise AssertionError("models serve: greedy tokens from the graph "
-                             "tick differ from the eager tick's")
+        raise AssertionError("models serve: greedy tokens from the graphs "
+                             "differ from the eager prefill and tick's")
     tokens = torch.as_tensor(prompts[MODEL_PROMPTS.index(100)][None],
                              device=dev)
     got = prefill(params, cfg, {"tokens": tokens},
@@ -1180,11 +1236,22 @@ def models_serve(store_path: Path, fp: str, cfg, params, dev: torch.device
                              f"err {logit_err:.3e}")
     phase("models", f"serve: {len(prompts)} requests of prompt lengths "
           f"{list(MODEL_PROMPTS)} x 16 tokens; GEMM resolutions {tiers} "
-          f"({len(prompts)} prefills, 1 capture: each of the {len(untuned)} "
-          f"untuned lengths' {len(SLICE_NK)} shapes on the model tier once, "
-          f"then promoted); launches {counts}; graph and eager ticks give "
-          f"the same greedy tokens; 100-token prefill logits vs plain rel "
-          f"err {logit_err:.3e} (tolerance {LOGIT_TOL})")
+          f"({len(MODEL_PROMPTS)} prefill graphs and 1 tick graph captured, "
+          f"each capture and its warm-up resolving a forward, no replay "
+          f"resolving any: each of the {len(untuned)} untuned lengths' "
+          f"{len(SLICE_NK)} shapes on the model tier once, then promoted); "
+          f"the {len(MODEL_PROMPTS)} lengths' prefill graphs hold "
+          f"{pool_bytes} bytes ({pool_bytes / 2**20:.1f} MiB) in their "
+          f"shared pool ({pool['segments']} segments of "
+          f"{pool['segment_sizes']} bytes; {pool['active']} bytes in "
+          f"{pool['n_active']} live blocks, the largest "
+          f"{pool['largest_active']}; the largest split-K partials buffer "
+          f"of each length's graph {partials} bytes); launches {counts}; "
+          f"the graphs and "
+          f"the eager "
+          f"prefill and tick give the same greedy tokens; 100-token "
+          f"prefill logits vs plain rel err {logit_err:.3e} (tolerance "
+          f"{LOGIT_TOL})")
 
     # reinstall: the telemetry's hot set compiles into the base table
     state = serving_state()
@@ -1198,24 +1265,43 @@ def models_serve(store_path: Path, fp: str, cfg, params, dev: torch.device
             if entry is None or entry[1] != "model":
                 raise AssertionError(f"reinstalled plan: M={n} N={N} K={K} "
                                      f"-> {entry}, want a model entry")
-    captures = eng.captures
+    captures = (eng.captures, eng.prefill_captures)
     dispatch.reset_counts()
     again = eng.generate(prompts, max_new=16)
     torch.cuda.synchronize()
     tiers2 = {t: c for (sp, t), c in dispatch.tier_counts.items()
               if sp == "gemm"}
-    recaptured = eng.captures - captures
-    want2 = {"plan": per_fwd * (len(MODEL_PROMPTS) + 2 * recaptured)}
-    if again != outs or tiers2 != want2 or recaptured != 1:
+    recaptured = (eng.captures - captures[0],
+                  eng.prefill_captures - captures[1])
+    want2 = {"plan": per_fwd * 2 * sum(recaptured)}
+    if again != outs or tiers2 != want2 or recaptured != (
+            1, len(MODEL_PROMPTS)):
         raise AssertionError(f"models second serve: GEMM resolutions "
-                             f"{tiers2}, want {want2} ({recaptured} "
-                             f"captures); tokens equal: {again == outs}")
+                             f"{tiers2}, want {want2} ({recaptured} tick "
+                             f"and prefill captures); tokens equal: "
+                             f"{again == outs}")
     phase("models", f"reinstall with plan_hot_k={hot_k} (the GEMM shapes "
           f"the telemetry saw): plan {plan.stats()['tiers']} in "
           f"{plan.compile_ms:.1f} ms; second serve of the same requests: "
-          f"GEMM resolutions {tiers2} (0 on the model tier, 1 re-capture "
-          f"for the new generation), the same greedy tokens")
-    return {"counts": counts, "logit_err": logit_err}
+          f"GEMM resolutions {tiers2} (0 on the model tier; the new "
+          f"generation re-captures the tick and the {len(MODEL_PROMPTS)} "
+          f"prefills), the same greedy tokens")
+    return {"counts": counts, "logit_err": logit_err,
+            "pool_bytes": pool_bytes}
+
+
+def pool_makeup(segments: list) -> dict:
+    """What a graph memory pool holds, from its allocator segments: their
+    sizes, and the bytes of the blocks still live in them (a graph's
+    output and whatever the allocator keeps for its replays)."""
+    live = sorted((b["size"] for seg in segments for b in seg["blocks"]
+                   if b["state"].startswith("active")), reverse=True)
+    return {"bytes": sum(seg["total_size"] for seg in segments),
+            "segments": len(segments),
+            "segment_sizes": sorted((seg["total_size"] for seg in segments),
+                                    reverse=True),
+            "active": sum(live), "n_active": len(live),
+            "largest_active": live[:4]}
 
 
 def model_prompts(cfg) -> list:
@@ -1626,32 +1712,44 @@ def check_plan_exact(plan, store: RecordStore, fp: str, shapes, what: str
                                  f"exact")
 
 
+def graph_counts(graph) -> tuple:
+    """(GEMM kernel nodes, split-K reduction kernel nodes, all kernel
+    nodes) of a captured graph."""
+    names = graph_kernel_names(graph)
+    return (sum(1 for n in names if GEMM_KERNEL.search(n)),
+            sum(1 for n in names if REDUCE_KERNEL.search(n)), len(names))
+
+
 def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                 label: str) -> dict:
-    """Serve 8 requests from the tuned store with the engine's CUDA-graph
-    tick, then the same requests with its eager tick.  Launches and
-    resolutions are counted as the reference counts them at trace time:
-    the host sees a tick's 210 GEMMs and 30 split-count lookups when the
-    tick is captured (and in the capture's eager warm-up), each prefill's
-    210 GEMMs every time; a replay runs the captured launches on the device
-    and calls nothing on the host.  So the device's count of a graph run is
-    read from the captured graph itself: its GEMM and split-K reduction
-    kernel nodes (:func:`graph_kernel_names`) times the replays, plus the
-    prefills' launches.  It must be 210 x (prefills + replays) GEMM
-    kernels, and one reduction pass per projection whose tuned config
-    splits K (at M=32 for a prefill, M=4 for a tick).  A second graph run of
-    the same requests must give the same tokens; tok/s and the median tick
-    come from it.
+    """Serve 8 requests from the tuned store with the engine's CUDA graphs
+    (each prompt length's prefill and the decode tick), then the same
+    requests with its eager prefill and tick.  Launches and resolutions
+    are counted as the reference counts them at trace time: the host sees
+    a forward's 210 GEMMs and (a tick) 30 split-count lookups when a graph
+    is captured and in the capture's eager warm-up, and every eager
+    forward's; a replay runs the captured launches on the device and calls
+    nothing on the host.  A warm-up run captures the tick and the
+    32-token prefill, so the measured graph run launches no GEMM from the
+    host, and the kernels it gives the device are read from the graphs
+    alone: the tick graph's GEMM and split-K reduction kernel nodes
+    (:func:`graph_kernel_names`) times its replays, plus the 32-token
+    prefill graph's times its replays.  That must be 210 x (prefills +
+    replays) GEMM kernels, and one reduction pass per projection whose
+    tuned config splits K (at M=32 for a prefill, M=4 for a tick).  A
+    second graph run of the same requests must give the same tokens; tok/s
+    and the median tick come from it.
 
     The engine's install compiles a dispatch plan: every GEMM and
-    split-count resolution (prefill, capture and warm-up) must be a plan
-    hit, and every served shape's entry its tuned record's config on tier
-    ``exact`` (:func:`check_plan_exact`).  The shape telemetry counts
-    executions: each run's window must hold 210 GEMM calls per prefill
-    and per replay (eager: per tick), 30 split-count lookups per replay
-    (tick), so the graph run's GEMM count equals the kernels given to the
-    device; the eager run's per-shape
-    counts equal the graph run's."""
+    split-count resolution (captures, warm-ups and eager forwards) must be
+    a plan hit, and every served shape's entry its tuned record's config
+    on tier ``exact`` (:func:`check_plan_exact`).  The shape telemetry
+    counts executions: each run's window must hold 210 GEMM calls per
+    prefill and per tick, 30 split-count lookups per tick, so the graph
+    run's GEMM count equals the kernels given to the device; the eager
+    run's per-shape counts equal the graph run's.  The phase's launch
+    counts run from before the warm-up to after the second graph run; the
+    eager run's are counted apart, for comparison."""
     sc = ServeConfig(max_len=256, slots=4, tunedb=str(store_path),
                      tunedb_backend=fp, record_tick_times=True)
     eng = Engine(cfg, params, sc)
@@ -1675,10 +1773,11 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                for M in SLICE_M}
 
     def run(what: str, batch: list, max_new: int) -> dict:
-        before = (eng.ticks, eng.prefills, eng.captures, eng.replays)
+        before = (eng.ticks, eng.prefills, eng.captures, eng.replays,
+                  eng.prefill_captures, eng.prefill_replays,
+                  kmatmul.launches, kmatmul.reduce_launches)
         eng.tick_times.clear()
         torch.cuda.synchronize()
-        reset_launches()
         dispatch.reset_counts()
         prev = tel.snapshot()
         t0 = time.perf_counter()
@@ -1686,11 +1785,12 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         window = tel.diff(prev)
-        ticks, prefills, captures, replays = (
-            now - b for now, b in zip((eng.ticks, eng.prefills, eng.captures,
-                                       eng.replays), before))
-        got = {"launches": kmatmul.launches,
-               "reduce_launches": kmatmul.reduce_launches,
+        (ticks, prefills, captures, replays, pcaptures, preplays, launches,
+         reduce_launches) = (now - b for now, b in zip(
+             (eng.ticks, eng.prefills, eng.captures, eng.replays,
+              eng.prefill_captures, eng.prefill_replays, kmatmul.launches,
+              kmatmul.reduce_launches), before))
+        got = {"launches": launches, "reduce_launches": reduce_launches,
                "tiers": {t: c for (sp, t), c in dispatch.tier_counts.items()
                          if sp == "gemm"},
                "attn_tiers": {t: c for (sp, t), c in
@@ -1700,25 +1800,31 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
             raise AssertionError(f"{what}: token counts {[len(o) for o in outs]}")
         if any(not (0 <= t < cfg.vocab) for o in outs for t in o):
             raise AssertionError(f"{what}: token outside the vocabulary")
-        # ticks the host traced: every eager tick, or a capture and its
-        # eager warm-up
-        traced = ticks if eng.decode == eng.decode_eager else 2 * captures
-        if eng.decode != eng.decode_eager and replays != ticks:
-            raise AssertionError(f"{what}: {replays} replays for {ticks} ticks")
-        want_gemm = per_fwd * (prefills + traced)
+        # forwards the host traced: every eager prefill and tick, or a
+        # capture and its eager warm-up
+        graph_tick = eng.decode != eng.decode_eager
+        graph_prefill = eng.prefill != eng.prefill_eager
+        traced_tick = 2 * captures if graph_tick else ticks
+        traced_pre = 2 * pcaptures if graph_prefill else prefills
+        if (graph_tick and replays != ticks) or (
+                graph_prefill and preplays != prefills):
+            raise AssertionError(f"{what}: {replays} tick replays for "
+                                 f"{ticks} ticks, {preplays} prefill "
+                                 f"replays for {prefills} prefills")
+        want_gemm = per_fwd * (traced_pre + traced_tick)
         want = {"launches": want_gemm,
-                "reduce_launches": red_fwd[32] * prefills
-                + red_fwd[4] * traced,
-                "tiers": {"plan": want_gemm},
-                "attn_tiers": {"plan": cfg.n_layers * traced} if traced
-                else {}}
+                "reduce_launches": red_fwd[32] * traced_pre
+                + red_fwd[4] * traced_tick,
+                "tiers": {"plan": want_gemm} if want_gemm else {},
+                "attn_tiers": {"plan": cfg.n_layers * traced_tick}
+                if traced_tick else {}}
         if got != want:
             raise AssertionError(f"{what}: host-side GEMM launches and "
                                  f"resolutions {got}, want {want} ({prefills} "
-                                 f"prefills, {ticks} ticks, {captures} "
-                                 f"captures, {replays} replays)")
+                                 f"prefills, {ticks} ticks, {captures} tick "
+                                 f"and {pcaptures} prefill captures)")
         # executions the telemetry counts: each prefill, each tick (a
-        # replay, or an eager tick), never a capture or its warm-up
+        # replay or an eager forward), never a capture or its warm-up
         tel_got = {sp: window[sp].window_calls if sp in window else 0
                    for sp in ("gemm", "attention")}
         tel_want = {"gemm": per_fwd * (prefills + ticks),
@@ -1729,36 +1835,46 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
         shapes = {(sp, shape_key(i)): c for sp, d in window.items()
                   for i, c in d.window_shapes}
         return {"outs": outs, "wall": wall, "ticks": ticks,
-                "counts": read_launches(),
                 "reduce_launches": got["reduce_launches"],
                 "prefills": prefills, "captures": captures,
-                "replays": replays, "launches": got["launches"],
+                "prefill_captures": pcaptures, "replays": replays,
+                "launches": got["launches"],
                 "tok_s": sum(len(o) for o in outs) / wall,
                 "tick_ms": statistics.median(t[1] for t in eng.tick_times)
                 * 1e3, "telemetry": tel_got, "shapes": shapes}
 
-    # warm-up: the engine captures its decode tick here, once
+    reset_launches()
+    # warm-up: the engine captures its decode tick and the 32-token
+    # prefill here, once each
     w = run("warm-up", warm, 2)
-    if w["captures"] != 1:
-        raise AssertionError(f"warm-up: {w['captures']} captures, want 1")
+    if (w["captures"], w["prefill_captures"]) != (1, 1):
+        raise AssertionError(f"warm-up: {w['captures']} tick and "
+                             f"{w['prefill_captures']} prefill captures, "
+                             "want 1 and 1")
     g = run("graph", prompts, 16)
-    if g["captures"]:
-        raise AssertionError(f"graph run re-captured {g['captures']} times "
+    if g["captures"] or g["prefill_captures"] or g["launches"]:
+        raise AssertionError(f"graph run: {g['captures']} tick and "
+                             f"{g['prefill_captures']} prefill captures, "
+                             f"{g['launches']} GEMM launches from the host "
                              "with the store unchanged")
-    # the kernels the device was given: each replay runs the captured
-    # graph's nodes; the prefills launch from the host (all the run's host
-    # launches: a replay launches nothing there)
-    nodes = graph_kernel_names(eng.graph)
-    tick_gemm = sum(1 for n in nodes if GEMM_KERNEL.search(n))
-    tick_reduce = sum(1 for n in nodes if REDUCE_KERNEL.search(n))
-    if (tick_gemm, tick_reduce) != (per_fwd, red_fwd[4]):
+    # the kernels the device was given: each replay runs its graph's nodes
+    tick_gemm, tick_reduce, tick_nodes = graph_counts(eng.graph)
+    pre_graphs = eng.prefill_graphs
+    if sorted(pre_graphs) != [32]:
+        raise AssertionError(f"prefill graphs of lengths {sorted(pre_graphs)}")
+    pre_gemm, pre_reduce, pre_nodes = graph_counts(pre_graphs[32])
+    if ((tick_gemm, tick_reduce) != (per_fwd, red_fwd[4])
+            or (pre_gemm, pre_reduce) != (per_fwd, red_fwd[32])):
         raise AssertionError(f"captured tick: {tick_gemm} GEMM and "
                              f"{tick_reduce} split-K reduction kernel nodes "
-                             f"of {len(nodes)}, want {per_fwd} and "
-                             f"{red_fwd[4]}")
-    g["device_launches"] = tick_gemm * g["replays"] + g["launches"]
+                             f"of {tick_nodes}; 32-token prefill: "
+                             f"{pre_gemm} and {pre_reduce} of {pre_nodes}; "
+                             f"want {per_fwd} and {red_fwd[4]}, "
+                             f"{per_fwd} and {red_fwd[32]}")
+    g["device_launches"] = (tick_gemm * g["replays"]
+                            + pre_gemm * g["prefills"])
     g["device_reduce_launches"] = (tick_reduce * g["replays"]
-                                   + g["reduce_launches"])
+                                   + pre_reduce * g["prefills"])
     want_device = per_fwd * (g["prefills"] + g["replays"])
     want_reduce = red_fwd[32] * g["prefills"] + red_fwd[4] * g["replays"]
     if g["device_reduce_launches"] != want_reduce:
@@ -1773,16 +1889,23 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                              f"({per_fwd} x ({g['prefills']} prefills + "
                              f"{g['replays']} replays))")
     timed = run("graph (again)", prompts, 16)
-    if timed["outs"] != g["outs"] or timed["captures"]:
+    if timed["outs"] != g["outs"] or timed["captures"] or timed["launches"]:
         raise AssertionError("the second graph run differs from the first")
-    eng.decode = eng.decode_eager
+    # the main path's wrapper launches: the warm-up's captures and their
+    # warm-ups (the graph runs replay and launch none from the host)
+    counts = read_launches()
+    if not (counts["gemm"] and counts["gemm_reduce"]):
+        raise AssertionError(f"serve path launches {counts}")
+    reset_launches()
+    eng.prefill, eng.decode = eng.prefill_eager, eng.decode_eager
     try:
         e = run("eager", prompts, 16)
     finally:
-        eng.decode = eng.decode_graph
+        eng.prefill, eng.decode = eng.prefill_graph, eng.decode_graph
+    eager_counts = read_launches()
     if e["outs"] != g["outs"]:
-        raise AssertionError("greedy tokens from the graph tick differ from "
-                             "the eager tick's")
+        raise AssertionError("greedy tokens from the graphs differ from the "
+                             "eager prefill and tick's")
     if g["telemetry"]["gemm"] != g["device_launches"]:
         raise AssertionError(f"graph run: telemetry counted "
                              f"{g['telemetry']['gemm']} GEMM calls, the "
@@ -1809,35 +1932,38 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
     else:
         tick_gemm_ms = ""
     phase("serve", f"{cfg.name} ({cfg.n_layers}L d={cfg.d_model} bf16): "
-          f"{len(prompts)} requests x 16 tokens; capture at the warm-up: "
-          f"{per_fwd} GEMMs and {cfg.n_layers} split-count lookups, all "
-          f"plan hits; graph run: {g['prefills']} prefills + {g['ticks']} "
-          f"ticks ({g['replays']} replays, 0 captures), {g['launches']} "
-          f"GEMM launches from the host (prefills, all plan hits); "
-          f"telemetry counted {g['telemetry']['gemm']} GEMM calls and "
+          f"{len(prompts)} requests x 16 tokens; warm-up run: the tick and "
+          f"the 32-token prefill captured ({w['launches']} GEMM launches "
+          f"from the host: captures and their warm-ups, all plan hits); "
+          f"graph run: {g['prefills']} prefills + {g['ticks']} ticks, all "
+          f"replays, {g['launches']} GEMM launches from the host; telemetry "
+          f"counted {g['telemetry']['gemm']} GEMM calls and "
           f"{g['telemetry']['attention']} split-count lookups "
           f"({len(g['shapes'])} shapes; the eager run's per-shape counts "
-          f"equal); the captured tick "
-          f"holds {tick_gemm} GEMM and {tick_reduce} reduction kernel nodes "
-          f"of {len(nodes)}, so {g['device_launches']} GEMM kernels given "
-          f"to the device (210 x (prefills + replays)); split-K reduction "
-          f"passes: {g['reduce_launches']} from the host, "
-          f"{g['device_reduce_launches']} given to the device "
-          f"({red_fwd[32]} a prefill, {red_fwd[4]} a tick); decode KV splits "
-          f"{splits} from the tuned attention record (default "
+          f"equal); the captured tick holds {tick_gemm} GEMM and "
+          f"{tick_reduce} reduction kernel nodes of {tick_nodes}, the "
+          f"32-token prefill graph {pre_gemm} and {pre_reduce} of "
+          f"{pre_nodes}, so {g['device_launches']} GEMM kernels given "
+          f"to the device (210 x (prefills + replays)) and "
+          f"{g['device_reduce_launches']} split-K reduction passes "
+          f"({red_fwd[32]} a prefill, {red_fwd[4]} a tick); decode KV "
+          f"splits {splits} from the tuned attention record (default "
           f"{cfg.decode_kv_splits}); graph (second run) "
           f"{timed['tok_s']:.1f} tok/s, median tick {timed['tick_ms']:.2f} "
-          f"ms; eager {e['tok_s']:.1f} tok/s, median tick "
-          f"{e['tick_ms']:.2f} ms ({e['launches']} GEMM launches, all "
-          f"plan hits); the 8 requests' greedy tokens equal{tick_gemm_ms} "
+          f"ms, {timed['wall'] * 1e3:.1f} ms in all; eager "
+          f"{e['tok_s']:.1f} tok/s, median tick {e['tick_ms']:.2f} ms, "
+          f"{e['wall'] * 1e3:.1f} ms in all ({e['launches']} GEMM "
+          f"launches, all plan hits); the 8 requests' greedy tokens "
+          f"equal; launches from the warm-up through the graph runs "
+          f"{counts}, in the eager run {eager_counts}{tick_gemm_ms} "
           f"[{label}]")
-    return {"launches": g["launches"],
+    return {"launches": counts["gemm"],
             "device_launches": g["device_launches"],
-            "reduce_launches": g["reduce_launches"],
+            "reduce_launches": counts["gemm_reduce"],
             "device_reduce_launches": g["device_reduce_launches"],
             "tokens_per_s": timed["tok_s"], "tick_ms": timed["tick_ms"],
             "eager_tokens_per_s": e["tok_s"], "eager_tick_ms": e["tick_ms"],
-            "splits": splits, "engine": eng, "counts": g["counts"],
+            "splits": splits, "engine": eng, "counts": counts,
             "prompts": prompts, "outs": g["outs"],
             "telemetry": g["telemetry"], "shapes": g["shapes"]}
 
@@ -1883,7 +2009,8 @@ def phase_plans(cfg, params, store_path: Path, serve: dict, label: str
     counts = read_launches()
     tiers = dict(dispatch.tier_counts)
     per_fwd = GEMMS_PER_LAYER * cfg.n_layers
-    want = {("gemm", "plan"): per_fwd * (cold.prefills + 2 * cold.captures),
+    want = {("gemm", "plan"): per_fwd * 2 * (cold.prefill_captures
+                                             + cold.captures),
             ("attention", "plan"): cfg.n_layers * 2 * cold.captures}
     if outs != serve["outs"] or tiers != want or not counts["gemm"]:
         raise AssertionError(f"plans: plan-only tokens equal "
@@ -1919,15 +2046,19 @@ def time_resolutions(shapes: list) -> float:
 
 def phase_host_cost(cfg, params, serve: dict, fp: str, dev: torch.device,
                     label: str) -> dict:
-    """What the plan saves on the host: µs per ``_resolve_cfg`` call over
-    a decode tick's 210 GEMM and 30 split-count shapes (the captured
-    tick's, in its order), as plan hits and on the slow path (the same
-    store and models installed with ``build_plan=False``: tier exact),
-    median of :data:`RESOLVE_REPS` rounds; and the eager prefill of a
-    32-token prompt, ms, with and without the plan, median of 10 each.
-    The two states alternate round by round; the plan is the installed
-    one, re-installed as it is (no compile between timings), and each
-    install is followed by one untimed prefill."""
+    """What the plan and the prefill graph save on the host: µs per
+    ``_resolve_cfg`` call over a decode tick's 210 GEMM and 30 split-count
+    shapes (the captured tick's, in its order), as plan hits and on the
+    slow path (the same store and models installed with
+    ``build_plan=False``: tier exact), median of :data:`RESOLVE_REPS`
+    rounds; and the prefill of a 32-token prompt, ms, three ways: the
+    engine's graph replay with the merge into the slot, and the eager
+    prefill with and without the plan, median of 10 each.  The states
+    alternate round by round (graph and eager with the plan alternate
+    call by call); the plan is the installed one, re-installed as it is
+    (no compile between timings), and each install is followed by one
+    untimed prefill (and, with the plan, the graph's capture, timed
+    once)."""
     eng = serve["engine"]
     shapes = eng._decode_shapes
     n_gemm = sum(1 for sp, _ in shapes if sp == "gemm")
@@ -1944,14 +2075,18 @@ def phase_host_cost(cfg, params, serve: dict, fp: str, dev: torch.device,
         install_serving(store=store, models=models, fingerprint=fp,
                         plan=plan if planned else None, build_plan=False)
 
-    def prefill_ms() -> float:
+    def prefill_ms(graph: bool = False) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prefill(params, cfg, {"tokens": tokens}, single)
+        if graph:
+            eng.prefill_graph(0, tokens)
+        else:
+            prefill(params, cfg, {"tokens": tokens}, single)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
     res, pre = {True: [], False: []}, {True: [], False: []}
+    replay, capture = [], []
     for _ in range(RESOLVE_REPS):
         for planned in (True, False):
             install(planned)
@@ -1966,20 +2101,294 @@ def phase_host_cost(cfg, params, serve: dict, fp: str, dev: torch.device,
         for planned in (True, False):
             install(planned)
             prefill_ms()                    # untimed, after the install
-            pre[planned] += [prefill_ms() for _ in range(2)]
+            if planned:
+                # the install's new generation dropped the prefill graphs:
+                # this call captures the 32-token one again (with its
+                # warm-up and first replay)
+                capture.append(prefill_ms(graph=True))
+                for _ in range(2):
+                    replay.append(prefill_ms(graph=True))
+                    pre[planned].append(prefill_ms())
+            else:
+                pre[planned] += [prefill_ms() for _ in range(2)]
     install(True)
     res = {k: statistics.median(v) for k, v in res.items()}
     pre_ms = {k: statistics.median(v) for k, v in pre.items()}
+    replay_ms = statistics.median(replay)
     phase("host cost", f"_resolve_cfg over a tick's {n_gemm} GEMM and "
           f"{len(shapes) - n_gemm} split-count shapes, median of "
           f"{RESOLVE_REPS} x {RESOLVE_CALLS} calls: plan hit "
           f"{res[True]:.3f} us, slow path (exact tier, no plan) "
-          f"{res[False]:.3f} us a call; eager prefill of a 32-token prompt "
-          f"{pre_ms[True]:.2f} ms with the plan, {pre_ms[False]:.2f} ms "
-          f"without (median of 10 each, alternated; all: "
+          f"{res[False]:.3f} us a call; prefill of a 32-token prompt: "
+          f"graph replay with the merge into the slot {replay_ms:.3f} ms, "
+          f"eager {pre_ms[True]:.2f} ms with the plan, {pre_ms[False]:.2f} "
+          f"ms without (median of 10 each, alternated; all: "
+          f"{[round(v, 3) for v in replay]} / "
           f"{[round(v, 2) for v in pre[True]]} / "
-          f"{[round(v, 2) for v in pre[False]]}) [{label}]")
-    return {"resolve_us": res, "prefill_ms": pre_ms}
+          f"{[round(v, 2) for v in pre[False]]}); the graph's capture (its "
+          f"eager warm-up, the capture and the first replay) "
+          f"{capture[0]:.2f} ms [{label}]")
+    return {"resolve_us": res, "prefill_ms": pre_ms,
+            "replay_ms": replay_ms, "capture_ms": capture[0]}
+
+
+PARITY_LENGTHS = (200, 100, 32, 9)  # falling: each replay follows a longer
+
+
+def phase_prefill_parity(eng, cfg, dev: torch.device, label: str) -> dict:
+    """The serve engine's graph prefill against its eager prefill at
+    :data:`PARITY_LENGTHS`, into the same slot: the logits bitwise equal,
+    the same greedy token, the slot's cache rows equal, the rows past the
+    prompt zero.  Lengths fall, so each replay follows a longer one that
+    left the static cache and the slot dirty past ``n``."""
+    rng = np.random.default_rng(9)
+    kv = eng.cache["pos0"]["attn"]
+    rows = []
+    for n in PARITY_LENGTHS:
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, n)[None],
+                                 device=dev)
+        graph = eng.prefill_graph(0, tokens)[:, : cfg.vocab].clone()
+        slot = [kv[k][:, 0].clone() for k in ("k", "v")]
+        eager = eng.prefill_eager(0, tokens)[:, : cfg.vocab]
+        torch.cuda.synchronize()
+        diff = float((graph - eager).abs().max())
+        tok = (int(graph.argmax()), int(eager.argmax()))
+        same_rows = all(torch.equal(got, kv[k][:, 0])
+                        for k, got in zip(("k", "v"), slot))
+        tail_zero = all(not got[:, n:].any() for got in slot)
+        if not (torch.equal(graph, eager) and tok[0] == tok[1] and same_rows
+                and tail_zero and torch.isfinite(graph).all()):
+            raise AssertionError(f"prefill parity at n={n}: logits max abs "
+                                 f"diff {diff:.3e}, tokens {tok}, slot rows "
+                                 f"equal {same_rows}, rows past n zero "
+                                 f"{tail_zero}")
+        rows.append((n, tok[0]))
+    phase("prefill parity", f"graph prefill vs eager prefill into slot 0 at "
+          f"lengths {list(PARITY_LENGTHS)} (falling): logits bitwise equal "
+          f"(max abs diff 0), greedy tokens {[t for _, t in rows]} equal, "
+          f"the slot's K/V rows equal and zero past n [{label}]")
+    return {"lengths": list(PARITY_LENGTHS)}
+
+
+def phase_measure(cfg, params, store_path: Path, fp: str, dev: torch.device,
+                  label: str) -> dict:
+    """The model tier's deferred re-measurement, served.  With the
+    telemetry cleared, the engine's plan holds the store's exact records
+    only, so every untuned shape of the models phase's 8 prompts meets the
+    model tier at serving: ``measure="wallclock"`` and a top-6 re-measure
+    (``MODEL_TOP_K``) serve the argmax and queue the top-6, which the
+    engine drains after its ticks (timed) and here after the serve until
+    the queue is empty.  Every drained shape must then resolve on tier
+    ``plan`` to its measured winner: the best of its candidates as the
+    measurer timed them (a gate rejection drops out).  At the drained
+    shapes, a forward's GEMMs are timed under the measured winners, the
+    model's blind argmax and the nearest record's config.  Then a
+    reinstall of the same plan (a new generation: every graph captured
+    again, now under the winners) and a second serve of the same prompts:
+    each prompt's graph prefill logits agree with the plain version's."""
+    clear_telemetry()
+    reset_launches()
+    eng = Engine(cfg, params, ServeConfig(
+        max_len=256, slots=4, tunedb=str(store_path), tunedb_backend=fp,
+        measure="wallclock", record_tick_times=True))
+    models, q, real = eng.tunedb_models, eng.measure_queue, eng.measurer
+    if (models is None or models.measure_queue is not q
+            or models.measurer is not real or eng.calibration_tflops is None
+            or real.counts["wallclock"] != 1):
+        raise AssertionError(f"measure: engine models {models}, calibration "
+                             f"{eng.calibration_tflops}, {real.stats()}")
+    calibration = eng.calibration_tflops
+    models.remeasure_top_k = MODEL_TOP_K
+    measured: dict = {}
+
+    def recording(space, cfg_, inputs):
+        tflops = real(space, cfg_, inputs)
+        measured.setdefault(shape_key(inputs), []).append((dict(cfg_),
+                                                           tflops))
+        return tflops
+
+    eng.measurer = recording
+    drains, drained_ticks = [], set()
+    drain = eng.maybe_retune
+
+    def timed_drain():
+        before = q.processed
+        t0 = time.perf_counter()
+        drain()
+        if q.processed > before:
+            drains.append((time.perf_counter() - t0) * 1e3)
+            drained_ticks.add(eng.ticks)
+
+    eng.maybe_retune = timed_drain
+    prompts = model_prompts(cfg)
+    ticks0 = eng.ticks
+    first = eng.generate(prompts, max_new=16)
+    torch.cuda.synchronize()
+    walls = {True: [], False: []}
+    for i, t in enumerate(eng.tick_times):
+        walls[ticks0 + i + 1 in drained_ticks].append(t[1] * 1e3)
+    in_serve = len(drains)
+    while len(q):
+        eng.maybe_retune()
+    st = q.stats()
+    untuned = [n for n in MODEL_PROMPTS if n not in SLICE_M]
+    want = len(untuned) * len(SLICE_NK)
+    if (st["pushed"], st["processed"], st["dropped"], len(measured)) != (
+            want, want, 0, want):
+        raise AssertionError(f"measure: queue {st}, {len(measured)} shapes "
+                             f"measured, want {want} pushed and processed")
+    n_measured = sum(len(v) for v in measured.values())
+    if real.counts["wallclock"] != 1 + n_measured:
+        raise AssertionError(f"measure: {real.counts} measurements, "
+                             f"{n_measured} recorded")
+    winners = {key: max(got, key=lambda t: t[1])[0]
+               for key, got in measured.items()}
+
+    def check_winners(when: str) -> None:
+        for key, cfg_ in winners.items():
+            got = dispatch._resolve_cfg("gemm", dict(key))
+            if got != (cfg_, "plan"):
+                raise AssertionError(f"measure ({when}): {dict(key)} "
+                                     f"resolves to {got}, want the measured "
+                                     f"winner {cfg_} on tier plan")
+
+    check_winners("after the drain")
+    # a forward's GEMMs at each drained length: measured winners, the
+    # model's blind argmax and the nearest record's config
+    pm = models.resolve_model("gemm", fp)
+    legal = functools.partial(launchable, "gemm")
+    store = eng.tunedb_store
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    sums = {}
+    for M in untuned:
+        tot = {"measured": 0.0, "argmax": 0.0, "nearest": 0.0}
+        for (N, K), count in SLICE_NK.items():
+            x = gemm_input(M, N, K, 16)
+            picks = {"measured": winners[shape_key(x)],
+                     "argmax": pm.predict_config(x).best}
+            # a record within the store's radius, where there is one
+            near = store.nearest("gemm", x, backend=fp, legal=legal)
+            if near is not None:
+                picks["nearest"] = near.config
+            else:
+                tot["nearest"] = None
+            a, bs = gemm_weights(M, N, K, gen, dev)
+            for k, c in picks.items():
+                if tot[k] is not None:
+                    tot[k] += count * cfg.n_layers * time_ms(
+                        lambda i, c=c: ops.matmul(a, bs[i], c), len(bs))
+            del a, bs
+        sums[M] = tot
+    for M, tot in sums.items():
+        near = ("no record within the store's radius"
+                if tot["nearest"] is None else
+                f"{tot['nearest']:.3f} ms "
+                f"({tot['nearest'] / tot['measured']:.2f}x)")
+        phase("measure", f"M={M}, one forward's "
+              f"{GEMMS_PER_LAYER * cfg.n_layers} GEMMs: measured winners "
+              f"{tot['measured']:.3f} ms, blind argmax {tot['argmax']:.3f} "
+              f"ms ({tot['argmax'] / tot['measured']:.2f}x), nearest record "
+              f"{near} [{label}]")
+    # a reinstall of the same plan: a new generation, every graph
+    # captured again under the winners; a second serve of the same prompts
+    state = serving_state()
+    install_serving(store=state.store, models=state.models, fingerprint=fp,
+                    plan=state.plan)
+    check_winners("after the reinstall")
+    pushed = q.pushed
+    again = eng.generate(prompts, max_new=16)
+    torch.cuda.synchronize()
+    if q.pushed != pushed or eng.prefill_captures != 2 * len(MODEL_PROMPTS):
+        raise AssertionError(f"measure: second serve pushed "
+                             f"{q.pushed - pushed}, {eng.prefill_captures} "
+                             "prefill captures")
+    same = sum(a == b for o1, o2 in zip(first, again)
+               for a, b in zip(o1, o2))
+    worst = 0.0
+    for prompt in prompts:
+        tokens = torch.as_tensor(prompt[None], device=dev)
+        got = eng.prefill_graph(0, tokens)[:, : cfg.vocab].clone()
+        with plain_kernels():
+            plain = prefill(params, cfg, {"tokens": tokens},
+                            init_cache(cfg, 1, 256, dev))[0][:, : cfg.vocab]
+        torch.cuda.synchronize()
+        _, err = rel_err(got, plain)
+        if not (torch.isfinite(got).all() and err <= LOGIT_TOL):
+            raise AssertionError(f"measure: {len(prompt)}-token graph "
+                                 f"prefill logits vs plain rel err {err:.3e}")
+        worst = max(worst, err)
+    counts = read_launches()
+    if not (counts["gemm"] and counts["gemm_reduce"]):
+        raise AssertionError(f"measure path launches {counts}")
+    rejected = MODEL_TOP_K * want - n_measured
+    med = lambda v: f"{statistics.median(v):.2f} ms" if v else "none"
+    phase("measure", f"{len(prompts)} requests of prompt lengths "
+          f"{list(MODEL_PROMPTS)} x 16 tokens with measure=wallclock, "
+          f"top-{MODEL_TOP_K}: calibration GEMM {calibration:.3f} TFLOP/s "
+          f"(1 measurement); queue {st}; {n_measured} candidates measured "
+          f"through the gate ({rejected} rejected); {in_serve} drains in the "
+          f"serve's idle gaps, {len(drains) - in_serve} after it: "
+          f"{med(drains)} median, {max(drains):.2f} ms max a drain (up to 2 "
+          f"shapes); tick wall with a drain median {med(walls[True])} "
+          f"({len(walls[True])} ticks), without {med(walls[False])} "
+          f"({len(walls[False])} ticks); every drained shape resolves on "
+          f"tier plan to its measured winner, before and after the "
+          f"reinstall; second serve (the {len(MODEL_PROMPTS)} prefill graphs "
+          f"and the tick captured again under the winners): {same} of "
+          f"{sum(len(o) for o in first)} greedy tokens equal the first "
+          f"serve's, each prompt's graph prefill logits vs plain rel err "
+          f"<= {worst:.3e} (tolerance {LOGIT_TOL}); launches {counts} "
+          f"[{label}]")
+    return {"counts": counts, "stats": st, "sums": sums,
+            "drain_ms": drains, "walls": walls}
+
+
+DEGRADE_NEW = 8
+
+
+def phase_degradation(cfg, params, store_path: Path, fp: str, label: str
+                      ) -> dict:
+    """Request deadlines and load shedding at full width, from the tuned
+    store (2 slots, as the reference's scenarios): a backlog cap of 3 on 6
+    requests sheds the 3 newest and serves the 3 oldest whole, healthy at
+    the end; an expired deadline (0 s) rejects every request unserved; a
+    deadline of an hour gives the tokens of no deadline."""
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, 32) for _ in range(6)]
+    reset_launches()
+
+    def serve(batch, **kw):
+        eng = Engine(cfg, params, ServeConfig(
+            max_len=256, slots=2, tunedb=str(store_path), tunedb_backend=fp,
+            **kw))
+        return eng, eng.generate(batch, max_new=DEGRADE_NEW)
+
+    eng, outs = serve(prompts, shed_threshold=3)
+    if not (eng.shed_requests == 3 and eng.deadline_retired == 0
+            and [len(o) for o in outs] == [DEGRADE_NEW] * 3 + [0] * 3
+            and not eng.shedding and eng._health() is True):
+        raise AssertionError(f"degradation: shed {eng.shed_requests}, "
+                             f"lengths {[len(o) for o in outs]}, health "
+                             f"{eng._health()}")
+    late, outs0 = serve(prompts[:3], request_deadline_s=0.0)
+    if late.deadline_retired != 3 or any(outs0) or late.prefills:
+        raise AssertionError(f"degradation: deadline 0 retired "
+                             f"{late.deadline_retired}, outputs {outs0}")
+    _, hour = serve(prompts[:3], request_deadline_s=3600.0)
+    _, none = serve(prompts[:3])
+    if hour != none:
+        raise AssertionError("degradation: a deadline of an hour changed "
+                             "the tokens")
+    counts = read_launches()
+    if not counts["gemm"]:
+        raise AssertionError(f"degradation path launches {counts}")
+    phase("degradation", f"shed_threshold=3, 6 requests x {DEGRADE_NEW} "
+          f"tokens: 3 shed (the newest), the 3 oldest served whole, "
+          f"_health() {eng._health()} at the end; request_deadline_s=0: "
+          f"3 of 3 rejected unserved (0 prefills); request_deadline_s=3600: "
+          f"the tokens of no deadline; launches {counts} [{label}]")
+    return {"counts": counts}
 
 
 ADMISSION_NEW = 8
@@ -2030,10 +2439,80 @@ def phase_admission(cfg, params, store_path: Path, fp: str, label: str
     return {"counts": runs["store"][2], "order": runs["store"][1]}
 
 
+PROFILE_REPS = 5                   # graph replays traced in one round
+PROFILE_ROUNDS = 5                 # traced rounds before the phase fails
+
+
+def demangle(names: list) -> list:
+    """Kernel names as the profiler shows them: ``abi::__cxa_demangle``
+    (libstdc++), which the profiler's CUPTI consumer applies to every
+    ``_Z`` name; any other name stays as it is."""
+    lib = ctypes.CDLL("libstdc++.so.6")
+    fn = lib.__cxa_demangle
+    fn.restype = ctypes.c_void_p
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int)]
+    libc = ctypes.CDLL("libc.so.6")
+    libc.free.argtypes = [ctypes.c_void_p]
+    out = []
+    for name in names:
+        status = ctypes.c_int(-1)
+        ptr = (fn(name.encode(), None, None, ctypes.byref(status))
+               if name.startswith("_Z") else None)
+        if ptr and status.value == 0:
+            out.append(ctypes.string_at(ptr).decode())
+            libc.free(ptr)
+        else:
+            out.append(name)
+    return out
+
+
+def kernel_kind(name: str) -> str:
+    return ("gemm" if GEMM_KERNEL.search(name) else "gemm_reduce"
+            if REDUCE_KERNEL.search(name) else "other")
+
+
+def traced_round(graph, nodes: collections.Counter, reps: int) -> tuple:
+    """Trace ``reps`` replays of ``graph``: (whole, what, kernel events).
+    The round is whole when its kernel events, in start order, split into
+    ``reps`` runs of len(nodes) events whose names are exactly the graph's
+    kernel nodes' (the same multiset, replay by replay)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and not ev.name.startswith(("Memcpy", "Memset"))),
+                 key=lambda ev: ev.time_range.start)
+    per = sum(nodes.values())
+    if len(evs) != reps * per:
+        return False, f"{len(evs)} kernel events, want {reps} x {per}", evs
+    for r in range(reps):
+        got = collections.Counter(ev.name for ev in
+                                  evs[r * per:(r + 1) * per])
+        if got != nodes:
+            miss, extra = nodes - got, got - nodes
+            return False, (f"replay {r}: names differ (missing "
+                           f"{list(miss.items())[:3]}, extra "
+                           f"{list(extra.items())[:3]})"), evs
+    return True, "whole", evs
+
+
 def phase_profile(eng, cfg, dev: torch.device, label: str) -> dict:
     """Where a decode tick's time goes: the eager tick's wall time
-    (synchronised), the host time to enqueue it, and the device time of
-    the same tick replayed from a CUDA graph (no host in the way)."""
+    (synchronised), the host time to enqueue it, the device time of the
+    same tick replayed from a CUDA graph (no host in the way), and that
+    replay's kernels by name.  The tick is captured with its
+    ``cudaGraph_t`` kept, so its kernel nodes are known exactly
+    (:func:`graph_kernel_names`); a traced round counts only when its
+    kernel events are those nodes, replay by replay and name by name
+    (:func:`traced_round`).  A round that is not whole is thrown away and
+    traced again, up to :data:`PROFILE_ROUNDS` rounds; if none is whole
+    the phase fails.  From the whole round: per kernel name, its ms and
+    count a tick, in order of time, and the GEMM, reduction and other
+    totals."""
     last = torch.zeros((4, 1), dtype=torch.long, device=dev)
     idx = torch.full((4,), 40, dtype=torch.long, device=dev)
     tick = lambda: decode_step(eng.params, cfg, last, eng.cache, idx)
@@ -2058,11 +2537,13 @@ def phase_profile(eng, cfg, dev: torch.device, label: str) -> dict:
             activities=[torch.profiler.ProfilerActivity.CUDA]):
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         tick()
+    graph.instantiate()
     graph.replay()
     torch.cuda.synchronize()
+    nodes = collections.Counter(demangle(graph_kernel_names(graph)))
     devs = []
     for _ in range(n):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -2072,43 +2553,53 @@ def phase_profile(eng, cfg, dev: torch.device, label: str) -> dict:
         e1.record()
         e1.synchronize()
         devs.append(e0.elapsed_time(e1))
-    # the replayed tick's kernels by kind, traced over a few replays: the
-    # device time of the GEMM kernels, the split-K reduction passes and
-    # the rest, per tick; what none of them covers is the gaps between
-    # the graph's kernels
-    reps = 5
+    reps, tries = PROFILE_REPS, []
+    for _ in range(PROFILE_ROUNDS):
+        whole, what, evs = traced_round(graph, nodes, reps)
+        tries.append(what)
+        if whole:
+            break
+    else:
+        raise AssertionError(f"profile: no traced round of {reps} replays "
+                             f"held the captured tick's "
+                             f"{sum(nodes.values())} kernel nodes in "
+                             f"{PROFILE_ROUNDS} rounds: {tries}")
+    by_name: dict = {}
+    for ev in evs:
+        t = by_name.setdefault(ev.name, [0.0, 0])
+        t[0] += ev.time_range.elapsed_us() / 1e3 / reps
+        t[1] += 1
+    split = sorted(((ms, cnt // reps, name) for name, (ms, cnt)
+                    in by_name.items()), reverse=True)
     kinds = {"gemm": [0.0, 0], "gemm_reduce": [0.0, 0], "other": [0.0, 0]}
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            graph.replay()
-        torch.cuda.synchronize()
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kind = ("gemm" if GEMM_KERNEL.search(ev.name) else "gemm_reduce"
-                if REDUCE_KERNEL.search(ev.name) else "other")
-        kinds[kind][0] += ev.time_range.elapsed_us() / 1e3 / reps
-        kinds[kind][1] += 1
+    for ms, cnt, name in split:
+        kinds[kernel_kind(name)][0] += ms
+        kinds[kernel_kind(name)][1] += cnt
     out = {"wall_ms": 1e3 * statistics.median(walls),
            "enqueue_ms": 1e3 * statistics.median(enqueues),
            "device_ms": statistics.median(devs),
            "kernels_ms": {k: v[0] for k, v in kinds.items()},
-           "kernels_per_tick": {k: v[1] / reps for k, v in kinds.items()}}
+           "kernels_per_tick": {k: v[1] for k, v in kinds.items()},
+           "rounds": len(tries), "split": split}
     busy = sum(out["kernels_ms"].values())
     phase("profile", f"decode tick (4 slots, 30 layers): eager wall "
           f"{out['wall_ms']:.2f} ms, host enqueue {out['enqueue_ms']:.2f} "
           f"ms, device (CUDA graph replay) {out['device_ms']:.2f} ms, "
           f"device busy {100 * out['device_ms'] / out['wall_ms']:.1f}% of "
-          f"the eager tick; in the replayed tick (profiler, {reps} "
-          f"replays): GEMM kernels {out['kernels_ms']['gemm']:.3f} ms "
-          f"({out['kernels_per_tick']['gemm']:.0f} a tick), reduction "
+          f"the eager tick; the captured tick holds {sum(nodes.values())} "
+          f"kernel nodes ({len(nodes)} names); traced rounds of {reps} "
+          f"replays: {len(tries)} to a whole one ({tries}); in the replayed "
+          f"tick: GEMM kernels {out['kernels_ms']['gemm']:.3f} ms "
+          f"({out['kernels_per_tick']['gemm']} a tick), reduction "
           f"passes {out['kernels_ms']['gemm_reduce']:.3f} ms "
-          f"({out['kernels_per_tick']['gemm_reduce']:.0f}), other kernels "
+          f"({out['kernels_per_tick']['gemm_reduce']}), other kernels "
           f"{out['kernels_ms']['other']:.3f} ms "
-          f"({out['kernels_per_tick']['other']:.0f}); kernels busy "
+          f"({out['kernels_per_tick']['other']}); kernels busy "
           f"{busy:.3f} ms, {100 * busy / out['device_ms']:.1f}% of the "
           f"replay [{label}]")
+    for rank, (ms, cnt, name) in enumerate(split, 1):
+        phase("profile", f"#{rank} {kernel_kind(name)}: {ms:.4f} ms, {cnt} "
+              f"a tick, {name[:150]}")
     return out
 
 
@@ -2164,11 +2655,12 @@ def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
     each; attention and SSD: summed over their tune targets, one call each.
     ``ms`` is the tuned config's kernel time.  ``launches`` is the count on
     the kernel's own path (serve for the GEMM, tune for the rest): the
-    wrapper's count, so for serving the prefills' GEMMs (a replayed tick
-    launches from the graph, not the wrapper; the GEMM row's
-    ``device_launches`` is the count of GEMM kernels given to the device in
-    the same run, replays included: the captured tick's GEMM nodes times
-    the replays, plus the prefills'); ``launches_by_path`` gives every
+    wrapper's count, so for serving the launches of the graphs' captures
+    and their warm-ups, from the warm-up run through the graph runs (a
+    replay launches from its graph, not the wrapper; the GEMM row's ``device_launches`` is the
+    count of GEMM kernels given to the device in the measured graph run:
+    the captured tick's GEMM nodes times its replays plus the 32-token
+    prefill graph's times its replays); ``launches_by_path`` gives every
     path's."""
     per = {"gemm": "one decode tick: 210 projections at M=4, tuned configs",
            "conv": "the 14 Table 5 shapes, bf16, one call each, tuned configs",
@@ -2279,8 +2771,13 @@ def main() -> int:
         install_serving(store=serve_state.store, models=serve_state.models,
                         fingerprint=fp, plan=serve_state.plan)
         phase_host_cost(cfg, params, serve, fp, dev, label)
+        phase_prefill_parity(serve["engine"], cfg, dev, label)
         admission = phase_admission(cfg, params, store_path, fp, label)
         launches["admission"] = admission["counts"]
+        launches["measure"] = phase_measure(cfg, params, store_path, fp, dev,
+                                            label)["counts"]
+        launches["degradation"] = phase_degradation(cfg, params, store_path,
+                                                    fp, label)["counts"]
         phase_model(cfg, params, dev)
         phase_profile(serve.pop("engine"), cfg, dev, label)
         clear_store()

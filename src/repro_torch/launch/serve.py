@@ -4,6 +4,8 @@
   python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu
   python -m repro_torch.launch.serve --tunedb db.jsonl \
       --plan-dir db.jsonl.plan/00000001 --admission store
+  python -m repro_torch.launch.serve --tunedb db.jsonl --measure wallclock \
+      --request-deadline 30 --shed-threshold 64
 """
 
 from __future__ import annotations
@@ -50,6 +52,20 @@ def main(argv=None) -> None:
                    help="'store' admits first the requests whose prompt "
                         "length's prefill shapes the plan or the store "
                         "covers, and groups equal lengths")
+    p.add_argument("--request-deadline", type=float, default=None,
+                   help="per-request deadline in seconds, checked at "
+                        "admit and tick boundaries: an overdue pending "
+                        "request is rejected unserved, an overdue active "
+                        "one retires with the tokens it has")
+    p.add_argument("--shed-threshold", type=int, default=None,
+                   help="admission backlog cap: while active + pending "
+                        "requests exceed it the newest pending ones are "
+                        "shed")
+    p.add_argument("--measure", choices=["wallclock"], default=None,
+                   help="re-measure the model tier's top-k candidates of "
+                        "each shape it resolves on this device, in the idle "
+                        "gap after a decode tick, and serve the measured "
+                        "winner from then on")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -63,7 +79,10 @@ def main(argv=None) -> None:
     eng = Engine(cfg, params, ServeConfig(
         max_len=args.max_len, slots=args.slots, temperature=args.temperature,
         seed=0, tunedb=args.tunedb, tunedb_backend=fingerprint,
-        plan_dir=args.plan_dir, admission=args.admission), device=device)
+        plan_dir=args.plan_dir, admission=args.admission,
+        request_deadline_s=args.request_deadline,
+        shed_threshold=args.shed_threshold, measure=args.measure),
+        device=device)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, args.prompt_len)
                for _ in range(args.requests)]
@@ -78,6 +97,16 @@ def main(argv=None) -> None:
           f"{dt:.2f}s ({total / dt:.1f} tok/s, {eng.ticks} decode ticks, "
           f"{eng.prefills} prefills, {kmatmul.launches} GEMM kernel "
           "launches)")
+    if args.shed_threshold is not None or args.request_deadline is not None:
+        print(f"degradation: {eng.shed_requests} request(s) shed, "
+              f"{eng.deadline_retired} deadline-retired")
+    if eng.measure_queue is not None:
+        st = eng.measure_queue.stats()
+        print(f"measure: {eng.measurer.counts['wallclock']} measurements "
+              f"(calibration {eng.calibration_tflops} TFLOP/s), "
+              f"{st['pushed']} shapes queued, {st['processed']} processed, "
+              f"{st['upgrades']} upgraded, {st['dropped']} dropped, "
+              f"{st['backlog']} left")
     plan = serving_state().plan
     if plan is not None:
         st = plan.stats()

@@ -75,6 +75,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # GQA attention
 # ---------------------------------------------------------------------------
 
+def device_index(x: IndexLike, dev: torch.device) -> torch.Tensor:
+    """A position or length, a Python int or a per-slot tensor, as an
+    int64 tensor on ``dev``.  An int is filled on the device rather than
+    copied from the host, so the op can be captured in a CUDA graph."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return torch.full((), int(x), dtype=torch.long, device=dev)
+
+
 def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool, q_start: IndexLike,
                        kv_len: Optional[IndexLike] = None,
@@ -93,10 +102,10 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chunk = min(chunk, Skv)
     n_chunks = -(-Skv // chunk)
     qf = q.float() * scale
-    q_pos = (torch.as_tensor(q_start, device=dev).reshape(-1, 1)
+    q_pos = (device_index(q_start, dev).reshape(-1, 1)
              + torch.arange(Sq, device=dev)[None, :])               # (B|1, Sq)
-    valid = torch.as_tensor(Skv if kv_len is None else kv_len,
-                            device=dev).reshape(-1, 1, 1)
+    valid = device_index(Skv if kv_len is None else kv_len,
+                         dev).reshape(-1, 1, 1)
     m = torch.full((B, H, Sq), float("-inf"), device=dev)
     l = torch.zeros((B, H, Sq), device=dev)
     acc = torch.zeros((B, H, Sq, D), device=dev)

@@ -1,5 +1,5 @@
 """Batched serving engine: slot-based continuous batching over a shared KV
-cache (port of the core of ``repro.serve.engine``).
+cache (port of ``repro.serve.engine`` short of the fleet and observability).
 
 Requests are admitted into free slots (prefill fills the slot's cache
 region), every decode tick advances all slots together at their own cache
@@ -7,39 +7,59 @@ positions, and finished requests (EOS or length budget) free their slot.
 Inactive slots decode too, on token 0 at position 0, and their output is
 discarded — the batch keeps one shape, as in the reference.
 
-On CUDA each decode tick replays one captured CUDA graph, the port's
-counterpart of the reference's ``jax.jit`` of ``decode_step``: the tick is
-captured once for the engine's fixed (slots, max_len) batch, with static
-token and position buffers that are filled before each replay, and
-dispatch resolves every config at capture, as the reference's does at
-trace time.  A new serving generation (``serving_state().generation``:
-another store, model set or plan installed) forces a re-capture; a
-promotion into the plan's overlay does not.  The graph keeps its node
-list (:attr:`Engine.graph`), so a caller can count the kernels a replay
-gives the device.  Prefill stays eager (prompt lengths vary), and so does
-every tick on the CPU.  A capture or replay that fails raises; it never
-falls back to the eager tick, which stays a method
-(:meth:`Engine.decode_eager`) for comparison.
+On CUDA every decode tick and every prefill replays a captured CUDA graph,
+the port's counterparts of the reference's ``jax.jit`` of ``decode_step``
+and of its per-prompt-length ``_prefill_fns``.  The tick is captured once
+for the engine's fixed (slots, max_len) batch, with static token and
+position buffers that are filled before each replay.  Each prompt length
+``n`` is captured at its first prefill into one static single-slot cache
+shared by all lengths (zeroed inside the graph, as the reference's prefill
+starts from a fresh cache), with a static ``(1, n)`` token buffer; after
+each replay the single-slot cache is copied into the slot (the
+reference's ``merge``), so the slot's rows at ``n`` and beyond are zero.
+The prefill graphs share one memory pool (each one's logits are read
+before the next replay); the tick's graph keeps its own.  Dispatch
+resolves every config at capture, as the reference's does at trace time.
+A new serving generation (``serving_state().generation``: another store,
+model set or plan installed) drops every graph, which are captured again
+at their next use; a promotion into the plan's overlay does not, so a
+graph keeps the configs it was captured with.  The graphs keep their
+node lists (:attr:`Engine.graph`, :attr:`Engine.prefill_graphs`), so a
+caller can count the kernels a replay gives the device.  A capture or
+replay that fails raises; it never falls back to the eager prefill or
+tick, which stay methods (:meth:`Engine.prefill_eager`,
+:meth:`Engine.decode_eager`) for comparison.  On the CPU both run eager.
 
 The engine's install carries the store, the model artifacts and a
 dispatch plan in one generation: compiled from them, or loaded from a
 plan artifact (``ServeConfig.plan_dir``; a rejected artifact warns and a
 plan is compiled instead; without a store the engine serves plan-only).
+With ``ServeConfig.measure="wallclock"`` the installed model set gets a
+``tunedb.measure.ServingMeasurer`` and a ``MeasureQueue``: a shape the
+model tier resolves is served the model's argmax and its top-k are
+re-measured on the card after a later tick (:meth:`Engine.maybe_retune`),
+the winner going into the model set's memo and the plan's overlay.
 
 Shape telemetry counts executions of the served program: eager prefills
-and eager ticks record through dispatch as they run; a graph tick's
-shapes are collected once at capture (neither the capture pass nor its
-warm-up counts) and counted on every replay.  Every layer's call counts,
-as the device runs them: the reference under its defaults (layers under
+and eager ticks record through dispatch as they run; a graph's shapes are
+collected once at capture (neither the capture pass nor its warm-up
+counts) and counted on every replay.  Every layer's call counts, as the
+device runs them: the reference under its defaults (layers under
 ``lax.scan``) counts a scanned layer body once a forward, so each of its
 counts is the port's over the layer count, and the two agree call for
 call with its ``unroll_scan=True, remat=False``.  Under
-``admission="store"`` (:class:`StoreAwareAdmission`) each prompt length's
-first prefill is captured too, and pending requests are ranked by how
-many of their length's prefill shapes the plan or the store covers.
-Retuning, routing, deadlines and load shedding, tracing, the status
-endpoint and the model tier's deferred re-measurement are not ported
-yet.
+``admission="store"`` (:class:`StoreAwareAdmission`) pending requests are
+ranked by how many of their length's prefill shapes the plan or the store
+covers (each length's shapes are kept at its capture on CUDA, and at its
+first prefill on the CPU).
+
+Graceful degradation follows the reference: ``request_deadline_s``
+rejects an overdue pending request unserved and retires an overdue active
+one with the tokens it has, and ``shed_threshold`` sheds the newest
+pending requests while the backlog exceeds it (:meth:`Engine._health`
+says so).  Retuning, routing, tracing, the status endpoint and the
+``tunedb_*`` counters wait for the port of the fleet and observability
+(ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -56,8 +76,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.backend import H100_SXM, Peaks
+from repro_torch.core.space import gemm_input
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import ModelConfig, decode_step, init_cache, prefill
+from repro_torch.tunedb.measure import MeasureQueue, ServingMeasurer
 from repro_torch.tunedb.model import ModelSet, default_models_dir
 from repro_torch.tunedb.plans import (PlanArtifactError, check_freshness,
                                       load_plan, read_manifest)
@@ -94,9 +117,21 @@ class ServeConfig:
     # those whose prompt length's prefill shapes the plan or the store
     # covers and groups equal lengths (every request is still served)
     admission: str = "fifo"
-    # keep (start perf_counter, wall seconds) of each decode tick
+    # keep (start perf_counter, wall seconds, thread-CPU seconds) of each
+    # decode tick, the idle-gap re-measurement included
     record_tick_times: bool = False
     tick_times_cap: int = 4096      # newest ticks kept; 0 keeps all
+    # graceful degradation, checked at admit and tick boundaries: a request
+    # older than this (seconds) is rejected unserved while pending and
+    # retires with the tokens it has while active; None turns it off
+    request_deadline_s: Optional[float] = None
+    # admission backlog cap: while active + pending requests exceed it, the
+    # newest pending ones are shed (rejected unserved); None turns it off
+    shed_threshold: Optional[int] = None
+    # the model tier's §6 re-measurement on the card: "wallclock" re-times
+    # the model's top-k candidates of a shape it resolved, in the idle gap
+    # after a decode tick (tunedb.measure); None turns it off
+    measure: Optional[str] = None
 
 
 def _ceil_div(x: int, t: int) -> int:
@@ -293,6 +328,14 @@ class Request:
     prompt: np.ndarray              # (len,) int
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
+    arrived_at: float = 0.0         # time.monotonic() at generate's start
+    shed: bool = False              # rejected unserved by load shedding
+    deadline_exceeded: bool = False  # cut short or rejected by the deadline
+
+
+# the calibration measurement an engine with ``measure`` runs at start:
+# one GEMM under the ops default, as the reference's (256^3, 128^3 tiles)
+CALIBRATION_GEMM = (dict(ops.DEFAULT_GEMM), gemm_input(256, 256, 256, 16))
 
 
 class Engine:
@@ -301,19 +344,25 @@ class Engine:
         cfg.check_supported()
         self.device = resolve_device(device)
         self.cfg, self.sc = cfg, serve_cfg
+        if serve_cfg.admission not in ("fifo", "store"):
+            raise ValueError(f"admission {serve_cfg.admission!r}: want "
+                             "'fifo' or 'store'")
+        # refused before anything is installed ("sim" is not ported)
+        self.measurer: Optional[ServingMeasurer] = None
+        self.measure_queue: Optional[MeasureQueue] = None
+        if serve_cfg.measure is not None:
+            self.measurer = ServingMeasurer(serve_cfg.measure,
+                                            device=self.device)
+            self.measure_queue = MeasureQueue()
         self.params = _to_device(params, self.device)
         # warm start: the store and its model artifacts become the port's
         # process-wide dispatch state, pinned to tunedb_backend, in one
         # install; a missing file serves on the heuristics tier (dispatch
         # warns once).  The models are installed even when there are none
         # (None), so an earlier engine's regressors never serve this
-        # store's traffic.  No measurer is installed: serving never
-        # measures.
+        # store's traffic.
         self.tunedb_store: Optional[RecordStore] = None
         self.tunedb_models: Optional[ModelSet] = None
-        if serve_cfg.admission not in ("fifo", "store"):
-            raise ValueError(f"admission {serve_cfg.admission!r}: want "
-                             "'fifo' or 'store'")
         if serve_cfg.tunedb or serve_cfg.tunedb_models or serve_cfg.plan_dir:
             swap = {"fingerprint": serve_cfg.tunedb_backend}
             models_dir = serve_cfg.tunedb_models
@@ -338,6 +387,25 @@ class Engine:
                 swap["store"] = self.tunedb_store
                 swap["plan"] = self._load_plan(serve_cfg.plan_dir)
             install_serving(models=self.tunedb_models, **swap)
+        # §6 re-measurement on the card: the live model tier serves its
+        # argmax and queues the top-k, which maybe_retune drains after each
+        # tick.  One calibration GEMM proves the measuring path before
+        # traffic arrives; a failure warns (serving goes on), and
+        # calibration_tflops stays None.
+        self.calibration_tflops: Optional[float] = None
+        if self.measurer is not None:
+            live = serving_state().models
+            if live is not None:
+                live.measurer = self.measurer
+                live.measure_queue = self.measure_queue
+            try:
+                self.calibration_tflops = self.measurer("gemm",
+                                                        *CALIBRATION_GEMM)
+            except Exception as e:      # noqa: BLE001 — warned, not hidden
+                warnings.warn(f"measure: the calibration GEMM failed "
+                              f"({type(e).__name__}: {e}); re-measurements "
+                              "of the model tier's picks may fail too",
+                              RuntimeWarning, stacklevel=2)
         self.cache = init_cache(cfg, serve_cfg.slots, serve_cfg.max_len,
                                 self.device)
         self.lengths = np.zeros(serve_cfg.slots, np.int64)
@@ -353,15 +421,29 @@ class Engine:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_gen = -1
         self._static: Optional[Tuple[torch.Tensor, ...]] = None
-        # the tick generate runs: the graph on CUDA, eager on the CPU
-        self.decode = (self.decode_graph if self.device.type == "cuda"
-                       else self.decode_eager)
+        # the prefill graphs (CUDA): per prompt length (graph, static
+        # tokens, static logits), the generation they were captured under,
+        # their shared memory pool and the static single-slot cache
+        self.prefill_captures = 0
+        self.prefill_replays = 0
+        self._prefill_graphs: Dict[int, Tuple[torch.cuda.CUDAGraph,
+                                              torch.Tensor,
+                                              torch.Tensor]] = {}
+        self._prefill_gen = -1
+        self._prefill_pool = None
+        self._single: Optional[Dict[str, Any]] = None
+        # the prefill and the tick generate runs: graphs on CUDA, eager on
+        # the CPU
+        cuda = self.device.type == "cuda"
+        self.prefill = self.prefill_graph if cuda else self.prefill_eager
+        self.decode = self.decode_graph if cuda else self.decode_eager
         cap = serve_cfg.tick_times_cap
-        self.tick_times: Deque[Tuple[float, float]] = collections.deque(
-            maxlen=cap if cap > 0 else None)
+        self.tick_times: Deque[Tuple[float, float, float]] = \
+            collections.deque(maxlen=cap if cap > 0 else None)
         # the shapes a captured decode tick runs (counted once a replay)
-        # and, under store-aware admission, each prompt length's first
-        # prefill
+        # and each prompt length's prefill (on CUDA every length's, kept at
+        # its capture; on the CPU under store-aware admission, its first
+        # prefill's)
         self._decode_shapes: List[Tuple[str, Dict[str, int]]] = []
         self._prefill_shapes: Dict[int, List[Tuple[str, Dict[str, int]]]] = {}
         self.admission = (StoreAwareAdmission()
@@ -369,6 +451,12 @@ class Engine:
         self._last_admit_len: Optional[int] = None
         # the last generate's prompt lengths in the order it admitted them
         self.admitted: List[int] = []
+        # graceful degradation: requests shed, requests the deadline
+        # rejected or retired, and whether the backlog is over
+        # shed_threshold
+        self.shed_requests = 0
+        self.deadline_retired = 0
+        self.shedding = False
 
     def _load_plan(self, plan_dir: str):
         """The artifact's plan, or None (and a warning) when it is
@@ -386,32 +474,145 @@ class Engine:
                           RuntimeWarning, stacklevel=3)
             return None
 
+    def _health(self):
+        """Readiness: ``(False, reason)`` while this engine sheds load,
+        else ``True`` (what the reference's ``/healthz`` probe reads)."""
+        if self.shedding:
+            return (False, "shedding load: admission backlog over "
+                           "shed_threshold")
+        return True
+
+    def maybe_retune(self) -> None:
+        """The idle gap after each decode tick: drain up to two pending §6
+        re-measurements (``MeasureQueue.process``) into the installed model
+        set's memo and the plan's overlay.  The reference also polls its
+        retune controller here; that waits for the port of
+        ``tunedb/controller.py`` (ROADMAP A6)."""
+        q = self.measure_queue
+        if q is not None and len(q):
+            q.process(self.measurer, models=serving_state().models)
+
     # -- prefill ---------------------------------------------------------------
     def _prefill_one(self, slot: int, req: Request) -> None:
-        """Prefill the prompt straight into the slot's cache rows (zeroed
-        first, as the reference replaces the slot with a fresh cache)."""
+        tokens = torch.as_tensor(req.prompt[None], dtype=torch.long,
+                                 device=self.device)
+        logits = self.prefill(slot, tokens)
+        self.prefills += 1
+        self.lengths[slot] = len(req.prompt)
+        self.slot_req[slot] = req
+        req.out.append(int(self._sample(logits[:, : self.cfg.vocab])[0]))
+
+    def prefill_eager(self, slot: int, tokens: torch.Tensor) -> torch.Tensor:
+        """Prefill ``tokens`` (1, n) op by op straight into the slot's
+        cache rows (zeroed first, as the reference replaces the slot with
+        a fresh cache); returns the last position's logits (1, V)."""
         kv = self.cache["pos0"]["attn"]
         for t in (kv["k"], kv["v"]):
             t[:, slot].zero_()
         single = {"pos0": {"attn": {"k": kv["k"][:, slot:slot + 1],
                                     "v": kv["v"][:, slot:slot + 1]}}}
-        tokens = torch.as_tensor(req.prompt[None], dtype=torch.long,
-                                 device=self.device)
-        n = len(req.prompt)
+        n = tokens.shape[1]
         if self.admission is None or n in self._prefill_shapes:
-            logits, _ = prefill(self.params, self.cfg, {"tokens": tokens},
-                                single)
-        else:
-            # the length's first prefill under store-aware admission:
-            # counted as it runs, and its shapes kept for pick
-            with get_telemetry().capture() as cap:
-                logits, _ = prefill(self.params, self.cfg,
-                                    {"tokens": tokens}, single)
-            self._prefill_shapes[n] = cap.shapes
-        self.prefills += 1
-        self.lengths[slot] = len(req.prompt)
-        self.slot_req[slot] = req
-        req.out.append(int(self._sample(logits[:, : self.cfg.vocab])[0]))
+            return prefill(self.params, self.cfg, {"tokens": tokens},
+                           single)[0]
+        # the length's first prefill under store-aware admission: counted
+        # as it runs, and its shapes kept for pick
+        with get_telemetry().capture() as cap:
+            logits = prefill(self.params, self.cfg, {"tokens": tokens},
+                             single)[0]
+        self._prefill_shapes[n] = cap.shapes
+        return logits
+
+    def prefill_graph(self, slot: int, tokens: torch.Tensor) -> torch.Tensor:
+        """The same prefill replayed from the length's CUDA graph (captured
+        at the length's first prefill of this generation), then the
+        single-slot cache copied into the slot.  The returned logits are
+        the graph's static output: read them before the next prefill."""
+        gen = serving_state().generation
+        if self._prefill_gen != gen:
+            # a new generation: every length is captured again, into a
+            # fresh pool (the old one goes with its graphs)
+            self._prefill_graphs = {}
+            self._prefill_pool = None
+            self._prefill_gen = gen
+        n = tokens.shape[1]
+        if n not in self._prefill_graphs:
+            self._capture_prefill(tokens)
+        graph, s_tokens, logits = self._prefill_graphs[n]
+        s_tokens.copy_(tokens)
+        graph.replay()
+        self.prefill_replays += 1
+        get_telemetry().record_ticks(self._prefill_shapes[n])
+        # the reference's merge: the whole single-slot cache into the slot
+        kv, one = self.cache["pos0"]["attn"], self._single["pos0"]["attn"]
+        kv["k"][:, slot].copy_(one["k"][:, 0])
+        kv["v"][:, slot].copy_(one["v"][:, 0])
+        return logits
+
+    def _capture_prefill(self, tokens: torch.Tensor) -> None:
+        """Capture the prefill of ``tokens``' length on a static token
+        buffer into the static single-slot cache, zeroed inside the graph
+        (a longer length's replay leaves rows past ``n`` behind), in the
+        prefill graphs' shared pool (:meth:`_captured`).  The capture's
+        shapes are counted on each replay."""
+        if self._single is None:
+            self._single = init_cache(self.cfg, 1, self.sc.max_len,
+                                      self.device)
+        if self._prefill_pool is None:
+            self._prefill_pool = torch.cuda.graph_pool_handle()
+        single, s_tokens = self._single, tokens.clone()
+        kv = single["pos0"]["attn"]
+
+        def run() -> torch.Tensor:
+            kv["k"].zero_()
+            kv["v"].zero_()
+            return prefill(self.params, self.cfg, {"tokens": s_tokens},
+                           single)[0]
+
+        graph, logits, shapes = self._captured(run, pool=self._prefill_pool)
+        n = tokens.shape[1]
+        self._prefill_graphs[n] = (graph, s_tokens, logits)
+        self._prefill_shapes[n] = shapes
+        self.prefill_captures += 1
+
+    def _captured(self, fn, pool=None) -> tuple:
+        """``(graph, output, shapes)``: ``fn()`` captured in a CUDA graph
+        that keeps its ``cudaGraph_t``, after one eager warm-up on a side
+        stream (lazy library state must exist before capture), and the
+        shapes the capture dispatched.  Neither pass counts in the
+        telemetry."""
+        tel = get_telemetry()
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side), tel.capture(count=False):
+            fn()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with tel.capture(count=False) as cap:
+            with torch.cuda.graph(graph, pool=pool):
+                out = fn()
+        graph.instantiate()
+        return graph, out, cap.shapes
+
+    @property
+    def prefill_graphs(self) -> Dict[int, torch.cuda.CUDAGraph]:
+        """This generation's captured prefill graph of each prompt length
+        (empty on the CPU), each keeping its ``cudaGraph_t`` as
+        :attr:`graph` does."""
+        return {n: g for n, (g, _, _) in self._prefill_graphs.items()}
+
+    def prefill_pool_segments(self) -> List[dict]:
+        """The prefill graphs' shared memory pool: its segments in the
+        caching allocator's snapshot (each with its ``blocks``)."""
+        if self._prefill_pool is None:
+            return []
+        pool = tuple(self._prefill_pool)
+        return [seg for seg in torch.cuda.memory_snapshot()
+                if tuple(seg["segment_pool_id"]) == pool]
+
+    def prefill_graph_bytes(self) -> int:
+        """Device bytes the prefill graphs' shared memory pool holds."""
+        return sum(seg["total_size"] for seg in self.prefill_pool_segments())
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         if self.sc.temperature <= 0:
@@ -455,39 +656,54 @@ class Engine:
 
     def _capture(self, last: torch.Tensor, idx: torch.Tensor) -> None:
         """Capture :meth:`decode_eager` on static buffers holding this
-        tick's inputs.  One eager warm-up on a side stream first (lazy
-        library state must exist before capture); it writes this tick's
+        tick's inputs (:meth:`_captured`; its warm-up writes this tick's
         K/V rows, which the replay then writes again with the same
-        values.  Neither pass is a served tick, so neither counts in the
-        telemetry; the capture's shapes are counted on each replay."""
+        values).  The capture's shapes are counted on each replay."""
         self._graph = self._static = None
-        tel = get_telemetry()
         s_last, s_idx = last.clone(), idx.clone()
-        side = torch.cuda.Stream(device=self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side), tel.capture(count=False):
-            self.decode_eager(s_last, s_idx)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with tel.capture(count=False) as cap:
-            with torch.cuda.graph(graph):
-                logits = self.decode_eager(s_last, s_idx)
-        graph.instantiate()
+        graph, logits, shapes = self._captured(
+            lambda: self.decode_eager(s_last, s_idx))
         self._graph, self._static = graph, (s_last, s_idx, logits)
-        self._decode_shapes = cap.shapes
+        self._decode_shapes = shapes
         self.captures += 1
 
     # -- main loop --------------------------------------------------------------
     def generate(self, prompts: List[np.ndarray], max_new: int = 32
                  ) -> List[List[int]]:
-        """Continuous-batching loop: admit -> decode tick -> retire."""
+        """Continuous-batching loop: shed and expire -> admit -> decode
+        tick -> drain re-measurements in the gap -> retire."""
         sc = self.sc
         tel = get_telemetry()
-        queue = [Request(np.asarray(p, np.int64), max_new) for p in prompts]
+        t_arrive = time.monotonic()
+        queue = [Request(np.asarray(p, np.int64), max_new,
+                         arrived_at=t_arrive) for p in prompts]
         pending = list(queue)
         self.admitted = []
         active = 0
         while pending or active:
+            # graceful degradation at the admit boundary: overdue pending
+            # requests are rejected unserved, and while the backlog is over
+            # shed_threshold the newest pending ones are shed
+            if sc.request_deadline_s is not None and pending:
+                now = time.monotonic()
+                expired = [r for r in pending
+                           if now - r.arrived_at > sc.request_deadline_s]
+                if expired:
+                    for req in expired:
+                        req.deadline_exceeded = True
+                    pending = [r for r in pending if not r.deadline_exceeded]
+                    self.deadline_retired += len(expired)
+            if sc.shed_threshold is not None:
+                shed_now = 0
+                while active + len(pending) > sc.shed_threshold:
+                    req = pending.pop()          # the newest goes first
+                    req.shed = True
+                    shed_now += 1
+                if shed_now:
+                    self.shed_requests += shed_now
+                    self.shedding = True
+                elif active + len(pending) < sc.shed_threshold:
+                    self.shedding = False        # backlog drained
             while pending:                       # admit into free slots
                 slot = next((i for i, r in enumerate(self.slot_req)
                              if r is None), None)
@@ -505,7 +721,8 @@ class Engine:
             if active == 0:
                 break
 
-            t_tick = time.perf_counter()
+            if sc.record_tick_times:
+                t_tick, c_tick = time.perf_counter(), time.thread_time()
             last = torch.as_tensor(
                 [[r.out[-1] if r is not None and r.out else 0]
                  for r in self.slot_req], dtype=torch.long,
@@ -516,20 +733,32 @@ class Engine:
             toks = self._sample(logits[:, : self.cfg.vocab])
             self.ticks += 1
             tel.drain_pending()          # one fold of the rings a tick
+            self.maybe_retune()
 
+            now = (time.monotonic()
+                   if sc.request_deadline_s is not None else 0.0)
             for s, req in enumerate(self.slot_req):
                 if req is None:
                     continue
                 self.lengths[s] += 1
                 tok = int(toks[s])
                 req.out.append(tok)
-                if (tok == sc.eos_token or len(req.out) >= req.max_new
+                overdue = (sc.request_deadline_s is not None
+                           and now - req.arrived_at > sc.request_deadline_s)
+                if overdue:
+                    # the deadline at the tick boundary: the request
+                    # retires with the tokens it has
+                    req.deadline_exceeded = True
+                    self.deadline_retired += 1
+                if (overdue or tok == sc.eos_token
+                        or len(req.out) >= req.max_new
                         or self.lengths[s] + 1 >= sc.max_len):
                     self.slot_req[s] = None
                     self.lengths[s] = 0
                     active -= 1
             if sc.record_tick_times:
-                self.tick_times.append((t_tick, time.perf_counter() - t_tick))
+                self.tick_times.append((t_tick, time.perf_counter() - t_tick,
+                                        time.thread_time() - c_tick))
         return [r.out for r in queue]
 
 

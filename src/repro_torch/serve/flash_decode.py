@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from repro_torch.models.layers import device_index
+
 
 def resolve_decode_splits(*, B: int, Hq: int, Hkv: int, Lkv: int, D: int,
                           dtype_bits: int, causal: int = 1,
@@ -60,7 +62,7 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bqgrd,bnkgd->bngrqk", qf, ks)
     pos = (torch.arange(n_splits, device=dev)[:, None] * Ls
            + torch.arange(Ls, device=dev)[None, :])               # (n, Ls)
-    valid = pos[None] < torch.as_tensor(kv_len, device=dev).reshape(-1, 1, 1)
+    valid = pos[None] < device_index(kv_len, dev).reshape(-1, 1, 1)
     s = torch.where(valid[:, :, None, None, None, :], s,
                     torch.full_like(s, -1e30))
 

@@ -27,10 +27,10 @@ configs.  Where the port differs on purpose:
   * :func:`collect_samples` labels through the backend it is given; the
     port's is the gated ``CheckedBackend(CudaEventBackend)``, and a draw
     whose config the gate rejects is neither recorded nor counted.
-  * The reference's deferred re-measurement (``ModelSet.measure_queue``
-    and ``tunedb/measure.py``) is not ported; :meth:`ModelSet.predict`
-    keeps the inline ``measurer``, which refuses to measure while a CUDA
-    stream is capturing a graph.
+  * :meth:`ModelSet.predict` with an inline ``measurer`` (no
+    ``measure_queue``) refuses to measure while a CUDA stream is capturing
+    a graph.  With a queue attached (``tunedb/measure.py``, the serving
+    engine's ``measure="wallclock"``) it only pushes, so it is safe there.
 """
 
 from __future__ import annotations
@@ -287,8 +287,12 @@ class ModelSet:
     When set, the first resolution of a shape measures the model's top
     ``remeasure_top_k`` configs and serves the measured winner; a config
     the gate rejects drops out.  It never measures while the current CUDA
-    stream is capturing a graph: such a resolution raises.  Without a
-    measurer the model's argmax is served (the engine installs none).
+    stream is capturing a graph: such a resolution raises.  With a
+    ``measure_queue`` (``tunedb.measure.MeasureQueue``) attached as well,
+    the resolution serves the model's argmax at once and pushes the top-k
+    onto the queue, which the serving engine drains between decode ticks
+    (:meth:`apply_measurement` commits each winner).  Without a measurer
+    the model's argmax is served.
 
     Confidence gates (off at 0): a resolution is declined, and dispatch
     falls through to the nearest record, when the predicted top-1 beats
@@ -302,6 +306,9 @@ class ModelSet:
                  max_feature_z: float = 0.0) -> None:
         self.models: Dict[Tuple[str, str], PerfModel] = {}
         self.measurer = measurer
+        # deferred re-measurement (serving): predict pushes the top-k here
+        # instead of measuring inline
+        self.measure_queue = None
         self.remeasure_top_k = remeasure_top_k
         self.margin_threshold = margin_threshold
         self.max_feature_z = max_feature_z
@@ -330,12 +337,16 @@ class ModelSet:
 
     def merged_with(self, newer: "ModelSet") -> "ModelSet":
         """A new set with this set's models overridden by ``newer``'s (a
-        retrain's hot swap); the serving policy (measurer, re-measure
-        width, gates) stays this set's."""
+        retrain's hot swap); the serving policy (measurer, measure queue,
+        re-measure width, gates) stays this set's.  An empty queue is
+        carried too (the reference's ``or`` drops a queue of length 0)."""
         out = ModelSet(measurer=self.measurer or newer.measurer,
                        remeasure_top_k=self.remeasure_top_k,
                        margin_threshold=self.margin_threshold,
                        max_feature_z=self.max_feature_z)
+        out.measure_queue = (self.measure_queue
+                             if self.measure_queue is not None
+                             else newer.measure_queue)
         out.models.update(self.models)
         out.models.update(newer.models)
         return out
@@ -389,7 +400,8 @@ class ModelSet:
             else:
                 self.hits += 1
             return out
-        if self.measurer is not None and _capturing():
+        if (self.measurer is not None and self.measure_queue is None
+                and _capturing()):
             raise RuntimeError(
                 f"tunedb model: resolving a new {space} shape {inputs} would "
                 "measure configs while a CUDA graph is being captured; "
@@ -413,6 +425,15 @@ class ModelSet:
                             gated = True
                     if gated:
                         pass
+                    elif (self.measurer is not None and len(res.top_k) > 1
+                          and self.measure_queue is not None):
+                        # serving: the argmax now, the top-k re-measured
+                        # in an idle gap (MeasureQueue.process)
+                        self.measure_queue.push(
+                            space, backend, inputs,
+                            [dict(c) for c, _ in res.top_k])
+                        out = (normalize_config(res.best),
+                               float(res.predicted_tflops))
                     elif self.measurer is not None and len(res.top_k) > 1:
                         measured = []
                         for cfg, _ in res.top_k:

@@ -312,8 +312,9 @@ def test_backend_times_attention_and_ssd_behind_the_gate(cuda):
 
 
 def test_graph_decode_tokens_equal_the_eager_tick(cuda):
-    """The engine serves decode ticks from one captured CUDA graph; the
-    same requests through its eager tick give the same greedy tokens."""
+    """The engine serves decode ticks from one captured CUDA graph (and
+    each prompt length's prefill from its own); the same requests through
+    its eager prefill and tick give the same greedy tokens."""
     import numpy as np
 
     from repro_torch.configs import smollm_135m
@@ -333,11 +334,47 @@ def test_graph_decode_tokens_equal_the_eager_tick(cuda):
     assert eng.captures == 1 and eng.replays == eng.ticks > 0
     again = eng.generate(prompts, max_new=8)          # no re-capture
     assert eng.captures == 1 and again == graph
+    assert eng.prefill_captures == 5 and eng.prefill_replays == 10
     eager = Engine(cfg, params, ServeConfig(max_len=64, slots=3),
                    device=cuda)
-    eager.decode = eager.decode_eager
+    eager.prefill, eager.decode = eager.prefill_eager, eager.decode_eager
     assert eager.generate(prompts, max_new=8) == graph
-    assert eager.captures == 0
+    assert eager.captures == eager.prefill_captures == 0
+
+
+def test_graph_prefill_equals_the_eager_prefill(cuda):
+    """A prefill replayed from its length's graph gives the eager
+    prefill's logits, bitwise, and the same slot cache rows, the rows past
+    the prompt zero (lengths in falling order: a longer replay leaves the
+    static cache and the slot dirty for the next); a new serving
+    generation drops every prefill graph."""
+    import numpy as np
+
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tunedb.store import clear_store, serving_state
+
+    clear_store()
+    cfg, params = _smoke_engine_params(cuda)
+    eng = Engine(cfg, params, ServeConfig(max_len=64, slots=2), device=cuda)
+    kv = eng.cache["pos0"]["attn"]
+    rng = np.random.default_rng(3)
+    for n in (40, 17, 9, 1):
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, n)[None],
+                                 device=cuda)
+        graph = eng.prefill_graph(1, tokens).clone()
+        rows = [kv[k][:, 1].clone() for k in ("k", "v")]
+        eager = eng.prefill_eager(1, tokens)
+        assert torch.equal(graph, eager), n
+        for k, got in zip(("k", "v"), rows):
+            assert torch.equal(got, kv[k][:, 1]), (n, k)
+            assert not got[:, n:].any() and got[:, :n].any()
+    assert sorted(eng.prefill_graphs) == [1, 9, 17, 40]
+    assert eng.prefill_captures == 4 and eng.prefill_graph_bytes() > 0
+    gen = serving_state().generation
+    clear_store()                                    # a new generation
+    assert serving_state().generation == gen + 1
+    eng.prefill_graph(0, tokens)
+    assert sorted(eng.prefill_graphs) == [1] and eng.prefill_captures == 5
 
 
 @pytest.mark.parametrize("name", ["gemm", "conv", "attention", "ssd"])
@@ -457,6 +494,34 @@ def test_a_measuring_resolution_under_capture_raises(card_models):
     assert len(measured) == 3
 
 
+def test_a_queued_resolution_under_capture_pushes(card_models):
+    """With a measure queue attached the model set never measures: a
+    resolution under capture serves the argmax and pushes the top-k, and
+    the serving measurer itself refuses to time a config while a stream
+    captures."""
+    from repro_torch.tunedb.measure import MeasureQueue, ServingMeasurer
+    from repro_torch.tunedb.model import ModelSet
+    measurer = ServingMeasurer(device="cuda")
+    models = ModelSet(measurer=measurer, remeasure_top_k=3)
+    models.measure_queue = MeasureQueue()
+    models.models.update(card_models["models"].models)
+    fp = card_models["backend"].fingerprint
+    x = gemm_input(17, 576, 576, 16)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream()):
+        graph.capture_begin()
+        try:
+            got = models.predict("gemm", x, backend=fp)
+            with pytest.raises(RuntimeError, match="captured"):
+                measurer("gemm", got[0], x)
+        finally:
+            graph.capture_end()
+    assert len(models.measure_queue) == 1
+    assert measurer.counts["wallclock"] == 0
+    assert models.measure_queue.process(measurer, models=models) == 1
+    assert measurer.counts["wallclock"] == 3
+
+
 def _smoke_engine_params(cuda, splits=4):
     import dataclasses
 
@@ -469,9 +534,9 @@ def _smoke_engine_params(cuda, splits=4):
 
 
 def test_graph_and_eager_ticks_count_the_same_telemetry(cuda):
-    """Neither the capture pass nor its warm-up counts: a graph run counts
-    each shape once per replay and per prefill, exactly as the eager tick
-    counts it on the same requests."""
+    """Neither a capture pass nor its warm-up counts: a graph run counts
+    each shape once per tick replay and per prefill replay, exactly as the
+    eager prefills and ticks count it on the same requests."""
     import numpy as np
 
     from repro_torch.serve import Engine, ServeConfig
@@ -488,13 +553,14 @@ def test_graph_and_eager_ticks_count_the_same_telemetry(cuda):
         eng = Engine(cfg, params, ServeConfig(max_len=64, slots=3),
                      device=cuda)
         if eager:
-            eng.decode = eng.decode_eager
+            eng.prefill, eng.decode = eng.prefill_eager, eng.decode_eager
         clear_telemetry()
         eng.generate(prompts, max_new=6)
         per_fwd = 7 * cfg.n_layers
         assert tel.total("gemm") == per_fwd * (eng.prefills + eng.ticks)
         assert tel.total("attention") == cfg.n_layers * eng.ticks
         assert eng.captures == (0 if eager else 1)
+        assert eng.prefill_replays == (0 if eager else eng.prefills)
         views.append({s: tel.hot_shapes(s, 100) for s in tel.spaces()})
     assert views[0] == views[1]
     clear_telemetry()

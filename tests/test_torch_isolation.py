@@ -47,7 +47,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {"repro_torch.kernels.matmul", "repro_torch.kernels.attention",
             "repro_torch.kernels.ssd", "repro_torch.serve.engine",
             "repro_torch.tunedb.store", "repro_torch.tunedb.telemetry",
-            "repro_torch.tunedb.plans", "repro_torch.weights"} <= set(
+            "repro_torch.tunedb.plans", "repro_torch.tunedb.measure",
+            "repro_torch.weights"} <= set(
                 out["modules"])
 
 

@@ -300,3 +300,41 @@ def test_install_serving_swaps_in_one_generation_and_drops_memos(artifacts):
     assert not models._memo
     tmodel.clear_models()
     assert tmodel.get_models() is None and tstore.serving_state().store is store
+
+
+@pytest.mark.parametrize("inputs", UNTUNED)
+def test_predict_with_a_queue_pushes_the_reference_top_k(artifacts, inputs):
+    """With a measurer and a ``MeasureQueue`` attached, ``predict`` serves
+    the model's argmax at once and pushes its top-k, never measuring:
+    the port pushes the candidate list the reference pushes and serves its
+    argmax (the reference's scan held to the port's legal configs, which
+    its own space does not enumerate), and a repeat is a memo hit that
+    pushes nothing."""
+    import functools
+
+    from repro.tunedb.measure import MeasureQueue as JQueue
+    from repro_torch.tunedb.measure import MeasureQueue as TQueue
+    calls = []
+
+    def measurer(*args):
+        calls.append(args)
+        return 1.0
+
+    jms = jmodel.ModelSet.load(artifacts["reference"])
+    tms = tmodel.ModelSet.load(artifacts["reference"])
+    jpm = jms.resolve_model("gemm", FP)
+    jpm.predict_config = functools.partial(
+        jpm.predict_config, candidates=enumerate_legal(GEMM_SPACE, inputs))
+    queues = (JQueue(), TQueue())
+    for ms, q in zip((jms, tms), queues):
+        ms.measurer, ms.measure_queue, ms.remeasure_top_k = measurer, q, 6
+    jgot = jms.predict("gemm", inputs, backend=FP)
+    tgot = tms.predict("gemm", inputs, backend=FP)
+    assert tgot[0] == jgot[0]
+    assert tgot[1] == pytest.approx(jgot[1], rel=1e-5)
+    (jitem,), (titem,) = (list(q._items) for q in queues)
+    assert titem == jitem and len(titem[4]) == 6
+    assert titem[4][0] == tgot[0]
+    assert tms.predict("gemm", inputs, backend=FP) == tgot
+    assert [q.stats() for q in queues] == [queues[0].stats()] * 2
+    assert queues[1].pushed == 1 and not calls

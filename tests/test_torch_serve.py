@@ -437,3 +437,183 @@ def test_launcher_serves_from_a_plan_artifact_on_cpu(tmp_path, capsys):
     assert "3 requests, 9 tokens" in out
     assert "plan: loaded, 8 entries {'exact': 8}" in out
     assert ", 0 misses" in out
+
+
+# ---------------------------------------------------------------------------
+# Graceful degradation: request deadlines and load shedding
+# ---------------------------------------------------------------------------
+
+class _Clock:
+    """A ``time`` stand-in whose ``monotonic`` advances one second a call
+    (the engines' other clocks stay real)."""
+
+    def __init__(self):
+        import time as _time
+        self.now = 0.0
+        self.perf_counter = _time.perf_counter
+        self.thread_time = _time.thread_time
+
+    def monotonic(self):
+        self.now += 1.0
+        return self.now
+
+
+def _degraded_run(monkeypatch, sc_kw, prompts, max_new, clock=False):
+    """The same requests through both engines under ``sc_kw``: each
+    engine's outputs, the requests' (shed, deadline_exceeded) flags, and
+    its counters and health."""
+    import repro.serve.engine as jengine
+    import repro_torch.serve.engine as tengine
+    jcfg, jp, tcfg, tp = _both_engines_params()
+    runs = []
+    for mod, make in ((jengine, lambda: JEngine(
+            jcfg, jp, JServeConfig(max_len=64, slots=2, **sc_kw))),
+            (tengine, lambda: TEngine(
+                tcfg, tp, TServeConfig(max_len=64, slots=2, **sc_kw),
+                device="cpu"))):
+        made = []
+        real = mod.Request
+        monkeypatch.setattr(mod, "Request", lambda *a, **k: made.append(
+            real(*a, **k)) or made[-1])
+        if clock:
+            monkeypatch.setattr(mod, "time", _Clock())
+        eng = make()
+        outs = [[int(t) for t in o] for o in eng.generate(prompts,
+                                                          max_new=max_new)]
+        runs.append({"outs": outs,
+                     "flags": [(r.shed, r.deadline_exceeded) for r in made],
+                     "counters": (eng.shed_requests, eng.deadline_retired,
+                                  eng.shedding, eng._health())})
+    return runs
+
+
+def test_shed_threshold_matches_the_reference(monkeypatch):
+    """The reference's shedding scenario: with 6 requests and a backlog
+    cap of 3, both engines shed the 3 newest and serve the 3 oldest whole,
+    and end healthy."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tconfigs.SMOKE.vocab, 5) for _ in range(6)]
+    ref, port = _degraded_run(monkeypatch, {"shed_threshold": 3}, prompts,
+                              max_new=4)
+    assert port == ref
+    assert port["counters"] == (3, 0, False, True)
+    assert [len(o) for o in port["outs"]] == [4, 4, 4, 0, 0, 0]
+    assert port["flags"] == [(False, False)] * 3 + [(True, False)] * 3
+
+
+@pytest.mark.parametrize("deadline", [0.0, 3600.0])
+def test_request_deadline_matches_the_reference(monkeypatch, deadline):
+    """The reference's deadline scenarios: an expired deadline rejects
+    every request unserved; a generous one changes no token."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tconfigs.SMOKE.vocab, 5) for _ in range(3)]
+    ref, port = _degraded_run(monkeypatch, {"request_deadline_s": deadline},
+                              prompts, max_new=4)
+    assert port == ref
+    if deadline == 0.0:
+        assert port["outs"] == [[], [], []]
+        assert port["flags"] == [(False, True)] * 3
+        assert port["counters"] == (0, 3, False, True)
+    else:
+        plain = _degraded_run(monkeypatch, {}, prompts, max_new=4)[1]
+        assert port["outs"] == plain["outs"]
+        assert port["counters"] == (0, 0, False, True)
+
+
+def test_an_overdue_active_request_retires_with_its_tokens(monkeypatch):
+    """On a clock that advances a second a reading, both engines retire
+    the same active requests with the tokens they have and reject the
+    same pending ones unserved."""
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, tconfigs.SMOKE.vocab, n) for n in (5, 7, 4,
+                                                                 6, 3)]
+    ref, port = _degraded_run(monkeypatch, {"request_deadline_s": 6.5,
+                                            "shed_threshold": 4},
+                              prompts, max_new=6, clock=True)
+    assert port == ref
+    lens = [len(o) for o in port["outs"]]
+    assert any(0 < n < 6 for n in lens) and 0 in lens
+    assert (True, False) in port["flags"] and (False, True) in port["flags"]
+
+
+def test_tick_times_carry_thread_cpu_seconds():
+    """Each recorded tick is (start, wall seconds, thread-CPU seconds), as
+    in the reference."""
+    _, _, tcfg, tp = _both_engines_params()
+    eng = TEngine(tcfg, tp, TServeConfig(max_len=32, slots=2,
+                                         record_tick_times=True),
+                  device="cpu")
+    eng.generate([np.arange(5), np.arange(3)], max_new=3)
+    assert len(eng.tick_times) == eng.ticks > 0
+    assert all(len(t) == 3 and t[1] > 0 and t[2] >= 0
+               for t in eng.tick_times)
+
+
+# ---------------------------------------------------------------------------
+# The model tier's deferred re-measurement in idle decode gaps
+# ---------------------------------------------------------------------------
+
+def test_measure_drains_in_idle_gaps_into_the_plan(tmp_path):
+    """With ``measure="wallclock"`` (on the CPU: the gated timer on the
+    plain versions) every shape the model tier resolves is served its
+    argmax and queued; the engine drains the queue after its ticks, and
+    each drained shape then resolves on the plan tier to its measured
+    winner, the best of its re-measured candidates.  Tokens are those of
+    an engine without ``measure``; one calibration GEMM ran at start."""
+    from repro_torch.kernels import dispatch as tdispatch
+    from repro_torch.tunedb import store as tstore
+    db = tmp_path / "db.jsonl"
+    _smoke_models(db)
+    clear_telemetry()
+    _, _, tcfg, tp = _both_engines_params()
+    prompts = [np.arange(5) % tcfg.vocab, np.arange(9) % tcfg.vocab]
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            plain = TEngine(tcfg, tp, TServeConfig(
+                max_len=32, slots=2, tunedb=str(db)),
+                device="cpu").generate(prompts, max_new=4)
+            clear_telemetry()
+            eng = TEngine(tcfg, tp, TServeConfig(
+                max_len=32, slots=2, tunedb=str(db), measure="wallclock"),
+                device="cpu")
+        models = eng.tunedb_models
+        assert models.measurer is eng.measurer
+        assert models.measure_queue is eng.measure_queue
+        assert eng.calibration_tflops > 0
+        assert eng.measurer.counts["wallclock"] == 1
+        models.remeasure_top_k = 4
+        measured = {}
+        real = eng.measurer
+
+        def recording(space, cfg, inputs):
+            tflops = real(space, cfg, inputs)
+            measured.setdefault(tuple(sorted(inputs.items())), []).append(
+                (dict(cfg), tflops))
+            return tflops
+
+        eng.measurer = recording
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            out = eng.generate(prompts, max_new=4)
+        assert out == plain
+        q = eng.measure_queue
+        # 3 prompt/tick M values x 4 projections, each queued once
+        assert q.pushed == 12 and q.dropped == 0
+        assert 0 < q.processed < 12        # 2 a tick over 3 ticks
+        while len(q):
+            eng.maybe_retune()
+        assert q.processed == 12 and len(measured) == 12
+        assert real.counts["wallclock"] == 1 + sum(
+            len(v) for v in measured.values())
+        tdispatch.reset_counts()
+        for key, got in measured.items():
+            winner = max(got, key=lambda t: t[1])[0]
+            assert len(got) == 4
+            assert tdispatch._resolve_cfg("gemm", dict(key)) == (winner,
+                                                                "plan")
+            assert tstore.serving_state().plan.lookup("gemm", key) == (
+                winner, "model")
+        assert set(tdispatch.tier_counts) == {("gemm", "plan")}
+    finally:
+        tstore.install_serving(store=None, models=None, fingerprint=None)

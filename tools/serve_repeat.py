@@ -8,11 +8,12 @@ Tunes the 8 SmolLM-135M projection GEMMs and the 4 attention targets as
 ``chip_smoke.py``'s tune phase does, then runs ``phase_serve`` ``--runs``
 times: each run checks that the graph run gives the device exactly 210 x
 (prefills + replays) GEMM kernels and the expected split-K reduction
-passes, counted from the captured decode graph's kernel nodes.  After
-each run one more graph run of the same 8 requests is traced with
+passes, counted from the captured graphs' kernel nodes.  After each
+run one more graph run of the same 8 requests is traced with
 ``torch.profiler`` (CUDA activity), and its GEMM and reduction kernels
-are counted from the profiler's events beside the exact count (the
-graph's nodes times the replays, plus the prefills' launches).  Prints
+are counted from the profiler's events beside the exact count (the tick
+graph's nodes times its replays, plus the 32-token prefill graph's times
+its replays).  Prints
 one JSON line per run and a summary, writes the runs as JSON to ``--out``
 (``results/serve_repeat.json`` by default), and exits non-zero if any
 run's exact check failed.  Needs one NVIDIA GPU.
@@ -38,10 +39,10 @@ import chip_smoke as cs  # noqa: E402
 
 def traced_count(eng, prompts: list) -> dict:
     """One more graph run of ``prompts``: its GEMM and reduction kernels
-    counted exactly and from the profiler's events."""
-    nodes = cs.graph_kernel_names(eng.graph)
-    per_tick = [sum(1 for n in nodes if p.search(n))
-                for p in (cs.GEMM_KERNEL, cs.REDUCE_KERNEL)]
+    counted exactly (each graph's kernel nodes times its replays: the
+    tick's, and each prompt length's prefill graph once a prompt, plus
+    any launch from the host) and from the profiler's events."""
+    per_tick = cs.graph_counts(eng.graph)[:2]
     before = eng.replays
     cs.reset_launches()
     with torch.profiler.profile(
@@ -49,10 +50,16 @@ def traced_count(eng, prompts: list) -> dict:
         eng.generate(prompts, max_new=16)
         torch.cuda.synchronize()
     replays = eng.replays - before
-    host = (cs.kmatmul.launches, cs.kmatmul.reduce_launches)
+    exact = [n * replays for n in per_tick]
+    exact[0] += cs.kmatmul.launches
+    exact[1] += cs.kmatmul.reduce_launches
+    graphs = eng.prefill_graphs
+    for prompt in prompts:
+        for i, n in enumerate(cs.graph_counts(graphs[len(prompt)])[:2]):
+            exact[i] += n
     names = [ev.name for ev in prof.events()
              if ev.device_type == torch.autograd.DeviceType.CUDA]
-    return {"exact": [n * replays + h for n, h in zip(per_tick, host)],
+    return {"exact": exact,
             "profiler": [sum(1 for n in names if p.search(n))
                          for p in (cs.GEMM_KERNEL, cs.REDUCE_KERNEL)]}
 
