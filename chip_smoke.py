@@ -147,11 +147,33 @@ exits non-zero:
                 captured graph's kernel nodes, replay by replay and name by
                 name (at most 5 rounds), then its kernels by name (ms and
                 count a tick, in order of time)
- 19. kernels    one JSON line summarising every hand-written kernel (the
+ 19. mamba      mamba2-1.3b at full width (48 layers, bf16, random weights
+                from seed 0): its 4 projection GEMMs (M = 4 and 32) tuned
+                into the store, then 8 requests of 32-token prompts x 16
+                tokens served through ``Engine.generate`` from the
+                engine's CUDA graphs (a warm-up run captures the tick and
+                the 32-token prefill): no GEMM launched from the host in
+                the graph run, 96 x (prefills + replays) GEMM kernels and
+                one reduction pass per split-K projection given to the
+                device (graph nodes x replays), the telemetry's GEMM count
+                the same and no split-count lookup, every served shape
+                planned as its tuned record; the same requests eager: the
+                same greedy tokens; tok/s and median tick of both; the
+                32-token prefill, graph against eager; graph against eager
+                prefill at 300/200/32/9/1 tokens: logits bitwise, the
+                slot's conv and SSM state the single-slot cache's and the
+                eager prefill's; prefill of 262 tokens against prefill of
+                250 and 12 decode steps (fp32 held to the reference test's
+                tolerance, bf16 printed); the SSD kernel under the mamba2
+                target's record against ``ssd_chunked`` on layer 0's scan
+                inputs at L=300 (both timed; not on the path); the
+                replayed tick's device time against its byte bound; the
+                phase's wall time
+ 20. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
 
 Each path (tune, models, serve, plans, admission, measure,
-degradation) runs with every launch
+degradation, serve_mamba) runs with every launch
 count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
 
@@ -166,6 +188,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import json
 import math
@@ -207,7 +230,10 @@ from repro_torch.kernels import matmul as kmatmul  # noqa: E402
 from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref, conv2d_ref,  # noqa: E402
                                      matmul_ref, ssd_ref)
-from repro_torch.models import decode_step, init_cache, init_params, prefill  # noqa: E402
+from repro_torch.models import (decode_step, init_cache,  # noqa: E402
+                                init_params, prefill, tree_leaves, tree_map)
+from repro_torch.models import ssm as mssm  # noqa: E402
+from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.serve.flash_decode import resolve_decode_splits  # noqa: E402
 from repro_torch.tunedb.model import (ModelSet, clear_models,  # noqa: E402
@@ -931,12 +957,14 @@ def neighbours(x: dict, dims: tuple) -> list:
     return out
 
 
-def tune_space(space, targets: list, dims, backend, store) -> dict:
+def tune_space(space, targets: list, dims, backend, store,
+               samples: int = 0) -> dict:
     """The offline loop for one space, built from the library's public
     pieces: fit the sampler on the target-and-neighbour pool, label a
-    dataset on the card, train the regressor, run a tuning session.
-    ``dims`` names the dims each target's neighbours vary (or maps a
-    target to them)."""
+    dataset of ``samples`` configs (default :data:`TUNE_SAMPLES`) on the
+    card, train the regressor, run a tuning session.  ``dims`` names the
+    dims each target's neighbours vary (or maps a target to them)."""
+    samples = samples or TUNE_SAMPLES[space.name]
     pool = []
     for x in targets:
         d = dims(x) if callable(dims) else dims
@@ -947,7 +975,7 @@ def tune_space(space, targets: list, dims, backend, store) -> dict:
     t1 = time.perf_counter()
     inputs, cfgs, ys = [], [], []
     rejected = 0
-    while len(cfgs) < TUNE_SAMPLES[space.name]:
+    while len(cfgs) < samples:
         x = pool[rng.integers(len(pool))]
         cfg = sampler.sample_legal(x, rng)
         if cfg is None:
@@ -1720,6 +1748,86 @@ def graph_counts(graph) -> tuple:
             sum(1 for n in names if REDUCE_KERNEL.search(n)), len(names))
 
 
+def serve_run(eng, what: str, batch: list, max_new: int, per_fwd: int,
+              red_pre: int, red_tick: int, attn_per_tick: int) -> dict:
+    """One ``eng.generate`` of ``batch``, its host-side launches,
+    resolutions and telemetry held to what a forward gives: ``per_fwd``
+    GEMMs, ``red_pre`` / ``red_tick`` split-K reduction passes a prefill /
+    a tick, ``attn_per_tick`` decode split-count lookups a tick.  The host
+    traces a forward at every eager prefill and tick, and twice at a
+    capture (the capture and its warm-up); a replay calls nothing on the
+    host.  Every resolution must be a plan hit."""
+    cfg, tel = eng.cfg, get_telemetry()
+    before = (eng.ticks, eng.prefills, eng.captures, eng.replays,
+              eng.prefill_captures, eng.prefill_replays,
+              kmatmul.launches, kmatmul.reduce_launches)
+    eng.tick_times.clear()
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    prev = tel.snapshot()
+    t0 = time.perf_counter()
+    outs = eng.generate(batch, max_new=max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    window = tel.diff(prev)
+    (ticks, prefills, captures, replays, pcaptures, preplays, launches,
+     reduce_launches) = (now - b for now, b in zip(
+         (eng.ticks, eng.prefills, eng.captures, eng.replays,
+          eng.prefill_captures, eng.prefill_replays, kmatmul.launches,
+          kmatmul.reduce_launches), before))
+    got = {"launches": launches, "reduce_launches": reduce_launches,
+           "tiers": {t: c for (sp, t), c in dispatch.tier_counts.items()
+                     if sp == "gemm"},
+           "attn_tiers": {t: c for (sp, t), c in
+                          dispatch.tier_counts.items()
+                          if sp == "attention"}}
+    if [len(o) for o in outs] != [max_new] * len(batch):
+        raise AssertionError(f"{what}: token counts {[len(o) for o in outs]}")
+    if any(not (0 <= t < cfg.vocab) for o in outs for t in o):
+        raise AssertionError(f"{what}: token outside the vocabulary")
+    # forwards the host traced: every eager prefill and tick, or a
+    # capture and its eager warm-up
+    graph_tick = eng.decode != eng.decode_eager
+    graph_prefill = eng.prefill != eng.prefill_eager
+    traced_tick = 2 * captures if graph_tick else ticks
+    traced_pre = 2 * pcaptures if graph_prefill else prefills
+    if (graph_tick and replays != ticks) or (
+            graph_prefill and preplays != prefills):
+        raise AssertionError(f"{what}: {replays} tick replays for "
+                             f"{ticks} ticks, {preplays} prefill "
+                             f"replays for {prefills} prefills")
+    want_gemm = per_fwd * (traced_pre + traced_tick)
+    want = {"launches": want_gemm,
+            "reduce_launches": red_pre * traced_pre + red_tick * traced_tick,
+            "tiers": {"plan": want_gemm} if want_gemm else {},
+            "attn_tiers": {"plan": attn_per_tick * traced_tick}
+            if traced_tick and attn_per_tick else {}}
+    if got != want:
+        raise AssertionError(f"{what}: host-side GEMM launches and "
+                             f"resolutions {got}, want {want} ({prefills} "
+                             f"prefills, {ticks} ticks, {captures} tick "
+                             f"and {pcaptures} prefill captures)")
+    # executions the telemetry counts: each prefill, each tick (a
+    # replay or an eager forward), never a capture or its warm-up
+    tel_got = {sp: window[sp].window_calls if sp in window else 0
+               for sp in ("gemm", "attention")}
+    tel_want = {"gemm": per_fwd * (prefills + ticks),
+                "attention": attn_per_tick * ticks}
+    if tel_got != tel_want:
+        raise AssertionError(f"{what}: telemetry counted {tel_got}, want "
+                             f"{tel_want}")
+    shapes = {(sp, shape_key(i)): c for sp, d in window.items()
+              for i, c in d.window_shapes}
+    return {"outs": outs, "wall": wall, "ticks": ticks,
+            "reduce_launches": got["reduce_launches"],
+            "prefills": prefills, "captures": captures,
+            "prefill_captures": pcaptures, "replays": replays,
+            "launches": got["launches"],
+            "tok_s": sum(len(o) for o in outs) / wall,
+            "tick_ms": statistics.median(t[1] for t in eng.tick_times)
+            * 1e3, "telemetry": tel_got, "shapes": shapes}
+
+
 def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                 label: str) -> dict:
     """Serve 8 requests from the tuned store with the engine's CUDA graphs
@@ -1760,7 +1868,6 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
           f"{plan.stats()['tiers']} in {plan.compile_ms:.1f} ms (exact "
           f"records under the fingerprint, then the telemetry's hot set "
           f"through the model and nearest tiers)")
-    tel = get_telemetry()
     rng = np.random.default_rng(0)
     warm = [rng.integers(0, cfg.vocab, 32) for _ in range(2)]
     prompts = [rng.integers(0, cfg.vocab, 32) for _ in range(8)]
@@ -1772,77 +1879,9 @@ def phase_serve(cfg, params, store_path: Path, fp: str, gemm_rows: list,
                                      if r["M"] == M and r["k_split"] > 1)
                for M in SLICE_M}
 
-    def run(what: str, batch: list, max_new: int) -> dict:
-        before = (eng.ticks, eng.prefills, eng.captures, eng.replays,
-                  eng.prefill_captures, eng.prefill_replays,
-                  kmatmul.launches, kmatmul.reduce_launches)
-        eng.tick_times.clear()
-        torch.cuda.synchronize()
-        dispatch.reset_counts()
-        prev = tel.snapshot()
-        t0 = time.perf_counter()
-        outs = eng.generate(batch, max_new=max_new)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        window = tel.diff(prev)
-        (ticks, prefills, captures, replays, pcaptures, preplays, launches,
-         reduce_launches) = (now - b for now, b in zip(
-             (eng.ticks, eng.prefills, eng.captures, eng.replays,
-              eng.prefill_captures, eng.prefill_replays, kmatmul.launches,
-              kmatmul.reduce_launches), before))
-        got = {"launches": launches, "reduce_launches": reduce_launches,
-               "tiers": {t: c for (sp, t), c in dispatch.tier_counts.items()
-                         if sp == "gemm"},
-               "attn_tiers": {t: c for (sp, t), c in
-                              dispatch.tier_counts.items()
-                              if sp == "attention"}}
-        if [len(o) for o in outs] != [max_new] * len(batch):
-            raise AssertionError(f"{what}: token counts {[len(o) for o in outs]}")
-        if any(not (0 <= t < cfg.vocab) for o in outs for t in o):
-            raise AssertionError(f"{what}: token outside the vocabulary")
-        # forwards the host traced: every eager prefill and tick, or a
-        # capture and its eager warm-up
-        graph_tick = eng.decode != eng.decode_eager
-        graph_prefill = eng.prefill != eng.prefill_eager
-        traced_tick = 2 * captures if graph_tick else ticks
-        traced_pre = 2 * pcaptures if graph_prefill else prefills
-        if (graph_tick and replays != ticks) or (
-                graph_prefill and preplays != prefills):
-            raise AssertionError(f"{what}: {replays} tick replays for "
-                                 f"{ticks} ticks, {preplays} prefill "
-                                 f"replays for {prefills} prefills")
-        want_gemm = per_fwd * (traced_pre + traced_tick)
-        want = {"launches": want_gemm,
-                "reduce_launches": red_fwd[32] * traced_pre
-                + red_fwd[4] * traced_tick,
-                "tiers": {"plan": want_gemm} if want_gemm else {},
-                "attn_tiers": {"plan": cfg.n_layers * traced_tick}
-                if traced_tick else {}}
-        if got != want:
-            raise AssertionError(f"{what}: host-side GEMM launches and "
-                                 f"resolutions {got}, want {want} ({prefills} "
-                                 f"prefills, {ticks} ticks, {captures} tick "
-                                 f"and {pcaptures} prefill captures)")
-        # executions the telemetry counts: each prefill, each tick (a
-        # replay or an eager forward), never a capture or its warm-up
-        tel_got = {sp: window[sp].window_calls if sp in window else 0
-                   for sp in ("gemm", "attention")}
-        tel_want = {"gemm": per_fwd * (prefills + ticks),
-                    "attention": cfg.n_layers * ticks}
-        if tel_got != tel_want:
-            raise AssertionError(f"{what}: telemetry counted {tel_got}, want "
-                                 f"{tel_want}")
-        shapes = {(sp, shape_key(i)): c for sp, d in window.items()
-                  for i, c in d.window_shapes}
-        return {"outs": outs, "wall": wall, "ticks": ticks,
-                "reduce_launches": got["reduce_launches"],
-                "prefills": prefills, "captures": captures,
-                "prefill_captures": pcaptures, "replays": replays,
-                "launches": got["launches"],
-                "tok_s": sum(len(o) for o in outs) / wall,
-                "tick_ms": statistics.median(t[1] for t in eng.tick_times)
-                * 1e3, "telemetry": tel_got, "shapes": shapes}
-
+    run = functools.partial(serve_run, eng, per_fwd=per_fwd,
+                            red_pre=red_fwd[32], red_tick=red_fwd[4],
+                            attn_per_tick=cfg.n_layers)
     reset_launches()
     # warm-up: the engine captures its decode tick and the 32-token
     # prefill here, once each
@@ -2639,6 +2678,283 @@ def phase_model(cfg, params, dev: torch.device) -> float:
     return er
 
 
+# the Mamba phase: mamba2-1.3b's two projections a layer as (N, K), w_in
+# (2048 -> 8512) and w_out (4096 -> 2048), tuned at the tick's M (4 slots)
+# and the prompts' (32 tokens) from a dataset of MAMBA_TUNE_SAMPLES; the
+# prefill parity lengths (falling: 300 spans two 256-step chunks, padded,
+# and 1 takes the decode branch); the recurrence check's prefill length
+# and decode steps (across the chunk boundary at 256) and its rtol / atol,
+# those of the reference's tests/test_models.py
+# test_smoke_decode_matches_forward, which runs in fp32.  The check holds
+# the full-width weights in fp32: in bf16 the chunked and the recurrent
+# forms round differently and the gap grows with depth through random
+# layers, the GEMMs' plain versions alike (``tools/mamba_recurrence.py``
+# measures it by depth), so bf16's is printed
+MAMBA_NK = ((8512, 2048), (2048, 4096))
+MAMBA_SLOTS, MAMBA_PROMPT = 4, 32
+MAMBA_TUNE_SAMPLES = 96
+MAMBA_PARITY = (300, 200, 32, 9, 1)
+MAMBA_RECUR = (250, 12)
+MAMBA_RTOL = MAMBA_ATOL = 5e-2
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_mamba(backend, store: RecordStore, store_path: Path, fp: str,
+                dev: torch.device, peaks: dict, label: str) -> dict:
+    """mamba2-1.3b at full width (48 layers, bf16, random weights from seed
+    0) served through ``Engine.generate``, its recurrent cache through the
+    engine's CUDA graphs.
+
+    Its 4 projection GEMMs are tuned into the store first, so every serve
+    resolution is a plan hit on its exact record.  A warm-up run captures
+    the tick and the 32-token prefill; the graph run (every prefill and
+    tick replayed) must launch no GEMM from the host and give the device
+    96 x (prefills + replays) GEMM kernels, read from each graph's kernel
+    nodes times its replays, and one reduction pass per projection whose
+    tuned config splits K; the telemetry counts the same GEMM calls and no
+    split-count lookup (no attention); the eager run of the same requests
+    gives the same greedy tokens.  Then: graph against eager prefill at
+    :data:`MAMBA_PARITY` (logits bitwise, the slot's conv and SSM state
+    the single-slot cache's and the eager prefill's); prefill of n + k
+    tokens against prefill of n and k decode steps (:data:`MAMBA_RECUR`);
+    the SSD kernel under the mamba2 target's tuned record against
+    ``ssd_chunked`` on layer 0's scan inputs of the 300-token prompt (not
+    on the path: the reference's mixer calls ``ssd_chunked``); the
+    replayed tick's device time against its byte bound."""
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba2-1.3b")
+    bf16, vocab = torch.bfloat16, cfg.vocab
+    targets = [gemm_input(M, N, K, 16) for M in (MAMBA_SLOTS, MAMBA_PROMPT)
+               for N, K in MAMBA_NK]
+    t0 = time.perf_counter()
+    tune_space(GEMM_SPACE, targets, ("M",), backend, store,
+               samples=MAMBA_TUNE_SAMPLES)
+    tune_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen)
+    eng = Engine(cfg, params, ServeConfig(
+        max_len=256, slots=MAMBA_SLOTS, tunedb=str(store_path),
+        tunedb_backend=fp, tunedb_models="", record_tick_times=True))
+    plan = serving_state().plan
+    per_fwd = len(MAMBA_NK) * cfg.n_layers           # 96 GEMMs a forward
+    red = {M: cfg.n_layers * sum(
+        ops.shrink_gemm_cfg(store.get("gemm", gemm_input(M, N, K, 16),
+                                      backend=fp).config, M, N, K)[
+            "k_split"] > 1 for N, K in MAMBA_NK)
+        for M in (MAMBA_SLOTS, MAMBA_PROMPT)}
+    run = functools.partial(serve_run, eng, per_fwd=per_fwd,
+                            red_pre=red[MAMBA_PROMPT],
+                            red_tick=red[MAMBA_SLOTS], attn_per_tick=0)
+    rng = np.random.default_rng(0)
+    warm = [rng.integers(0, vocab, MAMBA_PROMPT) for _ in range(2)]
+    prompts = [rng.integers(0, vocab, MAMBA_PROMPT) for _ in range(8)]
+
+    reset_launches()
+    w = run("mamba warm-up", warm, 2)
+    if (w["captures"], w["prefill_captures"]) != (1, 1):
+        raise AssertionError(f"mamba warm-up: {w['captures']} tick and "
+                             f"{w['prefill_captures']} prefill captures")
+    g = run("mamba graph", prompts, 16)
+    if g["captures"] or g["prefill_captures"] or g["launches"]:
+        raise AssertionError(f"mamba graph run: {g['captures']} tick and "
+                             f"{g['prefill_captures']} prefill captures, "
+                             f"{g['launches']} GEMM launches from the host")
+    # the main path's wrapper launches: the warm-up's captures and their
+    # warm-ups (the graph run replays)
+    counts = read_launches()
+    if not counts["gemm"]:
+        raise AssertionError(f"mamba serve path launches {counts}")
+    tick_gemm, tick_reduce, tick_nodes = graph_counts(eng.graph)
+    if sorted(eng.prefill_graphs) != [MAMBA_PROMPT]:
+        raise AssertionError(f"mamba prefill graphs of lengths "
+                             f"{sorted(eng.prefill_graphs)}")
+    pre_gemm, pre_reduce, pre_nodes = graph_counts(
+        eng.prefill_graphs[MAMBA_PROMPT])
+    if ((tick_gemm, tick_reduce) != (per_fwd, red[MAMBA_SLOTS])
+            or (pre_gemm, pre_reduce) != (per_fwd, red[MAMBA_PROMPT])):
+        raise AssertionError(f"mamba tick graph: {tick_gemm} GEMM and "
+                             f"{tick_reduce} reduction nodes of {tick_nodes}; "
+                             f"prefill graph {pre_gemm} and {pre_reduce} of "
+                             f"{pre_nodes}; want {per_fwd} and "
+                             f"{red[MAMBA_SLOTS]}, {per_fwd} and "
+                             f"{red[MAMBA_PROMPT]}")
+    device = tick_gemm * g["replays"] + pre_gemm * g["prefills"]
+    device_reduce = tick_reduce * g["replays"] + pre_reduce * g["prefills"]
+    if (device != per_fwd * (g["prefills"] + g["replays"])
+            or g["telemetry"]["gemm"] != device):
+        raise AssertionError(f"mamba graph run: {device} GEMM kernels given "
+                             f"to the device, telemetry "
+                             f"{g['telemetry']['gemm']}, want {per_fwd} x "
+                             f"({g['prefills']} + {g['replays']})")
+    check_plan_exact(plan, eng.tunedb_store, fp, g["shapes"], "mamba serve")
+    reset_launches()
+    eng.prefill, eng.decode = eng.prefill_eager, eng.decode_eager
+    try:
+        e = run("mamba eager", prompts, 16)
+    finally:
+        eng.prefill, eng.decode = eng.prefill_graph, eng.decode_graph
+    eager_counts = read_launches()
+    if e["outs"] != g["outs"] or e["shapes"] != g["shapes"]:
+        raise AssertionError("mamba: the graphs' greedy tokens or per-shape "
+                             "telemetry differ from the eager run's")
+    phase("mamba", f"{cfg.name} ({cfg.n_layers}L d={cfg.d_model} bf16): GEMM "
+          f"tune of {len(targets)} shapes ({MAMBA_TUNE_SAMPLES} samples) "
+          f"{tune_s:.1f} s; {len(prompts)} requests x 16 tokens, "
+          f"ServeConfig(max_len=256, slots={MAMBA_SLOTS}); warm-up "
+          f"{w['launches']} GEMM launches from the host (captures and "
+          f"their warm-ups, all plan hits); graph run: {g['prefills']} "
+          f"prefills + {g['replays']} tick replays, {g['launches']} GEMM "
+          f"launches from the host, {device} GEMM kernels and "
+          f"{device_reduce} reduction passes given to the device ({per_fwd} "
+          f"x (prefills + replays); tick graph {tick_gemm} GEMM + "
+          f"{tick_reduce} reduction of {tick_nodes} kernel nodes, prefill "
+          f"graph {pre_gemm} + {pre_reduce} of {pre_nodes}), telemetry "
+          f"{g['telemetry']}; every served shape its tuned record (tier "
+          f"exact); graph {g['tok_s']:.1f} tok/s, median tick "
+          f"{g['tick_ms']:.2f} ms; eager {e['tok_s']:.1f} tok/s, median "
+          f"tick {e['tick_ms']:.2f} ms ({e['launches']} GEMM launches); "
+          f"greedy tokens equal; launches {counts}, eager {eager_counts} "
+          f"[{label}]")
+
+    # the 32-token prefill, graph replay (with the merge) against eager
+    tokens = torch.as_tensor(prompts[0][None], device=dev)
+    pre_ms = {}
+    for what, fn in (("graph", eng.prefill_graph),
+                     ("eager", eng.prefill_eager)):
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(1, tokens)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        pre_ms[what] = statistics.median(ts)
+
+    state = eng.cache["pos0"]["mamba"]
+    for n in MAMBA_PARITY:
+        tokens = torch.as_tensor(rng.integers(0, vocab, n)[None], device=dev)
+        graph = eng.prefill_graph(0, tokens)[:, :vocab].clone()
+        slot = {k: v[:, 0].clone() for k, v in state.items()}
+        single = eng._single["pos0"]["mamba"]
+        to_single = all(torch.equal(slot[k], single[k][:, 0]) for k in slot)
+        eager = eng.prefill_eager(0, tokens)[:, :vocab]
+        to_eager = all(torch.equal(slot[k], state[k][:, 0]) for k in slot)
+        torch.cuda.synchronize()
+        tok = (int(graph.argmax()), int(eager.argmax()))
+        if not (torch.equal(graph, eager) and tok[0] == tok[1] and to_single
+                and to_eager and torch.isfinite(graph).all()):
+            raise AssertionError(
+                f"mamba prefill parity at n={n}: logits max abs diff "
+                f"{float((graph - eager).abs().max()):.3e}, tokens {tok}, "
+                f"slot state = single-slot cache {to_single}, = eager "
+                f"{to_eager}")
+    phase("mamba", f"prefill parity at {list(MAMBA_PARITY)}: graph vs eager "
+          f"logits bitwise equal, the same greedy token, the slot's conv "
+          f"and SSM state equal to the single-slot cache's and the eager "
+          f"prefill's; 32-token prefill {pre_ms['graph']:.3f} ms as a "
+          f"graph replay with the merge, {pre_ms['eager']:.3f} ms eager "
+          f"(median of 5) [{label}]")
+
+    n, k = MAMBA_RECUR
+    toks = torch.as_tensor(rng.integers(0, vocab, (1, n + k)), device=dev)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = tree_map(lambda t: t.float(), params)   # the same weights
+    recur = {}
+    for c, p in ((cfg32, params32), (cfg, params)):
+        full = prefill(p, c, {"tokens": toks},
+                       init_cache(c, 1, 1, dev))[0][:, :vocab]
+        cache = init_cache(c, 1, 1, dev)
+        prefill(p, c, {"tokens": toks[:, :n]}, cache)
+        for j in range(k):
+            step = decode_step(p, c, toks[:, n + j:n + j + 1], cache,
+                               n + j)[0][:, :vocab]
+        err = (step - full).abs()
+        recur[c.dtype] = {
+            "max": float(err.max()), "tokens": (int(step.argmax()),
+                                                int(full.argmax())),
+            "excess": float((err - MAMBA_ATOL
+                             - MAMBA_RTOL * full.abs()).max()),
+            "finite": bool(torch.isfinite(step).all())}
+    del params32
+    r32, r16 = recur[torch.float32], recur[bf16]
+    if r32["excess"] > 0 or not (r32["finite"] and r16["finite"]):
+        raise AssertionError(f"mamba recurrence: prefill {n} + {k} decode "
+                             f"steps vs prefill {n + k}: {recur}")
+    phase("mamba", f"prefill {n} + {k} decode steps vs prefill {n + k} "
+          f"(across the chunk boundary at {cfg.ssd_chunk}), the full-width "
+          f"weights in fp32: last logits max abs diff {r32['max']:.3e}, "
+          f"within rtol = atol = {MAMBA_RTOL}, greedy tokens "
+          f"{r32['tokens']}; in bf16 (printed, not held: the two forms' "
+          f"bf16 roundings part with depth) {r16['max']:.3e}, tokens "
+          f"{r16['tokens']}")
+
+    # the SSD kernel against the path's ssd_chunked on layer 0's inputs
+    n = MAMBA_PARITY[0]
+    toks = torch.as_tensor(rng.integers(0, vocab, (1, n)), device=dev)
+    layer = params["layers"]["pos0"]
+    h = rms_norm(params["embed"][toks], layer["norm1"][0], cfg.norm_eps)
+    _, xh, dt, a, bm, cm, _ = mssm.mamba_inputs(
+        {k: v[0] for k, v in layer["mamba"].items()}, h,
+        d_model=cfg.d_model, state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
+    # contiguous, and dt in the kernel's IO dtype, for both
+    args = (xh.contiguous(), dt.to(bf16), a, bm.contiguous(),
+            cm.contiguous())
+    rec = store.get("ssd", SSD_TARGETS[0][1], backend=fp).config
+    got = ops.ssd_scan(*args, rec)
+    want = mssm.ssd_chunked(*args, chunk=cfg.ssd_chunk)
+    torch.cuda.synchronize()
+    ea, er = rel_err(got, want)
+    if not (er <= TOL[bf16] and torch.isfinite(got).all()):
+        raise AssertionError(f"mamba: ops.ssd_scan under {rec} vs "
+                             f"ssd_chunked at L={n}: rel err {er:.3e}")
+    ssd_ms = time_ms(lambda i: ops.ssd_scan(*args, rec), 10)
+    chunked_ms = time_ms(
+        lambda i: mssm.ssd_chunked(*args, chunk=cfg.ssd_chunk), 10)
+    phase("mamba", f"ops.ssd_scan (the SSD kernel under the {SSD_TARGETS[0][0]} "
+          f"record {rec}) vs models/ssm.py ssd_chunked at (B=1, L={n}, "
+          f"H={xh.shape[2]}, P={xh.shape[3]}, S={bm.shape[2]}) on layer "
+          f"0's inputs: max abs err {ea:.3e}, rel err {er:.3e} (tolerance "
+          f"{TOL[bf16]}); {ssd_ms:.4f} ms against {chunked_ms:.4f} ms "
+          f"[{label}]")
+
+    # the replayed tick's device time against its bound: every parameter
+    # read once (the head reads the whole embedding), the cache read and
+    # written once
+    devs = []
+    for _ in range(20):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        eng.graph.replay()
+        e1.record()
+        e1.synchronize()
+        devs.append(e0.elapsed_time(e1))
+    tick_dev = statistics.median(devs)
+    gemm_elems = sum(v.numel() for v in (
+        layer["mamba"]["w_in"], layer["mamba"]["w_out"], params["embed"]))
+    tb = bound(nbytes(tree_leaves(params))
+               + 2 * nbytes(tree_leaves(eng.cache)),
+               2.0 * MAMBA_SLOTS * gemm_elems, bf16, peaks)
+    wall = time.perf_counter() - t_phase
+    phase("mamba", f"replayed tick ({MAMBA_SLOTS} slots, {cfg.n_layers} "
+          f"layers): device {tick_dev:.3f} ms (median of 20), bound "
+          f"{tb['bound_ms']:.3f} ms ({tb['bound_by']}: parameters "
+          f"{nbytes(tree_leaves(params)) / 1e9:.3f} GB read, cache "
+          f"{nbytes(tree_leaves(eng.cache)) / 1e9:.3f} GB read and "
+          f"written), {tb['bound_ms'] / tick_dev:.1%} of the bound; "
+          f"the tick graph holds {tick_nodes} kernel nodes ({tick_gemm} "
+          f"GEMM, {tick_reduce} reduction); phase wall {wall:.1f} s "
+          f"[{label}]")
+    return {"counts": counts, "device_launches": device,
+            "device_reduce_launches": device_reduce, "tok_s": g["tok_s"],
+            "tick_ms": g["tick_ms"], "tick_device_ms": tick_dev,
+            "tick_bound_ms": tb["bound_ms"], "wall_s": wall}
+
+
 REPLACES = {"gemm": "src/repro/kernels/matmul.py:36",
             "conv": "src/repro/kernels/conv.py:38",
             "attention": "src/repro/kernels/attention.py:29",
@@ -2661,7 +2977,8 @@ def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
     count of GEMM kernels given to the device in the measured graph run:
     the captured tick's GEMM nodes times its replays plus the 32-token
     prefill graph's times its replays); ``launches_by_path`` gives every
-    path's."""
+    path's (serve_mamba: the mamba phase's); ``main`` adds the GEMM and
+    reduction rows' ``device_launches_by_path`` (serve, serve_mamba)."""
     per = {"gemm": "one decode tick: 210 projections at M=4, tuned configs",
            "conv": "the 14 Table 5 shapes, bf16, one call each, tuned configs",
            "attention": "the 4 attention targets, bf16, one call each, tuned "
@@ -2780,18 +3097,27 @@ def main() -> int:
                                                     fp, label)["counts"]
         phase_model(cfg, params, dev)
         phase_profile(serve.pop("engine"), cfg, dev, label)
+        mamba = phase_mamba(backend, store, store_path, fp, dev, peaks,
+                            label)
+        launches["serve_mamba"] = mamba["counts"]
         clear_store()
         clear_models()
     rows = {"gemm": gemm_rows, "conv": conv_rows, "attention": attn_rows,
             "ssd": ssd_rows}
     line = kernels_line(rows, worst, launches, cfg.n_layers)
     line["kernels"][0]["device_launches"] = serve["device_launches"]
+    line["kernels"][0]["device_launches_by_path"] = {
+        "serve": serve["device_launches"],
+        "serve_mamba": mamba["device_launches"]}
     # ms, plain_ms and library_ms time C = A @ B (ops.matmul, the split-K
     # reduction pass included); gemm_ms is the GEMM kernel alone
     line["kernels"][0]["gemm_ms"] = per_tick(gemm_rows, "gemm_ms",
                                              cfg.n_layers)
     line["kernels"][0]["table4"] = table4
     line["kernels"][-1]["device_launches"] = serve["device_reduce_launches"]
+    line["kernels"][-1]["device_launches_by_path"] = {
+        "serve": serve["device_reduce_launches"],
+        "serve_mamba": mamba["device_reduce_launches"]}
     print(json.dumps(line), flush=True)
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

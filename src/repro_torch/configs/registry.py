@@ -9,6 +9,10 @@ from repro_torch.models import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "smollm-135m": "smollm_135m",
+    "qwen3-14b": "qwen3_14b",
+    "glm4-9b": "glm4_9b",
+    "llama3-405b": "llama3_405b",
+    "mamba2-1.3b": "mamba2_1p3b",
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

@@ -1,5 +1,7 @@
 from .model import (ModelConfig, decode_step, init_cache, init_params,
-                    prefill, ATTN, DENSE)
+                    prefill, recurrent_leaves, tree_leaves, tree_map, ATTN,
+                    DENSE, MAMBA, NONE)
 
 __all__ = ["ModelConfig", "init_params", "init_cache", "decode_step",
-           "prefill", "ATTN", "DENSE"]
+           "prefill", "recurrent_leaves", "tree_leaves", "tree_map", "ATTN",
+           "DENSE", "MAMBA", "NONE"]

@@ -1,10 +1,16 @@
-"""Dense decoder LM (port of the dense path of ``repro.models.model``).
+"""Decoder LM over a repeating pattern of (mixer, MLP) layers (port of
+``repro.models.model`` for the dense and Mamba-2 families).
 
-Parameters keep the reference's pytree layout — ``embed``, ``final_norm``
-and ``layers.pos0.*`` stacked over the repeats — so a reference parameter
-tree converts leaf by leaf (``repro_torch.weights``) and the decode cache
-has the reference's ``(repeats, B, L, G, D)`` shape.  The forward pass is a
-Python loop over the repeats in place of ``jax.lax.scan``.
+A layer's mixer is GQA attention (``attn``) or a Mamba-2 SSD mixer
+(``mamba``, ``models/ssm.py``); its MLP is SwiGLU (``dense``) or none
+(``none``).  Parameters keep the reference's pytree layout (``embed``,
+``final_norm`` and ``layers.pos{i}.*`` per pattern position, stacked over
+the repeats), so a reference parameter tree converts leaf by leaf
+(``repro_torch.weights``), and the decode cache has the reference's
+layout: ``pos{i}.attn.{k, v}`` (repeats, B, L, G, D) or
+``pos{i}.mamba.{conv, ssm}`` (repeats, B, W-1, C) / (repeats, B, H, P, S).
+The forward pass is a Python loop over the repeats in place of
+``jax.lax.scan``; every cache write is in place.
 
 Entry points:
   init_params(cfg, gen)                         -> params
@@ -12,7 +18,7 @@ Entry points:
   prefill(params, cfg, batch, cache)           -> (last logits (B, V), cache)
   decode_step(params, cfg, tokens, cache, index) -> (logits (B, V), cache)
 
-MoE, SSM, encoder-decoder and frontend configurations raise
+MoE, encoder-decoder and frontend configurations raise
 ``NotImplementedError``: they arrive with later slices.
 """
 
@@ -24,10 +30,12 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from . import layers as L
+from . import ssm as SSM
 
 Params = Dict[str, Any]
 
-ATTN, DENSE = "attn", "dense"
+ATTN, MAMBA = "attn", "mamba"
+DENSE, NONE = "dense", "none"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -47,6 +55,8 @@ class ModelConfig:
     pattern: Tuple[Tuple[str, str], ...] = ((ATTN, DENSE),)
     n_experts: int = 0
     ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssd_chunk: int = 256
     encoder_layers: int = 0
     frontend: str = "none"
     qk_norm: bool = False
@@ -70,18 +80,56 @@ class ModelConfig:
         return self.n_layers // len(self.pattern)
 
     def check_supported(self) -> None:
-        """The port's model covers the dense (attn, dense) pattern only."""
-        if (self.pattern != ((ATTN, DENSE),) or self.n_experts
-                or self.ssm_state or self.encoder_layers
+        """The port's model covers patterns of attention or Mamba-2 mixers
+        with SwiGLU or no MLPs, with a tied embedding."""
+        mixers = {m for m, _ in self.pattern}
+        mlps = {f for _, f in self.pattern}
+        if (not mixers <= {ATTN, MAMBA} or not mlps <= {DENSE, NONE}
+                or self.n_experts or self.encoder_layers
                 or self.frontend != "none" or not self.tie_embeddings):
             raise NotImplementedError(
-                f"{self.name}: only dense attention+SwiGLU models are ported "
-                "(MoE, SSM, enc-dec and frontends arrive with later slices)")
+                f"{self.name}: only attention / Mamba-2 mixers with SwiGLU "
+                "or no MLPs are ported (MoE, enc-dec and frontends arrive "
+                "with later slices)")
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"{self.name}: {self.n_layers} layers are not "
+                             f"a whole number of {len(self.pattern)}-layer "
+                             "patterns")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, mixer: str,
+                mlp_kind: str) -> Params:
+    """One pattern position's parameters, stacked over the repeats.  As in
+    the reference, ``norm2`` exists even where the MLP is ``none``."""
+    R, d, f, hd, dt = cfg.n_repeats, cfg.d_model, cfg.d_ff, cfg.hd, cfg.dtype
+    ones = lambda *shape: torch.ones(shape, dtype=dt, device=gen.device)
+    layer: Params = {"norm1": ones(R, d), "norm2": ones(R, d)}
+    if mixer == ATTN:
+        attn = {
+            "wq": L.dense_init(gen, (R, d, cfg.n_heads * hd), dt, fan_in=d),
+            "wk": L.dense_init(gen, (R, d, cfg.n_kv * hd), dt, fan_in=d),
+            "wv": L.dense_init(gen, (R, d, cfg.n_kv * hd), dt, fan_in=d),
+            "wo": L.dense_init(gen, (R, cfg.n_heads * hd, d), dt,
+                               fan_in=cfg.n_heads * hd),
+        }
+        if cfg.qk_norm:
+            attn["q_norm"] = ones(R, hd)
+            attn["k_norm"] = ones(R, hd)
+        layer["attn"] = attn
+    else:
+        layer["mamba"] = SSM.init_mamba(gen, d, cfg.ssm_state,
+                                        cfg.ssm_head_dim, dt, stack=(R,))
+    if mlp_kind == DENSE:
+        layer["mlp"] = {
+            "w_gate": L.dense_init(gen, (R, d, f), dt, fan_in=d),
+            "w_up": L.dense_init(gen, (R, d, f), dt, fan_in=d),
+            "w_down": L.dense_init(gen, (R, f, d), dt, fan_in=f)}
+    return layer
+
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters from ``gen`` (on the generator's device).
@@ -91,39 +139,56 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     ``repro_torch.weights.params_from_jax`` instead.
     """
     cfg.check_supported()
-    R, d, f, hd, dt = cfg.n_repeats, cfg.d_model, cfg.d_ff, cfg.hd, cfg.dtype
-    ones = lambda *shape: torch.ones(shape, dtype=dt, device=gen.device)
-    attn = {
-        "wq": L.dense_init(gen, (R, d, cfg.n_heads * hd), dt, fan_in=d),
-        "wk": L.dense_init(gen, (R, d, cfg.n_kv * hd), dt, fan_in=d),
-        "wv": L.dense_init(gen, (R, d, cfg.n_kv * hd), dt, fan_in=d),
-        "wo": L.dense_init(gen, (R, cfg.n_heads * hd, d), dt,
-                           fan_in=cfg.n_heads * hd),
-    }
-    if cfg.qk_norm:
-        attn["q_norm"] = ones(R, hd)
-        attn["k_norm"] = ones(R, hd)
-    layer = {
-        "norm1": ones(R, d),
-        "norm2": ones(R, d),
-        "attn": attn,
-        "mlp": {"w_gate": L.dense_init(gen, (R, d, f), dt, fan_in=d),
-                "w_up": L.dense_init(gen, (R, d, f), dt, fan_in=d),
-                "w_down": L.dense_init(gen, (R, f, d), dt, fan_in=f)},
-    }
-    return {"embed": L.embed_init(gen, cfg.padded_vocab, d, dt),
-            "final_norm": ones(d),
-            "layers": {"pos0": layer}}
+    layers = {f"pos{i}": _init_layer(cfg, gen, mixer, mlp_kind)
+              for i, (mixer, mlp_kind) in enumerate(cfg.pattern)}
+    return {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                  cfg.dtype),
+            "final_norm": torch.ones(cfg.d_model, dtype=cfg.dtype,
+                                     device=gen.device),
+            "layers": layers}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> Params:
-    """Decode cache, stacked over repeats like the params."""
+    """Decode cache, stacked over repeats like the params: a zero KV cache
+    per attention position, zero conv (model dtype) and SSM (fp32) state
+    per Mamba position."""
     cfg.check_supported()
-    shape = (cfg.n_repeats, batch, max_len, cfg.n_kv, cfg.hd)
-    return {"pos0": {"attn": {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}}}
+    cache: Params = {}
+    for i, (mixer, _) in enumerate(cfg.pattern):
+        if mixer == ATTN:
+            shape = (cfg.n_repeats, batch, max_len, cfg.n_kv, cfg.hd)
+            cache[f"pos{i}"] = {"attn": {
+                "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}}
+        else:
+            cache[f"pos{i}"] = {"mamba": SSM.init_mamba_cache(
+                batch, cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim,
+                cfg.dtype, device, stack=(cfg.n_repeats,))}
+    return cache
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` applied to every tensor of a nested dict (params, a cache)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a nested dict in its insertion order (two caches
+    that ``init_cache`` built for one config list theirs alike)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    return [tree]
+
+
+def recurrent_leaves(cache: Params) -> List[torch.Tensor]:
+    """The cache tensors a forward updates by a recurrence (the Mamba
+    conv and SSM state), whose writes, unlike a KV cache's, are not
+    idempotent: running a step twice advances them twice."""
+    return [t for pos in cache.values() if "mamba" in pos
+            for t in pos["mamba"].values()]
 
 
 # ---------------------------------------------------------------------------
@@ -136,31 +201,34 @@ def _slice(tree: Any, r: int) -> Any:
     return tree[r]
 
 
-def _layers(params: Params) -> List[Params]:
-    stack = params["layers"]["pos0"]
-    n = stack["norm1"].shape[0]
-    return [_slice(stack, r) for r in range(n)]
-
-
 def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                positions: torch.Tensor, cache: Params, cache_index
                ) -> torch.Tensor:
-    """Pre-norm residual (attn, SwiGLU) blocks over the repeats; the cache
-    slices of each repeat are written in place."""
-    cache_k = cache["pos0"]["attn"]["k"]
-    cache_v = cache["pos0"]["attn"]["v"]
-    for r, p in enumerate(_layers(params)):
-        h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-        out, _ = L.attention(
-            p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
-            positions=positions, causal=True, rope_theta=cfg.rope_theta,
-            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
-            cache={"k": cache_k[r], "v": cache_v[r]},
-            cache_index=cache_index, attn_chunk=cfg.attn_chunk,
-            decode_kv_splits=cfg.decode_kv_splits)
-        x = x + out
-        h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h)
+    """Pre-norm residual blocks over the repeats, the pattern's positions
+    in order inside each; the cache slices of each repeat are written in
+    place.  An MLP of kind ``none`` is skipped with its norm."""
+    for r in range(cfg.n_repeats):
+        for i, (mixer, mlp_kind) in enumerate(cfg.pattern):
+            p = _slice(params["layers"][f"pos{i}"], r)
+            c = _slice(cache[f"pos{i}"], r)
+            h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+            if mixer == ATTN:
+                out, _ = L.attention(
+                    p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                    head_dim=cfg.hd, positions=positions, causal=True,
+                    rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+                    norm_eps=cfg.norm_eps, cache=c["attn"],
+                    cache_index=cache_index, attn_chunk=cfg.attn_chunk,
+                    decode_kv_splits=cfg.decode_kv_splits)
+            else:
+                out, _ = SSM.mamba_block(
+                    p["mamba"], h, d_model=cfg.d_model, state=cfg.ssm_state,
+                    head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk,
+                    cache=c["mamba"])
+            x = x + out
+            if mlp_kind != NONE:
+                h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+                x = x + L.mlp(p["mlp"], h)
     return x
 
 

@@ -1,11 +1,15 @@
-"""Batched serving engine: slot-based continuous batching over a shared KV
-cache (port of ``repro.serve.engine`` short of the fleet and observability).
+"""Batched serving engine: slot-based continuous batching over a shared
+decode cache (port of ``repro.serve.engine`` short of the fleet and
+observability).  The cache is the model's: K/V rows per attention layer,
+conv and SSM state per Mamba-2 layer; the engine walks its tree and never
+names a leaf.
 
-Requests are admitted into free slots (prefill fills the slot's cache
-region), every decode tick advances all slots together at their own cache
-positions, and finished requests (EOS or length budget) free their slot.
-Inactive slots decode too, on token 0 at position 0, and their output is
-discarded — the batch keeps one shape, as in the reference.
+Requests are admitted into free slots (prefill fills the slot's part of
+every cache leaf), every decode tick advances all slots together at their
+own cache positions, and finished requests (EOS or length budget) free
+their slot.  Inactive slots decode too, on token 0 at position 0, and
+their output is discarded — the batch keeps one shape, as in the
+reference; a slot's next prefill replaces whatever state they left.
 
 On CUDA every decode tick and every prefill replays a captured CUDA graph,
 the port's counterparts of the reference's ``jax.jit`` of ``decode_step``
@@ -17,6 +21,9 @@ shared by all lengths (zeroed inside the graph, as the reference's prefill
 starts from a fresh cache), with a static ``(1, n)`` token buffer; after
 each replay the single-slot cache is copied into the slot (the
 reference's ``merge``), so the slot's rows at ``n`` and beyond are zero.
+A tick's capture runs it once eagerly first; the recurrent leaves are
+restored after that warm-up, so the replay advances them once
+(:meth:`Engine._capture`).
 The prefill graphs share one memory pool (each one's logits are read
 before the next replay); the tick's graph keeps its own.  Dispatch
 resolves every config at capture, as the reference's does at trace time.
@@ -79,7 +86,8 @@ from repro_torch.core.backend import H100_SXM, Peaks
 from repro_torch.core.space import gemm_input
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models import ModelConfig, decode_step, init_cache, prefill
+from repro_torch.models import (ModelConfig, decode_step, init_cache, prefill,
+                                recurrent_leaves, tree_leaves, tree_map)
 from repro_torch.tunedb.measure import MeasureQueue, ServingMeasurer
 from repro_torch.tunedb.model import ModelSet, default_models_dir
 from repro_torch.tunedb.plans import (PlanArtifactError, check_freshness,
@@ -504,13 +512,13 @@ class Engine:
 
     def prefill_eager(self, slot: int, tokens: torch.Tensor) -> torch.Tensor:
         """Prefill ``tokens`` (1, n) op by op straight into the slot's
-        cache rows (zeroed first, as the reference replaces the slot with
-        a fresh cache); returns the last position's logits (1, V)."""
-        kv = self.cache["pos0"]["attn"]
-        for t in (kv["k"], kv["v"]):
+        part of every cache leaf (zeroed first, as the reference replaces
+        the slot with a fresh cache: K/V rows, and the conv and SSM state
+        the prefill starts from); returns the last position's logits
+        (1, V)."""
+        for t in tree_leaves(self.cache):
             t[:, slot].zero_()
-        single = {"pos0": {"attn": {"k": kv["k"][:, slot:slot + 1],
-                                    "v": kv["v"][:, slot:slot + 1]}}}
+        single = tree_map(lambda t: t[:, slot:slot + 1], self.cache)
         n = tokens.shape[1]
         if self.admission is None or n in self._prefill_shapes:
             return prefill(self.params, self.cfg, {"tokens": tokens},
@@ -543,29 +551,32 @@ class Engine:
         graph.replay()
         self.prefill_replays += 1
         get_telemetry().record_ticks(self._prefill_shapes[n])
-        # the reference's merge: the whole single-slot cache into the slot
-        kv, one = self.cache["pos0"]["attn"], self._single["pos0"]["attn"]
-        kv["k"][:, slot].copy_(one["k"][:, 0])
-        kv["v"][:, slot].copy_(one["v"][:, 0])
+        # the reference's merge: every leaf of the single-slot cache into
+        # the slot
+        for big, one in zip(tree_leaves(self.cache),
+                            tree_leaves(self._single)):
+            big[:, slot].copy_(one[:, 0])
         return logits
 
     def _capture_prefill(self, tokens: torch.Tensor) -> None:
         """Capture the prefill of ``tokens``' length on a static token
-        buffer into the static single-slot cache, zeroed inside the graph
-        (a longer length's replay leaves rows past ``n`` behind), in the
-        prefill graphs' shared pool (:meth:`_captured`).  The capture's
-        shapes are counted on each replay."""
+        buffer into the static single-slot cache, every leaf zeroed inside
+        the graph (a longer length's replay leaves K/V rows past ``n``
+        behind, any replay leaves conv and SSM state, which a prefill
+        reads as its start), in the prefill graphs' shared pool
+        (:meth:`_captured`).  The capture's shapes are counted on each
+        replay."""
         if self._single is None:
             self._single = init_cache(self.cfg, 1, self.sc.max_len,
                                       self.device)
         if self._prefill_pool is None:
             self._prefill_pool = torch.cuda.graph_pool_handle()
         single, s_tokens = self._single, tokens.clone()
-        kv = single["pos0"]["attn"]
+        leaves = tree_leaves(single)
 
         def run() -> torch.Tensor:
-            kv["k"].zero_()
-            kv["v"].zero_()
+            for t in leaves:
+                t.zero_()
             return prefill(self.params, self.cfg, {"tokens": s_tokens},
                            single)[0]
 
@@ -575,18 +586,25 @@ class Engine:
         self._prefill_shapes[n] = shapes
         self.prefill_captures += 1
 
-    def _captured(self, fn, pool=None) -> tuple:
+    def _captured(self, fn, pool=None, keep: Sequence[torch.Tensor] = ()
+                  ) -> tuple:
         """``(graph, output, shapes)``: ``fn()`` captured in a CUDA graph
         that keeps its ``cudaGraph_t``, after one eager warm-up on a side
         stream (lazy library state must exist before capture), and the
         shapes the capture dispatched.  Neither pass counts in the
-        telemetry."""
+        telemetry.  The tensors in ``keep`` hold after the warm-up what
+        they held before it (a copy is restored): capturing runs nothing,
+        so the graph's first replay then starts where the warm-up did."""
         tel = get_telemetry()
+        saved = [t.clone() for t in keep]
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side), tel.capture(count=False):
             fn()
         torch.cuda.current_stream(self.device).wait_stream(side)
+        for t, s in zip(keep, saved):
+            t.copy_(s)
+        del saved
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with tel.capture(count=False) as cap:
             with torch.cuda.graph(graph, pool=pool):
@@ -656,13 +674,19 @@ class Engine:
 
     def _capture(self, last: torch.Tensor, idx: torch.Tensor) -> None:
         """Capture :meth:`decode_eager` on static buffers holding this
-        tick's inputs (:meth:`_captured`; its warm-up writes this tick's
-        K/V rows, which the replay then writes again with the same
-        values).  The capture's shapes are counted on each replay."""
+        tick's inputs (:meth:`_captured`), at the first tick and again at
+        the first tick of every new generation, mid-serve.  The warm-up
+        runs this tick on the live cache before the replay runs it again:
+        that is harmless for K/V rows (the replay writes the same values
+        again) but not for a recurrent cache (conv and SSM state advance
+        on every run, ``models.recurrent_leaves``), so those leaves are
+        restored after the warm-up, and the replay advances them once.
+        The capture's shapes are counted on each replay."""
         self._graph = self._static = None
         s_last, s_idx = last.clone(), idx.clone()
         graph, logits, shapes = self._captured(
-            lambda: self.decode_eager(s_last, s_idx))
+            lambda: self.decode_eager(s_last, s_idx),
+            keep=recurrent_leaves(self.cache))
         self._graph, self._static = graph, (s_last, s_idx, logits)
         self._decode_shapes = shapes
         self.captures += 1
@@ -763,6 +787,4 @@ class Engine:
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)

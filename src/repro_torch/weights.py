@@ -2,8 +2,13 @@
 
 The tree is what ``repro.models.init_params`` returns, as numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``): ``embed``, ``final_norm``
-and ``layers.pos0.{norm1, norm2, attn.{wq, wk, wv, wo}, mlp.{w_gate, w_up,
-w_down}}`` stacked over the repeats.  The layout is kept as it is.
+and, per pattern position ``pos{i}``, ``norm1``, ``norm2``, the mixer
+(``attn.{wq, wk, wv, wo}`` with ``q_norm`` / ``k_norm`` under qk-norm, or
+``mamba.{w_in, conv_w, conv_b, a_log, dt_bias, d_skip, norm, w_out}``) and,
+for a SwiGLU MLP, ``mlp.{w_gate, w_up, w_down}``, stacked over the repeats.
+The layout is kept as it is.  Every leaf must have the dtype the reference
+gives it: the config's, except Mamba's fp32 ``a_log``, ``dt_bias`` and
+``d_skip``.
 """
 
 from __future__ import annotations
@@ -14,10 +19,13 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import ModelConfig
+from repro_torch.models import ATTN, DENSE, ModelConfig
+from repro_torch.models.ssm import FP32_LEAVES
 
-_ATTN = {"wq", "wk", "wv", "wo"}
-_MLP = {"w_gate", "w_up", "w_down"}
+_ATTN = ("wq", "wk", "wv", "wo")
+_MAMBA = ("w_in", "conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm",
+          "w_out")
+_MLP = ("w_gate", "w_up", "w_down")
 
 
 def _tensor(leaf: Any, device: torch.device) -> torch.Tensor:
@@ -30,11 +38,23 @@ def _tensor(leaf: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)      # a writable copy
 
 
-def _check_keys(tree: Mapping[str, Any], want: set, where: str) -> None:
-    got = set(tree)
-    if got != want:
-        raise KeyError(f"{where}: expected keys {sorted(want)}, got "
-                       f"{sorted(got)}")
+def _dtypes(cfg: ModelConfig) -> dict:
+    """The reference's tree for ``cfg`` with each leaf's dtype."""
+    dt = cfg.dtype
+    same = lambda names: {k: dt for k in names}
+    layers = {}
+    for i, (mixer, mlp_kind) in enumerate(cfg.pattern):
+        layer: dict = {"norm1": dt, "norm2": dt}
+        if mixer == ATTN:
+            layer["attn"] = same(_ATTN + (("q_norm", "k_norm")
+                                          if cfg.qk_norm else ()))
+        else:
+            layer["mamba"] = {k: torch.float32 if k in FP32_LEAVES else dt
+                              for k in _MAMBA}
+        if mlp_kind == DENSE:
+            layer["mlp"] = same(_MLP)
+        layers[f"pos{i}"] = layer
+    return {"embed": dt, "final_norm": dt, "layers": layers}
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
@@ -42,26 +62,22 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
     """Reference parameter tree (numpy leaves) -> port params on ``device``."""
     cfg.check_supported()
     dev = resolve_device(device)
-    _check_keys(tree, {"embed", "final_norm", "layers"}, "params")
-    _check_keys(tree["layers"], {"pos0"}, "params.layers")
-    layer = tree["layers"]["pos0"]
-    _check_keys(layer, {"norm1", "norm2", "attn", "mlp"}, "layers.pos0")
-    attn_keys = _ATTN | ({"q_norm", "k_norm"} if cfg.qk_norm else set())
-    _check_keys(layer["attn"], attn_keys, "layers.pos0.attn")
-    _check_keys(layer["mlp"], _MLP, "layers.pos0.mlp")
 
-    def conv(t: Any) -> Any:
-        if isinstance(t, Mapping):
-            return {k: conv(v) for k, v in t.items()}
+    def conv(t: Any, want: Any, where: str) -> Any:
+        if isinstance(want, dict):
+            if not isinstance(t, Mapping) or set(t) != set(want):
+                got = sorted(t) if isinstance(t, Mapping) else type(t)
+                raise KeyError(f"{where}: expected keys {sorted(want)}, got "
+                               f"{got}")
+            return {k: conv(t[k], want[k], f"{where}.{k}") for k in want}
         out = _tensor(t, dev)
-        if out.dtype != cfg.dtype:
-            raise TypeError(f"leaf dtype {out.dtype} != config dtype "
-                            f"{cfg.dtype}")
+        if out.dtype != want:
+            raise TypeError(f"{where}: leaf dtype {out.dtype}, the "
+                            f"reference's is {want}")
+        if where.startswith("params.layers.") and (
+                out.dim() == 0 or out.shape[0] != cfg.n_repeats):
+            raise ValueError(f"{where}: tree holds {tuple(out.shape)[:1]} "
+                             f"repeats, config wants {cfg.n_repeats}")
         return out
 
-    params = conv(tree)
-    n = params["layers"]["pos0"]["norm1"].shape[0]
-    if n != cfg.n_repeats:
-        raise ValueError(f"tree holds {n} repeats, config wants "
-                         f"{cfg.n_repeats}")
-    return params
+    return conv(tree, _dtypes(cfg), "params")

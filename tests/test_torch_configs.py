@@ -1,0 +1,73 @@
+"""The port's configs against the reference's, field for field, and the
+dense ones served at SMOKE against the JAX engine."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jregistry
+from repro.models import init_params as jinit_params
+from repro.serve import Engine as JEngine
+from repro.serve import ServeConfig as JServeConfig
+from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
+from repro_torch.models import ModelConfig
+from repro_torch.serve import Engine as TEngine
+from repro_torch.serve import ServeConfig as TServeConfig
+from repro_torch.weights import params_from_jax
+
+DENSE = ("qwen3-14b", "glm4-9b", "llama3-405b")
+
+
+def test_the_registry_holds_the_ported_archs():
+    assert set(ARCH_NAMES) == {"smollm-135m", "mamba2-1.3b", *DENSE}
+    assert set(ARCH_NAMES) <= set(jregistry.ARCH_NAMES)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", sorted(["smollm-135m", "mamba2-1.3b",
+                                         *DENSE]))
+def test_config_equals_the_reference(arch, smoke):
+    """Every field of the port's ModelConfig equals the reference's (the
+    dtype by name); the reference's training-only fields (logit_chunk,
+    remat, ...) have no counterpart in the port."""
+    got = smoke_config(arch) if smoke else get_config(arch)
+    want = (jregistry.smoke_config(arch) if smoke
+            else jregistry.get_config(arch))
+    for f in dataclasses.fields(ModelConfig):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if f.name == "dtype":
+            assert str(g).split(".")[-1] == jnp.dtype(w).name, arch
+        else:
+            assert g == w, (arch, f.name, g, w)
+    got.check_supported()
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_smoke_serves_the_jax_engine_tokens(arch):
+    jcfg, tcfg = jregistry.smoke_config(arch), smoke_config(arch)
+    jp = jinit_params(jcfg, jax.random.PRNGKey(2))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg, "cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, tcfg.vocab, n) for n in (6, 11, 3, 9)]
+    jout = JEngine(jcfg, jp, JServeConfig(max_len=48, slots=3)).generate(
+        prompts, max_new=6)
+    eng = TEngine(tcfg, tp, TServeConfig(max_len=48, slots=3), device="cpu")
+    tout = eng.generate(prompts, max_new=6)
+    assert tout == [[int(t) for t in o] for o in jout]
+    assert all(len(o) == 6 for o in tout)
+
+
+def test_unported_families_still_raise():
+    for arch in ("arctic-480b", "jamba-v0.1-52b", "whisper-base",
+                 "internvl2-76b"):
+        j = jregistry.smoke_config(arch)
+        cfg = ModelConfig(**{
+            f.name: (torch.float32 if f.name == "dtype"
+                     else getattr(j, f.name))
+            for f in dataclasses.fields(ModelConfig)})
+        with pytest.raises(NotImplementedError):
+            cfg.check_supported()

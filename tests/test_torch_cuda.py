@@ -377,6 +377,86 @@ def test_graph_prefill_equals_the_eager_prefill(cuda):
     assert sorted(eng.prefill_graphs) == [1] and eng.prefill_captures == 5
 
 
+def _mamba_engine(cuda, **kw):
+    from repro_torch.configs import mamba2_1p3b
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = mamba2_1p3b.SMOKE
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen)
+    return Engine(cfg, params, ServeConfig(max_len=64, slots=2, **kw),
+                  device=cuda)
+
+
+def test_mamba_graph_tokens_equal_the_eager_engine(cuda):
+    """mamba2-1.3b SMOKE served from the engine's CUDA graphs gives the
+    eager prefill and tick's greedy tokens: slots reused, prompts longer
+    than ssd_chunk (32), a 1-token prompt (the decode branch); a graph
+    prefill leaves the slot's conv and SSM state equal to the single-slot
+    cache's and to the eager prefill's, its logits bitwise the eager's."""
+    import numpy as np
+
+    from repro_torch.tunedb.store import clear_store
+
+    clear_store()
+    eng = _mamba_engine(cuda)
+    cfg = eng.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 33, 1, 45, 9)]
+    graph = eng.generate(prompts, max_new=6)
+    assert eng.captures == 1 and eng.replays == eng.ticks > 0
+    assert eng.prefill_captures == 5
+    eager = _mamba_engine(cuda)
+    eager.prefill, eager.decode = eager.prefill_eager, eager.decode_eager
+    assert eager.generate(prompts, max_new=6) == graph
+    state = eng.cache["pos0"]["mamba"]
+    single = eng._single["pos0"]["mamba"]
+    for n in (45, 9, 1):
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, n)[None],
+                                 device=cuda)
+        logits = eng.prefill_graph(1, tokens).clone()
+        got = {k: v[:, 1].clone() for k, v in state.items()}
+        for k in ("conv", "ssm"):
+            assert torch.equal(got[k], single[k][:, 0]), (n, k)
+        assert torch.equal(logits, eng.prefill_eager(1, tokens)), n
+        for k in ("conv", "ssm"):
+            assert torch.equal(got[k], state[k][:, 1]), (n, k)
+
+
+def test_capture_warm_up_leaves_the_recurrent_state(cuda):
+    """A tick's capture runs it once eagerly first; the conv and SSM state
+    are restored after that warm-up, so the first replay advances them
+    once: state and logits bitwise those of one eager tick from the same
+    state.  The same holds for a capture mid-serve, at a new generation."""
+    import numpy as np
+
+    from repro_torch.tunedb.store import clear_store
+
+    clear_store()
+    eng = _mamba_engine(cuda)
+    rng = np.random.default_rng(4)
+    for slot, n in enumerate((7, 40)):
+        tokens = torch.as_tensor(rng.integers(0, eng.cfg.vocab, n)[None],
+                                 device=cuda)
+        eng.prefill_eager(slot, tokens)
+    leaves = [t for v in eng.cache.values() for t in v["mamba"].values()]
+    last = torch.tensor([[3], [11]], device=cuda)
+    idx = torch.tensor([7, 40], device=cuda)
+    for capture in range(2):
+        before = [t.clone() for t in leaves]
+        logits = eng.decode_graph(last, idx).clone()
+        assert eng.captures == capture + 1
+        after = [t.clone() for t in leaves]
+        for t, b in zip(leaves, before):
+            t.copy_(b)
+        want = eng.decode_eager(last, idx)
+        assert torch.equal(logits, want)
+        for got, t, b in zip(after, leaves, before):
+            assert torch.equal(got, t) and not torch.equal(got, b)
+        clear_store()                   # a new generation: captured again
+
+
 @pytest.mark.parametrize("name", ["gemm", "conv", "attention", "ssd"])
 def test_largest_accepted_draws_peak_inside_their_footprint(cuda, name):
     """The card's draw budget counts enough memory: the two draws of the

@@ -48,7 +48,10 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.kernels.ssd", "repro_torch.serve.engine",
             "repro_torch.tunedb.store", "repro_torch.tunedb.telemetry",
             "repro_torch.tunedb.plans", "repro_torch.tunedb.measure",
-            "repro_torch.weights"} <= set(
+            "repro_torch.weights", "repro_torch.models.ssm",
+            "repro_torch.configs.mamba2_1p3b",
+            "repro_torch.configs.qwen3_14b", "repro_torch.configs.glm4_9b",
+            "repro_torch.configs.llama3_405b"} <= set(
                 out["modules"])
 
 
