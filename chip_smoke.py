@@ -169,11 +169,35 @@ exits non-zero:
                 inputs at L=300 (both timed; not on the path); the
                 replayed tick's device time against its byte bound; the
                 phase's wall time
- 20. kernels    one JSON line summarising every hand-written kernel (the
+ 20. moe        dbrx-132b at full width (d_model 6144, 48 / 8 heads, d_ff
+                10752, 16 experts top-4, vocab 100352, bf16, random weights
+                from seed 0), its depth cut to 8 of 40 layers (all 40 need
+                about 262 GB): the earlier phases' memory freed first; its
+                4 attention-projection GEMMs (M = 4 and 32) and its decode
+                attention shape tuned into the store, then 8 requests of
+                32-token prompts x 16 tokens served through
+                ``Engine.generate`` from the engine's CUDA graphs (the MoE
+                capacity dispatch in every prefill, the dense-over-experts
+                decode path in every tick): no GEMM launched from the host
+                in the graph run, 32 x (prefills + replays) GEMM kernels
+                and one reduction pass per split-K projection given to the
+                device (graph nodes x replays), the telemetry's GEMM count
+                the same and 8 split-count lookups a tick, every served
+                shape planned as its tuned record; the same requests eager:
+                the same greedy tokens; tok/s and median tick of both; graph
+                against eager prefill at 100/32/9/1 tokens (1: the decode
+                path): logits and the slot's K/V rows bitwise; layer 0's
+                capacity path at factor 8 against its decode path in fp32
+                (rtol 1e-4, atol 1e-5) and the pairs dropped at 1.25; the
+                replayed tick's device time against its byte bound, its
+                kernels split into GEMM, reduction and other from a traced
+                round held to the graph's nodes; parameter bytes and peak
+                memory
+ 21. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
 
 Each path (tune, models, serve, plans, admission, measure,
-degradation, serve_mamba) runs with every launch
+degradation, serve_mamba, serve_moe) runs with every launch
 count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
 
@@ -190,6 +214,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
 import json
 import math
 import re
@@ -232,8 +257,9 @@ from repro_torch.kernels.ref import (attention_ref, conv2d_ref,  # noqa: E402
                                      matmul_ref, ssd_ref)
 from repro_torch.models import (decode_step, init_cache,  # noqa: E402
                                 init_params, prefill, tree_leaves, tree_map)
+from repro_torch.models import moe as mmoe  # noqa: E402
 from repro_torch.models import ssm as mssm  # noqa: E402
-from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.models.layers import attention, rms_norm  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.serve.flash_decode import resolve_decode_splits  # noqa: E402
 from repro_torch.tunedb.model import (ModelSet, clear_models,  # noqa: E402
@@ -2174,16 +2200,18 @@ def phase_host_cost(cfg, params, serve: dict, fp: str, dev: torch.device,
 PARITY_LENGTHS = (200, 100, 32, 9)  # falling: each replay follows a longer
 
 
-def phase_prefill_parity(eng, cfg, dev: torch.device, label: str) -> dict:
+def phase_prefill_parity(eng, cfg, dev: torch.device, label: str,
+                         lengths: tuple = PARITY_LENGTHS,
+                         name: str = "prefill parity") -> dict:
     """The serve engine's graph prefill against its eager prefill at
-    :data:`PARITY_LENGTHS`, into the same slot: the logits bitwise equal,
-    the same greedy token, the slot's cache rows equal, the rows past the
-    prompt zero.  Lengths fall, so each replay follows a longer one that
-    left the static cache and the slot dirty past ``n``."""
+    ``lengths``, into the same slot: the logits bitwise equal, the same
+    greedy token, the slot's cache rows equal, the rows past the prompt
+    zero.  Lengths fall, so each replay follows a longer one that left the
+    static cache and the slot dirty past ``n``."""
     rng = np.random.default_rng(9)
     kv = eng.cache["pos0"]["attn"]
     rows = []
-    for n in PARITY_LENGTHS:
+    for n in lengths:
         tokens = torch.as_tensor(rng.integers(0, cfg.vocab, n)[None],
                                  device=dev)
         graph = eng.prefill_graph(0, tokens)[:, : cfg.vocab].clone()
@@ -2197,16 +2225,16 @@ def phase_prefill_parity(eng, cfg, dev: torch.device, label: str) -> dict:
         tail_zero = all(not got[:, n:].any() for got in slot)
         if not (torch.equal(graph, eager) and tok[0] == tok[1] and same_rows
                 and tail_zero and torch.isfinite(graph).all()):
-            raise AssertionError(f"prefill parity at n={n}: logits max abs "
+            raise AssertionError(f"{name} at n={n}: logits max abs "
                                  f"diff {diff:.3e}, tokens {tok}, slot rows "
                                  f"equal {same_rows}, rows past n zero "
                                  f"{tail_zero}")
         rows.append((n, tok[0]))
-    phase("prefill parity", f"graph prefill vs eager prefill into slot 0 at "
-          f"lengths {list(PARITY_LENGTHS)} (falling): logits bitwise equal "
+    phase(name, f"graph prefill vs eager prefill into slot 0 at "
+          f"lengths {list(lengths)} (falling): logits bitwise equal "
           f"(max abs diff 0), greedy tokens {[t for _, t in rows]} equal, "
           f"the slot's K/V rows equal and zero past n [{label}]")
-    return {"lengths": list(PARITY_LENGTHS)}
+    return {"lengths": list(lengths)}
 
 
 def phase_measure(cfg, params, store_path: Path, fp: str, dev: torch.device,
@@ -2511,11 +2539,14 @@ def kernel_kind(name: str) -> str:
             if REDUCE_KERNEL.search(name) else "other")
 
 
-def traced_round(graph, nodes: collections.Counter, reps: int) -> tuple:
-    """Trace ``reps`` replays of ``graph``: (whole, what, kernel events).
-    The round is whole when its kernel events, in start order, split into
-    ``reps`` runs of len(nodes) events whose names are exactly the graph's
-    kernel nodes' (the same multiset, replay by replay)."""
+def traced_round(graph, nodes: collections.Counter, reps: int,
+                 max_lost: int = 0) -> tuple:
+    """Trace ``reps`` replays of ``graph``: (held, what, kernel events).
+    With ``max_lost`` 0 the round holds when it is whole: its kernel
+    events, in start order, split into ``reps`` runs of len(nodes) events
+    whose names are exactly the graph's kernel nodes' (the same multiset,
+    replay by replay).  Otherwise it holds when no event is foreign to
+    the graph's nodes and at most ``max_lost`` of them are missing."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -2526,8 +2557,17 @@ def traced_round(graph, nodes: collections.Counter, reps: int) -> tuple:
                   and not ev.name.startswith(("Memcpy", "Memset"))),
                  key=lambda ev: ev.time_range.start)
     per = sum(nodes.values())
+    got = collections.Counter(ev.name for ev in evs)
+    want = collections.Counter({n: c * reps for n, c in nodes.items()})
+    miss, extra = want - got, got - want
+    lost = sum(miss.values())
+    what = (f"{len(evs)} kernel events, want {reps} x {per} (missing "
+            f"{list(miss.items())[:3]}, extra {list(extra.items())[:3]})")
+    if max_lost:
+        return not extra and lost <= max_lost, (
+            what if lost else "whole"), evs
     if len(evs) != reps * per:
-        return False, f"{len(evs)} kernel events, want {reps} x {per}", evs
+        return False, what, evs
     for r in range(reps):
         got = collections.Counter(ev.name for ev in
                                   evs[r * per:(r + 1) * per])
@@ -2537,6 +2577,49 @@ def traced_round(graph, nodes: collections.Counter, reps: int) -> tuple:
                            f"{list(miss.items())[:3]}, extra "
                            f"{list(extra.items())[:3]})"), evs
     return True, "whole", evs
+
+
+def traced_split(graph, nodes: collections.Counter, what: str,
+                 max_lost: int = 0) -> tuple:
+    """Trace rounds of :data:`PROFILE_REPS` replays of ``graph`` until one
+    holds (:func:`traced_round`), at most :data:`PROFILE_ROUNDS`; the
+    phase ``what`` fails if none does.  Returns (each round's verdict, the
+    replay's kernels as (ms, count, name) in order of time, and the GEMM /
+    reduction / other totals as kind -> [ms, count]), per replay: each
+    name's mean event time times its count among the graph's nodes (in a
+    whole round, its events' time over the replays)."""
+    reps, tries = PROFILE_REPS, []
+    for _ in range(PROFILE_ROUNDS):
+        held, verdict, evs = traced_round(graph, nodes, reps, max_lost)
+        tries.append(verdict)
+        if held:
+            break
+    else:
+        raise AssertionError(f"{what}: no traced round of {reps} replays "
+                             f"held the captured tick's "
+                             f"{sum(nodes.values())} kernel nodes in "
+                             f"{PROFILE_ROUNDS} rounds: {tries}")
+    by_name: dict = {}
+    for ev in evs:
+        t = by_name.setdefault(ev.name, [0.0, 0])
+        t[0] += ev.time_range.elapsed_us() / 1e3
+        t[1] += 1
+    split = sorted(((ms / cnt * nodes[name], nodes[name], name)
+                    for name, (ms, cnt) in by_name.items()), reverse=True)
+    kinds = {"gemm": [0.0, 0], "gemm_reduce": [0.0, 0], "other": [0.0, 0]}
+    for ms, cnt, name in split:
+        kinds[kernel_kind(name)][0] += ms
+        kinds[kernel_kind(name)][1] += cnt
+    return tries, split, kinds
+
+
+def init_cupti() -> None:
+    """Start the profiler (CUPTI) once: a graph captured before CUPTI was
+    initialised may replay untraced."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
 
 
 def phase_profile(eng, cfg, dev: torch.device, label: str) -> dict:
@@ -2570,12 +2653,7 @@ def phase_profile(eng, cfg, dev: torch.device, label: str) -> dict:
         enqueues.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    # the profiler (CUPTI) is started once before the capture: a graph
-    # captured before CUPTI was initialised may replay untraced
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]):
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
+    init_cupti()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         tick()
@@ -2592,28 +2670,8 @@ def phase_profile(eng, cfg, dev: torch.device, label: str) -> dict:
         e1.record()
         e1.synchronize()
         devs.append(e0.elapsed_time(e1))
-    reps, tries = PROFILE_REPS, []
-    for _ in range(PROFILE_ROUNDS):
-        whole, what, evs = traced_round(graph, nodes, reps)
-        tries.append(what)
-        if whole:
-            break
-    else:
-        raise AssertionError(f"profile: no traced round of {reps} replays "
-                             f"held the captured tick's "
-                             f"{sum(nodes.values())} kernel nodes in "
-                             f"{PROFILE_ROUNDS} rounds: {tries}")
-    by_name: dict = {}
-    for ev in evs:
-        t = by_name.setdefault(ev.name, [0.0, 0])
-        t[0] += ev.time_range.elapsed_us() / 1e3 / reps
-        t[1] += 1
-    split = sorted(((ms, cnt // reps, name) for name, (ms, cnt)
-                    in by_name.items()), reverse=True)
-    kinds = {"gemm": [0.0, 0], "gemm_reduce": [0.0, 0], "other": [0.0, 0]}
-    for ms, cnt, name in split:
-        kinds[kernel_kind(name)][0] += ms
-        kinds[kernel_kind(name)][1] += cnt
+    reps = PROFILE_REPS
+    tries, split, kinds = traced_split(graph, nodes, "profile")
     out = {"wall_ms": 1e3 * statistics.median(walls),
            "enqueue_ms": 1e3 * statistics.median(enqueues),
            "device_ms": statistics.median(devs),
@@ -2955,6 +3013,293 @@ def phase_mamba(backend, store: RecordStore, store_path: Path, fp: str,
             "tick_bound_ms": tb["bound_ms"], "wall_s": wall}
 
 
+# the MoE phase: dbrx-132b at its full width with its depth cut to
+# MOE_LAYERS of 40 (40 layers need about 265 GB in bf16, 8 about 53.4 GB);
+# its attention projections as (N, K), q and o (6144 -> 6144) and k and v
+# (6144 -> 1024), two of each a layer, tuned at the tick's M (4 slots) and
+# the prompts' (32 tokens), and its decode attention shape (the split-count
+# lookup); the prefill parity lengths (falling; 1 takes the decode path);
+# the two MoE paths' tolerance, fp32, the reference's tests/test_moe.py's,
+# at a capacity factor that drops nothing
+MOE_LAYERS = 8
+MOE_NK = ((6144, 6144), (1024, 6144))
+MOE_SLOTS, MOE_PROMPT, MOE_MAX_LEN = 4, 32, 256
+MOE_TUNE_SAMPLES = 96
+MOE_ATTN_SAMPLES = 48
+MOE_PARITY = (100, 32, 9, 1)
+MOE_RTOL, MOE_ATOL = 1e-4, 1e-5
+MOE_NO_DROP_CF = 8.0
+MOE_TOP_NAMES = 8                  # the tick's kernels printed by name
+# kernel events a traced round of the MoE tick may lose (one a replay):
+# its rounds lost one embedding-gather event each on the card (ROADMAP C9)
+MOE_LOST_EVENTS = 5
+
+
+
+def phase_moe(backend, store: RecordStore, store_path: Path, fp: str,
+              dev: torch.device, peaks: dict, label: str) -> dict:
+    """dbrx-132b at full width (d_model 6144, 16 experts top-4, bf16,
+    random weights from seed 0), its depth cut to :data:`MOE_LAYERS`,
+    served through ``Engine.generate`` from the engine's CUDA graphs: the
+    capacity dispatch in every prefill, the dense-over-experts decode path
+    in every tick.
+
+    Its 4 attention-projection GEMM targets and its decode attention shape
+    are tuned into the store first, so every serve resolution is a plan
+    hit on its exact record.  A warm-up run captures the tick and the
+    32-token prefill; the graph run must launch no GEMM from the host and
+    give the device 32 x (prefills + replays) GEMM kernels, read from each
+    graph's kernel nodes times its replays, and one reduction pass per
+    projection whose tuned config splits K; the telemetry counts the same
+    GEMM calls; the eager run of the same requests gives the same greedy
+    tokens.  Then: graph against eager prefill at :data:`MOE_PARITY`
+    (logits and the slot's K/V rows bitwise); the capacity path at a
+    factor that drops nothing against the decode path on layer 0's MoE
+    input of a 32-token prompt, in fp32 (the weights widened), and the
+    pairs dropped at the config's factor; the replayed tick's device time
+    against its byte bound, split into GEMM, reduction and other kernels
+    from a traced round held to the graph's kernel nodes."""
+    t_phase = time.perf_counter()
+    gc.collect()                  # the earlier phases' engines and graphs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    init_cupti()
+    full = get_config("dbrx-132b")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    bf16, vocab = torch.bfloat16, cfg.vocab
+    targets = [gemm_input(M, N, K, 16) for M in (MOE_SLOTS, MOE_PROMPT)
+               for N, K in MOE_NK]
+    attn = attention_input(MOE_SLOTS, cfg.n_heads, cfg.n_kv, 1, MOE_MAX_LEN,
+                           cfg.hd)
+    t0 = time.perf_counter()
+    tune_space(GEMM_SPACE, targets, ("M",), backend, store,
+               samples=MOE_TUNE_SAMPLES)
+    tune_space(ATTENTION_SPACE, [attn], attention_dims, backend, store,
+               samples=MOE_ATTN_SAMPLES)
+    tune_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p_bytes = nbytes(tree_leaves(params))
+    layer_bytes = nbytes(tree_leaves(params["layers"])) / cfg.n_layers
+    full_gb = (p_bytes + (full.n_layers - cfg.n_layers) * layer_bytes) / 1e9
+    phase("moe", f"{cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+          f"{cfg.capacity_factor}, vocab {cfg.vocab}, decode_kv_splits "
+          f"{cfg.decode_kv_splits}, bf16; the one cut: {cfg.n_layers} of "
+          f"{full.n_layers} layers, {p_bytes / 1e9:.3f} GB of parameters "
+          f"(all {full.n_layers} would need {full_gb:.1f} GB, one card "
+          f"holds 80 GB); built in {init_s:.1f} s; "
+          f"{before / 1e9:.3f} GB allocated before the build")
+    eng = Engine(cfg, params, ServeConfig(
+        max_len=MOE_MAX_LEN, slots=MOE_SLOTS, tunedb=str(store_path),
+        tunedb_backend=fp, tunedb_models="", record_tick_times=True))
+    plan = serving_state().plan
+    per_fwd = 2 * len(MOE_NK) * cfg.n_layers          # 32 GEMMs a forward
+    red = {M: 2 * cfg.n_layers * sum(
+        ops.shrink_gemm_cfg(store.get("gemm", gemm_input(M, N, K, 16),
+                                      backend=fp).config, M, N, K)[
+            "k_split"] > 1 for N, K in MOE_NK)
+        for M in (MOE_SLOTS, MOE_PROMPT)}
+    run = functools.partial(serve_run, eng, per_fwd=per_fwd,
+                            red_pre=red[MOE_PROMPT],
+                            red_tick=red[MOE_SLOTS],
+                            attn_per_tick=cfg.n_layers)
+    rng = np.random.default_rng(0)
+    warm = [rng.integers(0, vocab, MOE_PROMPT) for _ in range(2)]
+    prompts = [rng.integers(0, vocab, MOE_PROMPT) for _ in range(8)]
+
+    reset_launches()
+    w = run("moe warm-up", warm, 2)
+    if (w["captures"], w["prefill_captures"]) != (1, 1):
+        raise AssertionError(f"moe warm-up: {w['captures']} tick and "
+                             f"{w['prefill_captures']} prefill captures")
+    g = run("moe graph", prompts, 16)
+    if g["captures"] or g["prefill_captures"] or g["launches"]:
+        raise AssertionError(f"moe graph run: {g['captures']} tick and "
+                             f"{g['prefill_captures']} prefill captures, "
+                             f"{g['launches']} GEMM launches from the host")
+    # the main path's wrapper launches: the warm-up's captures and their
+    # warm-ups (the graph run replays)
+    counts = read_launches()
+    if not counts["gemm"]:
+        raise AssertionError(f"moe serve path launches {counts}")
+    tick_gemm, tick_reduce, tick_nodes = graph_counts(eng.graph)
+    if sorted(eng.prefill_graphs) != [MOE_PROMPT]:
+        raise AssertionError(f"moe prefill graphs of lengths "
+                             f"{sorted(eng.prefill_graphs)}")
+    pre_gemm, pre_reduce, pre_nodes = graph_counts(
+        eng.prefill_graphs[MOE_PROMPT])
+    if ((tick_gemm, tick_reduce) != (per_fwd, red[MOE_SLOTS])
+            or (pre_gemm, pre_reduce) != (per_fwd, red[MOE_PROMPT])):
+        raise AssertionError(f"moe tick graph: {tick_gemm} GEMM and "
+                             f"{tick_reduce} reduction nodes of {tick_nodes}; "
+                             f"prefill graph {pre_gemm} and {pre_reduce} of "
+                             f"{pre_nodes}; want {per_fwd} and "
+                             f"{red[MOE_SLOTS]}, {per_fwd} and "
+                             f"{red[MOE_PROMPT]}")
+    device = tick_gemm * g["replays"] + pre_gemm * g["prefills"]
+    device_reduce = tick_reduce * g["replays"] + pre_reduce * g["prefills"]
+    if (device != per_fwd * (g["prefills"] + g["replays"])
+            or g["telemetry"]["gemm"] != device):
+        raise AssertionError(f"moe graph run: {device} GEMM kernels given "
+                             f"to the device, telemetry "
+                             f"{g['telemetry']['gemm']}, want {per_fwd} x "
+                             f"({g['prefills']} + {g['replays']})")
+    check_plan_exact(plan, eng.tunedb_store, fp, g["shapes"], "moe serve")
+    reset_launches()
+    eng.prefill, eng.decode = eng.prefill_eager, eng.decode_eager
+    try:
+        e = run("moe eager", prompts, 16)
+    finally:
+        eng.prefill, eng.decode = eng.prefill_graph, eng.decode_graph
+    eager_counts = read_launches()
+    if e["outs"] != g["outs"] or e["shapes"] != g["shapes"]:
+        raise AssertionError("moe: the graphs' greedy tokens or per-shape "
+                             "telemetry differ from the eager run's")
+    phase("moe", f"{cfg.name} ({cfg.n_layers}L d={cfg.d_model} "
+          f"E={cfg.n_experts} top-{cfg.top_k} bf16): tune of "
+          f"{len(targets)} GEMM shapes ({MOE_TUNE_SAMPLES} samples) and the "
+          f"decode attention shape ({MOE_ATTN_SAMPLES}) {tune_s:.1f} s; "
+          f"{len(prompts)} requests x 16 tokens, ServeConfig(max_len="
+          f"{MOE_MAX_LEN}, slots={MOE_SLOTS}); warm-up {w['launches']} "
+          f"GEMM launches from the host (captures and their warm-ups, all "
+          f"plan hits); graph "
+          f"run: {g['prefills']} prefills + {g['replays']} tick replays, "
+          f"{g['launches']} GEMM launches from the host, {device} GEMM "
+          f"kernels and {device_reduce} reduction passes given to the "
+          f"device ({per_fwd} x (prefills + replays); tick graph "
+          f"{tick_gemm} GEMM + {tick_reduce} reduction of {tick_nodes} "
+          f"kernel nodes, prefill graph {pre_gemm} + {pre_reduce} of "
+          f"{pre_nodes}), telemetry {g['telemetry']}; every served shape "
+          f"its tuned record (tier exact); graph {g['tok_s']:.1f} tok/s, "
+          f"median tick {g['tick_ms']:.2f} ms; eager {e['tok_s']:.1f} "
+          f"tok/s, median tick {e['tick_ms']:.2f} ms ({e['launches']} GEMM "
+          f"launches); greedy tokens equal; launches {counts}, eager "
+          f"{eager_counts} [{label}]")
+
+    # the 32-token prefill, graph replay (with the merge) against eager
+    tokens = torch.as_tensor(prompts[0][None], device=dev)
+    pre_ms = {}
+    for what, fn in (("graph", eng.prefill_graph),
+                     ("eager", eng.prefill_eager)):
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(1, tokens)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        pre_ms[what] = statistics.median(ts)
+    C = mmoe._capacity(MOE_PROMPT, cfg.top_k, cfg.n_experts,
+                       cfg.capacity_factor)
+    phase("moe", f"{MOE_PROMPT}-token prefill (the capacity path, C = "
+          f"{C}): {pre_ms['graph']:.3f} ms as a graph replay with the merge, "
+          f"{pre_ms['eager']:.3f} ms eager (median of 5) [{label}]")
+    phase_prefill_parity(eng, cfg, dev, label, lengths=MOE_PARITY,
+                         name="moe")
+
+    # the capacity path (nothing dropped) against the decode path on layer
+    # 0's MoE input, in fp32 with the weights widened
+    toks = torch.as_tensor(prompts[0][None], device=dev)
+    layer = tree_map(lambda t: t[0], params["layers"]["pos0"])
+    x = params["embed"][toks]
+    h = rms_norm(x, layer["norm1"], cfg.norm_eps)
+    out, _ = attention(
+        layer["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+        head_dim=cfg.hd, positions=torch.arange(MOE_PROMPT, device=dev),
+        causal=True, rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+        norm_eps=cfg.norm_eps, attn_chunk=cfg.attn_chunk)
+    h = rms_norm(x + out, layer["norm2"], cfg.norm_eps)
+    wide = {k: v.float() for k, v in layer["moe"].items()}
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k)
+    cap, _ = mmoe.moe(wide, h.float(), capacity_factor=MOE_NO_DROP_CF, **kw)
+    dense = mmoe.moe_decode(wide, h.float(), **kw)
+    torch.cuda.synchronize()
+    excess = float(((cap - dense).abs() - MOE_ATOL
+                    - MOE_RTOL * dense.abs()).max())
+    paths_err = float((cap - dense).abs().max())
+    del wide
+    if excess > 0 or not torch.isfinite(cap).all():
+        raise AssertionError(f"moe: the capacity path at factor "
+                             f"{MOE_NO_DROP_CF} vs the decode path on layer "
+                             f"0: max abs diff {paths_err:.3e}, beyond rtol "
+                             f"{MOE_RTOL} atol {MOE_ATOL} by {excess:.3e}")
+    # the pairs the config's capacity factor drops on the same input
+    _, idx = mmoe._route(torch.matmul(h.float(), layer["moe"]["router"])
+                         .reshape(-1, cfg.n_experts), cfg.top_k)
+    per_expert = torch.zeros(cfg.n_experts, dtype=torch.long, device=dev
+                             ).scatter_add_(0, idx.reshape(-1),
+                                            torch.ones_like(idx.reshape(-1)))
+    dropped = int((per_expert - C).clamp(min=0).sum())
+    phase("moe", f"layer 0's MoE input, the {MOE_PROMPT}-token prompt, "
+          f"fp32 (the weights widened): the capacity path at factor "
+          f"{MOE_NO_DROP_CF} (C = "
+          f"{mmoe._capacity(MOE_PROMPT, cfg.top_k, cfg.n_experts, MOE_NO_DROP_CF)}"
+          f", nothing dropped) vs the decode path (every expert on every "
+          f"token): max abs diff {paths_err:.3e} (max |out| "
+          f"{float(dense.abs().max()):.3e}), within rtol {MOE_RTOL} atol "
+          f"{MOE_ATOL} (tests/test_moe.py's); at the config's factor "
+          f"{cfg.capacity_factor} (C = {C} slots an expert) "
+          f"{dropped} of {MOE_PROMPT * cfg.top_k} (token, expert) pairs "
+          f"drop; pairs an expert {per_expert.tolist()} [{label}]")
+
+    # the replayed tick's device time against its bound (every parameter
+    # read once: the decode path reads every expert, the head the whole
+    # embedding; the cache read and written once), and its kernels by kind
+    devs = []
+    for _ in range(20):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        eng.graph.replay()
+        e1.record()
+        e1.synchronize()
+        devs.append(e0.elapsed_time(e1))
+    tick_dev = statistics.median(devs)
+    matrices = sum(t.numel() for t in tree_leaves(params) if t.dim() >= 2)
+    tb = bound(p_bytes + 2 * nbytes(tree_leaves(eng.cache)),
+               2.0 * MOE_SLOTS * matrices, bf16, peaks)
+    nodes = collections.Counter(demangle(graph_kernel_names(eng.graph)))
+    tries, split, kinds = traced_split(eng.graph, nodes, "moe",
+                                       max_lost=MOE_LOST_EVENTS)
+    busy = sum(v[0] for v in kinds.values())
+    wall = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated()
+    phase("moe", f"replayed tick ({MOE_SLOTS} slots, {cfg.n_layers} "
+          f"layers): device {tick_dev:.3f} ms (median of 20), bound "
+          f"{tb['bound_ms']:.3f} ms ({tb['bound_by']}: parameters "
+          f"{p_bytes / 1e9:.3f} GB read, cache "
+          f"{nbytes(tree_leaves(eng.cache)) / 1e9:.4f} GB read and "
+          f"written), {tb['bound_ms'] / tick_dev:.1%} of the bound; the "
+          f"tick graph holds {tick_nodes} kernel nodes; traced rounds of "
+          f"{PROFILE_REPS} replays: {len(tries)} to one that held "
+          f"({tries[-1]}; each name's time is its mean event time times "
+          f"its node count); GEMM "
+          f"kernels {kinds['gemm'][0]:.3f} ms ({kinds['gemm'][1]} a tick), "
+          f"reduction passes {kinds['gemm_reduce'][0]:.3f} ms "
+          f"({kinds['gemm_reduce'][1]}), other kernels "
+          f"{kinds['other'][0]:.3f} ms ({kinds['other'][1]}); kernels busy "
+          f"{busy:.3f} ms, {busy / tick_dev:.1%} of the replay; peak "
+          f"allocated {peak / 1e9:.3f} GB ({before / 1e9:.3f} GB before the "
+          f"phase); phase wall {wall:.1f} s [{label}]")
+    for rank, (ms, cnt, name) in enumerate(split[:MOE_TOP_NAMES], 1):
+        phase("moe", f"tick #{rank} {kernel_kind(name)}: {ms:.4f} ms, {cnt} "
+              f"a tick, {name[:150]}")
+    del eng, params, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "device_launches": device,
+            "device_reduce_launches": device_reduce, "tok_s": g["tok_s"],
+            "tick_ms": g["tick_ms"], "tick_device_ms": tick_dev,
+            "tick_bound_ms": tb["bound_ms"], "wall_s": wall}
+
+
 REPLACES = {"gemm": "src/repro/kernels/matmul.py:36",
             "conv": "src/repro/kernels/conv.py:38",
             "attention": "src/repro/kernels/attention.py:29",
@@ -2977,8 +3322,9 @@ def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
     count of GEMM kernels given to the device in the measured graph run:
     the captured tick's GEMM nodes times its replays plus the 32-token
     prefill graph's times its replays); ``launches_by_path`` gives every
-    path's (serve_mamba: the mamba phase's); ``main`` adds the GEMM and
-    reduction rows' ``device_launches_by_path`` (serve, serve_mamba)."""
+    path's (serve_mamba: the mamba phase's, serve_moe: the moe phase's);
+    ``main`` adds the GEMM and reduction rows' ``device_launches_by_path``
+    (serve, serve_mamba, serve_moe)."""
     per = {"gemm": "one decode tick: 210 projections at M=4, tuned configs",
            "conv": "the 14 Table 5 shapes, bf16, one call each, tuned configs",
            "attention": "the 4 attention targets, bf16, one call each, tuned "
@@ -3100,6 +3446,8 @@ def main() -> int:
         mamba = phase_mamba(backend, store, store_path, fp, dev, peaks,
                             label)
         launches["serve_mamba"] = mamba["counts"]
+        moe = phase_moe(backend, store, store_path, fp, dev, peaks, label)
+        launches["serve_moe"] = moe["counts"]
         clear_store()
         clear_models()
     rows = {"gemm": gemm_rows, "conv": conv_rows, "attention": attn_rows,
@@ -3108,7 +3456,8 @@ def main() -> int:
     line["kernels"][0]["device_launches"] = serve["device_launches"]
     line["kernels"][0]["device_launches_by_path"] = {
         "serve": serve["device_launches"],
-        "serve_mamba": mamba["device_launches"]}
+        "serve_mamba": mamba["device_launches"],
+        "serve_moe": moe["device_launches"]}
     # ms, plain_ms and library_ms time C = A @ B (ops.matmul, the split-K
     # reduction pass included); gemm_ms is the GEMM kernel alone
     line["kernels"][0]["gemm_ms"] = per_tick(gemm_rows, "gemm_ms",
@@ -3117,7 +3466,8 @@ def main() -> int:
     line["kernels"][-1]["device_launches"] = serve["device_reduce_launches"]
     line["kernels"][-1]["device_launches_by_path"] = {
         "serve": serve["device_reduce_launches"],
-        "serve_mamba": mamba["device_reduce_launches"]}
+        "serve_mamba": mamba["device_reduce_launches"],
+        "serve_moe": moe["device_reduce_launches"]}
     print(json.dumps(line), flush=True)
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,9 @@ _MODULES: Dict[str, str] = {
     "glm4-9b": "glm4_9b",
     "llama3-405b": "llama3_405b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "dbrx-132b": "dbrx_132b",
+    "arctic-480b": "arctic_480b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

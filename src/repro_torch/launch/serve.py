@@ -4,6 +4,7 @@
   python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu
   python -m repro_torch.launch.serve --arch mamba2-1.3b            # Mamba-2
   python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch dbrx-132b --smoke --device cpu  # MoE
   python -m repro_torch.launch.serve --tunedb db.jsonl \
       --plan-dir db.jsonl.plan/00000001 --admission store
   python -m repro_torch.launch.serve --tunedb db.jsonl --measure wallclock \

@@ -1,14 +1,17 @@
 """Decoder LM over a repeating pattern of (mixer, MLP) layers (port of
-``repro.models.model`` for the dense and Mamba-2 families).
+``repro.models.model`` for the dense, Mamba-2, MoE and hybrid families).
 
 A layer's mixer is GQA attention (``attn``) or a Mamba-2 SSD mixer
-(``mamba``, ``models/ssm.py``); its MLP is SwiGLU (``dense``) or none
-(``none``).  Parameters keep the reference's pytree layout (``embed``,
-``final_norm`` and ``layers.pos{i}.*`` per pattern position, stacked over
-the repeats), so a reference parameter tree converts leaf by leaf
+(``mamba``, ``models/ssm.py``); its MLP is SwiGLU (``dense``), a
+mixture of experts (``moe``, ``models/moe.py``), both summed
+(``moe+dense``), or none (``none``).  Parameters keep the reference's
+pytree layout (``embed``, ``final_norm`` and ``layers.pos{i}.*`` per
+pattern position, stacked over the repeats), so a reference parameter
+tree converts leaf by leaf
 (``repro_torch.weights``), and the decode cache has the reference's
 layout: ``pos{i}.attn.{k, v}`` (repeats, B, L, G, D) or
 ``pos{i}.mamba.{conv, ssm}`` (repeats, B, W-1, C) / (repeats, B, H, P, S).
+MoE layers add no cache.
 The forward pass is a Python loop over the repeats in place of
 ``jax.lax.scan``; every cache write is in place.
 
@@ -18,7 +21,7 @@ Entry points:
   prefill(params, cfg, batch, cache)           -> (last logits (B, V), cache)
   decode_step(params, cfg, tokens, cache, index) -> (logits (B, V), cache)
 
-MoE, encoder-decoder and frontend configurations raise
+Encoder-decoder and frontend configurations raise
 ``NotImplementedError``: they arrive with later slices.
 """
 
@@ -30,12 +33,13 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from . import layers as L
+from . import moe as MOE
 from . import ssm as SSM
 
 Params = Dict[str, Any]
 
 ATTN, MAMBA = "attn", "mamba"
-DENSE, NONE = "dense", "none"
+DENSE, MOE_MLP, MOE_DENSE, NONE = "dense", "moe", "moe+dense", "none"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -54,6 +58,8 @@ class ModelConfig:
     head_dim: int = 0                      # 0 => d_model // n_heads
     pattern: Tuple[Tuple[str, str], ...] = ((ATTN, DENSE),)
     n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssd_chunk: int = 256
@@ -81,16 +87,22 @@ class ModelConfig:
 
     def check_supported(self) -> None:
         """The port's model covers patterns of attention or Mamba-2 mixers
-        with SwiGLU or no MLPs, with a tied embedding."""
+        with SwiGLU, MoE, both or no MLPs, with a tied embedding."""
         mixers = {m for m, _ in self.pattern}
         mlps = {f for _, f in self.pattern}
-        if (not mixers <= {ATTN, MAMBA} or not mlps <= {DENSE, NONE}
-                or self.n_experts or self.encoder_layers
-                or self.frontend != "none" or not self.tie_embeddings):
+        if (not mixers <= {ATTN, MAMBA}
+                or not mlps <= {DENSE, MOE_MLP, MOE_DENSE, NONE}
+                or self.encoder_layers or self.frontend != "none"
+                or not self.tie_embeddings):
             raise NotImplementedError(
-                f"{self.name}: only attention / Mamba-2 mixers with SwiGLU "
-                "or no MLPs are ported (MoE, enc-dec and frontends arrive "
+                f"{self.name}: only attention / Mamba-2 mixers with SwiGLU, "
+                "MoE or no MLPs are ported (enc-dec and frontends arrive "
                 "with later slices)")
+        if mlps & {MOE_MLP, MOE_DENSE} and not (
+                0 < self.top_k <= self.n_experts):
+            raise ValueError(f"{self.name}: MoE layers want 0 < top_k <= "
+                             f"n_experts, got top_k {self.top_k} of "
+                             f"{self.n_experts} experts")
         if self.n_layers % len(self.pattern):
             raise ValueError(f"{self.name}: {self.n_layers} layers are not "
                              f"a whole number of {len(self.pattern)}-layer "
@@ -123,11 +135,13 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, mixer: str,
     else:
         layer["mamba"] = SSM.init_mamba(gen, d, cfg.ssm_state,
                                         cfg.ssm_head_dim, dt, stack=(R,))
-    if mlp_kind == DENSE:
+    if mlp_kind in (DENSE, MOE_DENSE):
         layer["mlp"] = {
             "w_gate": L.dense_init(gen, (R, d, f), dt, fan_in=d),
             "w_up": L.dense_init(gen, (R, d, f), dt, fan_in=d),
             "w_down": L.dense_init(gen, (R, f, d), dt, fan_in=f)}
+    if mlp_kind in (MOE_MLP, MOE_DENSE):
+        layer["moe"] = MOE.init_moe(gen, d, f, cfg.n_experts, dt, stack=(R,))
     return layer
 
 
@@ -206,7 +220,11 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                ) -> torch.Tensor:
     """Pre-norm residual blocks over the repeats, the pattern's positions
     in order inside each; the cache slices of each repeat are written in
-    place.  An MLP of kind ``none`` is skipped with its norm."""
+    place.  An MLP of kind ``none`` is skipped with its norm; a dense MLP
+    and a MoE in one layer are summed before the residual add.  The MoE
+    takes its decode path where the reference's does: with a cache and
+    one position (a tick, or a 1-token prompt's prefill), else the
+    capacity path."""
     for r in range(cfg.n_repeats):
         for i, (mixer, mlp_kind) in enumerate(cfg.pattern):
             p = _slice(params["layers"][f"pos{i}"], r)
@@ -226,9 +244,22 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                     head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk,
                     cache=c["mamba"])
             x = x + out
-            if mlp_kind != NONE:
-                h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-                x = x + L.mlp(p["mlp"], h)
+            if mlp_kind == NONE:
+                continue
+            h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+            out = None
+            if mlp_kind in (DENSE, MOE_DENSE):
+                out = L.mlp(p["mlp"], h)
+            if mlp_kind in (MOE_MLP, MOE_DENSE):
+                if h.shape[1] == 1:
+                    mo = MOE.moe_decode(p["moe"], h, n_experts=cfg.n_experts,
+                                        top_k=cfg.top_k)
+                else:
+                    mo, _ = MOE.moe(p["moe"], h, n_experts=cfg.n_experts,
+                                    top_k=cfg.top_k,
+                                    capacity_factor=cfg.capacity_factor)
+                out = mo if out is None else out + mo
+            x = x + out
     return x
 
 

@@ -73,6 +73,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import pathlib
 import time
 import warnings
@@ -594,7 +595,10 @@ class Engine:
         shapes the capture dispatched.  Neither pass counts in the
         telemetry.  The tensors in ``keep`` hold after the warm-up what
         they held before it (a copy is restored): capturing runs nothing,
-        so the graph's first replay then starts where the warm-up did."""
+        so the graph's first replay then starts where the warm-up did.
+        The garbage collector is off while capturing: a dead engine's
+        graphs (an engine is a reference cycle) freed mid-capture would
+        invalidate it (``CUDAGraph.reset`` is not permitted then)."""
         tel = get_telemetry()
         saved = [t.clone() for t in keep]
         side = torch.cuda.Stream(device=self.device)
@@ -606,9 +610,15 @@ class Engine:
             t.copy_(s)
         del saved
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with tel.capture(count=False) as cap:
-            with torch.cuda.graph(graph, pool=pool):
-                out = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with tel.capture(count=False) as cap:
+                with torch.cuda.graph(graph, pool=pool):
+                    out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         graph.instantiate()
         return graph, out, cap.shapes
 

@@ -4,11 +4,13 @@ The tree is what ``repro.models.init_params`` returns, as numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``): ``embed``, ``final_norm``
 and, per pattern position ``pos{i}``, ``norm1``, ``norm2``, the mixer
 (``attn.{wq, wk, wv, wo}`` with ``q_norm`` / ``k_norm`` under qk-norm, or
-``mamba.{w_in, conv_w, conv_b, a_log, dt_bias, d_skip, norm, w_out}``) and,
-for a SwiGLU MLP, ``mlp.{w_gate, w_up, w_down}``, stacked over the repeats.
-The layout is kept as it is.  Every leaf must have the dtype the reference
-gives it: the config's, except Mamba's fp32 ``a_log``, ``dt_bias`` and
-``d_skip``.
+``mamba.{w_in, conv_w, conv_b, a_log, dt_bias, d_skip, norm, w_out}``),
+for a SwiGLU MLP (``dense``, ``moe+dense``) ``mlp.{w_gate, w_up, w_down}``
+and for a MoE (``moe``, ``moe+dense``) ``moe.{router, w_gate, w_up,
+w_down}``, stacked over the repeats.  The layout is kept as it is.  Every
+leaf must have the dtype the reference gives it: the config's, except
+Mamba's fp32 ``a_log``, ``dt_bias`` and ``d_skip`` and the MoE's fp32
+``router``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import ATTN, DENSE, ModelConfig
+from repro_torch.models import ATTN, DENSE, MOE, MOE_DENSE, ModelConfig
+from repro_torch.models.moe import MOE_KEYS
 from repro_torch.models.ssm import FP32_LEAVES
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -51,8 +54,11 @@ def _dtypes(cfg: ModelConfig) -> dict:
         else:
             layer["mamba"] = {k: torch.float32 if k in FP32_LEAVES else dt
                               for k in _MAMBA}
-        if mlp_kind == DENSE:
+        if mlp_kind in (DENSE, MOE_DENSE):
             layer["mlp"] = same(_MLP)
+        if mlp_kind in (MOE, MOE_DENSE):
+            layer["moe"] = {k: torch.float32 if k == "router" else dt
+                            for k in MOE_KEYS}
         layers[f"pos{i}"] = layer
     return {"embed": dt, "final_norm": dt, "layers": layers}
 

@@ -1,5 +1,6 @@
 """The port's configs against the reference's, field for field, and the
-dense ones served at SMOKE against the JAX engine."""
+dense ones served at SMOKE against the JAX engine (the MoE family's are
+served in tests/test_torch_moe.py)."""
 
 import dataclasses
 
@@ -20,16 +21,17 @@ from repro_torch.serve import ServeConfig as TServeConfig
 from repro_torch.weights import params_from_jax
 
 DENSE = ("qwen3-14b", "glm4-9b", "llama3-405b")
+MOE = ("arctic-480b", "dbrx-132b", "jamba-v0.1-52b")
 
 
 def test_the_registry_holds_the_ported_archs():
-    assert set(ARCH_NAMES) == {"smollm-135m", "mamba2-1.3b", *DENSE}
+    assert set(ARCH_NAMES) == {"smollm-135m", "mamba2-1.3b", *DENSE, *MOE}
     assert set(ARCH_NAMES) <= set(jregistry.ARCH_NAMES)
 
 
 @pytest.mark.parametrize("smoke", [False, True])
 @pytest.mark.parametrize("arch", sorted(["smollm-135m", "mamba2-1.3b",
-                                         *DENSE]))
+                                         *DENSE, *MOE]))
 def test_config_equals_the_reference(arch, smoke):
     """Every field of the port's ModelConfig equals the reference's (the
     dtype by name); the reference's training-only fields (logit_chunk,
@@ -62,8 +64,7 @@ def test_dense_smoke_serves_the_jax_engine_tokens(arch):
 
 
 def test_unported_families_still_raise():
-    for arch in ("arctic-480b", "jamba-v0.1-52b", "whisper-base",
-                 "internvl2-76b"):
+    for arch in ("whisper-base", "internvl2-76b"):
         j = jregistry.smoke_config(arch)
         cfg = ModelConfig(**{
             f.name: (torch.float32 if f.name == "dtype"

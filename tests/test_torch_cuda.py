@@ -699,3 +699,123 @@ def test_plan_only_engine_serves_the_store_tokens(cuda, tmp_path):
         assert planned == stored
     finally:
         tstore.install_serving(store=None, models=None, fingerprint=None)
+
+
+MOE_ARCHS = ("arctic-480b", "dbrx-132b", "jamba-v0.1-52b")
+
+
+def _moe_engine(cuda, arch, dtype=torch.float32, **kw):
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen)
+    return Engine(cfg, params, ServeConfig(max_len=64, slots=3, **kw),
+                  device=cuda)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_graph_tokens_equal_the_eager_engine(cuda, arch):
+    """Each MoE SMOKE config in fp32, served from the engine's CUDA graphs
+    (the capacity path in every prefill of more than one token, the decode
+    path in a tick and in the 1-token prompt's prefill), gives the eager
+    prefill and tick's greedy tokens."""
+    import numpy as np
+
+    from repro_torch.tunedb.store import clear_store
+
+    clear_store()
+    rng = np.random.default_rng(5)
+    eng = _moe_engine(cuda, arch)
+    prompts = [rng.integers(0, eng.cfg.vocab, n) for n in (6, 40, 1, 11, 9)]
+    graph = eng.generate(prompts, max_new=6)
+    assert eng.captures == 1 and eng.replays == eng.ticks > 0
+    assert eng.prefill_captures == 5
+    eager = _moe_engine(cuda, arch)
+    eager.prefill, eager.decode = eager.prefill_eager, eager.decode_eager
+    assert eager.generate(prompts, max_new=6) == graph
+    assert all(len(o) == 6 for o in graph)
+
+
+def test_moe_prefill_and_tick_capture(cuda):
+    """Capturing the capacity path (a 23-token prefill), the decode path
+    in a prefill (1 token) and a tick raises no capture error (no host
+    sync: no bincount, one_hot, tensor-valued repeat_interleave or mask
+    indexing), and each replay gives its eager run's logits bitwise."""
+    import numpy as np
+
+    from repro_torch.tunedb.store import clear_store
+
+    clear_store()
+    eng = _moe_engine(cuda, "dbrx-132b")
+    rng = np.random.default_rng(6)
+    for slot, n in enumerate((23, 1)):
+        tokens = torch.as_tensor(rng.integers(0, eng.cfg.vocab, n)[None],
+                                 device=cuda)
+        graph = eng.prefill_graph(slot, tokens).clone()
+        assert torch.equal(graph, eng.prefill_eager(slot, tokens)), n
+    assert eng.prefill_captures == 2
+    last = torch.tensor([[3], [11], [0]], device=cuda)
+    idx = torch.tensor([23, 1, 0], device=cuda)
+    logits = eng.decode_graph(last, idx).clone()
+    assert eng.captures == 1
+    assert torch.equal(logits, eng.decode_eager(last, idx))
+    assert torch.isfinite(logits).all()
+
+
+def test_moe_combine_is_deterministic_in_bf16(cuda):
+    """Two eager bf16 prefills of the same prompt give bitwise-equal
+    logits (the combine adds a token's k outputs in a fixed order, with
+    no atomics), and so do two calls of the capacity path itself."""
+    import numpy as np
+
+    from repro_torch.models import moe as TM
+    from repro_torch.tunedb.store import clear_store
+
+    clear_store()
+    eng = _moe_engine(cuda, "dbrx-132b", dtype=torch.bfloat16)
+    rng = np.random.default_rng(7)
+    tokens = torch.as_tensor(rng.integers(0, eng.cfg.vocab, 48)[None],
+                             device=cuda)
+    first = eng.prefill_eager(0, tokens).clone()
+    assert torch.equal(first, eng.prefill_eager(0, tokens))
+    p = {k: v[0] for k, v in eng.params["layers"]["pos0"]["moe"].items()}
+    x = torch.randn((2, 64, eng.cfg.d_model), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1)
+                    ).to(torch.bfloat16)
+    kw = dict(n_experts=eng.cfg.n_experts, top_k=eng.cfg.top_k)
+    a, _ = TM.moe(p, x, **kw)
+    b, _ = TM.moe(p, x, **kw)
+    assert torch.equal(a, b) and a.dtype == torch.bfloat16
+
+
+def test_capture_runs_with_the_collector_off(cuda, monkeypatch):
+    """The garbage collector is off while a graph is captured (and back on
+    after): a dead engine's graphs, freed by a collection mid-capture,
+    invalidated a MoE prefill's capture on the card (ROADMAP C10)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.serve import engine as tengine
+    from repro_torch.tunedb.store import clear_store
+
+    clear_store()
+    seen = []
+    real = tengine.prefill
+
+    def prefill(*args, **kw):
+        seen.append(gc.isenabled())
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tengine, "prefill", prefill)
+    eng = _moe_engine(cuda, "dbrx-132b")
+    tokens = torch.as_tensor(
+        np.random.default_rng(8).integers(0, eng.cfg.vocab, 12)[None],
+        device=cuda)
+    eng.prefill_graph(0, tokens)
+    assert seen == [True, False] and gc.isenabled()

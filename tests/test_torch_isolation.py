@@ -51,7 +51,9 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.weights", "repro_torch.models.ssm",
             "repro_torch.configs.mamba2_1p3b",
             "repro_torch.configs.qwen3_14b", "repro_torch.configs.glm4_9b",
-            "repro_torch.configs.llama3_405b"} <= set(
+            "repro_torch.configs.llama3_405b", "repro_torch.models.moe",
+            "repro_torch.configs.arctic_480b", "repro_torch.configs.dbrx_132b",
+            "repro_torch.configs.jamba_v01_52b"} <= set(
                 out["modules"])
 
 
