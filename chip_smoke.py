@@ -13,8 +13,9 @@ exits non-zero:
                 that a legal config launches spills
   3. gemm       the GEMM kernel against its plain version (and the reduced
                 result against the fp32 oracle) at the serving path's
-                shapes, two ragged unaligned ones (M=5 and 130) and Table
-                4's LINPACK 512, under configs that cover every bf16 warp
+                shapes, two ragged unaligned ones (M=5 and 130), Table
+                4's LINPACK 512, whisper-base's M = 6000 projections and
+                internvl2-76b's at M = 4, 32 and 1152, under configs that cover every bf16 warp
                 layout (bm x bn) and acc32=0; the split-K reduction pass
                 against its plain version (bf16 within one ulp)
   4. conv       the conv kernel against its plain version (and the fp32
@@ -193,11 +194,41 @@ exits non-zero:
                 kernels split into GEMM, reduction and other from a traced
                 round held to the graph's nodes; parameter bytes and peak
                 memory
- 21. kernels    one JSON line summarising every hand-written kernel (the
+ 21. encdec     whisper-base at full width, nothing cut (6 encoder + 6
+                decoder layers, d_model 512, bf16, random weights from seed
+                0), through the model's entry points as the reference
+                serves an encoder-decoder (its engine takes tokens only):
+                its 9 GEMM shapes (M = 4, 128, 6000) and its decode
+                attention shape tuned, the store installed with no plan
+                (every resolution an exact record, ``dispatch.tier_counts``
+                printed); ``encode``, ``prefill`` with 4 x 1500 frame
+                embeddings and 32-token prompts, 16 greedy
+                ``decode_step(memory=)`` ticks eager, then replayed from
+                one CUDA graph: logits bitwise the eager ticks', tokens
+                equal, 66 GEMM kernel nodes (6 x (4 self + 2 cross-K/V + 2
+                cross-q/o + 3 MLP)) and one reduction node per projection
+                whose tuned config splits K; encode, prefill and eager tick
+                ms; the replayed tick's device time against its byte bound
+ 22. frontend   internvl2-76b at full width (d_model 8192, 64 / 8 heads,
+                d_ff 28672, vocab 128256, bf16), its depth cut to 32 of 80
+                layers (all 80 need about 139 GB), after the earlier
+                phases' memory is freed: its 4 projection GEMMs (M = 4 and
+                32) and decode attention shape tuned; 8 requests of
+                32-token prompts x 16 tokens served on tokens through
+                ``Engine.generate`` from the CUDA graphs (0 host GEMM
+                launches, 224 x (prefills + replays) GEMM kernels from
+                graph nodes, tokens equal to eager); the model-level
+                prefill of 256 patch embeddings and 32 tokens for 4
+                requests (M = 1152, untuned: its tier printed) and 16
+                greedy decode steps from index 288; the replayed tick
+                against its byte bound; the peak allocated held under 75
+                GB; the two phases' wall
+ 23. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
 
 Each path (tune, models, serve, plans, admission, measure,
-degradation, serve_mamba, serve_moe) runs with every launch
+degradation, serve_mamba, serve_moe, serve_encdec, serve_frontend) runs
+with every launch
 count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
 
@@ -255,8 +286,9 @@ from repro_torch.kernels import matmul as kmatmul  # noqa: E402
 from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref, conv2d_ref,  # noqa: E402
                                      matmul_ref, ssd_ref)
-from repro_torch.models import (decode_step, init_cache,  # noqa: E402
-                                init_params, prefill, tree_leaves, tree_map)
+from repro_torch.models import (decode_step, encode,  # noqa: E402
+                                init_cache, init_params, prefill,
+                                tree_leaves, tree_map)
 from repro_torch.models import moe as mmoe  # noqa: E402
 from repro_torch.models import ssm as mssm  # noqa: E402
 from repro_torch.models.layers import attention, rms_norm  # noqa: E402
@@ -542,6 +574,33 @@ def time_ms(fn, n_calls: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def median_ms(fn, reps: int) -> float:
+    """Median host wall of ``fn()`` between synchronisations."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ts)
+
+
+def replay_ms(graph, reps: int = 20) -> float:
+    """Median device time of one replay of ``graph``, between CUDA
+    events."""
+    devs = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        devs.append(e0.elapsed_time(e1))
+    return statistics.median(devs)
+
+
 def bound(nbytes: float, flops: float, dtype: torch.dtype, peaks: dict
           ) -> dict:
     """The least time the card could take: each input read once and the
@@ -756,9 +815,11 @@ def ulp_distance(got: torch.Tensor, want: torch.Tensor) -> int:
 def phase_gemm_check(dev: torch.device) -> dict:
     """The GEMM kernel's partials against its plain version's under every
     check config at every check shape, bf16 and (acc32=1) fp32; the
-    reduced result against the fp32 oracle; and, where the config splits
-    K, the reduction pass on the kernel's partials against its plain
-    version.  Both sum in fp32 and round once, in orders that may differ:
+    reduced result against the fp32 oracle (an acc32=0 result may miss it
+    only where its plain version, the config's own arithmetic, misses it
+    too: a config the gate rejects at that shape); and, where the config
+    splits K, the reduction pass on the kernel's partials against its
+    plain version.  Both sum in fp32 and round once, in orders that may differ:
     bf16 within one ulp; fp32 within :data:`REDUCE_TOL_FP32` of the
     largest sum (near zero a reordered fp32 sum is many ulps off)."""
     gen = torch.Generator(device=dev)
@@ -767,7 +828,16 @@ def phase_gemm_check(dev: torch.device) -> dict:
              "reduce_fp32_rel": 0.0}
     shapes = [(M, N, K) for M in SLICE_M for (N, K) in SLICE_NK]
     shapes += GEMM_EXTRA_SHAPES
+    # shapes only the encdec and frontend phases reach: whisper-base's 6000
+    # frames, internvl2-76b's projections at its tick, its 32-token
+    # prefill and its 256-patch prefill of 4 requests
+    shapes += [(ENCDEC_M[-1], N, K) for N, K in ENCDEC_NK]
+    shapes += [(M, N, K) for M in (FRONTEND_SLOTS, FRONTEND_PROMPT,
+                                   FRONTEND_SLOTS * (256 + FRONTEND_PROMPT))
+               for N, K in FRONTEND_NK]
+    t0 = time.perf_counter()
     n = n_reduce = 0
+    drift = []
     for M, N, K in shapes:
         for cname, cfg in CHECK_CONFIGS.items():
             for dtype in (torch.bfloat16, torch.float32):
@@ -808,21 +878,35 @@ def phase_gemm_check(dev: torch.device) -> dict:
                             f"{cname}")
                     worst["reduce_abs"] = max(worst["reduce_abs"], ea_r)
                     n_reduce += 1
-                _, er_ref = rel_err(ops.matmul(a, b, cfg), matmul_ref(a, b))
+                oracle = matmul_ref(a, b)
+                _, er_ref = rel_err(ops.matmul(a, b, cfg), oracle)
                 if er_ref > TOL[dtype]:
-                    raise AssertionError(
-                        f"gemm vs matmul_ref: rel err {er_ref:.3e} at "
-                        f"M={M} N={N} K={K} {dtype} {cname}")
+                    # acc32=0 rounds the running sum to bf16 after every
+                    # sub-dot; over a long K the config's own arithmetic
+                    # drifts past the tolerance, and the gate rejects it
+                    with plain_kernels():
+                        _, er_plain = rel_err(ops.matmul(a, b, cfg), oracle)
+                    if cfg["acc32"] or er_plain <= TOL[dtype]:
+                        raise AssertionError(
+                            f"gemm vs matmul_ref: rel err {er_ref:.3e} at "
+                            f"M={M} N={N} K={K} {dtype} {cname} (plain "
+                            f"version {er_plain:.3e})")
+                    drift.append(f"{cname} at {M}x{N}x{K} ({er_ref:.3f}, "
+                                 f"plain {er_plain:.3f})")
                 n += 1
     phase("gemm", f"{n} kernel-vs-plain checks passed over {len(shapes)} "
           f"shapes and {len(CHECK_CONFIGS)} configs (every bf16 warp "
           f"layout); max abs err {worst['abs']:.3e}, max rel err "
           f"{worst['rel']:.3e} (tolerance bf16 {TOL[torch.bfloat16]}, fp32 "
           f"{TOL[torch.float32]}); every result within the tolerance of the "
-          f"fp32 oracle; {n_reduce} split-K reduction passes vs plain: bf16 "
+          f"fp32 oracle but {len(drift)} acc32=0 ones whose plain version "
+          f"drifts past it too (a config the gate rejects; the first "
+          f"{drift[:4]}); "
+          f"{n_reduce} split-K reduction passes vs plain: bf16 "
           f"at most {worst['reduce_ulp']} ulp apart (held to 1), fp32 max "
           f"rel err {worst['reduce_fp32_rel']:.3e} (held to "
-          f"{REDUCE_TOL_FP32}); max abs err {worst['reduce_abs']:.3e}")
+          f"{REDUCE_TOL_FP32}); max abs err {worst['reduce_abs']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s")
     return worst
 
 
@@ -1774,6 +1858,12 @@ def graph_counts(graph) -> tuple:
             sum(1 for n in names if REDUCE_KERNEL.search(n)), len(names))
 
 
+def splits(store: RecordStore, fp: str, M: int, N: int, K: int) -> int:
+    """1 where the shape's tuned config splits K (a reduction pass)."""
+    rec = store.get("gemm", gemm_input(M, N, K, 16), backend=fp)
+    return int(ops.shrink_gemm_cfg(rec.config, M, N, K)["k_split"] > 1)
+
+
 def serve_run(eng, what: str, batch: list, max_new: int, per_fwd: int,
               red_pre: int, red_tick: int, attn_per_tick: int) -> dict:
     """One ``eng.generate`` of ``batch``, its host-side launches,
@@ -2661,20 +2751,12 @@ def phase_profile(eng, cfg, dev: torch.device, label: str) -> dict:
     graph.replay()
     torch.cuda.synchronize()
     nodes = collections.Counter(demangle(graph_kernel_names(graph)))
-    devs = []
-    for _ in range(n):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        graph.replay()
-        e1.record()
-        e1.synchronize()
-        devs.append(e0.elapsed_time(e1))
+    device_ms = replay_ms(graph, n)
     reps = PROFILE_REPS
     tries, split, kinds = traced_split(graph, nodes, "profile")
     out = {"wall_ms": 1e3 * statistics.median(walls),
            "enqueue_ms": 1e3 * statistics.median(enqueues),
-           "device_ms": statistics.median(devs),
+           "device_ms": device_ms,
            "kernels_ms": {k: v[0] for k, v in kinds.items()},
            "kernels_per_tick": {k: v[1] for k, v in kinds.items()},
            "rounds": len(tries), "split": split}
@@ -2799,11 +2881,9 @@ def phase_mamba(backend, store: RecordStore, store_path: Path, fp: str,
         tunedb_backend=fp, tunedb_models="", record_tick_times=True))
     plan = serving_state().plan
     per_fwd = len(MAMBA_NK) * cfg.n_layers           # 96 GEMMs a forward
-    red = {M: cfg.n_layers * sum(
-        ops.shrink_gemm_cfg(store.get("gemm", gemm_input(M, N, K, 16),
-                                      backend=fp).config, M, N, K)[
-            "k_split"] > 1 for N, K in MAMBA_NK)
-        for M in (MAMBA_SLOTS, MAMBA_PROMPT)}
+    red = {M: cfg.n_layers * sum(splits(store, fp, M, N, K)
+                                 for N, K in MAMBA_NK)
+           for M in (MAMBA_SLOTS, MAMBA_PROMPT)}
     run = functools.partial(serve_run, eng, per_fwd=per_fwd,
                             red_pre=red[MAMBA_PROMPT],
                             red_tick=red[MAMBA_SLOTS], attn_per_tick=0)
@@ -2880,17 +2960,9 @@ def phase_mamba(backend, store: RecordStore, store_path: Path, fp: str,
 
     # the 32-token prefill, graph replay (with the merge) against eager
     tokens = torch.as_tensor(prompts[0][None], device=dev)
-    pre_ms = {}
-    for what, fn in (("graph", eng.prefill_graph),
-                     ("eager", eng.prefill_eager)):
-        ts = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(1, tokens)
-            torch.cuda.synchronize()
-            ts.append(1e3 * (time.perf_counter() - t0))
-        pre_ms[what] = statistics.median(ts)
+    pre_ms = {what: median_ms(lambda: fn(1, tokens), 5)
+              for what, fn in (("graph", eng.prefill_graph),
+                               ("eager", eng.prefill_eager))}
 
     state = eng.cache["pos0"]["mamba"]
     for n in MAMBA_PARITY:
@@ -2982,16 +3054,7 @@ def phase_mamba(backend, store: RecordStore, store_path: Path, fp: str,
     # the replayed tick's device time against its bound: every parameter
     # read once (the head reads the whole embedding), the cache read and
     # written once
-    devs = []
-    for _ in range(20):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        eng.graph.replay()
-        e1.record()
-        e1.synchronize()
-        devs.append(e0.elapsed_time(e1))
-    tick_dev = statistics.median(devs)
+    tick_dev = replay_ms(eng.graph)
     gemm_elems = sum(v.numel() for v in (
         layer["mamba"]["w_in"], layer["mamba"]["w_out"], params["embed"]))
     tb = bound(nbytes(tree_leaves(params))
@@ -3030,8 +3093,9 @@ MOE_PARITY = (100, 32, 9, 1)
 MOE_RTOL, MOE_ATOL = 1e-4, 1e-5
 MOE_NO_DROP_CF = 8.0
 MOE_TOP_NAMES = 8                  # the tick's kernels printed by name
-# kernel events a traced round of the MoE tick may lose (one a replay):
-# its rounds lost one embedding-gather event each on the card (ROADMAP C9)
+# kernel events a traced round of the MoE tick may lose: the profiler
+# drops events of a round's first replay, from its first nodes on, on a
+# graph of plain PyTorch ops too (tools/profiler_loss.py, PERF.md §7)
 MOE_LOST_EVENTS = 5
 
 
@@ -3101,11 +3165,9 @@ def phase_moe(backend, store: RecordStore, store_path: Path, fp: str,
         tunedb_backend=fp, tunedb_models="", record_tick_times=True))
     plan = serving_state().plan
     per_fwd = 2 * len(MOE_NK) * cfg.n_layers          # 32 GEMMs a forward
-    red = {M: 2 * cfg.n_layers * sum(
-        ops.shrink_gemm_cfg(store.get("gemm", gemm_input(M, N, K, 16),
-                                      backend=fp).config, M, N, K)[
-            "k_split"] > 1 for N, K in MOE_NK)
-        for M in (MOE_SLOTS, MOE_PROMPT)}
+    red = {M: 2 * cfg.n_layers * sum(splits(store, fp, M, N, K)
+                                     for N, K in MOE_NK)
+           for M in (MOE_SLOTS, MOE_PROMPT)}
     run = functools.partial(serve_run, eng, per_fwd=per_fwd,
                             red_pre=red[MOE_PROMPT],
                             red_tick=red[MOE_SLOTS],
@@ -3185,17 +3247,9 @@ def phase_moe(backend, store: RecordStore, store_path: Path, fp: str,
 
     # the 32-token prefill, graph replay (with the merge) against eager
     tokens = torch.as_tensor(prompts[0][None], device=dev)
-    pre_ms = {}
-    for what, fn in (("graph", eng.prefill_graph),
-                     ("eager", eng.prefill_eager)):
-        ts = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(1, tokens)
-            torch.cuda.synchronize()
-            ts.append(1e3 * (time.perf_counter() - t0))
-        pre_ms[what] = statistics.median(ts)
+    pre_ms = {what: median_ms(lambda: fn(1, tokens), 5)
+              for what, fn in (("graph", eng.prefill_graph),
+                               ("eager", eng.prefill_eager))}
     C = mmoe._capacity(MOE_PROMPT, cfg.top_k, cfg.n_experts,
                        cfg.capacity_factor)
     phase("moe", f"{MOE_PROMPT}-token prefill (the capacity path, C = "
@@ -3252,16 +3306,7 @@ def phase_moe(backend, store: RecordStore, store_path: Path, fp: str,
     # the replayed tick's device time against its bound (every parameter
     # read once: the decode path reads every expert, the head the whole
     # embedding; the cache read and written once), and its kernels by kind
-    devs = []
-    for _ in range(20):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        eng.graph.replay()
-        e1.record()
-        e1.synchronize()
-        devs.append(e0.elapsed_time(e1))
-    tick_dev = statistics.median(devs)
+    tick_dev = replay_ms(eng.graph)
     matrices = sum(t.numel() for t in tree_leaves(params) if t.dim() >= 2)
     tb = bound(p_bytes + 2 * nbytes(tree_leaves(eng.cache)),
                2.0 * MOE_SLOTS * matrices, bf16, peaks)
@@ -3300,6 +3345,393 @@ def phase_moe(backend, store: RecordStore, store_path: Path, fp: str,
             "tick_bound_ms": tb["bound_ms"], "wall_s": wall}
 
 
+# whisper-base (the encoder-decoder): its 3 projection (N, K) at the
+# decode tick's 4 slots, the 4 x 32-token prefill's 128 rows and the 4 x
+# 1500 encoder frames' 6000 (the encoder's projections and the
+# cross-attention's K/V of the memory); its decode attention shape (the
+# split-count lookup); 16 greedy ticks
+ENCDEC_NK = ((512, 512), (2048, 512), (512, 2048))
+ENCDEC_SLOTS, ENCDEC_PROMPT, ENCDEC_MAX_LEN, ENCDEC_NEW = 4, 32, 256, 16
+ENCDEC_M = (ENCDEC_SLOTS, ENCDEC_SLOTS * ENCDEC_PROMPT, 6000)
+ENCDEC_TUNE_SAMPLES = 96
+ENCDEC_REPS = 10
+
+
+def phase_encdec(backend, store: RecordStore, fp: str, dev: torch.device,
+                 peaks: dict, label: str) -> dict:
+    """whisper-base at full width, nothing cut (6 + 6 layers, d_model
+    512, bf16, random weights from seed 0), through the model's entry
+    points, as the reference serves an encoder-decoder (its engine serves
+    tokens only): ``encode``, ``prefill`` with ``encoder_embeds`` (4
+    requests of 1500 frame embeddings from seed 1 and 32-token prompts)
+    and 16 greedy ``decode_step(memory=)`` ticks, eager, then again from
+    one CUDA graph of the tick.
+
+    Its 9 GEMM shapes and its decode attention shape are tuned into the
+    store first and the store installed with no plan, so every resolution
+    is an exact record (``dispatch.tier_counts``).  The replays' logits
+    must be bitwise the eager ticks' at every step and their greedy tokens
+    the eager's; the tick graph's GEMM kernel nodes 6 x (4 self + 2
+    cross-K/V + 2 cross-q/o + 3 MLP) = 66 and its reduction nodes one per
+    projection whose tuned config splits K.  Then encode, prefill and the
+    eager tick timed, and the replayed tick's device time against its
+    byte bound."""
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-base")
+    B, T, bf16 = ENCDEC_SLOTS, ENCDEC_PROMPT, torch.bfloat16
+    targets = [gemm_input(M, N, K, 16) for M in ENCDEC_M
+               for N, K in ENCDEC_NK]
+    attn = attention_input(B, cfg.n_heads, cfg.n_kv, 1, ENCDEC_MAX_LEN,
+                           cfg.hd)
+    t0 = time.perf_counter()
+    tune_space(GEMM_SPACE, targets, ("M",), backend, store,
+               samples=ENCDEC_TUNE_SAMPLES)
+    tune_space(ATTENTION_SPACE, [attn], attention_dims, backend, store,
+               samples=ENCDEC_TUNE_SAMPLES)
+    tune_s = time.perf_counter() - t0
+    install_serving(store=store, models=None, fingerprint=fp,
+                    build_plan=False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen)
+    gen.manual_seed(1)
+    frames = torch.randn((B, cfg.encoder_len, cfg.d_model), generator=gen,
+                         device=dev)
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, T)), device=dev)
+    cache = init_cache(cfg, B, ENCDEC_MAX_LEN, dev)
+    batch = {"tokens": tokens, "encoder_embeds": frames}
+    idx = torch.full((B,), T, dtype=torch.long, device=dev)
+    last = torch.zeros((B, 1), dtype=torch.long, device=dev)
+
+    # the main path: encode, prefill (its own encode), the eager greedy
+    # ticks, the tick's capture and its replays
+    reset_launches()
+    dispatch.reset_counts()
+    memory = encode(cfg, params, frames)
+    logits, _ = prefill(params, cfg, batch, cache)
+    first = logits[:, : cfg.vocab].argmax(-1)
+
+    def greedy(step) -> tuple:
+        last.copy_(first[:, None])
+        toks, outs = [], []
+        for i in range(ENCDEC_NEW):
+            idx.fill_(T + i)
+            out = step()[:, : cfg.vocab]
+            outs.append(out.clone())
+            last.copy_(out.argmax(-1)[:, None])
+            toks.append(last[:, 0].tolist())
+        return toks, outs
+
+    tick = lambda: decode_step(params, cfg, last, cache, idx,
+                               memory=memory)[0]
+    eager_toks, eager_logits = greedy(tick)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tick()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    gc.disable()                  # a collection mid-capture (ROADMAP C10)
+    try:
+        with torch.cuda.graph(graph):
+            static = tick()
+    finally:
+        gc.enable()
+    graph.instantiate()
+
+    def replay() -> torch.Tensor:
+        graph.replay()
+        return static
+
+    graph_toks, graph_logits = greedy(replay)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    tiers = {f"{sp}/{t}": c for (sp, t), c in dispatch.tier_counts.items()}
+    if not counts["gemm"] or any(not t.endswith("/exact") for t in tiers):
+        raise AssertionError(f"encdec path: launches {counts}, resolutions "
+                             f"{tiers} (want each an exact record)")
+    same = all(torch.equal(g, e) for g, e in zip(graph_logits, eager_logits))
+    if not same or graph_toks != eager_toks or not all(
+            torch.isfinite(e).all() for e in eager_logits):
+        raise AssertionError(f"encdec: the replayed ticks' logits bitwise "
+                             f"the eager ticks' {same}, tokens "
+                             f"{graph_toks} vs {eager_toks}")
+    L, Le = cfg.n_layers, B * cfg.encoder_len
+    want_gemm = L * (4 + 2 + 2 + 3)
+    want_red = L * (6 * splits(store, fp, B, 512, 512)
+                    + 2 * splits(store, fp, Le, 512, 512)
+                    + 2 * splits(store, fp, B, 2048, 512)
+                    + splits(store, fp, B, 512, 2048))
+    n_gemm, n_red, n_nodes = graph_counts(graph)
+    if (n_gemm, n_red) != (want_gemm, want_red):
+        raise AssertionError(f"encdec tick graph: {n_gemm} GEMM and {n_red} "
+                             f"reduction nodes of {n_nodes}, want "
+                             f"{want_gemm} and {want_red}")
+    device = n_gemm * ENCDEC_NEW
+    phase("encdec", f"{cfg.name}, nothing cut: {cfg.encoder_layers} "
+          f"encoder + {cfg.n_layers} decoder layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv} heads of {cfg.hd}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.encoder_len} frames, "
+          f"decode_kv_splits {cfg.decode_kv_splits}, bf16, "
+          f"{cfg.param_count / 1e6:.2f} M parameters; tune of "
+          f"{len(targets)} GEMM shapes and the decode attention shape "
+          f"({ENCDEC_TUNE_SAMPLES} samples each) {tune_s:.1f} s; {B} "
+          f"requests of {cfg.encoder_len} frames and {T}-token prompts, "
+          f"{ENCDEC_NEW} greedy decode_step(memory=) ticks eager, then "
+          f"replayed from one CUDA graph: logits bitwise the eager ticks' "
+          f"at every step, greedy tokens equal ({graph_toks[-1]} at the "
+          f"last); tick graph {n_gemm} GEMM + {n_red} reduction of "
+          f"{n_nodes} kernel nodes ({L} x (4 self + 2 cross-K/V + 2 "
+          f"cross-q/o + 3 MLP) GEMMs), {device} GEMM kernels given to the "
+          f"device by the {ENCDEC_NEW} replays; dispatch.tier_counts "
+          f"{tiers}; launches {counts} [{label}]")
+
+    enc_ms = median_ms(lambda: encode(cfg, params, frames), ENCDEC_REPS)
+    pre_ms = median_ms(lambda: prefill(params, cfg, batch, cache),
+                       ENCDEC_REPS)
+    tick_ms = median_ms(tick, ENCDEC_REPS)
+    tick_dev = replay_ms(graph)
+    # the tick's bound: the decoder's parameters and the tied head read
+    # once, the cache read and written once, and the memory read by each
+    # of the 12 cross-attention K/V projections, whose outputs are written
+    # and read back once; operations: each projection's 2 x M x N x K
+    # (M = 4 slots, or 6000 frames for the cross K/V) and the head's
+    dec = tree_leaves(params["layers"])
+    kv_elems = sum(params["layers"]["pos0"]["cross"][k].numel()
+                   for k in ("wk", "wv"))
+    kv_out = 2 * L * Le * cfg.n_kv * cfg.hd * 2
+    tb = bound(nbytes(dec) + nbytes([params["embed"]])
+               + 2 * nbytes(tree_leaves(cache)) + 2 * L * nbytes([memory])
+               + 2 * kv_out,
+               2.0 * B * (sum(t.numel() for t in dec if t.dim() >= 3)
+                          - kv_elems + params["embed"].numel())
+               + 2.0 * Le * kv_elems, bf16, peaks)
+    wall = time.perf_counter() - t_phase
+    phase("encdec", f"encode {enc_ms:.3f} ms, prefill (its own encode "
+          f"included) {pre_ms:.3f} ms, eager tick {tick_ms:.3f} ms (host "
+          f"wall, median of {ENCDEC_REPS}); replayed tick: device "
+          f"{tick_dev:.4f} ms (median of 20), bound {tb['bound_ms']:.4f} ms "
+          f"({tb['bound_by']}: bytes {1e3 * tb['t_bytes']:.4f} ms, "
+          f"operations {1e3 * tb['t_ops']:.4f} ms), "
+          f"{tb['bound_ms'] / tick_dev:.1%} of the bound; phase wall "
+          f"{wall:.1f} s [{label}]")
+    del graph, params, cache, memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "device_launches": device,
+            "device_reduce_launches": n_red * ENCDEC_NEW, "wall_s": wall,
+            "tick_device_ms": tick_dev, "tick_bound_ms": tb["bound_ms"]}
+
+
+# internvl2-76b (the vision frontend): depth cut to 32 of 80 layers (all
+# 80 need 139 GB); its 4 projection (N, K), with their count a layer, at
+# the tick's 4 slots and the 32-token prefill; the decode attention shape
+# at the max_len that holds 256 patches, 32 tokens and 16 more
+FRONTEND_LAYERS = 32
+FRONTEND_NK = {(8192, 8192): 2, (1024, 8192): 2, (28672, 8192): 2,
+               (8192, 28672): 1}
+FRONTEND_SLOTS, FRONTEND_PROMPT, FRONTEND_NEW = 4, 32, 16
+FRONTEND_MAX_LEN = 320
+FRONTEND_TUNE_SAMPLES = 96
+FRONTEND_ATTN_SAMPLES = 48
+FRONTEND_PEAK_GB = 75
+
+
+def phase_frontend(backend, store: RecordStore, store_path: Path, fp: str,
+                   dev: torch.device, peaks: dict, label: str) -> dict:
+    """internvl2-76b at full width (d_model 8192, 64 / 8 heads of 128,
+    d_ff 28672, vocab 128256, bf16, random weights from seed 0), its
+    depth cut to :data:`FRONTEND_LAYERS` of 80, built after the earlier
+    phases' memory is freed.
+
+    Its 4 projection GEMMs at M = 4 and 32 and its decode attention shape
+    are tuned into the store; then ``Engine.generate`` serves 8 requests
+    of 32-token prompts x 16 tokens on tokens only (as the reference's
+    engine serves it) from its CUDA graphs: no GEMM launched from the
+    host, 224 x (prefills + replays) GEMM kernels from the graphs' nodes,
+    every served shape its tuned record; the eager run gives the same
+    tokens.  Then the model-level frontend prefill: 256 patch embeddings
+    (seed 1) and 32 tokens for 4 requests (M = 1152, untuned: the tier
+    each of its shapes resolved to printed) and 16 greedy
+    ``decode_step``s from index 288.  The replayed tick's device time
+    against its byte bound; the peak allocated held under
+    :data:`FRONTEND_PEAK_GB` GB."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    full = get_config("internvl2-76b")
+    cfg = dataclasses.replace(full, n_layers=FRONTEND_LAYERS)
+    B, T, Np = FRONTEND_SLOTS, FRONTEND_PROMPT, cfg.n_frontend_tokens
+    targets = [gemm_input(M, N, K, 16) for M in (B, T)
+               for N, K in FRONTEND_NK]
+    attn = attention_input(B, cfg.n_heads, cfg.n_kv, 1, FRONTEND_MAX_LEN,
+                           cfg.hd)
+    t0 = time.perf_counter()
+    tune_space(GEMM_SPACE, targets, ("M",), backend, store,
+               samples=FRONTEND_TUNE_SAMPLES)
+    tune_space(ATTENTION_SPACE, [attn], attention_dims, backend, store,
+               samples=FRONTEND_ATTN_SAMPLES)
+    tune_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p_bytes = nbytes(tree_leaves(params))
+    layer_bytes = nbytes(tree_leaves(params["layers"])) / cfg.n_layers
+    full_gb = (p_bytes + (full.n_layers - cfg.n_layers) * layer_bytes) / 1e9
+    phase("frontend", f"{cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {Np} patch embeddings, decode_kv_splits "
+          f"{cfg.decode_kv_splits}, bf16; the one cut: {cfg.n_layers} of "
+          f"{full.n_layers} layers, {cfg.param_count / 1e9:.2f} B "
+          f"parameters, {p_bytes / 1e9:.3f} GB (all {full.n_layers} would "
+          f"need {full_gb:.1f} GB, one card holds 80 GB); built in "
+          f"{init_s:.1f} s (peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, "
+          f"{before / 1e9:.3f} GB before the phase); tune of "
+          f"{len(targets)} GEMM shapes ({FRONTEND_TUNE_SAMPLES} samples) "
+          f"and the decode attention shape ({FRONTEND_ATTN_SAMPLES}) "
+          f"{tune_s:.1f} s")
+
+    eng = Engine(cfg, params, ServeConfig(
+        max_len=FRONTEND_MAX_LEN, slots=B, tunedb=str(store_path),
+        tunedb_backend=fp, tunedb_models="", record_tick_times=True))
+    plan = serving_state().plan
+    per_fwd = sum(FRONTEND_NK.values()) * cfg.n_layers
+    red = {M: cfg.n_layers * sum(c * splits(store, fp, M, N, K)
+                                 for (N, K), c in FRONTEND_NK.items())
+           for M in (B, T)}
+    run = functools.partial(serve_run, eng, per_fwd=per_fwd,
+                            red_pre=red[T], red_tick=red[B],
+                            attn_per_tick=cfg.n_layers)
+    rng = np.random.default_rng(0)
+    warm = [rng.integers(0, cfg.vocab, T) for _ in range(2)]
+    prompts = [rng.integers(0, cfg.vocab, T) for _ in range(8)]
+    reset_launches()
+    w = run("frontend warm-up", warm, 2)
+    g = run("frontend graph", prompts, FRONTEND_NEW)
+    if (w["captures"], w["prefill_captures"]) != (1, 1) or (
+            g["captures"] or g["prefill_captures"] or g["launches"]):
+        raise AssertionError(f"frontend: warm-up {w['captures']} tick and "
+                             f"{w['prefill_captures']} prefill captures; "
+                             f"graph run {g['captures']} and "
+                             f"{g['prefill_captures']}, {g['launches']} GEMM "
+                             "launches from the host")
+    counts = read_launches()
+    if not counts["gemm"]:
+        raise AssertionError(f"frontend serve path launches {counts}")
+    tick_gemm, tick_red, tick_nodes = graph_counts(eng.graph)
+    pre_gemm, pre_red, pre_nodes = graph_counts(eng.prefill_graphs[T])
+    if ((tick_gemm, tick_red) != (per_fwd, red[B])
+            or (pre_gemm, pre_red) != (per_fwd, red[T])):
+        raise AssertionError(f"frontend tick graph: {tick_gemm} GEMM and "
+                             f"{tick_red} reduction nodes of {tick_nodes}; "
+                             f"prefill graph {pre_gemm} and {pre_red} of "
+                             f"{pre_nodes}; want {per_fwd} and {red[B]}, "
+                             f"{per_fwd} and {red[T]}")
+    device = tick_gemm * g["replays"] + pre_gemm * g["prefills"]
+    device_red = tick_red * g["replays"] + pre_red * g["prefills"]
+    if g["telemetry"]["gemm"] != device:
+        raise AssertionError(f"frontend graph run: {device} GEMM kernels "
+                             f"given to the device, telemetry "
+                             f"{g['telemetry']['gemm']}")
+    check_plan_exact(plan, eng.tunedb_store, fp, g["shapes"], "frontend")
+    eng.prefill, eng.decode = eng.prefill_eager, eng.decode_eager
+    try:
+        e = run("frontend eager", prompts, FRONTEND_NEW)
+    finally:
+        eng.prefill, eng.decode = eng.prefill_graph, eng.decode_graph
+    if e["outs"] != g["outs"]:
+        raise AssertionError("frontend: the graphs' greedy tokens differ "
+                             "from the eager run's")
+    phase("frontend", f"Engine.generate on tokens, {len(prompts)} requests "
+          f"x {FRONTEND_NEW} tokens, ServeConfig(max_len="
+          f"{FRONTEND_MAX_LEN}, slots={B}): graph run {g['tok_s']:.1f} "
+          f"tok/s, median tick {g['tick_ms']:.2f} ms, {g['prefills']} "
+          f"prefills + {g['replays']} tick replays, {g['launches']} GEMM "
+          f"launches from the host, {device} GEMM kernels and {device_red} "
+          f"reduction passes given to the device ({per_fwd} x (prefills + "
+          f"replays); tick graph {tick_gemm} GEMM + {tick_red} reduction "
+          f"of {tick_nodes} kernel nodes, prefill graph {pre_gemm} + "
+          f"{pre_red} of {pre_nodes}), every served shape its tuned record "
+          f"(tier exact); eager {e['tok_s']:.1f} tok/s, median tick "
+          f"{e['tick_ms']:.2f} ms; greedy tokens equal; launches {counts} "
+          f"[{label}]")
+
+    # the model-level frontend prefill: 256 patch embeddings and 32 tokens
+    # a request (M = 1152, untuned), then 16 greedy ticks from index 288
+    gen.manual_seed(1)
+    patches = torch.randn((B, Np, cfg.d_model), generator=gen, device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, T)), device=dev)
+    batch = {"tokens": toks, "patch_embeds": patches}
+    cache = init_cache(cfg, B, FRONTEND_MAX_LEN, dev)
+    n = Np + T
+    dispatch.reset_counts()
+    first_ms = median_ms(lambda: prefill(params, cfg, batch, cache), 1)
+    first_tiers = {f"{sp}/{t}": c
+                   for (sp, t), c in dispatch.tier_counts.items()}
+    # a slow-path answer is promoted into the plan with its tier; the
+    # vendor heuristics' (degraded) is not
+    m_tiers = {f"{N}x{K}": (plan.lookup("gemm", shape_key(gemm_input(
+        B * n, N, K, 16))) or (None, "degraded"))[1] for N, K in FRONTEND_NK}
+    pre_ms = median_ms(lambda: prefill(params, cfg, batch, cache), 3)
+    logits, _ = prefill(params, cfg, batch, cache)
+    last = logits[:, : cfg.vocab].argmax(-1, keepdim=True)
+    toks_out = []
+    t0 = time.perf_counter()
+    for i in range(FRONTEND_NEW):
+        logits, _ = decode_step(params, cfg, last, cache, n + i)
+        last = logits[:, : cfg.vocab].argmax(-1, keepdim=True)
+        toks_out.append(last[:, 0])
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t0) / FRONTEND_NEW
+    toks_out = torch.stack(toks_out, 1)
+    k_rows = cache["pos0"]["attn"]["k"]
+    if not (torch.isfinite(logits).all()
+            and logits.shape == (B, cfg.padded_vocab)
+            and bool((toks_out < cfg.vocab).all())
+            and k_rows[:, :, n + FRONTEND_NEW - 1].any()
+            and not k_rows[:, :, n + FRONTEND_NEW:].any()):
+        raise AssertionError("frontend: the patch prefill and its ticks gave "
+                             "non-finite logits or a cache written outside "
+                             f"0..{n + FRONTEND_NEW - 1}")
+    tick_dev = replay_ms(eng.graph)
+    tb = bound(p_bytes + 2 * nbytes(tree_leaves(eng.cache)),
+               2.0 * B * sum(t.numel() for t in tree_leaves(params)
+                             if t.dim() >= 2), torch.bfloat16, peaks)
+    wall = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated()
+    phase("frontend", f"model-level prefill of {Np} patch embeddings + {T} "
+          f"tokens x {B} requests (M = {B * n}, untuned): first "
+          f"{first_ms:.3f} ms, then {pre_ms:.3f} ms (median of 3); the "
+          f"first's resolutions {first_tiers}, the M = {B * n} shapes "
+          f"resolved on tier {m_tiers}; then {FRONTEND_NEW} greedy "
+          f"decode_steps from index {n}: {dec_ms:.2f} ms a step (eager), "
+          f"finite logits, request 0's tokens {toks_out[0].tolist()}; "
+          f"replayed engine tick ({B} slots, {cfg.n_layers} layers): "
+          f"device {tick_dev:.3f} ms (median of 20), bound "
+          f"{tb['bound_ms']:.3f} ms ({tb['bound_by']}: {p_bytes / 1e9:.3f} "
+          f"GB of parameters read, the cache read and written), "
+          f"{tb['bound_ms'] / tick_dev:.1%} of the bound; peak allocated "
+          f"{peak / 1e9:.3f} GB (held under {FRONTEND_PEAK_GB}); phase wall "
+          f"{wall:.1f} s [{label}]")
+    if peak > FRONTEND_PEAK_GB * 1e9:
+        raise AssertionError(f"frontend: peak allocated {peak / 1e9:.1f} GB "
+                             f"at {cfg.n_layers} layers")
+    del eng, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "device_launches": device,
+            "device_reduce_launches": device_red, "tok_s": g["tok_s"],
+            "tick_ms": g["tick_ms"], "tick_device_ms": tick_dev,
+            "tick_bound_ms": tb["bound_ms"], "wall_s": wall}
+
+
 REPLACES = {"gemm": "src/repro/kernels/matmul.py:36",
             "conv": "src/repro/kernels/conv.py:38",
             "attention": "src/repro/kernels/attention.py:29",
@@ -3324,7 +3756,7 @@ def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
     prefill graph's times its replays); ``launches_by_path`` gives every
     path's (serve_mamba: the mamba phase's, serve_moe: the moe phase's);
     ``main`` adds the GEMM and reduction rows' ``device_launches_by_path``
-    (serve, serve_mamba, serve_moe)."""
+    (serve, serve_mamba, serve_moe, serve_encdec, serve_frontend)."""
     per = {"gemm": "one decode tick: 210 projections at M=4, tuned configs",
            "conv": "the 14 Table 5 shapes, bf16, one call each, tuned configs",
            "attention": "the 4 attention targets, bf16, one call each, tuned "
@@ -3448,16 +3880,23 @@ def main() -> int:
         launches["serve_mamba"] = mamba["counts"]
         moe = phase_moe(backend, store, store_path, fp, dev, peaks, label)
         launches["serve_moe"] = moe["counts"]
+        encdec = phase_encdec(backend, store, fp, dev, peaks, label)
+        launches["serve_encdec"] = encdec["counts"]
+        frontend = phase_frontend(backend, store, store_path, fp, dev,
+                                  peaks, label)
+        launches["serve_frontend"] = frontend["counts"]
+        phase("frontend", f"the encdec and frontend phases' wall "
+              f"{encdec['wall_s'] + frontend['wall_s']:.1f} s")
         clear_store()
         clear_models()
     rows = {"gemm": gemm_rows, "conv": conv_rows, "attention": attn_rows,
             "ssd": ssd_rows}
     line = kernels_line(rows, worst, launches, cfg.n_layers)
     line["kernels"][0]["device_launches"] = serve["device_launches"]
+    served = {"serve": serve, "serve_mamba": mamba, "serve_moe": moe,
+              "serve_encdec": encdec, "serve_frontend": frontend}
     line["kernels"][0]["device_launches_by_path"] = {
-        "serve": serve["device_launches"],
-        "serve_mamba": mamba["device_launches"],
-        "serve_moe": moe["device_launches"]}
+        p: r["device_launches"] for p, r in served.items()}
     # ms, plain_ms and library_ms time C = A @ B (ops.matmul, the split-K
     # reduction pass included); gemm_ms is the GEMM kernel alone
     line["kernels"][0]["gemm_ms"] = per_tick(gemm_rows, "gemm_ms",
@@ -3465,9 +3904,7 @@ def main() -> int:
     line["kernels"][0]["table4"] = table4
     line["kernels"][-1]["device_launches"] = serve["device_reduce_launches"]
     line["kernels"][-1]["device_launches_by_path"] = {
-        "serve": serve["device_reduce_launches"],
-        "serve_mamba": mamba["device_reduce_launches"],
-        "serve_moe": moe["device_reduce_launches"]}
+        p: r["device_reduce_launches"] for p, r in served.items()}
     print(json.dumps(line), flush=True)
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,16 @@ from typing import Dict, List
 
 from repro_torch.models import ModelConfig
 
-_MODULES: Dict[str, str] = {
-    "smollm-135m": "smollm_135m",
-    "qwen3-14b": "qwen3_14b",
-    "glm4-9b": "glm4_9b",
-    "llama3-405b": "llama3_405b",
-    "mamba2-1.3b": "mamba2_1p3b",
+_MODULES: Dict[str, str] = {             # the reference's order
     "dbrx-132b": "dbrx_132b",
     "arctic-480b": "arctic_480b",
+    "internvl2-76b": "internvl2_76b",
+    "qwen3-14b": "qwen3_14b",
+    "smollm-135m": "smollm_135m",
+    "llama3-405b": "llama3_405b",
+    "glm4-9b": "glm4_9b",
+    "whisper-base": "whisper_base",
+    "mamba2-1.3b": "mamba2_1p3b",
     "jamba-v0.1-52b": "jamba_v01_52b",
 }
 

@@ -5,6 +5,7 @@
   python -m repro_torch.launch.serve --arch mamba2-1.3b            # Mamba-2
   python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu
   python -m repro_torch.launch.serve --arch dbrx-132b --smoke --device cpu  # MoE
+  python -m repro_torch.launch.serve --arch internvl2-76b --smoke --device cpu
   python -m repro_torch.launch.serve --tunedb db.jsonl \
       --plan-dir db.jsonl.plan/00000001 --admission store
   python -m repro_torch.launch.serve --tunedb db.jsonl --measure wallclock \
@@ -25,6 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.models import init_params
 from repro_torch.serve import Engine, ServeConfig
+from repro_torch.serve.engine import ENCDEC_REFUSED
 from repro_torch.tunedb.store import serving_state
 
 
@@ -72,10 +74,14 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if device.type == "cpu" and not args.smoke and cfg.param_count > 1e9:
+        raise SystemExit(f"{cfg.name} is too large for the CPU; use --smoke")
+    if cfg.is_encdec:
+        raise SystemExit(ENCDEC_REFUSED)
     fingerprint = args.tunedb_backend
     if args.tunedb and fingerprint is None:
         fingerprint = CudaEventBackend(device=device).fingerprint
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(0)
     params = init_params(cfg, gen)

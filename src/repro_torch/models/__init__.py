@@ -1,7 +1,7 @@
-from .model import (ModelConfig, decode_step, init_cache, init_params,
+from .model import (ModelConfig, decode_step, encode, init_cache, init_params,
                     prefill, recurrent_leaves, tree_leaves, tree_map, ATTN,
                     DENSE, MAMBA, MOE_DENSE, MOE_MLP as MOE, NONE)
 
-__all__ = ["ModelConfig", "init_params", "init_cache", "decode_step",
-           "prefill", "recurrent_leaves", "tree_leaves", "tree_map", "ATTN",
-           "DENSE", "MAMBA", "MOE", "MOE_DENSE", "NONE"]
+__all__ = ["ModelConfig", "init_params", "init_cache", "encode",
+           "decode_step", "prefill", "recurrent_leaves", "tree_leaves",
+           "tree_map", "ATTN", "DENSE", "MAMBA", "MOE", "MOE_DENSE", "NONE"]

@@ -34,6 +34,19 @@ def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
                         device=gen.device) * scale).to(dtype)
 
 
+def stacked_init(gen: torch.Generator, stack: Tuple[int, ...],
+                 shape: Tuple[int, ...], dtype,
+                 fan_in: Optional[int] = None) -> torch.Tensor:
+    """``dense_init`` of ``shape`` for each index of the leading dims
+    ``stack``, one slice at a time: no fp32 copy of the whole stacked
+    tensor is made."""
+    out = torch.empty((*stack, *shape), dtype=dtype, device=gen.device)
+    flat = out.view(-1, *shape)
+    for i in range(flat.shape[0]):
+        flat[i] = dense_init(gen, shape, dtype, fan_in=fan_in)
+    return out
+
+
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
     return (torch.randn((vocab, d), generator=gen, dtype=torch.float32,
                         device=gen.device) * 0.02).to(dtype)
@@ -157,6 +170,7 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
               rope_theta: float, qk_norm: bool, norm_eps: float,
               cache: Optional[Params] = None,
               cache_index: Optional[IndexLike] = None,
+              memory: Optional[torch.Tensor] = None,
               attn_chunk: int = 1024,
               decode_kv_splits: int = 1,
               ) -> Tuple[torch.Tensor, Optional[Params]]:
@@ -165,17 +179,23 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
     ``cache`` {'k','v'}: (B, L_max, G, D) tensors, updated IN PLACE (the
     reference returns a new cache; writing into the caller's buffers saves
     a copy of the cache per layer and step).  ``cache_index`` is the number
-    of tokens already in it, a scalar or per-slot (B,).
+    of tokens already in it, a scalar or per-slot (B,).  ``memory`` (B,
+    L_enc, D), the encoder output, makes it cross-attention: K and V are
+    projected from it instead of ``x``, with no RoPE on q or k, no causal
+    mask and no cache.
     """
     B, S, _ = x.shape
+    kv_src = x if memory is None else memory
+    Skv = kv_src.shape[1]
     q = dispatch.matmul2(x, p["wq"]).reshape(B, S, n_heads, head_dim)
-    k = dispatch.matmul2(x, p["wk"]).reshape(B, S, n_kv, head_dim)
-    v = dispatch.matmul2(x, p["wv"]).reshape(B, S, n_kv, head_dim)
+    k = dispatch.matmul2(kv_src, p["wk"]).reshape(B, Skv, n_kv, head_dim)
+    v = dispatch.matmul2(kv_src, p["wv"]).reshape(B, Skv, n_kv, head_dim)
     if qk_norm:
         q = rms_norm(q, p["q_norm"], norm_eps)
         k = rms_norm(k, p["k_norm"], norm_eps)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if memory is None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
 
     kv_len = None
     q_start: IndexLike = 0
@@ -205,8 +225,9 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
     if n_splits > 1:
         out = flash_decode_attention(q, k, v, kv_len, n_splits=n_splits)
     else:
-        out = _chunked_attention(q, k, v, causal=causal, q_start=q_start,
-                                 kv_len=kv_len, chunk=attn_chunk)
+        out = _chunked_attention(q, k, v, causal=causal and memory is None,
+                                 q_start=q_start, kv_len=kv_len,
+                                 chunk=attn_chunk)
     out = out.reshape(B, S, n_heads * head_dim)
     return dispatch.matmul2(out, p["wo"]), cache
 

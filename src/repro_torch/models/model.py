@@ -1,34 +1,43 @@
-"""Decoder LM over a repeating pattern of (mixer, MLP) layers (port of
-``repro.models.model`` for the dense, Mamba-2, MoE and hybrid families).
+"""Unified LM over a repeating pattern of (mixer, MLP) layers (port of
+``repro.models.model``): the dense, Mamba-2, MoE, hybrid, encoder-decoder
+and stub-frontend families.
 
 A layer's mixer is GQA attention (``attn``) or a Mamba-2 SSD mixer
 (``mamba``, ``models/ssm.py``); its MLP is SwiGLU (``dense``), a
 mixture of experts (``moe``, ``models/moe.py``), both summed
 (``moe+dense``), or none (``none``).  Parameters keep the reference's
 pytree layout (``embed``, ``final_norm`` and ``layers.pos{i}.*`` per
-pattern position, stacked over the repeats), so a reference parameter
-tree converts leaf by leaf
+pattern position, stacked over the repeats; an encoder-decoder adds
+``cross`` and ``norm_cross`` to each decoder layer and an ``encoder``
+tree, ``{"pos0": (attn, dense) layers stacked over encoder_layers,
+"norm": ...}``), so a reference parameter tree converts leaf by leaf
 (``repro_torch.weights``), and the decode cache has the reference's
 layout: ``pos{i}.attn.{k, v}`` (repeats, B, L, G, D) or
 ``pos{i}.mamba.{conv, ssm}`` (repeats, B, W-1, C) / (repeats, B, H, P, S).
-MoE layers add no cache.
+MoE layers add no cache, and neither does cross-attention: as in the
+reference, the encoder memory is projected to K/V again at every step.
 The forward pass is a Python loop over the repeats in place of
 ``jax.lax.scan``; every cache write is in place.
 
 Entry points:
   init_params(cfg, gen)                         -> params
   init_cache(cfg, batch, max_len, device)      -> decode cache
+  encode(cfg, params, frames)                  -> encoder memory (B, L_enc, D)
   prefill(params, cfg, batch, cache)           -> (last logits (B, V), cache)
-  decode_step(params, cfg, tokens, cache, index) -> (logits (B, V), cache)
+  decode_step(params, cfg, tokens, cache, index, memory=None)
+                                               -> (logits (B, V), cache)
 
-Encoder-decoder and frontend configurations raise
-``NotImplementedError``: they arrive with later slices.
+``prefill``'s batch holds ``tokens`` and, for an encoder-decoder,
+``encoder_embeds`` (B, L_enc, D), which it encodes itself; for a vision
+frontend optionally ``patch_embeds`` (B, Np, D), prepended to the token
+embeddings (positions 0..Np+T-1).  An encoder-decoder's ``decode_step``
+wants the memory from ``encode``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -63,8 +72,10 @@ class ModelConfig:
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssd_chunk: int = 256
-    encoder_layers: int = 0
-    frontend: str = "none"
+    encoder_layers: int = 0                # > 0: encoder + cross-attention
+    encoder_len: int = 0                   # stub frame count
+    frontend: str = "none"                 # 'none' | 'audio' | 'vision'
+    n_frontend_tokens: int = 0             # vision: patch embeds prepended
     qk_norm: bool = False
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
@@ -85,19 +96,74 @@ class ModelConfig:
     def n_repeats(self) -> int:
         return self.n_layers // len(self.pattern)
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def param_count(self) -> int:
+        """Total parameters."""
+        return self._count_params(active=False)
+
+    @property
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only top_k experts count)."""
+        return self._count_params(active=True)
+
+    def _count_params(self, active: bool) -> int:
+        n = self.padded_vocab * self.d_model      # embed (tied head)
+        if not self.tie_embeddings:
+            n *= 2
+        n += self.d_model                         # final norm
+        n += self.n_repeats * sum(self._layer_params(active=active))
+        if self.is_encdec:
+            # decoder cross-attention blocks (+ their norms)
+            n += self.n_layers * (self._attn_params() + self.d_model)
+            # encoder stack: plain (attn, dense) layers + final norm
+            enc = (self._attn_params() + 3 * self.d_model * self.d_ff
+                   + 2 * self.d_model)
+            n += self.encoder_layers * enc + self.d_model
+        return n
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.hd
+        return d * (self.n_heads + 2 * self.n_kv) * hd + self.n_heads * hd * d
+
+    def _layer_params(self, active: bool = False) -> Tuple[int, ...]:
+        d, f = self.d_model, self.d_ff
+        out = []
+        for mixer, mlp_kind in self.pattern:
+            n = 2 * d                                        # norms
+            if mixer == ATTN:
+                n += self._attn_params()
+            else:
+                di = 2 * d
+                nh = di // self.ssm_head_dim
+                n += d * (2 * di + 2 * self.ssm_state + nh) + di * d
+            if mlp_kind in (DENSE, MOE_DENSE):
+                n += 3 * d * f
+            if mlp_kind in (MOE_MLP, MOE_DENSE):
+                e = self.top_k if active else self.n_experts
+                n += d * self.n_experts + e * 3 * d * f
+            out.append(n)
+        return tuple(out)
+
     def check_supported(self) -> None:
         """The port's model covers patterns of attention or Mamba-2 mixers
-        with SwiGLU, MoE, both or no MLPs, with a tied embedding."""
+        with SwiGLU, MoE, both or no MLPs, with a tied embedding; an
+        encoder (``encoder_layers`` > 0) with the stub audio frontend, or
+        the stub vision frontend's prepended patch embeddings."""
         mixers = {m for m, _ in self.pattern}
         mlps = {f for _, f in self.pattern}
+        frontend_ok = (self.frontend == "audio" if self.is_encdec
+                       else self.frontend in ("none", "vision"))
         if (not mixers <= {ATTN, MAMBA}
                 or not mlps <= {DENSE, MOE_MLP, MOE_DENSE, NONE}
-                or self.encoder_layers or self.frontend != "none"
-                or not self.tie_embeddings):
+                or not frontend_ok or not self.tie_embeddings):
             raise NotImplementedError(
                 f"{self.name}: only attention / Mamba-2 mixers with SwiGLU, "
-                "MoE or no MLPs are ported (enc-dec and frontends arrive "
-                "with later slices)")
+                "MoE or no MLPs, a tied embedding, and the frontends 'none', "
+                "'vision' or 'audio' (with an encoder) are ported")
         if mlps & {MOE_MLP, MOE_DENSE} and not (
                 0 < self.top_k <= self.n_experts):
             raise ValueError(f"{self.name}: MoE layers want 0 < top_k <= "
@@ -113,33 +179,44 @@ class ModelConfig:
 # init
 # ---------------------------------------------------------------------------
 
+def _attn_init(gen: torch.Generator, cfg: ModelConfig, R: int,
+               qk_norm: bool) -> Params:
+    d, hd, dt = cfg.d_model, cfg.hd, cfg.dtype
+    attn = {
+        "wq": L.stacked_init(gen, (R,), (d, cfg.n_heads * hd), dt),
+        "wk": L.stacked_init(gen, (R,), (d, cfg.n_kv * hd), dt),
+        "wv": L.stacked_init(gen, (R,), (d, cfg.n_kv * hd), dt),
+        "wo": L.stacked_init(gen, (R,), (cfg.n_heads * hd, d), dt),
+    }
+    if qk_norm:
+        attn["q_norm"] = torch.ones((R, hd), dtype=dt, device=gen.device)
+        attn["k_norm"] = torch.ones((R, hd), dtype=dt, device=gen.device)
+    return attn
+
+
 def _init_layer(cfg: ModelConfig, gen: torch.Generator, mixer: str,
-                mlp_kind: str) -> Params:
-    """One pattern position's parameters, stacked over the repeats.  As in
-    the reference, ``norm2`` exists even where the MLP is ``none``."""
-    R, d, f, hd, dt = cfg.n_repeats, cfg.d_model, cfg.d_ff, cfg.hd, cfg.dtype
+                mlp_kind: str, cross: bool, R: int) -> Params:
+    """One pattern position's parameters, stacked over ``R`` repeats.  As
+    in the reference, ``norm2`` exists even where the MLP is ``none``, and
+    cross-attention (``cross``, never qk-normed) has its own norm.  Every
+    stacked matrix is filled one repeat at a time: a draw of a whole
+    stacked tensor would make an fp32 copy of it."""
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.dtype
     ones = lambda *shape: torch.ones(shape, dtype=dt, device=gen.device)
     layer: Params = {"norm1": ones(R, d), "norm2": ones(R, d)}
     if mixer == ATTN:
-        attn = {
-            "wq": L.dense_init(gen, (R, d, cfg.n_heads * hd), dt, fan_in=d),
-            "wk": L.dense_init(gen, (R, d, cfg.n_kv * hd), dt, fan_in=d),
-            "wv": L.dense_init(gen, (R, d, cfg.n_kv * hd), dt, fan_in=d),
-            "wo": L.dense_init(gen, (R, cfg.n_heads * hd, d), dt,
-                               fan_in=cfg.n_heads * hd),
-        }
-        if cfg.qk_norm:
-            attn["q_norm"] = ones(R, hd)
-            attn["k_norm"] = ones(R, hd)
-        layer["attn"] = attn
+        layer["attn"] = _attn_init(gen, cfg, R, cfg.qk_norm)
     else:
         layer["mamba"] = SSM.init_mamba(gen, d, cfg.ssm_state,
                                         cfg.ssm_head_dim, dt, stack=(R,))
+    if cross:
+        layer["cross"] = _attn_init(gen, cfg, R, False)
+        layer["norm_cross"] = ones(R, d)
     if mlp_kind in (DENSE, MOE_DENSE):
         layer["mlp"] = {
-            "w_gate": L.dense_init(gen, (R, d, f), dt, fan_in=d),
-            "w_up": L.dense_init(gen, (R, d, f), dt, fan_in=d),
-            "w_down": L.dense_init(gen, (R, f, d), dt, fan_in=f)}
+            "w_gate": L.stacked_init(gen, (R,), (d, f), dt),
+            "w_up": L.stacked_init(gen, (R,), (d, f), dt),
+            "w_down": L.stacked_init(gen, (R,), (f, d), dt)}
     if mlp_kind in (MOE_MLP, MOE_DENSE):
         layer["moe"] = MOE.init_moe(gen, d, f, cfg.n_experts, dt, stack=(R,))
     return layer
@@ -153,13 +230,21 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     ``repro_torch.weights.params_from_jax`` instead.
     """
     cfg.check_supported()
-    layers = {f"pos{i}": _init_layer(cfg, gen, mixer, mlp_kind)
+    layers = {f"pos{i}": _init_layer(cfg, gen, mixer, mlp_kind,
+                                     cross=cfg.is_encdec, R=cfg.n_repeats)
               for i, (mixer, mlp_kind) in enumerate(cfg.pattern)}
-    return {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                  cfg.dtype),
-            "final_norm": torch.ones(cfg.d_model, dtype=cfg.dtype,
-                                     device=gen.device),
-            "layers": layers}
+    params = {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                    cfg.dtype),
+              "final_norm": torch.ones(cfg.d_model, dtype=cfg.dtype,
+                                       device=gen.device),
+              "layers": layers}
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "pos0": _init_layer(cfg, gen, ATTN, DENSE, cross=False,
+                                R=cfg.encoder_layers),
+            "norm": torch.ones(cfg.d_model, dtype=cfg.dtype,
+                               device=gen.device)}
+    return params
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -215,35 +300,48 @@ def _slice(tree: Any, r: int) -> Any:
     return tree[r]
 
 
-def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
-               positions: torch.Tensor, cache: Params, cache_index
+def _run_stack(cfg: ModelConfig, stack: Params, x: torch.Tensor, *,
+               pattern: Tuple[Tuple[str, str], ...], positions: torch.Tensor,
+               causal: bool, memory: Optional[torch.Tensor] = None,
+               cache: Optional[Params] = None, cache_index=None
                ) -> torch.Tensor:
-    """Pre-norm residual blocks over the repeats, the pattern's positions
-    in order inside each; the cache slices of each repeat are written in
-    place.  An MLP of kind ``none`` is skipped with its norm; a dense MLP
-    and a MoE in one layer are summed before the residual add.  The MoE
-    takes its decode path where the reference's does: with a cache and
-    one position (a tick, or a 1-token prompt's prefill), else the
-    capacity path."""
-    for r in range(cfg.n_repeats):
-        for i, (mixer, mlp_kind) in enumerate(cfg.pattern):
-            p = _slice(params["layers"][f"pos{i}"], r)
-            c = _slice(cache[f"pos{i}"], r)
+    """Pre-norm residual blocks over the repeats of ``stack`` (its leaves'
+    leading dim), ``pattern``'s positions in order inside each; with a
+    ``cache``, each repeat's slices are written in place.  Where a layer
+    has ``cross`` and ``memory`` is given, cross-attention into it comes
+    between the mixer's and the MLP's residual adds.  An MLP of kind
+    ``none`` is skipped with its norm; a dense MLP and a MoE in one layer
+    are summed before the residual add.  The MoE takes its decode path
+    where the reference's does: with a cache and one position (a tick, or
+    a 1-token prompt's prefill), else the capacity path."""
+    for r in range(tree_leaves(stack)[0].shape[0]):
+        for i, (mixer, mlp_kind) in enumerate(pattern):
+            p = _slice(stack[f"pos{i}"], r)
+            c = _slice(cache[f"pos{i}"], r) if cache is not None else {}
             h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
             if mixer == ATTN:
                 out, _ = L.attention(
                     p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                    head_dim=cfg.hd, positions=positions, causal=True,
+                    head_dim=cfg.hd, positions=positions, causal=causal,
                     rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-                    norm_eps=cfg.norm_eps, cache=c["attn"],
+                    norm_eps=cfg.norm_eps, cache=c.get("attn"),
                     cache_index=cache_index, attn_chunk=cfg.attn_chunk,
                     decode_kv_splits=cfg.decode_kv_splits)
             else:
                 out, _ = SSM.mamba_block(
                     p["mamba"], h, d_model=cfg.d_model, state=cfg.ssm_state,
                     head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk,
-                    cache=c["mamba"])
+                    cache=c.get("mamba"))
             x = x + out
+            if memory is not None and "cross" in p:
+                h = L.rms_norm(x, p["norm_cross"], cfg.norm_eps)
+                out, _ = L.attention(
+                    p["cross"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                    head_dim=cfg.hd, positions=positions, causal=False,
+                    rope_theta=cfg.rope_theta, qk_norm=False,
+                    norm_eps=cfg.norm_eps, memory=memory,
+                    attn_chunk=cfg.attn_chunk)
+                x = x + out
             if mlp_kind == NONE:
                 continue
             h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -251,7 +349,7 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
             if mlp_kind in (DENSE, MOE_DENSE):
                 out = L.mlp(p["mlp"], h)
             if mlp_kind in (MOE_MLP, MOE_DENSE):
-                if h.shape[1] == 1:
+                if cache is not None and h.shape[1] == 1:
                     mo = MOE.moe_decode(p["moe"], h, n_experts=cfg.n_experts,
                                         top_k=cfg.top_k)
                 else:
@@ -269,29 +367,63 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, params["embed"].to(cfg.dtype).t()).float()
 
 
+def _frontend_concat(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
+                     ) -> torch.Tensor:
+    """The decoder's input (B, S, D): the token embeddings, behind the
+    vision frontend's ``patch_embeds`` (B, Np, D) where the batch has
+    them."""
+    x = params["embed"][batch["tokens"]]
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(device=x.device, dtype=cfg.dtype)
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """The encoder stack over stub frame embeddings (B, L_enc, D): its
+    (attn, dense) layers, non-causal with RoPE at positions 0..L_enc-1 as
+    in the reference, no cache, then the encoder's final norm."""
+    enc = params["encoder"]
+    x = frames.to(device=enc["norm"].device, dtype=cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_stack(cfg, {"pos0": enc["pos0"]}, x, pattern=((ATTN, DENSE),),
+                   positions=positions, causal=False)
+    return L.rms_norm(x, enc["norm"], cfg.norm_eps)
+
+
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Params, index) -> Tuple[torch.Tensor, Params]:
+                cache: Params, index, memory: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens (B, 1); index = current length, an int or
-    a per-slot (B,) tensor.  Returns (logits (B, V), cache)."""
+    a per-slot (B,) tensor; ``memory`` the encoder output (B, L_enc, D),
+    which an encoder-decoder requires.  Returns (logits (B, V), cache)."""
+    if cfg.is_encdec and memory is None:
+        raise ValueError("enc-dec decode requires encoder memory")
     x = params["embed"][tokens]
     dev = x.device
     idx = torch.as_tensor(index, device=dev)
     positions = idx.reshape(-1, 1) + torch.arange(tokens.shape[1],
                                                   device=dev)[None, :]
-    x = _run_stack(cfg, params, x, positions=positions, cache=cache,
-                   cache_index=index)
+    x = _run_stack(cfg, params["layers"], x, pattern=cfg.pattern,
+                   positions=positions, causal=True, memory=memory,
+                   cache=cache, cache_index=index)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, x)[:, -1], cache
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             cache: Params) -> Tuple[torch.Tensor, Params]:
-    """Run the prompt through the stack, filling the cache from position 0.
+    """Run the prompt through the stack, filling the cache from position 0:
+    the patch embeddings first where the batch has them, and for an
+    encoder-decoder cross-attention into ``encode(encoder_embeds)``.
     Returns (last-position logits (B, V), cache)."""
-    tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = _frontend_concat(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_stack(cfg, params, x, positions=positions, cache=cache,
-                   cache_index=0)
+    memory = (encode(cfg, params, batch["encoder_embeds"])
+              if cfg.is_encdec else None)
+    x = _run_stack(cfg, params["layers"], x, pattern=cfg.pattern,
+                   positions=positions, causal=True, memory=memory,
+                   cache=cache, cache_index=0)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, x[:, -1:])[:, -1], cache

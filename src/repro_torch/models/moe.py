@@ -31,7 +31,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, dense_init
+from .layers import Params, dense_init, stacked_init
 
 MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
 
@@ -43,22 +43,13 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
     and ``w_down`` (E, f, d) in ``dtype``.  The experts are filled one
     (d, f) slice at a time, so no fp32 copy of a whole stacked expert
     tensor is ever made."""
-    dev = gen.device
-
-    def experts(rows: int, cols: int) -> torch.Tensor:
-        out = torch.empty((*stack, n_experts, rows, cols), dtype=dtype,
-                          device=dev)
-        flat = out.view(-1, rows, cols)
-        for i in range(flat.shape[0]):
-            flat[i] = dense_init(gen, (rows, cols), dtype, fan_in=rows)
-        return out
-
+    experts = (*stack, n_experts)
     return {
         "router": dense_init(gen, (*stack, d_model, n_experts),
                              torch.float32, fan_in=d_model),
-        "w_gate": experts(d_model, d_ff),
-        "w_up": experts(d_model, d_ff),
-        "w_down": experts(d_ff, d_model),
+        "w_gate": stacked_init(gen, experts, (d_model, d_ff), dtype),
+        "w_up": stacked_init(gen, experts, (d_model, d_ff), dtype),
+        "w_down": stacked_init(gen, experts, (d_ff, d_model), dtype),
     }
 
 

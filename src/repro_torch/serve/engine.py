@@ -64,7 +64,9 @@ Graceful degradation follows the reference: ``request_deadline_s``
 rejects an overdue pending request unserved and retires an overdue active
 one with the tokens it has, and ``shed_threshold`` sheds the newest
 pending requests while the backlog exceeds it (:meth:`Engine._health`
-says so).  Retuning, routing, tracing, the status endpoint and the
+says so).  An encoder-decoder config is refused at construction, as
+the reference's launcher refuses it; a vision-frontend config is served
+on tokens only, as the reference's engine serves it.  Retuning, routing, tracing, the status endpoint and the
 ``tunedb_*`` counters wait for the port of the fleet and observability
 (ROADMAP A6).
 """
@@ -342,6 +344,13 @@ class Request:
     deadline_exceeded: bool = False  # cut short or rejected by the deadline
 
 
+# an encoder-decoder is served at the model level (``encode``, ``prefill``
+# with ``encoder_embeds``, ``decode_step(memory=)``): the engine's prefill
+# and tick carry tokens only, as the reference's do, and the reference's
+# launcher refuses it with this message
+ENCDEC_REFUSED = ("enc-dec serving is exercised via the dry-run decode "
+                  "cells; the engine serves LM archs")
+
 # the calibration measurement an engine with ``measure`` runs at start:
 # one GEMM under the ops default, as the reference's (256^3, 128^3 tiles)
 CALIBRATION_GEMM = (dict(ops.DEFAULT_GEMM), gemm_input(256, 256, 256, 16))
@@ -351,6 +360,8 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params: Any, serve_cfg: ServeConfig,
                  *, device: DeviceLike = None):
         cfg.check_supported()
+        if cfg.is_encdec:
+            raise ValueError(ENCDEC_REFUSED)
         self.device = resolve_device(device)
         self.cfg, self.sc = cfg, serve_cfg
         if serve_cfg.admission not in ("fifo", "store"):

@@ -7,7 +7,10 @@ and, per pattern position ``pos{i}``, ``norm1``, ``norm2``, the mixer
 ``mamba.{w_in, conv_w, conv_b, a_log, dt_bias, d_skip, norm, w_out}``),
 for a SwiGLU MLP (``dense``, ``moe+dense``) ``mlp.{w_gate, w_up, w_down}``
 and for a MoE (``moe``, ``moe+dense``) ``moe.{router, w_gate, w_up,
-w_down}``, stacked over the repeats.  The layout is kept as it is.  Every
+w_down}``, stacked over the repeats; an encoder-decoder adds
+``cross.{wq, wk, wv, wo}`` and ``norm_cross`` to every decoder layer and
+the ``encoder`` tree (``pos0``, one (attn, dense) layer stacked over
+``encoder_layers``, and ``norm``).  The layout is kept as it is.  Every
 leaf must have the dtype the reference gives it: the config's, except
 Mamba's fp32 ``a_log``, ``dt_bias`` and ``d_skip`` and the MoE's fp32
 ``router``.
@@ -45,22 +48,31 @@ def _dtypes(cfg: ModelConfig) -> dict:
     """The reference's tree for ``cfg`` with each leaf's dtype."""
     dt = cfg.dtype
     same = lambda names: {k: dt for k in names}
-    layers = {}
-    for i, (mixer, mlp_kind) in enumerate(cfg.pattern):
-        layer: dict = {"norm1": dt, "norm2": dt}
+
+    def layer(mixer: str, mlp_kind: str, cross: bool) -> dict:
+        out: dict = {"norm1": dt, "norm2": dt}
         if mixer == ATTN:
-            layer["attn"] = same(_ATTN + (("q_norm", "k_norm")
-                                          if cfg.qk_norm else ()))
+            out["attn"] = same(_ATTN + (("q_norm", "k_norm")
+                                        if cfg.qk_norm else ()))
         else:
-            layer["mamba"] = {k: torch.float32 if k in FP32_LEAVES else dt
-                              for k in _MAMBA}
+            out["mamba"] = {k: torch.float32 if k in FP32_LEAVES else dt
+                            for k in _MAMBA}
+        if cross:
+            out["cross"] = same(_ATTN)
+            out["norm_cross"] = dt
         if mlp_kind in (DENSE, MOE_DENSE):
-            layer["mlp"] = same(_MLP)
+            out["mlp"] = same(_MLP)
         if mlp_kind in (MOE, MOE_DENSE):
-            layer["moe"] = {k: torch.float32 if k == "router" else dt
-                            for k in MOE_KEYS}
-        layers[f"pos{i}"] = layer
-    return {"embed": dt, "final_norm": dt, "layers": layers}
+            out["moe"] = {k: torch.float32 if k == "router" else dt
+                          for k in MOE_KEYS}
+        return out
+
+    tree = {"embed": dt, "final_norm": dt,
+            "layers": {f"pos{i}": layer(mixer, mlp_kind, cfg.is_encdec)
+                       for i, (mixer, mlp_kind) in enumerate(cfg.pattern)}}
+    if cfg.is_encdec:
+        tree["encoder"] = {"pos0": layer(ATTN, DENSE, False), "norm": dt}
+    return tree
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
@@ -80,10 +92,13 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
         if out.dtype != want:
             raise TypeError(f"{where}: leaf dtype {out.dtype}, the "
                             f"reference's is {want}")
-        if where.startswith("params.layers.") and (
-                out.dim() == 0 or out.shape[0] != cfg.n_repeats):
-            raise ValueError(f"{where}: tree holds {tuple(out.shape)[:1]} "
-                             f"repeats, config wants {cfg.n_repeats}")
+        for stack, repeats in (("params.layers.", cfg.n_repeats),
+                               ("params.encoder.pos0.", cfg.encoder_layers)):
+            if where.startswith(stack) and (
+                    out.dim() == 0 or out.shape[0] != repeats):
+                raise ValueError(f"{where}: tree holds "
+                                 f"{tuple(out.shape)[:1]} repeats, config "
+                                 f"wants {repeats}")
         return out
 
     return conv(tree, _dtypes(cfg), "params")

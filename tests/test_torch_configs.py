@@ -1,6 +1,8 @@
 """The port's configs against the reference's, field for field, and the
-dense ones served at SMOKE against the JAX engine (the MoE family's are
-served in tests/test_torch_moe.py)."""
+dense ones and the vision-frontend one (internvl2-76b, on tokens, as the
+JAX engine serves it) served at SMOKE against the JAX engine (the MoE
+family's are served in tests/test_torch_moe.py; whisper-base is not served
+by either engine, tests/test_torch_encdec.py)."""
 
 import dataclasses
 
@@ -8,7 +10,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import registry as jregistry
 from repro.models import init_params as jinit_params
@@ -22,16 +23,17 @@ from repro_torch.weights import params_from_jax
 
 DENSE = ("qwen3-14b", "glm4-9b", "llama3-405b")
 MOE = ("arctic-480b", "dbrx-132b", "jamba-v0.1-52b")
+ENCDEC, FRONTEND = ("whisper-base",), ("internvl2-76b",)
+ALL = ("smollm-135m", "mamba2-1.3b", *DENSE, *MOE, *ENCDEC, *FRONTEND)
 
 
 def test_the_registry_holds_the_ported_archs():
-    assert set(ARCH_NAMES) == {"smollm-135m", "mamba2-1.3b", *DENSE, *MOE}
-    assert set(ARCH_NAMES) <= set(jregistry.ARCH_NAMES)
+    assert set(ARCH_NAMES) == set(ALL)
+    assert set(ARCH_NAMES) == set(jregistry.ARCH_NAMES)
 
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", sorted(["smollm-135m", "mamba2-1.3b",
-                                         *DENSE, *MOE]))
+@pytest.mark.parametrize("arch", sorted(ALL))
 def test_config_equals_the_reference(arch, smoke):
     """Every field of the port's ModelConfig equals the reference's (the
     dtype by name); the reference's training-only fields (logit_chunk,
@@ -48,7 +50,7 @@ def test_config_equals_the_reference(arch, smoke):
     got.check_supported()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FRONTEND)
 def test_dense_smoke_serves_the_jax_engine_tokens(arch):
     jcfg, tcfg = jregistry.smoke_config(arch), smoke_config(arch)
     jp = jinit_params(jcfg, jax.random.PRNGKey(2))
@@ -63,12 +65,19 @@ def test_dense_smoke_serves_the_jax_engine_tokens(arch):
     assert all(len(o) == 6 for o in tout)
 
 
-def test_unported_families_still_raise():
-    for arch in ("whisper-base", "internvl2-76b"):
-        j = jregistry.smoke_config(arch)
-        cfg = ModelConfig(**{
-            f.name: (torch.float32 if f.name == "dtype"
-                     else getattr(j, f.name))
-            for f in dataclasses.fields(ModelConfig)})
-        with pytest.raises(NotImplementedError):
-            cfg.check_supported()
+@pytest.mark.parametrize("change,err", [
+    ({"pattern": (("conv", "dense"),)}, NotImplementedError),
+    ({"pattern": (("attn", "glu"),)}, NotImplementedError),
+    ({"frontend": "video"}, NotImplementedError),
+    ({"frontend": "audio"}, NotImplementedError),          # no encoder
+    ({"encoder_layers": 2, "frontend": "vision"}, NotImplementedError),
+    ({"tie_embeddings": False}, NotImplementedError),
+])
+def test_check_supported_still_raises_on_what_is_not_ported(change, err):
+    """Every family of the reference is ported; check_supported still
+    refuses an unknown mixer or MLP, an unknown frontend, an audio
+    frontend without an encoder (or an encoder behind another frontend)
+    and untied embeddings."""
+    cfg = dataclasses.replace(smoke_config("internvl2-76b"), **change)
+    with pytest.raises(err):
+        cfg.check_supported()

@@ -819,3 +819,103 @@ def test_capture_runs_with_the_collector_off(cuda, monkeypatch):
         device=cuda)
     eng.prefill_graph(0, tokens)
     assert seen == [True, False] and gc.isenabled()
+
+
+def _smoke_on(arch, device):
+    """An fp32 SMOKE config's parameters, drawn on the CPU from seed 0 and
+    copied to ``device``: the card and the CPU run the same numbers."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params, tree_map
+    cfg = smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    return cfg, tree_map(lambda t: t.to(device), params)
+
+
+def _near(got, want, tol=1e-4):
+    """fp32 on the card (the GEMM kernel, another summation order) against
+    the CPU's plain versions, relative to the largest |value|."""
+    got, want = got.float().cpu(), want.float()
+    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-6)
+    assert err <= tol and torch.isfinite(got).all(), err
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-76b"])
+def test_encdec_and_frontend_on_the_card_match_the_cpu(cuda, arch):
+    """whisper-base and internvl2-76b SMOKE in fp32: ``encode``, the
+    enc-dec prefill (``encoder_embeds``) or the frontend prefill
+    (``patch_embeds``), then 4 decode ticks, on the card as on the CPU."""
+    from repro_torch.models import decode_step, encode, init_cache, prefill
+    from repro_torch.tunedb.store import clear_store
+
+    clear_store()
+    gen = torch.Generator().manual_seed(1)
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        cfg, params = _smoke_on(arch, dev)
+        n = cfg.encoder_len or cfg.n_frontend_tokens
+        embeds = torch.randn((2, n, cfg.d_model), generator=gen.manual_seed(1))
+        tokens = torch.randint(0, cfg.vocab, (2, 6),
+                               generator=gen.manual_seed(2))
+        steps = torch.randint(0, cfg.vocab, (2, 4),
+                              generator=gen.manual_seed(3))
+        key = "encoder_embeds" if cfg.is_encdec else "patch_embeds"
+        cache = init_cache(cfg, 2, 32, dev)
+        out = []
+        memory = None
+        if cfg.is_encdec:
+            memory = encode(cfg, params, embeds.to(dev))
+            out.append(memory)
+        logits, _ = prefill(params, cfg, {"tokens": tokens.to(dev),
+                                          key: embeds.to(dev)}, cache)
+        out.append(logits)
+        pos = 6 + (0 if cfg.is_encdec else cfg.n_frontend_tokens)
+        for j in range(4):
+            logits, _ = decode_step(params, cfg, steps[:, j:j + 1].to(dev),
+                                    cache, pos + j, memory=memory)
+            out.append(logits)
+        runs[dev.type] = out
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        _near(got, want)
+
+
+def test_whisper_tick_replays_bitwise_from_a_graph(cuda):
+    """whisper-base SMOKE's ``decode_step(memory=)`` captured in a CUDA
+    graph: its replay gives the eager tick's logits bitwise (the tick has
+    no recurrent state; its K/V write is the same at each replay)."""
+    import gc
+
+    from repro_torch.models import decode_step, encode, init_cache, prefill
+    from repro_torch.tunedb.store import clear_store
+
+    clear_store()
+    cfg, params = _smoke_on("whisper-base", cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    frames = torch.randn((3, cfg.encoder_len, cfg.d_model), device=cuda,
+                         generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (3, 5), device=cuda, generator=gen)
+    cache = init_cache(cfg, 3, 32, cuda)
+    prefill(params, cfg, {"tokens": tokens, "encoder_embeds": frames}, cache)
+    memory = encode(cfg, params, frames)
+    last = torch.randint(0, cfg.vocab, (3, 1), device=cuda, generator=gen)
+    idx = torch.tensor([5, 5, 5], device=cuda)
+    tick = lambda: decode_step(params, cfg, last, cache, idx,
+                               memory=memory)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tick()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            static = tick()
+    finally:
+        gc.enable()
+    graph.replay()
+    eager = tick()
+    torch.cuda.synchronize()
+    assert torch.equal(static, eager) and torch.isfinite(eager).all()
+    last.fill_(7)
+    graph.replay()
+    assert torch.equal(static, tick())

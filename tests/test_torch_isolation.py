@@ -53,8 +53,9 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.configs.qwen3_14b", "repro_torch.configs.glm4_9b",
             "repro_torch.configs.llama3_405b", "repro_torch.models.moe",
             "repro_torch.configs.arctic_480b", "repro_torch.configs.dbrx_132b",
-            "repro_torch.configs.jamba_v01_52b"} <= set(
-                out["modules"])
+            "repro_torch.configs.jamba_v01_52b",
+            "repro_torch.configs.whisper_base",
+            "repro_torch.configs.internvl2_76b"} <= set(out["modules"])
 
 
 @pytest.fixture
