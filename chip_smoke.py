@@ -148,7 +148,34 @@ exits non-zero:
                 captured graph's kernel nodes, replay by replay and name by
                 name (at most 5 rounds), then its kernels by name (ms and
                 count a tick, in order of time)
- 19. mamba      mamba2-1.3b at full width (48 layers, bf16, random weights
+ 19. retune     the retune loop closed on the card (``tunedb/controller.py``,
+                ``ServeConfig.retune``): SmolLM-135M at full width from an
+                EMPTY in-memory store, the tune phase's GEMM and attention
+                tuners, ``ServeConfig(slots=4, max_len=256, retune=True,
+                retune_interval=8, retune_min_calls=32, retune_top_k=4)``;
+                every poll's decisions printed.  A (inline): 8 x 32-token
+                prompts x 48 tokens: an epoch tunes its own untuned GEMM
+                and split-count shapes on the card (``source="retune"``
+                records under the card's fingerprint), retrains the GEMM
+                regressor and flips the generation mid-serve; the next tick
+                captures the tick graph again and each of its shapes with a
+                record is planned exact on it; a replayed tick's logits are
+                bitwise the eager tick's; tier counts, the epoch's wall
+                (session, retrain, install), the tripping tick and the
+                median tick before and after printed; memory after each
+                epoch grows by no more than the timer's operand cache and
+                the prefill pool's growth.  B (same engine): 96 x
+                100-token prompts x 2 tokens: drift or untuned mass trips an
+                epoch that tunes the four M = 100 shapes, and the 100-token
+                prefill graph, captured again, resolves its 210 GEMMs on
+                them.  C (``retune_async``, a fresh engine and store): A's
+                traffic and 4 x 48-token prompts; a prefill capture of a new
+                length starts and ends while the background epoch is in
+                flight, no capture fails, the report surfaces on a later
+                poll, every request is served whole; the tick wall in flight
+                and after (a serve with none in flight), and the async
+                records' TFLOP/s over A's printed
+ 20. mamba      mamba2-1.3b at full width (48 layers, bf16, random weights
                 from seed 0): its 4 projection GEMMs (M = 4 and 32) tuned
                 into the store, then 8 requests of 32-token prompts x 16
                 tokens served through ``Engine.generate`` from the
@@ -170,7 +197,7 @@ exits non-zero:
                 inputs at L=300 (both timed; not on the path); the
                 replayed tick's device time against its byte bound; the
                 phase's wall time
- 20. moe        dbrx-132b at full width (d_model 6144, 48 / 8 heads, d_ff
+ 21. moe        dbrx-132b at full width (d_model 6144, 48 / 8 heads, d_ff
                 10752, 16 experts top-4, vocab 100352, bf16, random weights
                 from seed 0), its depth cut to 8 of 40 layers (all 40 need
                 about 262 GB): the earlier phases' memory freed first; its
@@ -194,7 +221,7 @@ exits non-zero:
                 kernels split into GEMM, reduction and other from a traced
                 round held to the graph's nodes; parameter bytes and peak
                 memory
- 21. encdec     whisper-base at full width, nothing cut (6 encoder + 6
+ 22. encdec     whisper-base at full width, nothing cut (6 encoder + 6
                 decoder layers, d_model 512, bf16, random weights from seed
                 0), through the model's entry points as the reference
                 serves an encoder-decoder (its engine takes tokens only):
@@ -209,7 +236,7 @@ exits non-zero:
                 cross-q/o + 3 MLP)) and one reduction node per projection
                 whose tuned config splits K; encode, prefill and eager tick
                 ms; the replayed tick's device time against its byte bound
- 22. frontend   internvl2-76b at full width (d_model 8192, 64 / 8 heads,
+ 23. frontend   internvl2-76b at full width (d_model 8192, 64 / 8 heads,
                 d_ff 28672, vocab 128256, bf16), its depth cut to 32 of 80
                 layers (all 80 need about 139 GB), after the earlier
                 phases' memory is freed: its 4 projection GEMMs (M = 4 and
@@ -223,13 +250,12 @@ exits non-zero:
                 greedy decode steps from index 288; the replayed tick
                 against its byte bound; the peak allocated held under 75
                 GB; the two phases' wall
- 23. kernels    one JSON line summarising every hand-written kernel (the
+ 24. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
 
 Each path (tune, models, serve, plans, admission, measure,
-degradation, serve_mamba, serve_moe, serve_encdec, serve_frontend) runs
-with every launch
-count set to 0 just before it and read just after; a kernel of the path
+degradation, retune, serve_mamba, serve_moe, serve_encdec, serve_frontend)
+runs with every launch count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
 
 The last line of standard output is
@@ -256,6 +282,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1118,7 +1145,7 @@ def tune_space(space, targets: list, dims, backend, store,
            "rejected": rejected,
            "val_mse": hist[-1], "sampler_s": t1 - t0, "label_s": t2 - t1,
            "train_s": t3 - t2, "session_s": report.wall_s,
-           "tuned": report.tuned, "failed": report.failed}
+           "tuned": report.tuned, "failed": report.failed, "tuner": tuner}
     phase("tune", f"{space.name}: {out['samples']} samples measured on the "
           f"card over {out['pool']} shapes ({rejected} sampled configs "
           f"rejected by the gate), val MSE {out['val_mse']:.4f} "
@@ -1230,7 +1257,9 @@ def phase_tune(backend, store: RecordStore, fp: str, dev: torch.device
           f"max rel err {worst['plain']:.3e} vs the plain version under the "
           f"same config, {worst['oracle']:.3e} vs the fp32 oracle (tolerance "
           f"{TOL[torch.bfloat16]})")
-    return {"stats": stats}
+    return {"stats": stats,
+            "tuners": {"gemm": stats[0]["tuner"],
+                       "attention": stats[2]["tuner"]}}
 
 
 def gemm_weights(M: int, N: int, K: int, gen: torch.Generator,
@@ -2830,6 +2859,477 @@ def phase_model(cfg, params, dev: torch.device) -> float:
 # forms round differently and the gap grows with depth through random
 # layers, the GEMMs' plain versions alike (``tools/mamba_recurrence.py``
 # measures it by depth), so bf16's is printed
+# the retune phase: SmolLM-135M from an empty store (ServeConfig below);
+# part A's traffic, part B's burst (requests, prompt, new tokens), part
+# C's extra prompt length, and the lengths tried for part C's overlapping
+# capture
+RETUNE_SLOTS, RETUNE_MAX_LEN, RETUNE_INTERVAL = 4, 256, 8
+RETUNE_PROMPTS, RETUNE_PROMPT, RETUNE_NEW = 8, 32, 48
+RETUNE_BURST = (96, 100, 2)
+RETUNE_ASYNC_PROMPT = 48
+RETUNE_OVERLAP_LENGTHS = (40, 56, 72, 88, 120, 136)
+RETUNE_COOLDOWN = 10_000           # part C: one epoch from the engine's polls
+RETUNE_AFTER_NEW = 32              # part C: the serve after the epochs
+# the memory an epoch may add beyond the timer's operand cache and the
+# prefill pool's growth: allocator rounding of the graphs' static buffers
+RETUNE_MEM_SLACK = 16 << 20
+
+
+def storage_bytes(tensors) -> int:
+    """Bytes of the distinct storages behind ``tensors``."""
+    seen = {}
+    for t in tensors:
+        s = t.untyped_storage()
+        seen[s.data_ptr()] = s.nbytes()
+    return sum(seen.values())
+
+
+def operand_cache_bytes(backend) -> int:
+    """Device bytes the timer keeps between measurements: the operand
+    copies of the last shape it timed."""
+    return storage_bytes(t for ops_ in backend.timer._operands[1]
+                         for t in ops_)
+
+
+class RetuneWatch:
+    """The retune phase's view of one engine: every poll's decisions
+    printed, every report with the tick that returned it, the memory
+    after each epoch, and the GEMM and reduction kernels each replay
+    gives the device (each graph's nodes, read at its capture, times its
+    replays; every captured graph must hold ``per_fwd`` GEMM nodes)."""
+
+    def __init__(self, eng, what: str, per_fwd: int):
+        self.eng, self.what, self.per_fwd = eng, what, per_fwd
+        self.reports: list = []
+        self.device = {"gemm": 0, "reduce": 0}
+        self.tiers_at_first: Optional[dict] = None
+        self._nodes: dict = {}
+        ctl = eng.controller
+        real_check, real_poll = ctl.check, eng.maybe_retune
+        real_captured = eng._captured
+        real_tick, real_pre = eng.decode, eng.prefill
+
+        def check():
+            decisions = real_check()
+            for sp, d in sorted(decisions.items()):
+                phase("retune", f"  {what} poll at tick {eng.ticks}: {sp} "
+                      f"drift {d.drift:.3f}, untuned mass "
+                      f"{d.untuned_mass:.3f}, {d.window_calls} window "
+                      f"calls, novel {[shape_str(x) for x in d.novel_shapes]}"
+                      f", reason {d.reason or '-'}")
+            return decisions
+
+        def poll():
+            report = real_poll()
+            if report is not None:
+                self.note(report)
+            return report
+
+        def captured(fn, pool=None, keep=()):
+            graph, out, shapes = real_captured(fn, pool=pool, keep=keep)
+            n_gemm, n_reduce, _ = graph_counts(graph)
+            if n_gemm != per_fwd:
+                raise AssertionError(f"{what}: a captured graph holds "
+                                     f"{n_gemm} GEMM nodes, want {per_fwd}")
+            self._nodes[id(graph)] = (n_gemm, n_reduce)
+            return graph, out, shapes
+
+        def count(graph):
+            n_gemm, n_reduce = self._nodes[id(graph)]
+            self.device["gemm"] += n_gemm
+            self.device["reduce"] += n_reduce
+
+        def tick(last, idx):
+            out = real_tick(last, idx)
+            count(eng.graph)
+            return out
+
+        def pre(slot, tokens):
+            out = real_pre(slot, tokens)
+            count(eng.prefill_graphs[tokens.shape[1]])
+            return out
+
+        ctl.check, eng.maybe_retune, eng._captured = check, poll, captured
+        eng.decode, eng.prefill = tick, pre
+
+    def note(self, report) -> None:
+        """Keep one report with the tick that returned it, the engine's
+        captures and the memory at that moment."""
+        eng = self.eng
+        if self.tiers_at_first is None:
+            self.tiers_at_first = dict(dispatch.tier_counts)
+        self.reports.append({
+            "report": report, "tick": eng.ticks,
+            "tick_index": len(eng.tick_times), "captures": eng.captures,
+            "alloc": torch.cuda.memory_allocated(),
+            "prefill_pool": eng.prefill_graph_bytes(),
+            "operands": operand_cache_bytes(
+                next(iter(eng.controller.tuners().values())).backend)})
+
+    def tuned_reports(self) -> list:
+        return [r for r in self.reports if r["report"].tuned]
+
+
+def shape_str(x: dict) -> str:
+    keys = ("M", "N", "K") if "M" in x else ("B", "Hq", "Hkv", "Lq", "Lkv",
+                                              "D")
+    return "x".join(str(x[k]) for k in keys)
+
+
+def retune_engine(cfg, params, dev: torch.device, tuners: dict,
+                  **kw) -> Engine:
+    """A fresh engine serving from an empty in-memory store (the engine
+    installs it), the telemetry cleared, the loop on."""
+    clear_telemetry()
+    clear_models()
+    install_serving(store=None, models=None, fingerprint=None)
+    dispatch.reset_counts()
+    return Engine(cfg, params, ServeConfig(
+        slots=RETUNE_SLOTS, max_len=RETUNE_MAX_LEN, retune=True,
+        retune_interval=RETUNE_INTERVAL, retune_min_calls=32,
+        retune_top_k=4, retune_train=True, record_tick_times=True, **kw),
+        device=dev, retune_tuners=tuners)
+
+
+def end_async(ctl, watch, poll: bool = False,
+              timeout_s: float = 300.0) -> None:
+    """Wait for the background epoch in flight to end, then take its
+    report: through a poll (which reaps it) or through ``wait_async`` (no
+    detection, so no new epoch starts); ``watch`` keeps it."""
+    deadline = time.perf_counter() + timeout_s
+    while ctl.async_active() and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    if ctl.async_active():
+        raise AssertionError(f"retune: an async epoch did not end in "
+                             f"{timeout_s:.0f} s")
+    report = ctl.maybe_retune() if poll else ctl.wait_async()
+    if report is not None:
+        watch.note(report)
+
+
+def graph_shapes_exact(eng, shapes, fp: str, what: str) -> int:
+    """Every (space, shape) a graph dispatched that has a record resolves
+    on a plan entry that is the record's config on tier exact (the plan
+    current: the store has not moved past it); returns how many."""
+    state = serving_state()
+    store = eng.tunedb_store
+    if state.plan is None or store.version != state.plan.store_version:
+        raise AssertionError(f"{what}: no current plan")
+    keyed = {(sp, shape_key(x)) for sp, x in shapes
+             if store.contains(sp, x, backend=fp)}
+    check_plan_exact(state.plan, store, fp, keyed, what)
+    return len(keyed)
+
+
+def tick_ms(eng, lo: int = 0, hi: Optional[int] = None) -> list:
+    return [1e3 * w for _, w, _ in list(eng.tick_times)[lo:hi]]
+
+
+def phase_retune(cfg, params, backend, fp: str, tuners: dict,
+                 dev: torch.device, label: str) -> dict:
+    """The retune loop on the card: SmolLM-135M at full width serving from
+    an empty store notices its own untuned GEMMs and decode split-count
+    shapes, tunes them on the card with the tune phase's GEMM and
+    attention tuners (``CheckedBackend(CudaEventBackend)``), retrains the
+    GEMM regressor and swaps in a new generation mid-serve.
+
+    A (inline): 8 x 32-token prompts x 48 tokens.  An epoch tunes, its
+    records are ``source="retune"`` under the card's fingerprint, the
+    generation flips and the next tick captures the tick graph again;
+    every GEMM and split-count shape of that graph with a record resolves
+    on its record's config (tier exact); a replayed tick's logits are
+    bitwise the eager tick's; the memory after each epoch grows by no more
+    than the timer's operand cache and the prefill pool's growth.
+    B (the same engine): 96 x 100-token prompts x 2 tokens; the drift or
+    untuned mass trips an epoch that tunes the M = 100 shapes, and the
+    100-token prefill graph, captured again under the new generation,
+    resolves its 210 GEMMs on their records.
+    C (a fresh engine and store, ``retune_async``, and a cooldown that
+    leaves the engine's own polls one epoch): A's traffic and 4 x
+    48-token prompts; a prefill capture of a new length starts and ends
+    while the background epoch is in flight (its measurements and the
+    capture hold ``DEVICE_LOCK``; novel traffic and a poll start one when
+    none runs); no capture fails; the report surfaces on a later poll;
+    every request is served whole; then 4 x 32 tokens are served with no
+    epoch in flight.
+    Prints the tier counts, the epoch's wall (session, retrain, install),
+    the tripping tick, the median tick before and after the swap, the
+    tick wall while an async epoch is in flight and after, and the async
+    records' TFLOP/s over the inline ones'."""
+    t_phase = time.perf_counter()
+    per_fwd = GEMMS_PER_LAYER * cfg.n_layers
+    rng = np.random.default_rng(5)
+    vocab = cfg.vocab
+    out = {"device_launches": 0, "device_reduce_launches": 0}
+
+    # -- A: inline, the untuned start --------------------------------------
+    eng = retune_engine(cfg, params, dev, tuners)
+    gen0 = serving_state().generation
+    watch = RetuneWatch(eng, "A", per_fwd)
+    prompts = [rng.integers(0, vocab, RETUNE_PROMPT)
+               for _ in range(RETUNE_PROMPTS)]
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new=RETUNE_NEW)
+    torch.cuda.synchronize()
+    a_wall = time.perf_counter() - t0
+    if [len(o) for o in outs] != [RETUNE_NEW] * len(prompts):
+        raise AssertionError("retune A: a request was not served whole")
+    tuned = watch.tuned_reports()
+    if not tuned:
+        raise AssertionError(f"retune A: no epoch tuned ({watch.reports})")
+    store = eng.tunedb_store
+    recs = store.records()
+    if not recs or any(r.source != "retune" or r.backend != fp
+                       for r in recs):
+        raise AssertionError(f"retune A: records {[(r.source, r.backend) for r in recs]}")
+    first = tuned[0]
+    if first["report"].generation <= gen0:
+        raise AssertionError("retune A: the generation did not flip")
+    if eng.captures <= first["captures"]:
+        raise AssertionError("retune A: no tick captured after the swap")
+    tiers_before = {f"{sp}/{t}": c for (sp, t), c
+                    in sorted(watch.tiers_at_first.items())}
+    tiers_after = {f"{sp}/{t}": c - watch.tiers_at_first.get((sp, t), 0)
+                   for (sp, t), c in sorted(dispatch.tier_counts.items())
+                   if c - watch.tiers_at_first.get((sp, t), 0)}
+    # the tick graph under the live generation: a tick replayed (captured
+    # again if the last epoch ended on the last tick), then held
+    last = torch.as_tensor(rng.integers(0, vocab, (RETUNE_SLOTS, 1)),
+                           device=dev)
+    idx = torch.full((RETUNE_SLOTS,), 40, dtype=torch.long, device=dev)
+    eng.decode(last, idx)
+    n_exact = graph_shapes_exact(eng, eng._decode_shapes, fp, "retune A tick")
+    decode_gemm = {shape_key(x) for sp, x in eng._decode_shapes
+                   if sp == "gemm"}
+    if not any(store.contains("gemm", dict(k), backend=fp)
+               for k in decode_gemm):
+        raise AssertionError("retune A: no decode GEMM shape was tuned")
+    want = eng.decode_eager(last, idx).clone()
+    got = eng.decode_graph(last, idx).clone()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"retune A: replayed tick logits differ from "
+                             f"the eager tick's (max abs "
+                             f"{(got.float() - want.float()).abs().max():.3e})")
+    ticks = tick_ms(eng)
+    trip = first["tick_index"]
+    before_ms = statistics.median(ticks[:trip]) if trip else float("nan")
+    after = ticks[trip + 2:] or [float("nan")]
+    rep = first["report"]
+    phase("retune", f"A: {cfg.name} ({cfg.n_layers}L bf16), "
+          f"{len(prompts)} x {RETUNE_PROMPT}-token prompts x {RETUNE_NEW} "
+          f"tokens from an empty store in {a_wall:.2f} s, {eng.ticks} ticks; "
+          f"{len(watch.reports)} epoch(s), {len(tuned)} tuned: "
+          + "; ".join(f"epoch {r['report'].epoch} at tick {r['tick']} "
+                      f"({r['report'].mode}): {r['report'].tuned} tuned, "
+                      f"retrained {r['report'].retrained}, generation "
+                      f"{r['report'].generation}" for r in watch.reports))
+    phase("retune", f"A: first epoch wall {rep.wall_s:.3f} s = session "
+          f"{rep.session_s:.3f} s + retrain {rep.retrain_s:.3f} s + install "
+          f"{rep.install_s:.3f} s (+ detection); the tripping tick "
+          f"{ticks[trip]:.1f} ms, the next (captures the tick again) "
+          f"{ticks[trip + 1] if trip + 1 < len(ticks) else float('nan'):.1f}"
+          f" ms; median tick {before_ms:.2f} ms before the swap, "
+          f"{statistics.median(after):.2f} ms after [{label}]")
+    phase("retune", f"A: dispatch tiers up to the first epoch {tiers_before}, "
+          f"after it {tiers_after}; {len(recs)} retune records under {fp}; "
+          f"the tick graph of generation {serving_state().generation}: "
+          f"{n_exact} of its {len({(sp, shape_key(x)) for sp, x in eng._decode_shapes})} "
+          f"shapes have records, each planned exact on its config; a "
+          f"replayed tick's logits bitwise the eager tick's")
+    for r in sorted(recs, key=lambda r: (r.space, sorted(r.inputs.items()))):
+        phase("retune", f"  A record {r.space} {shape_str(r.inputs)} -> "
+              f"{r.config} {r.tflops:.3f} TFLOPS")
+    mem = []
+    for a, b in zip(watch.reports, watch.reports[1:]):
+        grow = b["alloc"] - a["alloc"]
+        allowed = (b["operands"] + max(0, b["prefill_pool"] - a["prefill_pool"])
+                   + RETUNE_MEM_SLACK)
+        mem.append((grow, allowed))
+        if grow > allowed:
+            raise AssertionError(f"retune A: memory grew {grow} B from epoch "
+                                 f"{a['report'].epoch} to "
+                                 f"{b['report'].epoch}, allowed {allowed}")
+    phase("retune", f"A: memory_allocated after each epoch "
+          f"{[round(r['alloc'] / 2**20, 1) for r in watch.reports]} MiB "
+          f"(the timer's operand cache "
+          f"{[round(r['operands'] / 2**20, 1) for r in watch.reports]} MiB, "
+          f"the prefill pool "
+          f"{[round(r['prefill_pool'] / 2**20, 1) for r in watch.reports]} "
+          f"MiB); growth epoch over epoch {[g for g, _ in mem]} B")
+    inline = {(r.space, shape_key(r.inputs)): r for r in recs}
+
+    # -- B: the prefill burst on the same engine ----------------------------
+    n_req, n_prompt, n_new = RETUNE_BURST
+    b_from = len(watch.reports)
+    burst = [rng.integers(0, vocab, n_prompt) for _ in range(n_req)]
+    t0 = time.perf_counter()
+    outs = eng.generate(burst, max_new=n_new)
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
+    if [len(o) for o in outs] != [n_new] * n_req:
+        raise AssertionError("retune B: a request was not served whole")
+    b_tuned = [r for r in watch.reports[b_from:] if r["report"].tuned]
+    prefill_m = {shape_key(x) for sp, x in eng._prefill_shapes[n_prompt]
+                 if sp == "gemm"}
+    if not b_tuned or not all(store.contains("gemm", dict(k), backend=fp)
+                              for k in prefill_m):
+        raise AssertionError(f"retune B: the M = {n_prompt} shapes were not "
+                             f"tuned ({[r['report'].decisions for r in watch.reports[b_from:]]})")
+    reasons = {d.reason for r in b_tuned
+               for d in r["report"].decisions.values() if d.trigger}
+    if not reasons <= {"drift", "untuned"}:
+        raise AssertionError(f"retune B: triggers {reasons}")
+    if eng._prefill_gen != serving_state().generation:
+        eng.prefill(0, torch.as_tensor(burst[0][None], device=dev))
+    n_pre = graph_shapes_exact(eng, eng._prefill_shapes[n_prompt], fp,
+                               f"retune B {n_prompt}-token prefill")
+    pre_gemm = sum(1 for sp, _ in eng._prefill_shapes[n_prompt]
+                   if sp == "gemm")
+    if pre_gemm != per_fwd or graph_counts(
+            eng.prefill_graphs[n_prompt])[0] != per_fwd:
+        raise AssertionError(f"retune B: the {n_prompt}-token prefill graph "
+                             f"dispatched {pre_gemm} GEMMs")
+    phase("retune", f"B: {n_req} x {n_prompt}-token prompts x {n_new} tokens "
+          f"in {b_wall:.2f} s ({len(watch.reports) - b_from} epoch(s), "
+          f"triggers {sorted(reasons)}, "
+          + "; ".join(f"epoch {r['report'].epoch}: {r['report'].tuned} tuned "
+                      f"in {r['report'].wall_s:.3f} s" for r in b_tuned)
+          + f"); the {n_prompt}-token prefill graph of generation "
+          f"{eng._prefill_gen} resolves its {pre_gemm} GEMMs on "
+          f"{len(prefill_m)} tuned shapes, {n_pre} planned exact")
+    out["device_launches"] += watch.device["gemm"]
+    out["device_reduce_launches"] += watch.device["reduce"]
+    a_stats = eng.controller.stats()
+    a_ticks = eng.ticks
+    del eng, watch
+    gc.collect()
+
+    # -- C: async -----------------------------------------------------------
+    # the cooldown keeps the engine's own polls from starting a second
+    # epoch, so the short serve after the epochs runs none in flight; the
+    # phase's own polls pass no tick, which the cooldown does not count
+    eng = retune_engine(cfg, params, dev, tuners, retune_async=True,
+                        retune_cooldown_ticks=RETUNE_COOLDOWN)
+    ctl = eng.controller
+    watch = RetuneWatch(eng, "C", per_fwd)
+    prompts = ([rng.integers(0, vocab, RETUNE_PROMPT)
+                for _ in range(RETUNE_PROMPTS)]
+               + [rng.integers(0, vocab, RETUNE_ASYNC_PROMPT)
+                  for _ in range(4)])
+    # while an epoch is in flight its timer captures graphs on another
+    # thread: this thread synchronises its stream, never the whole device
+    # (cudaDeviceSynchronize is refused during a capture)
+    stream = torch.cuda.current_stream(dev)
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new=RETUNE_NEW)
+    stream.synchronize()
+    c_wall, c_ticks = time.perf_counter() - t0, eng.ticks
+    if [len(o) for o in outs] != [RETUNE_NEW] * len(prompts):
+        raise AssertionError("retune C: a request was not served whole")
+    # a prefill capture of a new length inside an epoch in flight: start
+    # one (novel traffic, then a poll) whenever none runs
+    overlap, tries = None, []
+    for n in RETUNE_OVERLAP_LENGTHS:
+        if not ctl.async_active():
+            novel = torch.as_tensor(rng.integers(0, vocab, n + 4)[None],
+                                    device=dev)
+            for _ in range(4):
+                eng.prefill(0, novel)
+            while not ctl.async_active():
+                report = ctl.maybe_retune()
+                if report is not None:
+                    watch.note(report)
+                elif not ctl.async_active():
+                    raise AssertionError("retune C: novel traffic did not "
+                                         "trigger an epoch")
+        tokens = torch.as_tensor(rng.integers(0, vocab, n)[None], device=dev)
+        caps = eng.prefill_captures
+        on_before = ctl.async_active()
+        t0 = time.perf_counter()
+        eng.prefill(0, tokens)
+        stream.synchronize()
+        cap_ms = 1e3 * (time.perf_counter() - t0)
+        on_after = ctl.async_active()
+        tries.append((n, on_before, on_after, round(cap_ms, 1)))
+        if eng.prefill_captures != caps + 1:
+            raise AssertionError(f"retune C: prefill of {n} tokens was not "
+                                 "captured")
+        if on_before and on_after:
+            overlap = (n, cap_ms)
+            break
+    if overlap is None:
+        raise AssertionError(f"retune C: no capture inside an epoch in "
+                             f"flight: {tries}")
+    end_async(ctl, watch, poll=True)          # a later poll reaps it
+    async_reports = [r["report"] for r in watch.reports
+                     if r["report"].mode == "async" and r["report"].tuned]
+    if not async_reports:
+        raise AssertionError(f"retune C: no async report surfaced "
+                             f"({watch.reports})")
+    # after the epochs: a fresh window, then a short serve (its first tick
+    # captures the tick graph of the new generation, and is left out)
+    ctl.reset_baseline()
+    n_after = len(eng.tick_times)
+    outs = eng.generate(prompts[:RETUNE_SLOTS], max_new=RETUNE_AFTER_NEW)
+    if [len(o) for o in outs] != [RETUNE_AFTER_NEW] * RETUNE_SLOTS:
+        raise AssertionError("retune C: a request was not served whole")
+    end_async(ctl, watch)                 # an epoch the serve submitted
+    ticks = list(eng.tick_times)
+    windows = [tuple(w) for w in ctl.async_windows]
+    in_flight = lambda t: any(a <= t <= b for a, b in windows)
+    busy = [1e3 * w for t, w, _ in ticks[:n_after] if in_flight(t)]
+    calm = [1e3 * w for t, w, _ in ticks[n_after + 1:] if not in_flight(t)]
+    ratios = []
+    for r in eng.tunedb_store.records():
+        a = inline.get((r.space, shape_key(r.inputs)))
+        if a is not None and r.space == "gemm":
+            ratios.append(r.tflops / a.tflops)
+    phase("retune", f"C: async, {len(prompts)} requests ({RETUNE_PROMPTS} x "
+          f"{RETUNE_PROMPT} and 4 x {RETUNE_ASYNC_PROMPT} tokens) x "
+          f"{RETUNE_NEW} tokens in {c_wall:.2f} s, {c_ticks} ticks, "
+          f"{ctl.async_submits} epoch(s) submitted, "
+          f"{len(async_reports)} async report(s) reaped by a later poll "
+          f"(cooldown {RETUNE_COOLDOWN} ticks for the engine's polls; "
+          + "; ".join(f"{r.tuned} tuned, wall {r.wall_s:.3f} s = session "
+                      f"{r.session_s:.3f} + retrain {r.retrain_s:.3f} + "
+                      f"install {r.install_s:.3f}" for r in async_reports)
+          + f"; submit to swap "
+          f"{[round(b - a, 3) for a, b in ctl.async_windows]} s); "
+          f"tick wall while an epoch was in flight: median "
+          f"{statistics.median(busy) if busy else float('nan'):.2f} ms, max "
+          f"{max(busy) if busy else float('nan'):.2f} ms over {len(busy)} "
+          f"ticks; after: median "
+          f"{statistics.median(calm) if calm else float('nan'):.2f} ms, max "
+          f"{max(calm) if calm else float('nan'):.2f} ms over {len(calm)} "
+          f"ticks [{label}]")
+    phase("retune", f"C: a {overlap[0]}-token prefill captured in "
+          f"{overlap[1]:.1f} ms inside an epoch in flight (tries: length, "
+          f"in flight before, after, ms: {tries}); no capture failed; async "
+          f"records' GEMM TFLOP/s over part A's at the same shapes: median "
+          f"{statistics.median(ratios) if ratios else float('nan'):.3f}, "
+          f"min {min(ratios) if ratios else float('nan'):.3f}, max "
+          f"{max(ratios) if ratios else float('nan'):.3f} over "
+          f"{len(ratios)} shapes")
+    out["device_launches"] += watch.device["gemm"]
+    out["device_reduce_launches"] += watch.device["reduce"]
+    out["stats"] = {"A+B": a_stats, "C": ctl.stats()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    phase("retune", f"controller stats A+B: {a_stats['retunes']} swaps over "
+          f"{a_stats['checks']} polls in {a_ticks} ticks; C: "
+          f"{ctl.stats()['retunes']} swaps over {ctl.stats()['checks']} "
+          f"polls; GEMM kernels given to the device (graph nodes x replays) "
+          f"{out['device_launches']}, reduction passes "
+          f"{out['device_reduce_launches']}; the phase's wall "
+          f"{out['wall_s']:.1f} s")
+    del eng, watch, ctl
+    gc.collect()
+    clear_store()
+    clear_models()
+    clear_telemetry()
+    return out
+
+
 MAMBA_NK = ((8512, 2048), (2048, 4096))
 MAMBA_SLOTS, MAMBA_PROMPT = 4, 32
 MAMBA_TUNE_SAMPLES = 96
@@ -3756,7 +4256,8 @@ def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
     prefill graph's times its replays); ``launches_by_path`` gives every
     path's (serve_mamba: the mamba phase's, serve_moe: the moe phase's);
     ``main`` adds the GEMM and reduction rows' ``device_launches_by_path``
-    (serve, serve_mamba, serve_moe, serve_encdec, serve_frontend)."""
+    (serve, serve_retune, serve_mamba, serve_moe, serve_encdec,
+    serve_frontend)."""
     per = {"gemm": "one decode tick: 210 projections at M=4, tuned configs",
            "conv": "the 14 Table 5 shapes, bf16, one call each, tuned configs",
            "attention": "the 4 attention targets, bf16, one call each, tuned "
@@ -3841,7 +4342,7 @@ def main() -> int:
         store_path = Path(tmp) / "tunedb.jsonl"
         store = RecordStore.open(store_path)
         reset_launches()
-        phase_tune(backend, store, fp, dev)
+        tuners = phase_tune(backend, store, fp, dev)["tuners"]
         launches["tune"] = read_launches()
         if not all(launches["tune"].values()):
             raise AssertionError(f"tune path launches {launches['tune']}")
@@ -3875,6 +4376,15 @@ def main() -> int:
                                                     fp, label)["counts"]
         phase_model(cfg, params, dev)
         phase_profile(serve.pop("engine"), cfg, dev, label)
+        gc.collect()
+        reset_launches()
+        retune = phase_retune(cfg, params, backend, fp, tuners, dev, label)
+        launches["retune"] = read_launches()
+        if not (launches["retune"]["gemm"] and launches["retune"]["attention"]
+                and (launches["retune"]["gemm_reduce"]
+                     or not retune["device_reduce_launches"])):
+            raise AssertionError(f"retune path launches {launches['retune']}")
+        phase("retune", f"launches on the retune path: {launches['retune']}")
         mamba = phase_mamba(backend, store, store_path, fp, dev, peaks,
                             label)
         launches["serve_mamba"] = mamba["counts"]
@@ -3893,8 +4403,9 @@ def main() -> int:
             "ssd": ssd_rows}
     line = kernels_line(rows, worst, launches, cfg.n_layers)
     line["kernels"][0]["device_launches"] = serve["device_launches"]
-    served = {"serve": serve, "serve_mamba": mamba, "serve_moe": moe,
-              "serve_encdec": encdec, "serve_frontend": frontend}
+    served = {"serve": serve, "serve_retune": retune, "serve_mamba": mamba,
+              "serve_moe": moe, "serve_encdec": encdec,
+              "serve_frontend": frontend}
     line["kernels"][0]["device_launches_by_path"] = {
         p: r["device_launches"] for p, r in served.items()}
     # ms, plain_ms and library_ms time C = A @ B (ops.matmul, the split-K

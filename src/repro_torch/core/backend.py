@@ -101,6 +101,14 @@ MEM_SHARE = 0.5
 SSD_STEP_BUDGET = 4096
 SSD_STATE_PER_STEP = 1 << 23
 
+# held by every timing measurement and gate check on the card, and by the
+# serving engine around each CUDA-graph capture (``Engine._captured``): a
+# capture in the default global mode must not overlap another thread's
+# measurement, whose synchronisations, allocations and own thread-local
+# capture would invalidate it.  One lock for the process: one measurement
+# runs on a card at a time.
+DEVICE_LOCK = threading.RLock()
+
 
 def problem_flops(space_name: str, inputs: Mapping[str, int]) -> float:
     """FLOPs of one call, from the shape alone (a yardstick that moves with
@@ -277,7 +285,7 @@ class CudaEventBackend:
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
-        self.lock = threading.RLock()
+        self.lock = DEVICE_LOCK
         self._times: Dict[tuple, float] = {}
         self._operands: Tuple[tuple, List[Tuple[torch.Tensor, ...]]] = (
             (), [])

@@ -82,6 +82,20 @@ def _dtype_bits(dtype: torch.dtype) -> int:
     return torch.finfo(dtype).bits
 
 
+def _count_degraded(space: str) -> None:
+    """One more dispatch served on the degraded tier, in the metrics
+    registry's ``tunedb_dispatch_degraded_calls_total{reason, space}``:
+    the warning below is once per generation, the count is every call."""
+    try:
+        from repro_torch.tunedb.obs.metrics import get_registry
+        get_registry().counter(
+            "tunedb_dispatch_degraded_calls_total",
+            "dispatches served by the heuristic fallback tier").inc(
+                reason="untuned", space=space)
+    except Exception:       # noqa: BLE001 — metrics never block dispatch
+        pass
+
+
 def _warn_once(key: tuple, msg: str) -> None:
     if key not in _WARNED:
         _WARNED.add(key)
@@ -187,6 +201,7 @@ def _resolve_cfg(space: str, inputs: Mapping[str, int]
                                 or store.version == plan.store_version):
             plan.promote(space, key, cfg, tier)
     else:
+        _count_degraded(space)
         _warn_once((state.generation, "untuned", space),
                    f"tunedb: no launchable record, model pick or neighbor "
                    f"for a {space} shape {dict(inputs)}; serving on "

@@ -10,6 +10,14 @@
       --plan-dir db.jsonl.plan/00000001 --admission store
   python -m repro_torch.launch.serve --tunedb db.jsonl --measure wallclock \
       --request-deadline 30 --shed-threshold 64
+  python -m repro_torch.launch.serve --retune --retune-interval 16 \
+      --retune-async --retune-sentry 0.1        # retune its own shapes
+  python -m repro_torch.launch.serve --smoke --device cpu --retune \
+      --retune-interval 8                       # the loop on the host
+
+With ``--retune`` the engine's retune controller trains a tuner per space
+it retunes (``tunedb.controller._default_tuner_factory``: 4000 gated
+samples labelled on this device, minutes a space on the card).
 """
 
 from __future__ import annotations
@@ -71,6 +79,27 @@ def main(argv=None) -> None:
                         "each shape it resolves on this device, in the idle "
                         "gap after a decode tick, and serve the measured "
                         "winner from then on")
+    p.add_argument("--retune", action="store_true",
+                   help="retune in-process: tune the untuned or drifted "
+                        "hot shapes, retrain and hot-swap mid-serve")
+    p.add_argument("--retune-interval", type=int, default=64,
+                   help="decode ticks between retune-controller polls")
+    p.add_argument("--retune-async", action="store_true",
+                   help="run a triggered epoch on a background thread: "
+                        "the poll submits and returns, the swap lands when "
+                        "the session and retrain end")
+    p.add_argument("--retune-cooldown-ticks", type=int, default=0,
+                   help="decode ticks a retune blocks the next trigger for")
+    p.add_argument("--retune-max-sessions", type=int, default=0,
+                   help="retune sessions allowed per --retune-window "
+                        "seconds (0 = unlimited)")
+    p.add_argument("--retune-window", type=float, default=600.0)
+    p.add_argument("--retune-min-gain", type=float, default=0.0,
+                   help="skip epochs whose projected gain over the "
+                        "nearest-record tier is below this fraction")
+    p.add_argument("--retune-sentry", type=float, default=None,
+                   help="regression-sentry noise margin gating each "
+                        "retune's serving swap (omit to disable)")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -90,7 +119,14 @@ def main(argv=None) -> None:
         seed=0, tunedb=args.tunedb, tunedb_backend=fingerprint,
         plan_dir=args.plan_dir, admission=args.admission,
         request_deadline_s=args.request_deadline,
-        shed_threshold=args.shed_threshold, measure=args.measure),
+        shed_threshold=args.shed_threshold, measure=args.measure,
+        retune=args.retune, retune_interval=args.retune_interval,
+        retune_async=args.retune_async,
+        retune_cooldown_ticks=args.retune_cooldown_ticks,
+        retune_max_sessions=args.retune_max_sessions,
+        retune_window_s=args.retune_window,
+        retune_min_gain=args.retune_min_gain,
+        retune_sentry=args.retune_sentry),
         device=device)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, args.prompt_len)
@@ -99,7 +135,8 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     outs = eng.generate(prompts, max_new=args.max_new)
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        # a stream's sync: an async retune's timer may be capturing
+        torch.cuda.current_stream(device).synchronize()
     dt = time.perf_counter() - t0
     total = sum(len(o) for o in outs)
     print(f"{cfg.name} on {device}: {len(outs)} requests, {total} tokens in "
@@ -116,6 +153,15 @@ def main(argv=None) -> None:
               f"{st['pushed']} shapes queued, {st['processed']} processed, "
               f"{st['upgrades']} upgraded, {st['dropped']} dropped, "
               f"{st['backlog']} left")
+    if eng.controller is not None:
+        if eng.controller.async_active():
+            print("waiting for the in-flight async retune to land...")
+            eng.controller.wait_async()     # an in-process epoch ends
+        st = eng.controller.stats()
+        print(f"retune: {st['retunes']} epoch(s) over {st['checks']} polls, "
+              f"serving generation {st['generation']}, "
+              f"{st['sentry_blocked']} refused by the sentry; last "
+              f"{st['last']}")
     plan = serving_state().plan
     if plan is not None:
         st = plan.stats()

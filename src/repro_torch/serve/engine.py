@@ -47,6 +47,23 @@ model tier resolves is served the model's argmax and its top-k are
 re-measured on the card after a later tick (:meth:`Engine.maybe_retune`),
 the winner going into the model set's memo and the plan's overlay.
 
+With ``ServeConfig.retune`` the engine closes the loop in-process: a
+``tunedb.controller.RetuneController`` (tuners from ``retune_tuners``)
+is polled every ``retune_interval`` ticks, tunes the window's untuned or
+drifted hot shapes on the card, retrains and swaps in a new generation;
+the next tick and each prompt length's next prefill are captured again
+under it, so the swap reaches the device at once (the reference's jitted
+programs keep the configs they were traced with).  Without a configured
+store the engine installs an in-memory one.  A capture holds
+``core.backend.DEVICE_LOCK``, which every timing measurement holds too,
+so an async epoch's measurements never overlap a capture.  While an
+async epoch runs, its timer captures graphs on its own thread: code on
+other threads synchronises its stream (``torch.cuda.current_stream().
+synchronize()``), or takes ``DEVICE_LOCK`` before synchronising the whole
+device, which a capture in progress refuses.  A generation that moves
+during a capture leaves the graph marked with the generation read before
+it, so it is captured again at its next use.
+
 Shape telemetry counts executions of the served program: eager prefills
 and eager ticks record through dispatch as they run; a graph's shapes are
 collected once at capture (neither the capture pass nor its warm-up
@@ -66,15 +83,16 @@ one with the tokens it has, and ``shed_threshold`` sheds the newest
 pending requests while the backlog exceeds it (:meth:`Engine._health`
 says so).  An encoder-decoder config is refused at construction, as
 the reference's launcher refuses it; a vision-frontend config is served
-on tokens only, as the reference's engine serves it.  Retuning, routing, tracing, the status endpoint and the
-``tunedb_*`` counters wait for the port of the fleet and observability
-(ROADMAP A6).
+on tokens only, as the reference's engine serves it.  Routing, the
+fleet's retune mode, tracing and the status endpoint wait for their
+slices (ROADMAP A6).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import gc
 import pathlib
 import time
@@ -85,12 +103,14 @@ from typing import (Any, Deque, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 
-from repro_torch.core.backend import H100_SXM, Peaks
+from repro_torch.core.backend import DEVICE_LOCK, H100_SXM, Peaks
 from repro_torch.core.space import gemm_input
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import (ModelConfig, decode_step, init_cache, prefill,
                                 recurrent_leaves, tree_leaves, tree_map)
+from repro_torch.tunedb.controller import (RetuneConfig, RetuneController,
+                                           _default_tuner_factory)
 from repro_torch.tunedb.measure import MeasureQueue, ServingMeasurer
 from repro_torch.tunedb.model import ModelSet, default_models_dir
 from repro_torch.tunedb.plans import (PlanArtifactError, check_freshness,
@@ -143,6 +163,26 @@ class ServeConfig:
     # the model's top-k candidates of a shape it resolved, in the idle gap
     # after a decode tick (tunedb.measure); None turns it off
     measure: Optional[str] = None
+    # -- continuous retuning (tunedb.controller.RetuneController) ------------
+    retune: bool = False            # close the telemetry->tune->serve loop
+    retune_interval: int = 64       # decode ticks between controller polls
+    retune_drift: float = 0.25      # hot-shape mass TV distance trigger
+    retune_untuned_mass: float = 0.5   # untuned fraction of window trigger
+    retune_min_calls: int = 32      # window calls before a space is judged
+    retune_top_k: int = 4           # novel hot shapes tuned per session
+    retune_train: bool = True       # retrain and swap the regressors too
+    # run a triggered epoch on a background thread (the poll submits and
+    # returns) instead of inline on the tick that tripped it
+    retune_async: bool = False
+    # the epoch budget: ticks between epochs, epochs per window of seconds
+    retune_cooldown_ticks: int = 0
+    retune_max_sessions: int = 0    # per retune_window_s (0 = unlimited)
+    retune_window_s: float = 600.0
+    # skip epochs whose projected gain over the nearest-record tier is small
+    retune_min_gain: float = 0.0
+    # the regression sentry's noise margin gating each retune's swap (None
+    # turns the gate off; tunedb.obs.sentry.RegressionSentry)
+    retune_sentry: Optional[float] = None
 
 
 def _ceil_div(x: int, t: int) -> int:
@@ -358,7 +398,8 @@ CALIBRATION_GEMM = (dict(ops.DEFAULT_GEMM), gemm_input(256, 256, 256, 16))
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params: Any, serve_cfg: ServeConfig,
-                 *, device: DeviceLike = None):
+                 *, device: DeviceLike = None,
+                 retune_tuners: Optional[Dict[str, Any]] = None):
         cfg.check_supported()
         if cfg.is_encdec:
             raise ValueError(ENCDEC_REFUSED)
@@ -383,6 +424,7 @@ class Engine:
         # store's traffic.
         self.tunedb_store: Optional[RecordStore] = None
         self.tunedb_models: Optional[ModelSet] = None
+        self._models_dir = None
         if serve_cfg.tunedb or serve_cfg.tunedb_models or serve_cfg.plan_dir:
             swap = {"fingerprint": serve_cfg.tunedb_backend}
             models_dir = serve_cfg.tunedb_models
@@ -396,6 +438,7 @@ class Engine:
                 self.tunedb_store = swap["store"] = RecordStore.open(path)
                 if models_dir is None:
                     models_dir = default_models_dir(path)
+            self._models_dir = models_dir or None
             models = ModelSet.load(models_dir) if models_dir else ModelSet()
             models.margin_threshold = serve_cfg.tunedb_margin
             models.max_feature_z = serve_cfg.tunedb_max_z
@@ -477,6 +520,44 @@ class Engine:
         self.shed_requests = 0
         self.deadline_retired = 0
         self.shedding = False
+        self.controller: Optional[RetuneController] = None
+        self._next_retune_tick = 0
+        if serve_cfg.retune:
+            self._init_controller(retune_tuners)
+
+    def _init_controller(self, retune_tuners: Optional[Dict[str, Any]]
+                         ) -> None:
+        """Close the loop in-process: drift-triggered sessions and the
+        hot-swap.  Sessions commit into the configured store, else into
+        the installed one, else into a fresh in-memory store installed
+        now (pinned to ``tunedb_backend``), kept as ``tunedb_store``."""
+        sc = self.sc
+        store = self.tunedb_store
+        if store is None:
+            store = serving_state().store
+        if store is None:
+            store = RecordStore()
+            install_serving(store=store, fingerprint=sc.tunedb_backend)
+        self.tunedb_store = store
+        self.controller = RetuneController(
+            store, tuners=retune_tuners,
+            tuner_factory=functools.partial(_default_tuner_factory,
+                                            device=self.device),
+            models_dir=self._models_dir,
+            async_mode=sc.retune_async, measurer=self.measurer,
+            measure_queue=self.measure_queue,
+            cfg=RetuneConfig(
+                drift_threshold=sc.retune_drift,
+                untuned_mass_threshold=sc.retune_untuned_mass,
+                min_calls=sc.retune_min_calls,
+                top_k_shapes=sc.retune_top_k,
+                retrain=sc.retune_train,
+                cooldown_ticks=sc.retune_cooldown_ticks,
+                max_sessions_per_window=sc.retune_max_sessions,
+                session_window_s=sc.retune_window_s,
+                min_gain=sc.retune_min_gain,
+                sentry=sc.retune_sentry))
+        self._next_retune_tick = sc.retune_interval
 
     def _load_plan(self, plan_dir: str):
         """The artifact's plan, or None (and a warning) when it is
@@ -502,15 +583,23 @@ class Engine:
                            "shed_threshold")
         return True
 
-    def maybe_retune(self) -> None:
+    def maybe_retune(self):
         """The idle gap after each decode tick: drain up to two pending §6
         re-measurements (``MeasureQueue.process``) into the installed model
-        set's memo and the plan's overlay.  The reference also polls its
-        retune controller here; that waits for the port of
-        ``tunedb/controller.py`` (ROADMAP A6)."""
+        set's memo and the plan's overlay, through the controller when one
+        runs; then, every ``retune_interval`` ticks, poll the retune
+        controller.  Returns its ``RetuneReport`` when an epoch ended at
+        this poll (inline: ran; async: was reaped), else ``None``."""
         q = self.measure_queue
         if q is not None and len(q):
-            q.process(self.measurer, models=serving_state().models)
+            if self.controller is not None:
+                self.controller.process_measurements()
+            else:
+                q.process(self.measurer, models=serving_state().models)
+        if self.controller is None or self.ticks < self._next_retune_tick:
+            return None
+        self._next_retune_tick = self.ticks + self.sc.retune_interval
+        return self.controller.maybe_retune(tick=self.ticks)
 
     # -- prefill ---------------------------------------------------------------
     def _prefill_one(self, slot: int, req: Request) -> None:
@@ -609,28 +698,32 @@ class Engine:
         so the graph's first replay then starts where the warm-up did.
         The garbage collector is off while capturing: a dead engine's
         graphs (an engine is a reference cycle) freed mid-capture would
-        invalidate it (``CUDAGraph.reset`` is not permitted then)."""
+        invalidate it (``CUDAGraph.reset`` is not permitted then).  The
+        warm-up and the capture hold ``DEVICE_LOCK``: no timing
+        measurement (an async retune's, on another thread) runs meanwhile.
+        """
         tel = get_telemetry()
-        saved = [t.clone() for t in keep]
-        side = torch.cuda.Stream(device=self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side), tel.capture(count=False):
-            fn()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        for t, s in zip(keep, saved):
-            t.copy_(s)
-        del saved
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with tel.capture(count=False) as cap:
-                with torch.cuda.graph(graph, pool=pool):
-                    out = fn()
-        finally:
-            if collecting:
-                gc.enable()
-        graph.instantiate()
+        with DEVICE_LOCK:
+            saved = [t.clone() for t in keep]
+            side = torch.cuda.Stream(device=self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side), tel.capture(count=False):
+                fn()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            for t, s in zip(keep, saved):
+                t.copy_(s)
+            del saved
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with tel.capture(count=False) as cap:
+                    with torch.cuda.graph(graph, pool=pool):
+                        out = fn()
+            finally:
+                if collecting:
+                    gc.enable()
+            graph.instantiate()
         return graph, out, cap.shapes
 
     @property

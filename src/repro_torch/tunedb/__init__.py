@@ -1,26 +1,34 @@
 """Tuning database of the port: the record store, serving state and frozen
-dispatch plans, shape telemetry, plan artifacts, tuning sessions, and the
-performance models of dispatch's model tier (a subset of
-``repro.tunedb``)."""
+dispatch plans, shape telemetry, plan artifacts, tuning sessions, the
+performance models of dispatch's model tier, the retune controller that
+closes the telemetry -> tune -> train -> serve loop, and its observability
+(``obs``: the metrics registry and the regression sentry); a subset of
+``repro.tunedb``."""
 
+from .controller import (RetuneConfig, RetuneController, RetuneReport,
+                         SpaceDecision)
 from .model import (MODEL_SCHEMA_VERSION, ModelArtifactError, ModelSet,
                     PerfModel, backend_slug, clear_models, collect_samples,
                     default_models_dir, get_models, harvest, install_models,
                     train_models)
-from .session import (TuneJob, TuningSession, backend_fingerprint,
-                      record_from_search)
+from .obs import RegressionSentry, SentryReport, get_registry
+from .session import (SessionReport, TuneJob, TuningSession,
+                      backend_fingerprint, record_from_search)
 from .store import (PLAN_HOT_K, DispatchPlan, RecordStore, ServingState,
-                    TuneRecord, clear_store, compile_plan, install_serving,
-                    install_store, serving_state, shape_key)
+                    Supersession, TuneRecord, clear_store, compile_plan,
+                    install_serving, install_store, serving_state, shape_key)
 from .telemetry import (ShapeTelemetry, clear_telemetry, get_telemetry,
                         record_shape)
 
 __all__ = ["MODEL_SCHEMA_VERSION", "PLAN_HOT_K", "DispatchPlan",
            "ModelArtifactError", "ModelSet", "PerfModel", "RecordStore",
-           "ServingState", "ShapeTelemetry", "TuneJob", "TuneRecord",
-           "TuningSession", "backend_fingerprint", "backend_slug",
-           "clear_models", "clear_store", "clear_telemetry",
+           "RegressionSentry", "RetuneConfig", "RetuneController",
+           "RetuneReport", "SentryReport", "ServingState", "SessionReport",
+           "ShapeTelemetry", "SpaceDecision", "Supersession", "TuneJob",
+           "TuneRecord", "TuningSession", "backend_fingerprint",
+           "backend_slug", "clear_models", "clear_store", "clear_telemetry",
            "collect_samples", "compile_plan", "default_models_dir",
-           "get_models", "get_telemetry", "harvest", "install_models",
+           "get_models", "get_registry", "get_telemetry", "harvest",
+           "install_models",
            "install_serving", "install_store", "record_from_search",
            "record_shape", "serving_state", "shape_key", "train_models"]

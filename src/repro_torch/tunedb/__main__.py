@@ -5,8 +5,10 @@ export the frozen dispatch plans serving starts from.
   tune     train (or load) an input-aware tuner whose labels are timings of
            the port's own kernels (``CheckedBackend(CudaEventBackend)``: the
            correctness gate, then CUDA events on the card), run a tuning
-           session over explicit ``--shape`` jobs, and append one record per
-           shape (plus the measured top-k losers as ``sample`` records)
+           session over explicit ``--shape`` jobs and/or the hot shapes of a
+           ``--telemetry`` dump (``--shapes-from-telemetry``), and append one
+           record per shape (plus the measured top-k losers as ``sample``
+           records); ``--progress`` makes the session resumable
   train    label ``--samples-per-shape`` random legal configs at every
            tuned shape through the same gated backend (``sample`` records),
            then train one regressor per (space, backend) from the store's
@@ -17,6 +19,15 @@ export the frozen dispatch plans serving starts from.
            ``--telemetry`` dump's hot set) into a plan artifact under
            ``<store>.plan/<generation>/`` (``ServeConfig.plan_dir``)
   plan inspect  verify an artifact (schema, digest) and print its manifest
+  retune   one retune-controller pass over a telemetry dump: diff it against
+           the saved epoch baseline (``<telemetry>.epoch``); when drift or
+           untuned mass crosses its threshold, tune the novel hot shapes,
+           retrain the affected regressors and advance the baseline
+  watch    ``retune`` passes every ``--interval`` seconds (``--max-polls``)
+  diff     the regression sentry over two generations: two store files or
+           two plan snapshots (``{"entries": [...]}``); exit 1 when the new
+           one serves a slower record (beyond ``--margin``) or drops a
+           planned shape
   stats    the store's statistics (and a ``--telemetry`` dump's) as JSON
   export   write a compacted store: the latest record per shape
   merge    fold stores into one (``--out``)
@@ -37,6 +48,14 @@ export the frozen dispatch plans serving starts from.
   $ python -m repro_torch.tunedb plan export --store tunedb.jsonl \
         --telemetry shapes.json                 # -> tunedb.jsonl.plan/00000001
   $ python -m repro_torch.tunedb plan inspect tunedb.jsonl.plan/00000001
+  $ python -m repro_torch.tunedb tune --space gemm --shapes-from-telemetry \
+        --telemetry shapes.json --progress tune.progress \
+        --train-samples 512 --store tunedb.jsonl
+  $ python -m repro_torch.tunedb retune --telemetry shapes.json \
+        --store tunedb.jsonl --train-samples 512      # the tuner on the card
+  $ python -m repro_torch.tunedb watch --telemetry shapes.json \
+        --store tunedb.jsonl --interval 60 --device cpu --train-samples 400
+  $ python -m repro_torch.tunedb diff old.jsonl new.jsonl --json
   $ python -m repro_torch.tunedb stats --store tunedb.jsonl
   $ python -m repro_torch.tunedb merge a.jsonl b.jsonl --out all.jsonl
 
@@ -58,9 +77,11 @@ The records carry ``backend_fingerprint`` of the timing backend, which
 names the package, the backend class and the device (not ``--seed``, which
 seeds the training draws and the regressor); serving pins its lookups to
 the same string (``repro_torch.launch.serve`` does by default).
-The reference's other subcommands (retune/watch, fleet, plan publish /
-follow, trace, diff, serve-status, fsck) and ``stats --json`` are not
-ported yet.
+``retune`` and ``watch`` train a tuner per space they retune
+(``--train-samples``, labelled on ``--device``) unless ``--load-tuner``
+gives one.  The reference's other subcommands (fleet, plan publish /
+follow, trace, serve-status, fsck) and ``stats --json`` are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -69,7 +90,9 @@ import argparse
 import json
 import os
 import pathlib
+import shutil
 import sys
+import time
 from typing import Dict, List, Optional
 
 # optional input params a --shape may omit
@@ -108,8 +131,19 @@ def _cmd_tune(args: argparse.Namespace) -> int:
     from .session import TuningSession, backend_fingerprint
     from .store import RecordStore
 
+    from .telemetry import ShapeTelemetry
+
     space = SPACES[args.space]
+    telemetry = None
+    if args.shapes_from_telemetry:
+        if not args.telemetry:
+            raise SystemExit("--shapes-from-telemetry needs --telemetry PATH")
+        if not os.path.exists(args.telemetry):
+            raise SystemExit(f"telemetry file not found: {args.telemetry}")
+        telemetry = ShapeTelemetry.load(args.telemetry)
     shapes = [parse_shape(s, space) for s in args.shape]
+    if telemetry is None and not shapes:
+        raise SystemExit("need --shapes-from-telemetry and/or --shape")
     backend = CheckedBackend(CudaEventBackend(device=args.device))
     store = RecordStore.open(args.store)
     if args.load_tuner:
@@ -124,16 +158,24 @@ def _cmd_tune(args: argparse.Namespace) -> int:
         if args.save_tuner:
             tuner.save(args.save_tuner)
     tuner.top_k = args.top_k
-    session = TuningSession(tuner, store, workers=args.workers,
+    session = TuningSession(tuner, store, telemetry, workers=args.workers,
                             remeasure=not args.no_remeasure,
-                            skip_existing=not args.retune)
-    report = session.run(shapes, verbose=True)
-    print(f"[tunedb] session done: {report.tuned} tuned, {report.skipped} "
-          f"skipped, {report.failed} failed in {report.wall_s:.1f}s -> "
-          f"{args.store}")
-    for err in report.errors:
-        print(f"[tunedb]   failed: {err}", file=sys.stderr)
-    return 1 if report.failed else 0
+                            skip_existing=not args.retune,
+                            progress_path=args.progress)
+    reports = []
+    if telemetry is not None:
+        reports.append(session.run(verbose=True))       # the mined hot set
+    if shapes:
+        reports.append(session.run(shapes, verbose=True))
+    tuned = sum(r.tuned for r in reports)
+    failed = sum(r.failed for r in reports)
+    print(f"[tunedb] session done: {tuned} tuned, "
+          f"{sum(r.skipped for r in reports)} skipped, {failed} failed in "
+          f"{sum(r.wall_s for r in reports):.1f}s -> {args.store}")
+    for r in reports:
+        for err in r.errors:
+            print(f"[tunedb]   failed: {err}", file=sys.stderr)
+    return 1 if failed else 0
 
 
 def _cmd_train(args: argparse.Namespace) -> int:
@@ -268,6 +310,163 @@ def _cmd_plan_inspect(args: argparse.Namespace) -> int:
     return 0
 
 
+def _build_retune_controller(args: argparse.Namespace, telemetry, baseline,
+                             tuners=None):
+    from repro_torch.core.backend import CheckedBackend, CudaEventBackend
+    from repro_torch.core.space import SPACES
+    from repro_torch.core.tuner import InputAwareTuner
+
+    from .controller import RetuneConfig, RetuneController
+    from .model import default_models_dir
+    from .store import RecordStore
+
+    def tuner_factory(space_name: str):
+        backend = CheckedBackend(CudaEventBackend(device=args.device))
+        if args.load_tuner:
+            return InputAwareTuner.load(args.load_tuner, SPACES[space_name],
+                                        backend=backend)
+        print(f"[tunedb] training {space_name} tuner on "
+              f"{backend.fingerprint} ({args.train_samples} samples, "
+              f"{args.epochs} epochs)...", flush=True)
+        return InputAwareTuner.train(
+            SPACES[space_name], backend=backend,
+            n_samples=args.train_samples, epochs=args.epochs, seed=args.seed)
+
+    store = RecordStore.open(args.store)
+    return RetuneController(
+        store, telemetry=telemetry, tuners=tuners,
+        tuner_factory=tuner_factory,
+        models_dir=(None if args.no_train
+                    else args.models_dir or default_models_dir(args.store)),
+        cfg=RetuneConfig(
+            drift_threshold=args.drift, untuned_mass_threshold=args.untuned,
+            min_calls=args.min_calls, top_k_shapes=args.top_k,
+            workers=args.workers, retrain=not args.no_train, seed=args.seed),
+        baseline=baseline, verbose=True)
+
+
+def _baseline_path(args: argparse.Namespace) -> str:
+    return args.baseline or args.telemetry + ".epoch"
+
+
+def _load_baseline(args: argparse.Namespace):
+    from .telemetry import ShapeTelemetry
+
+    path = _baseline_path(args)
+    if os.path.exists(path):
+        return ShapeTelemetry.load(path).snapshot()
+    return ShapeTelemetry().snapshot()      # the first epoch: all is new
+
+
+def _retune_pass(args: argparse.Namespace, tuner_cache=None) -> int:
+    """One detect (+ tune + train + baseline advance) pass; the shapes
+    tuned, or -1 without a telemetry file.  ``tuner_cache`` carries trained
+    tuners across the watch loop's per-poll controllers."""
+    from .telemetry import ShapeTelemetry
+
+    if not os.path.exists(args.telemetry):
+        print(f"[tunedb] telemetry file not found: {args.telemetry}",
+              file=sys.stderr)
+        return -1
+    telemetry = ShapeTelemetry.load(args.telemetry)
+    controller = _build_retune_controller(args, telemetry,
+                                          _load_baseline(args), tuner_cache)
+    decisions = controller.check()
+    for dec in decisions.values():
+        print(f"[retune:{dec.space}] {dec.reason or 'steady'}: drift "
+              f"{dec.drift:.3f} (>= {args.drift} triggers), untuned mass "
+              f"{dec.untuned_mass:.3f} (>= {args.untuned} triggers), "
+              f"{dec.window_calls} window calls, "
+              f"{len(dec.novel_shapes)} novel hot shapes")
+    report = (controller.force_retune(decisions) if args.force
+              else controller.maybe_retune(decisions))
+    if tuner_cache is not None:
+        tuner_cache.update(controller.tuners())
+    if report is None:
+        print("[tunedb] no retune: traffic within thresholds")
+        return 0
+    # the consumed telemetry is the next epoch's baseline
+    shutil.copyfile(args.telemetry, _baseline_path(args))
+    print(f"[tunedb] retuned {report.tuned} shape(s) in {report.wall_s:.1f}s; "
+          f"retrained {report.retrained or 'nothing'}; serving generation "
+          f"{report.generation} -> {args.store}")
+    return report.tuned
+
+
+def _cmd_retune(args: argparse.Namespace) -> int:
+    return 1 if _retune_pass(args) < 0 else 0
+
+
+def _cmd_watch(args: argparse.Namespace) -> int:
+    polls = 0
+    tuner_cache: Dict[str, object] = {}     # trained once, reused per poll
+    while True:
+        polls += 1
+        print(f"[tunedb] watch poll {polls}"
+              + (f"/{args.max_polls}" if args.max_polls else ""), flush=True)
+        _retune_pass(args, tuner_cache)     # a missing dump is "not yet"
+        if args.max_polls and polls >= args.max_polls:
+            return 0
+        time.sleep(args.interval)
+
+
+def _load_generation(path: str):
+    """A diffable generation: ("plan", dict) for a plan snapshot (a JSON
+    object with ``entries``), else ("store", RecordStore)."""
+    from .store import RecordStore
+
+    with open(path, "r", encoding="utf-8") as fh:
+        head = fh.read(4096).lstrip()
+    if head.startswith("{"):
+        try:
+            doc = json.loads(pathlib.Path(path).read_text())
+        except ValueError:
+            doc = None
+        if isinstance(doc, dict) and "entries" in doc:
+            return "plan", doc
+    return "store", RecordStore.open(path)
+
+
+def _fmt_inputs(inputs) -> str:
+    return ",".join(f"{k}={v}" for k, v in sorted(inputs.items()))
+
+
+def _cmd_diff(args: argparse.Namespace) -> int:
+    from .obs import RegressionSentry
+
+    sentry = RegressionSentry(noise_margin=args.margin)
+    old_kind, old = _load_generation(args.old)
+    new_kind, new = _load_generation(args.new)
+    if old_kind != new_kind:
+        print(f"[tunedb] cannot diff a {old_kind} against a {new_kind}",
+              file=sys.stderr)
+        return 2
+    report = (sentry.diff_plans(old, new) if old_kind == "plan"
+              else sentry.diff_stores(old, new))
+    if args.json:
+        print(json.dumps(report.to_dict(), indent=1, sort_keys=True))
+        return 0 if report.ok else 1
+    print(f"[tunedb] diff {args.old} -> {args.new}: "
+          f"{report.checked} shared key(s) checked, "
+          f"{report.improved} improved, {report.unchanged} unchanged, "
+          f"{report.added} added, {report.removed} removed "
+          f"(noise margin {report.noise_margin:.0%})")
+    for reg in report.regressions:
+        if reg.old_tflops > 0:
+            print(f"[tunedb]   REGRESSED {reg.space} "
+                  f"{_fmt_inputs(reg.inputs)} [{reg.backend}]: "
+                  f"{reg.old_tflops:.2f} -> {reg.new_tflops:.2f} "
+                  f"TFLOPS (-{reg.drop:.0%})")
+        else:
+            print(f"[tunedb]   DROPPED {reg.space} "
+                  f"{_fmt_inputs(reg.inputs)}: planned entry missing "
+                  f"from the new generation")
+    verdict = ("OK" if report.ok
+               else f"{len(report.regressions)} regression(s)")
+    print(f"[tunedb] verdict: {verdict}")
+    return 0 if report.ok else 1
+
+
 def _cmd_stats(args: argparse.Namespace) -> int:
     from .store import RecordStore
     from .telemetry import ShapeTelemetry
@@ -314,8 +513,16 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--space", default="gemm",
                    choices=["gemm", "conv", "attention", "ssd"])
     t.add_argument("--store", required=True, help="JSONL record store")
-    t.add_argument("--shape", action="append", required=True,
+    t.add_argument("--shape", action="append", default=[],
                    help="shape to tune, e.g. M=4,N=576,K=576 (repeatable)")
+    t.add_argument("--telemetry", default=None,
+                   help="telemetry JSON dump (ShapeTelemetry.save)")
+    t.add_argument("--shapes-from-telemetry", action="store_true",
+                   help="tune the --telemetry dump's 8 hottest shapes of "
+                        "--space")
+    t.add_argument("--progress", default=None,
+                   help="resumable progress file: a rerun skips the shapes "
+                        "it lists as done")
     t.add_argument("--device", default=None,
                    help="cuda (default) or cpu; cuda without a GPU fails")
     t.add_argument("--workers", type=int, default=4,
@@ -396,6 +603,63 @@ def build_parser() -> argparse.ArgumentParser:
         "inspect", help="verify (schema, digest) and print a plan artifact")
     pi.add_argument("plan_dir", help="one generation's artifact directory")
     pi.set_defaults(fn=_cmd_plan_inspect)
+
+    def add_retune_args(rp):
+        rp.add_argument("--store", required=True, help="JSONL record store")
+        rp.add_argument("--telemetry", required=True,
+                        help="telemetry JSON dump (ShapeTelemetry.save)")
+        rp.add_argument("--baseline", default=None,
+                        help="epoch-baseline telemetry dump "
+                             "(default: <telemetry>.epoch)")
+        rp.add_argument("--models-dir", default=None,
+                        help="retrained artifacts dir "
+                             "(default: <store>.models/)")
+        rp.add_argument("--device", default=None,
+                        help="where the tuners label: cuda (default) or cpu")
+        rp.add_argument("--drift", type=float, default=0.25,
+                        help="hot-shape mass TV-distance trigger")
+        rp.add_argument("--untuned", type=float, default=0.5,
+                        help="untuned window-mass trigger")
+        rp.add_argument("--min-calls", type=int, default=32,
+                        help="window calls before a space is judged")
+        rp.add_argument("--top-k", type=int, default=4,
+                        help="novel hot shapes tuned per retune")
+        rp.add_argument("--workers", type=int, default=2)
+        rp.add_argument("--no-train", action="store_true",
+                        help="skip the regressor retrain step")
+        rp.add_argument("--force", action="store_true",
+                        help="retune every space with novel hot shapes, "
+                             "whatever the thresholds")
+        rp.add_argument("--load-tuner", default=None,
+                        help="load a trained tuner dir instead of training")
+        rp.add_argument("--train-samples", type=int, default=4000)
+        rp.add_argument("--epochs", type=int, default=12)
+        rp.add_argument("--seed", type=int, default=0)
+
+    rt = sub.add_parser(
+        "retune", help="one drift-triggered retune pass over a telemetry dump")
+    add_retune_args(rt)
+    rt.set_defaults(fn=_cmd_retune)
+
+    w = sub.add_parser("watch", help="poll telemetry and retune continuously")
+    add_retune_args(w)
+    w.add_argument("--interval", type=float, default=60.0,
+                   help="seconds between polls")
+    w.add_argument("--max-polls", type=int, default=0,
+                   help="stop after this many polls (0 = forever)")
+    w.set_defaults(fn=_cmd_watch)
+
+    d = sub.add_parser(
+        "diff", help="regression sentry: compare two store (or plan "
+                     "snapshot) generations; exit 1 when the new one "
+                     "regresses")
+    d.add_argument("old", help="baseline store JSONL or plan snapshot JSON")
+    d.add_argument("new", help="candidate store JSONL or plan snapshot JSON")
+    d.add_argument("--margin", type=float, default=0.10,
+                   help="noise margin: flag only records slower than "
+                        "old*(1-margin) (default 0.10)")
+    d.add_argument("--json", action="store_true")
+    d.set_defaults(fn=_cmd_diff)
 
     st = sub.add_parser("stats", help="print store/telemetry statistics")
     st.add_argument("--store", required=True, help="JSONL record store")

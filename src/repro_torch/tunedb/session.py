@@ -1,11 +1,16 @@
-"""Tuning sessions: tune a list of shapes on a worker pool, commit to a store.
+"""Tuning sessions: mine hot shapes, tune them on a worker pool, commit.
 
-The port of ``repro.tunedb.session`` for explicit shapes (telemetry-mined
-jobs and progress files are not ported yet).  One :class:`TuneJob` per
-shape runs the tuner's §6 search — with top-k re-measurement on the
-backend — and appends one :class:`TuneRecord` per shape, plus the measured
-top-k losers as ``source="sample"`` records (training data for a
-performance model; serving never resolves them).
+The port of ``repro.tunedb.session``.  The jobs are explicit shapes, or
+the top ``top_k_shapes`` of a :class:`~repro_torch.tunedb.telemetry.
+ShapeTelemetry` (``hot_shapes``: the shapes traffic hit most).  One
+:class:`TuneJob` per shape runs the tuner's §6 search — with top-k
+re-measurement on the backend — and appends one :class:`TuneRecord` per
+shape, stamped with the session's ``source`` (the retune controller's is
+``"retune"``), plus, with ``collect_samples``, the measured top-k losers as
+``source="sample"`` records (training data for a performance model;
+serving never resolves them).  A ``progress_path`` file (``{"space",
+"done"}``, written through a ``.tmp`` file and ``os.replace``) makes a
+long session resumable: a rerun skips the shapes it lists.
 
 :func:`backend_fingerprint` is the one place that names a measuring
 backend.  The tuner stamps it on every record and serving pins its lookups
@@ -18,12 +23,16 @@ part of it: they do not change what a config measures.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import pathlib
 import time
 from concurrent.futures import ThreadPoolExecutor, as_completed
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 from .store import (SAMPLE_SOURCE, RecordStore, TuneRecord, input_key,
                     normalize_inputs)
+from .telemetry import ShapeTelemetry
 
 # fields of a backend that change what it measures, in fingerprint order
 # (a simulator's noise and its seed; the port's timing backend has none)
@@ -76,6 +85,7 @@ class TuneJob:
 
     space: str
     inputs: Dict[str, int]
+    count: int = 0                      # telemetry frequency (priority)
 
     @property
     def key(self) -> str:
@@ -95,7 +105,7 @@ class SessionReport:
 
 
 class TuningSession:
-    """Drive the tuner over explicit shapes into a store.
+    """Drive the tuner over explicit or telemetry-mined shapes into a store.
 
     Jobs run on ``workers`` threads; the backend serialises the
     measurements themselves (one kernel on the card at a time), so the
@@ -106,27 +116,65 @@ class TuningSession:
     them: ``CheckedBackend``'s cached gate oracles.
     """
 
-    def __init__(self, tuner, store: RecordStore, *, workers: int = 4,
-                 remeasure: bool = True, skip_existing: bool = True):
+    def __init__(self, tuner, store: RecordStore,
+                 telemetry: Optional[ShapeTelemetry] = None, *,
+                 top_k_shapes: int = 8, workers: int = 4,
+                 remeasure: bool = True, skip_existing: bool = True,
+                 collect_samples: bool = True,
+                 progress_path: Optional[os.PathLike] = None,
+                 source: str = "session"):
         self.tuner = tuner
         self.store = store
+        self.telemetry = telemetry
+        self.top_k_shapes = top_k_shapes
         self.workers = max(1, workers)
         self.remeasure = remeasure
         self.skip_existing = skip_existing
+        self.collect_samples = collect_samples
+        self.source = source
+        self.progress_path = (pathlib.Path(progress_path)
+                              if progress_path else None)
+        self._done = self._load_progress()
 
-    def plan(self, shapes: List[Mapping[str, int]]
+    # -- resumability ---------------------------------------------------------
+    def _load_progress(self) -> set:
+        if self.progress_path is None or not self.progress_path.exists():
+            return set()
+        try:
+            return set(json.loads(self.progress_path.read_text())["done"])
+        except (ValueError, KeyError, TypeError):
+            return set()
+
+    def _save_progress(self) -> None:
+        if self.progress_path is None:
+            return
+        self.progress_path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = self.progress_path.with_name(self.progress_path.name + ".tmp")
+        tmp.write_text(json.dumps({"space": self.tuner.space.name,
+                                   "done": sorted(self._done)}))
+        os.replace(tmp, self.progress_path)
+
+    # -- planning -------------------------------------------------------------
+    def plan(self, shapes: Optional[List[Mapping[str, int]]] = None
              ) -> Tuple[List[TuneJob], int]:
-        """Build the job list; returns (jobs, n_skipped).  Skipping is
+        """Build the job list; returns (jobs, n_skipped).  ``shapes``
+        overrides the telemetry's hot shapes.  Skipping is
         fingerprint-scoped: a shape tuned by another backend still needs a
-        record from this one."""
+        record from this one; a shape the progress file lists is done."""
         space = self.tuner.space.name
+        if shapes is not None:
+            cand = [(normalize_inputs(s), 0) for s in shapes]
+        elif self.telemetry is not None:
+            cand = self.telemetry.hot_shapes(space, self.top_k_shapes)
+        else:
+            raise ValueError("need telemetry or explicit shapes to plan")
         fp = backend_fingerprint(self.tuner.backend)
         jobs, skipped, seen = [], 0, set()
-        for s in shapes:
-            inputs = normalize_inputs(s)
-            job = TuneJob(space=space, inputs=inputs)
-            if job.key in seen or (self.skip_existing and self.store.contains(
-                    space, inputs, backend=fp)):
+        for inputs, count in cand:
+            job = TuneJob(space=space, inputs=dict(inputs), count=count)
+            if job.key in seen or job.key in self._done or (
+                    self.skip_existing and self.store.contains(
+                        space, inputs, backend=fp)):
                 skipped += 1
                 continue
             seen.add(job.key)
@@ -136,12 +184,14 @@ class TuningSession:
     def _run_job(self, job: TuneJob) -> Tuple[TuneRecord, List[TuneRecord]]:
         result = self.tuner.search(job.inputs, remeasure=self.remeasure)
         rec = record_from_search(job.space, job.inputs, result,
-                                 self.tuner.backend, source="session")
-        samples = [TuneRecord(space=job.space, inputs=dict(job.inputs),
-                              config=dict(cfg), tflops=float(tflops),
-                              backend=rec.backend, source=SAMPLE_SOURCE)
-                   for cfg, tflops in result.measured or ()
-                   if cfg != result.best]
+                                 self.tuner.backend, source=self.source)
+        samples: List[TuneRecord] = []
+        if self.collect_samples:
+            samples = [TuneRecord(space=job.space, inputs=dict(job.inputs),
+                                  config=dict(cfg), tflops=float(tflops),
+                                  backend=rec.backend, source=SAMPLE_SOURCE)
+                       for cfg, tflops in result.measured or ()
+                       if cfg != result.best]
         return rec, samples
 
     def _guarded(self, job: TuneJob):
@@ -150,7 +200,7 @@ class TuningSession:
         except Exception as e:       # noqa: BLE001 — job isolation is the point
             return None, f"{type(e).__name__}: {e}"
 
-    def run(self, shapes: List[Mapping[str, int]],
+    def run(self, shapes: Optional[List[Mapping[str, int]]] = None,
             verbose: bool = False) -> SessionReport:
         t0 = time.time()
         jobs, skipped = self.plan(shapes)
@@ -172,6 +222,8 @@ class TuningSession:
                     self.store.add(rec)
                     for sample in samples:
                         self.store.add(sample)
+                    self._done.add(job.key)
+                    self._save_progress()
                     report.tuned += 1
                     report.records.append(rec)
                     if verbose:

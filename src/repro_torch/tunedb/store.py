@@ -20,12 +20,16 @@ nothing of the reference's dispatcher.  The plan is the install-time
 compilation of that state (:func:`compile_plan`): one flat ``(space,
 shape) -> (config, tier)`` table that dispatch probes first.  Every plan
 entry is a config the port's kernel can launch (``core.space.FITS``).
-The reference's quarantine, ``repair`` and fsck, and the regression
-sentry of its installs, are not ported.
+Every ``add`` that replaces the record behind a ``(backend, space,
+shape)`` slot logs a :class:`Supersession` (a bounded deque, load-time
+replays not logged): ``install_serving(sentry=)`` replays it to refuse a
+generation that would serve a slower record (``tunedb.obs.sentry``).
+The reference's quarantine, ``repair`` and fsck are not ported.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import hashlib
@@ -37,8 +41,8 @@ import threading
 import time
 import warnings
 import zlib
-from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
-                    Tuple)
+from typing import (Callable, Deque, Dict, Iterator, List, Mapping,
+                    Optional, Tuple)
 
 from repro_torch.core.space import FITS
 
@@ -135,6 +139,21 @@ def _log2_dist(a: Mapping[str, int], b: Mapping[str, int]) -> Optional[float]:
     return math.sqrt(d)
 
 
+SUPERSESSION_CAP = 4096     # bounded like the plan overlay and the memos
+
+
+@dataclasses.dataclass(frozen=True)
+class Supersession:
+    """One serving-index replacement: at store ``version``, record ``new``
+    took over the ``(backend, space, shape)`` slot from ``old``.  The
+    regression sentry replays these to audit an in-place generation before
+    an install freezes it into a plan."""
+
+    version: int
+    old: TuneRecord
+    new: TuneRecord
+
+
 _MEMO_MISS = object()
 
 
@@ -167,6 +186,9 @@ class RecordStore:
         self.nearest_hits = 0
         self.misses = 0
         self._needs_newline = False
+        # every add() that replaced a served record, newest last
+        self.supersessions: Deque[Supersession] = collections.deque(
+            maxlen=SUPERSESSION_CAP)
         if self.path is not None and self.path.exists():
             self._load()
 
@@ -200,19 +222,23 @@ class RecordStore:
                 fh.seek(-1, os.SEEK_END)
                 self._needs_newline = fh.read(1) != b"\n"
 
-    def _admit(self, rec: TuneRecord) -> None:
+    def _admit(self, rec: TuneRecord) -> Optional[TuneRecord]:
+        """Index one record; returns the served record it replaced."""
         if rec.source == SAMPLE_SOURCE:
             self.n_samples += 1
-            return
+            return None
         sk = shape_key(rec.inputs)
         bk = (rec.backend, rec.space, sk)
+        replaced = None
         cur = self._index.get(bk)
         if cur is None or rec.created_at >= cur.created_at:
             self._index[bk] = rec
+            replaced = cur
         lk = (rec.space, sk)
         cur = self._latest.get(lk)
         if cur is None or rec.created_at >= cur.created_at:
             self._latest[lk] = rec
+        return replaced
 
     def add(self, rec: TuneRecord) -> TuneRecord:
         """Append one record (stamping created_at if unset)."""
@@ -235,7 +261,10 @@ class RecordStore:
                 self.n_lines += 1
             else:
                 self._all.append(rec)
-            self._admit(rec)
+            replaced = self._admit(rec)
+            if replaced is not None:
+                self.supersessions.append(Supersession(
+                    version=self.version, old=replaced, new=rec))
         return rec
 
     def _exact(self, space: str, sk: ShapeKey, backend: Optional[str]
@@ -595,7 +624,7 @@ def serving_state() -> ServingState:
 
 def install_serving(*, store: object = _KEEP, models: object = _KEEP,
                     fingerprint: object = _KEEP, build_plan: bool = True,
-                    plan_hot_k: int = PLAN_HOT_K,
+                    plan_hot_k: int = PLAN_HOT_K, sentry: object = None,
                     plan: Optional[DispatchPlan] = None,
                     plan_dir: Optional[os.PathLike] = None) -> ServingState:
     """Swap any subset of the port's serving state in one generation.
@@ -607,7 +636,14 @@ def install_serving(*, store: object = _KEEP, models: object = _KEEP,
 
     Unless ``build_plan=False`` the install compiles the incoming store,
     models and the telemetry's hot set into the generation's
-    :class:`DispatchPlan` (:func:`compile_plan`).  ``plan`` (or
+    :class:`DispatchPlan` (:func:`compile_plan`).
+
+    ``sentry`` (a :class:`~repro_torch.tunedb.obs.sentry.RegressionSentry`,
+    or anything with ``blocks_install(cur_state, new_store)``) gates the
+    swap before anything is compiled: when the incoming store would serve
+    a record slower than the one it replaces beyond the sentry's margin,
+    the install warns and returns the current state unchanged (the caller
+    sees the generation it had).  ``plan`` (or
     ``plan_dir``, an artifact directory: ``tunedb.plans``) installs a
     pre-built plan instead; a bad artifact raises
     :class:`~repro_torch.tunedb.plans.PlanArtifactError`.  Such a plan is
@@ -630,6 +666,8 @@ def install_serving(*, store: object = _KEEP, models: object = _KEEP,
         new_fp = cur.fingerprint if fingerprint is _KEEP else fingerprint
         if fingerprint is _KEEP and new_fp is None and preplan is not None:
             new_fp = preplan.fingerprint
+        if sentry is not None and sentry.blocks_install(cur, new_store):
+            return cur              # refused: the generation stays live
         for obj in (new_store, new_models):
             invalidate = getattr(obj, "invalidate_memos", None)
             if callable(invalidate):

@@ -919,3 +919,148 @@ def test_whisper_tick_replays_bitwise_from_a_graph(cuda):
     last.fill_(7)
     graph.replay()
     assert torch.equal(static, tick())
+
+
+@pytest.fixture(scope="module")
+def card_tuners():
+    """Tiny tuners labelled on the card (64 gated samples a space)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the tuners label on the card")
+    from repro_torch.core.space import SPACES
+    from repro_torch.core.tuner import InputAwareTuner
+    backend = CheckedBackend(CudaEventBackend(device="cuda"))
+    return {name: InputAwareTuner.train(SPACES[name], n_samples=64,
+                                        hidden=(16, 16), epochs=4,
+                                        backend=backend, seed=0)
+            for name in ("gemm", "attention")}
+
+
+def _retune_engine(cuda, card_tuners, **kw):
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tunedb import store as tstore
+    from repro_torch.tunedb.telemetry import clear_telemetry
+
+    clear_telemetry()
+    tstore.install_serving(store=None, models=None, fingerprint=None)
+    cfg, params = _smoke_engine_params(cuda)
+    return Engine(cfg, params, ServeConfig(
+        max_len=64, slots=3, retune=True, retune_interval=8,
+        retune_min_calls=8, retune_top_k=4, **kw), device=cuda,
+        retune_tuners=card_tuners)
+
+
+def test_smoke_engine_retunes_mid_generate_on_the_card(cuda, card_tuners):
+    """The SMOKE engine tunes its own untuned shapes on the card mid-
+    generate; the tick graph captured under the new generation resolves
+    every shape with a record on that record's config."""
+    import numpy as np
+
+    from repro_torch.kernels import dispatch as tdispatch
+    from repro_torch.tunedb.store import serving_state, shape_key
+
+    eng = _retune_engine(cuda, card_tuners)
+    gen0 = serving_state().generation
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, eng.cfg.vocab, n) for n in (5, 9, 3, 12, 7)]
+    outs = eng.generate(prompts, max_new=24)
+    assert all(len(o) == 24 for o in outs)
+    assert eng.controller.retunes >= 1
+    assert serving_state().generation > gen0
+    store = eng.tunedb_store
+    fp = CudaEventBackend(device=cuda).fingerprint
+    assert store.records() and all(r.source == "retune" and r.backend == fp
+                                   for r in store.records())
+    last = torch.zeros((3, 1), dtype=torch.long, device=cuda)
+    idx = torch.full((3,), 20, dtype=torch.long, device=cuda)
+    eng.decode(last, idx)            # captured under the live generation
+    assert eng._graph_gen == serving_state().generation
+    plan = serving_state().plan
+    tuned = [(sp, x) for sp, x in eng._decode_shapes
+             if store.contains(sp, x, backend=fp)]
+    assert tuned
+    for sp, x in tuned:
+        rec = store.get(sp, x, backend=fp)
+        assert plan.lookup(sp, shape_key(x)) == (rec.config, "exact")
+        assert tdispatch._resolve_cfg(sp, x) == (rec.config, "plan")
+
+
+def test_async_epoch_overlaps_a_prefill_capture(cuda, card_tuners):
+    """A prefill of a new length captured while a background epoch times
+    its candidates on the card: both hold DEVICE_LOCK, so the capture is
+    never invalidated; the report surfaces on a later poll and every
+    request is served whole.  Meanwhile this thread synchronises its
+    stream only: the epoch's timer captures graphs on its own thread, and
+    a device-wide synchronise is refused during any capture."""
+    import numpy as np
+
+    eng = _retune_engine(cuda, card_tuners, retune_async=True)
+    ctl = eng.controller
+    stream = torch.cuda.current_stream(cuda)
+    try:
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, eng.cfg.vocab, n)
+                   for n in (5, 9, 3, 12, 7)]
+        outs = eng.generate(prompts, max_new=16)
+        assert all(len(o) == 16 for o in outs)
+        overlapped = False
+        for n in (20, 24, 28, 32, 36, 40):
+            if not ctl.async_active():
+                ctl.wait_async()
+                novel = torch.as_tensor(
+                    rng.integers(0, eng.cfg.vocab, n + 2)[None], device=cuda)
+                for _ in range(4):
+                    eng.prefill(0, novel)
+                while not ctl.async_active():
+                    if ctl.maybe_retune(tick=eng.ticks) is None \
+                            and not ctl.async_active():
+                        pytest.fail("novel prefill traffic triggered no "
+                                    "epoch")
+            before, caps = ctl.async_active(), eng.prefill_captures
+            eng.prefill(0, torch.as_tensor(
+                rng.integers(0, eng.cfg.vocab, n)[None], device=cuda))
+            stream.synchronize()
+            assert eng.prefill_captures == caps + 1
+            if before and ctl.async_active():
+                overlapped = True
+                break
+        assert overlapped
+        ctl._async.join(300)
+        assert not ctl.async_active()
+        report = ctl.maybe_retune(tick=eng.ticks)
+        assert report is not None and report.mode == "async" and report.tuned
+    finally:
+        ctl.wait_async(300)          # no epoch outlives the test
+
+
+def test_a_flip_during_capture_captures_again(cuda, monkeypatch):
+    """A generation that moves between a capture's generation read and the
+    replay leaves the graph marked with the old one: the next tick and
+    the next prefill of that length capture again."""
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tunedb import store as tstore
+
+    tstore.install_serving(store=None, models=None, fingerprint=None)
+    cfg, params = _smoke_engine_params(cuda)
+    eng = Engine(cfg, params, ServeConfig(max_len=64, slots=3), device=cuda)
+    real = eng._captured
+
+    def flip_while_capturing(*a, **kw):
+        got = real(*a, **kw)
+        tstore.install_serving(store=tstore.RecordStore())
+        return got
+
+    eng._captured = flip_while_capturing
+    last = torch.zeros((3, 1), dtype=torch.long, device=cuda)
+    idx = torch.full((3,), 5, dtype=torch.long, device=cuda)
+    tokens = torch.arange(7, device=cuda)[None]
+    eng.decode(last, idx)
+    eng.prefill(0, tokens)
+    assert (eng.captures, eng.prefill_captures) == (1, 1)
+    eng._captured = real
+    eng.decode(last, idx)
+    eng.prefill(0, tokens)
+    assert (eng.captures, eng.prefill_captures) == (2, 2)
+    eng.decode(last, idx)
+    eng.prefill(0, tokens)
+    assert (eng.captures, eng.prefill_captures) == (2, 2)
+    assert eng.replays == 3 and eng.prefill_replays == 3

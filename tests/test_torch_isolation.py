@@ -55,7 +55,12 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.configs.arctic_480b", "repro_torch.configs.dbrx_132b",
             "repro_torch.configs.jamba_v01_52b",
             "repro_torch.configs.whisper_base",
-            "repro_torch.configs.internvl2_76b"} <= set(out["modules"])
+            "repro_torch.configs.internvl2_76b",
+            "repro_torch.tunedb.controller", "repro_torch.tunedb.obs",
+            "repro_torch.tunedb.obs.metrics",
+            "repro_torch.tunedb.obs.sentry", "repro_torch.tunedb.session",
+            "repro_torch.tunedb.__main__",
+            "repro_torch.launch.serve"} <= set(out["modules"])
 
 
 @pytest.fixture
