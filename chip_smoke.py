@@ -140,20 +140,35 @@ exits non-zero:
                 serves the 3 oldest whole, healthy at the end;
                 ``request_deadline_s=0`` rejects every request unserved;
                 ``request_deadline_s=3600`` gives the tokens of none
- 17. model      prefill + 4 decode steps through the kernel path and again
+ 17. trace      tracing and the status endpoint: SmolLM-135M at full width
+                from the tuned store, ``ServeConfig(slots=4, max_len=256,
+                trace_sample=1.0, status_port=0)``, the serve phase's 8 x
+                32-token prompts x 16 tokens from the graphs (its tokens);
+                /healthz, /metrics, /status, /plan and /trace scraped from
+                this process (ms printed); the Chrome trace (schema 1)
+                holds engine.admit, engine.prefill, engine.tick and
+                dispatch.resolve (each with a tier, all plan), one
+                engine.tick root a tick, resolutions only in the capturing
+                tick; /metrics carries the tunedb_* series; then tracing
+                off: no Tracer call over a generate (E18.1), a plan hit's
+                us through dispatch._tuned_cfg, and E18.2's quiet / traced
+                at 1% / quiet triplets (the overhead against 2% + 2 x the
+                A/A noise, printed)
+ 18. model      prefill + 4 decode steps through the kernel path and again
                 through the plain path on the card; logits must agree
- 18. profile    a decode tick: eager wall time, host enqueue time, and the
+ 19. profile    a decode tick: eager wall time, host enqueue time, and the
                 device time of the same tick replayed from a CUDA graph;
                 the replay traced until a round's kernel events are the
                 captured graph's kernel nodes, replay by replay and name by
                 name (at most 5 rounds), then its kernels by name (ms and
                 count a tick, in order of time)
- 19. retune     the retune loop closed on the card (``tunedb/controller.py``,
+ 20. retune     the retune loop closed on the card (``tunedb/controller.py``,
                 ``ServeConfig.retune``): SmolLM-135M at full width from an
                 EMPTY in-memory store, the tune phase's GEMM and attention
                 tuners, ``ServeConfig(slots=4, max_len=256, retune=True,
                 retune_interval=8, retune_min_calls=32, retune_top_k=4)``;
-                every poll's decisions printed.  A (inline): 8 x 32-token
+                every poll's decisions printed.  A (inline, traced at
+                ``trace_sample=1.0``): 8 x 32-token
                 prompts x 48 tokens: an epoch tunes its own untuned GEMM
                 and split-count shapes on the card (``source="retune"``
                 records under the card's fingerprint), retrains the GEMM
@@ -162,9 +177,12 @@ exits non-zero:
                 record is planned exact on it; a replayed tick's logits are
                 bitwise the eager tick's; tier counts, the epoch's wall
                 (session, retrain, install), the tripping tick and the
-                median tick before and after printed; memory after each
-                epoch grows by no more than the timer's operand cache and
-                the prefill pool's growth.  B (same engine): 96 x
+                median tick before and after printed, and each tick's
+                engine.tick root split into retune.epoch, measure.*,
+                dispatch.resolve and the rest (medians before and after
+                the swap); after every epoch the timer holds no operand
+                set, and an epoch leaves the memory allocated within 8 MiB
+                of its level before it (ROADMAP C12).  B (same engine): 96 x
                 100-token prompts x 2 tokens: drift or untuned mass trips an
                 epoch that tunes the four M = 100 shapes, and the 100-token
                 prefill graph, captured again, resolves its 210 GEMMs on
@@ -172,10 +190,13 @@ exits non-zero:
                 traffic and 4 x 48-token prompts; a prefill capture of a new
                 length starts and ends while the background epoch is in
                 flight, no capture fails, the report surfaces on a later
-                poll, every request is served whole; the tick wall in flight
-                and after (a serve with none in flight), and the async
-                records' TFLOP/s over A's printed
- 20. mamba      mamba2-1.3b at full width (48 layers, bf16, random weights
+                poll, every request is served whole; a thread scrapes
+                /status and /metrics all the while (``status_port=0``): no
+                scrape and no capture fails; the tick wall in flight and
+                after (a serve with none in flight), its engine.tick split,
+                the retune.epoch spans and the async records' TFLOP/s over
+                A's printed
+ 21. mamba      mamba2-1.3b at full width (48 layers, bf16, random weights
                 from seed 0): its 4 projection GEMMs (M = 4 and 32) tuned
                 into the store, then 8 requests of 32-token prompts x 16
                 tokens served through ``Engine.generate`` from the
@@ -197,7 +218,7 @@ exits non-zero:
                 inputs at L=300 (both timed; not on the path); the
                 replayed tick's device time against its byte bound; the
                 phase's wall time
- 21. moe        dbrx-132b at full width (d_model 6144, 48 / 8 heads, d_ff
+ 22. moe        dbrx-132b at full width (d_model 6144, 48 / 8 heads, d_ff
                 10752, 16 experts top-4, vocab 100352, bf16, random weights
                 from seed 0), its depth cut to 8 of 40 layers (all 40 need
                 about 262 GB): the earlier phases' memory freed first; its
@@ -221,7 +242,7 @@ exits non-zero:
                 kernels split into GEMM, reduction and other from a traced
                 round held to the graph's nodes; parameter bytes and peak
                 memory
- 22. encdec     whisper-base at full width, nothing cut (6 encoder + 6
+ 23. encdec     whisper-base at full width, nothing cut (6 encoder + 6
                 decoder layers, d_model 512, bf16, random weights from seed
                 0), through the model's entry points as the reference
                 serves an encoder-decoder (its engine takes tokens only):
@@ -236,7 +257,7 @@ exits non-zero:
                 cross-q/o + 3 MLP)) and one reduction node per projection
                 whose tuned config splits K; encode, prefill and eager tick
                 ms; the replayed tick's device time against its byte bound
- 23. frontend   internvl2-76b at full width (d_model 8192, 64 / 8 heads,
+ 24. frontend   internvl2-76b at full width (d_model 8192, 64 / 8 heads,
                 d_ff 28672, vocab 128256, bf16), its depth cut to 32 of 80
                 layers (all 80 need about 139 GB), after the earlier
                 phases' memory is freed: its 4 projection GEMMs (M = 4 and
@@ -250,11 +271,12 @@ exits non-zero:
                 greedy decode steps from index 288; the replayed tick
                 against its byte bound; the peak allocated held under 75
                 GB; the two phases' wall
- 24. kernels    one JSON line summarising every hand-written kernel (the
+ 25. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
 
 Each path (tune, models, serve, plans, admission, measure,
-degradation, retune, serve_mamba, serve_moe, serve_encdec, serve_frontend)
+degradation, trace, retune, serve_mamba, serve_moe, serve_encdec,
+serve_frontend)
 runs with every launch count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
 
@@ -279,7 +301,10 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
 from pathlib import Path
 from typing import Optional
@@ -324,6 +349,8 @@ from repro_torch.serve.flash_decode import resolve_decode_splits  # noqa: E402
 from repro_torch.tunedb.model import (ModelSet, clear_models,  # noqa: E402
                                       collect_samples, default_models_dir,
                                       train_models)
+from repro_torch.tunedb.obs import (Tracer, enable_tracing,  # noqa: E402
+                                    load_span_file, reset_tracing)
 from repro_torch.tunedb.plans import (default_plan_dir, export_plan,  # noqa: E402
                                       load_plan, read_manifest)
 from repro_torch.tunedb.session import TuningSession  # noqa: E402
@@ -2625,6 +2652,349 @@ def phase_admission(cfg, params, store_path: Path, fp: str, label: str
     return {"counts": runs["store"][2], "order": runs["store"][1]}
 
 
+# the trace phase: E18.1 / E18.2's sampling rate, gate and triplets
+# (benchmarks/bench_trace.py's), the status routes scraped and how often
+# each is timed, and the tunedb_* series the ported parts publish
+TRACE_SAMPLE = 0.01
+TRACE_OVERHEAD = 0.02              # median tick within 2% + 2x A/A noise
+TRACE_TRIPLETS = 11
+TRACE_ROUTES = ("/healthz", "/metrics", "/status", "/plan", "/trace")
+TRACE_SCRAPES = 5
+TRACE_SPANS = ("engine.admit", "engine.prefill", "engine.tick",
+               "dispatch.resolve")
+TRACE_METRICS = ("tunedb_serving_generation", "tunedb_store_lookups_total",
+                 "tunedb_store_records", "tunedb_plan_lookups_total",
+                 "tunedb_plan_entries", "tunedb_telemetry_calls_total",
+                 "tunedb_telemetry_ticks_total", "tunedb_installs_total",
+                 "tunedb_plan_built_entries")
+TRACER_METHODS = ("root", "span", "begin", "end")
+
+
+def scrape(url: str, timeout: float = 60.0) -> tuple:
+    """(HTTP status, body, ms) of one GET; an HTTP error's code and its
+    reason as the body."""
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            body = r.read().decode()
+            code = r.status
+    except urllib.error.HTTPError as e:
+        code, body = e.code, str(e.reason)
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def count_tracer_calls():
+    """Count every call of a ``Tracer`` method inside the block (E18.1):
+    the list's length is the count."""
+    calls: list = []
+    saved = {m: getattr(Tracer, m) for m in TRACER_METHODS}
+
+    def counting(real):
+        def wrapped(self, *a, **k):
+            calls.append(1)
+            return real(self, *a, **k)
+        return wrapped
+
+    for m, real in saved.items():
+        setattr(Tracer, m, counting(real))
+    try:
+        yield calls
+    finally:
+        for m, real in saved.items():
+            setattr(Tracer, m, real)
+
+
+def time_tuned_cfg(shapes: list) -> float:
+    """µs per ``dispatch._tuned_cfg`` call (the resolution with its tracing
+    probe) over :data:`RESOLVE_CALLS` calls cycling through ``shapes``."""
+    t0 = time.perf_counter()
+    for i in range(RESOLVE_CALLS):
+        space, x = shapes[i % len(shapes)]
+        dispatch._tuned_cfg(space, x)
+    return (time.perf_counter() - t0) / RESOLVE_CALLS * 1e6
+
+
+def tick_split(spans: list) -> list:
+    """Each ``engine.tick`` root split by the spans of its trace that lie
+    inside it: ms in ``retune.epoch``, ``measure.*`` and
+    ``dispatch.resolve`` spans (each counted once: a span nested in another
+    counted span is not), and the remainder, with the root's ``tick``
+    attribute and start, in tick order.  An async epoch's detached
+    ``retune.epoch`` shares its submitting tick's trace but outlasts it,
+    so it is not part of the tick's split."""
+    by_trace = collections.defaultdict(list)
+    for sp in spans:
+        by_trace[sp.trace_id].append(sp)
+    counted = ("retune.epoch", "measure.", "dispatch.resolve")
+
+    def kind(sp):
+        return next((k for k in counted if sp.name.startswith(k)), None)
+
+    out = []
+    for sp in spans:
+        if sp.name != "engine.tick" or sp.parent_id:
+            continue
+        trace = by_trace[sp.trace_id]
+        ids = {s.span_id: s for s in trace}
+        parts = {"epoch": 0.0, "measure": 0.0, "resolve": 0.0}
+        n_resolve = 0
+        end = sp.t0 + sp.dur
+        for s in trace:
+            k = kind(s)
+            if k is None or s.t0 < sp.t0 or s.t0 + s.dur > end:
+                continue
+            up, nested = ids.get(s.parent_id), False
+            while up is not None:
+                if kind(up) is not None:
+                    nested = True
+                    break
+                up = ids.get(up.parent_id)
+            if nested:
+                continue
+            key = {"retune.epoch": "epoch", "measure.": "measure",
+                   "dispatch.resolve": "resolve"}[k]
+            parts[key] += s.dur * 1e3
+            n_resolve += key == "resolve"
+        wall = sp.dur * 1e3
+        out.append({"tick": sp.attrs["tick"], "t0": sp.t0, "wall": wall,
+                    **parts,
+                    "rest": wall - sum(parts.values()),
+                    "resolves": n_resolve})
+    return sorted(out, key=lambda r: r["tick"])
+
+
+def split_medians(rows: list) -> str:
+    if not rows:
+        return "no ticks"
+    med = {k: statistics.median(r[k] for r in rows)
+           for k in ("wall", "epoch", "measure", "resolve", "rest")}
+    return (f"wall {med['wall']:.3f} ms = retune.epoch {med['epoch']:.3f} + "
+            f"measure.* {med['measure']:.3f} + dispatch.resolve "
+            f"{med['resolve']:.3f} + the rest {med['rest']:.3f} "
+            f"(medians over {len(rows)} ticks)")
+
+
+def phase_trace(cfg, params, store_path: Path, fp: str, serve: dict,
+                label: str) -> dict:
+    """Tracing and the status endpoint at full width: SmolLM-135M from the
+    tuned store, ``ServeConfig(slots=4, max_len=256, trace_sample=1.0,
+    status_port=0)``, the serve phase's 8 x 32-token prompts x 16 tokens,
+    every prefill and tick from its graph (the engine's first tick and
+    first prefill capture them).  The tokens must be the serve phase's.
+    From this process: every route scraped (``/healthz``, ``/metrics``,
+    ``/status``, ``/plan``, ``/trace``; :data:`TRACE_SCRAPES` times each,
+    the median ms printed); the Chrome trace parses with schema 1 and
+    holds :data:`TRACE_SPANS`, every ``dispatch.resolve`` with a tier, one
+    ``engine.tick`` root per tick, and resolutions only in the ticks that
+    captured (a replay resolves nothing on the host); ``/metrics`` carries
+    :data:`TRACE_METRICS`.  Then, with tracing off: E18.1 (a generate
+    calls no ``Tracer`` method) and a plan hit's µs through
+    ``dispatch._tuned_cfg`` over the captured tick's shapes; and E18.2:
+    :data:`TRACE_TRIPLETS` quiet / traced at :data:`TRACE_SAMPLE` / quiet
+    generates, the median of the traced median tick over the quiet pair's
+    mean, against :data:`TRACE_OVERHEAD` plus twice the quiet pairs' A/A
+    noise (printed, not held: a timing on a shared host)."""
+    t_phase = time.perf_counter()
+    reset_tracing()
+    reset_launches()
+    eng = Engine(cfg, params, ServeConfig(
+        max_len=256, slots=4, tunedb=str(store_path), tunedb_backend=fp,
+        record_tick_times=True, trace_sample=1.0, status_port=0))
+    try:
+        out = trace_checks(eng, cfg, serve, label)
+        counts = read_launches()
+        if not counts["gemm"]:
+            raise AssertionError(f"trace path launches {counts}")
+        out.update(trace_overhead(eng, serve, label))
+    finally:
+        eng.status_server.stop()
+        reset_tracing()
+    out["counts"] = counts
+    out["wall_s"] = time.perf_counter() - t_phase
+    phase("trace", f"launches on the trace path {counts}; the phase's wall "
+          f"{out['wall_s']:.1f} s")
+    return out
+
+
+def trace_checks(eng, cfg, serve: dict, label: str) -> dict:
+    """The traced serve, the scrapes and the trace's checks (see
+    :func:`phase_trace`)."""
+    prompts = serve["prompts"]
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if outs != serve["outs"]:
+        raise AssertionError("trace: the traced serve's tokens differ from "
+                             "the serve phase's")
+    if (eng.captures, eng.prefill_captures) != (1, 1) or (
+            eng.replays, eng.prefill_replays) != (eng.ticks, eng.prefills):
+        raise AssertionError(f"trace: {eng.captures} tick and "
+                             f"{eng.prefill_captures} prefill captures, "
+                             f"{eng.replays} / {eng.prefill_replays} "
+                             f"replays for {eng.ticks} ticks and "
+                             f"{eng.prefills} prefills")
+    url = eng.status_server.url
+    bodies, ms = {}, {}
+    for route in TRACE_ROUTES:
+        got = [scrape(url + route) for _ in range(TRACE_SCRAPES)]
+        bad = [(c, b[:200]) for c, b, _ in got if c != 200]
+        if bad:
+            raise AssertionError(f"trace: {route} answered {bad}")
+        bodies[route] = got[-1][1]
+        ms[route] = statistics.median(t for _, _, t in got)
+    if bodies["/healthz"] != "ok\n":
+        raise AssertionError(f"trace: /healthz said {bodies['/healthz']!r}")
+    missing = [m for m in TRACE_METRICS
+               if f"\n{m}" not in "\n" + bodies["/metrics"]]
+    if missing:
+        raise AssertionError(f"trace: /metrics lacks {missing}")
+    status = json.loads(bodies["/status"])
+    want_roots = eng.ticks + len(eng.admitted) + 1      # + dispatch.probe
+    if (status["schema"] != 1 or status["trace"] is None
+            or status["trace"]["sampled"] != want_roots
+            or status["serving"]["generation"]
+            != serving_state().generation):
+        raise AssertionError(f"trace: /status schema {status['schema']}, "
+                             f"trace {status['trace']}, want {want_roots} "
+                             "sampled roots")
+    plan = json.loads(bodies["/plan"])
+    if plan["generation"] != serving_state().generation or not plan[
+            "entries"]:
+        raise AssertionError(f"trace: /plan generation {plan['generation']}"
+                             f", {len(plan['entries'])} entries")
+    doc = json.loads(bodies["/trace"])
+    if doc.get("otherData", {}).get("schema") != 1:
+        raise AssertionError(f"trace: /trace otherData {doc.get('otherData')}")
+    with tempfile.NamedTemporaryFile("w", suffix=".json") as fh:
+        fh.write(bodies["/trace"])
+        fh.flush()
+        spans = load_span_file(fh.name)
+    if len(spans) != len(doc["traceEvents"]):
+        raise AssertionError(f"trace: {len(doc['traceEvents'])} events, "
+                             f"{len(spans)} spans read back")
+    names = collections.Counter(sp.name for sp in spans)
+    if not all(names[n] for n in TRACE_SPANS):
+        raise AssertionError(f"trace: span names {dict(names)}")
+    untiered = [sp for sp in spans if sp.name == "dispatch.resolve"
+                and "tier" not in sp.attrs]
+    if untiered:
+        raise AssertionError(f"trace: {len(untiered)} dispatch.resolve spans "
+                             "without a tier")
+    roots = [sp for sp in spans if sp.name == "engine.tick"]
+    if (len(roots) != eng.ticks or any(sp.parent_id for sp in roots)
+            or len({sp.trace_id for sp in roots}) != eng.ticks
+            or sorted(sp.attrs["tick"] for sp in roots)
+            != list(range(eng.ticks))):
+        raise AssertionError(f"trace: {len(roots)} engine.tick roots for "
+                             f"{eng.ticks} ticks")
+    split = tick_split(spans)
+    resolving = [r["tick"] for r in split if r["resolves"]]
+    if resolving != [0]:
+        raise AssertionError(f"trace: ticks {resolving} resolved configs on "
+                             "the host; only the capturing tick 0 should")
+    by_id = {sp.span_id: sp for sp in spans}
+    parents = collections.Counter(
+        (by_id[sp.parent_id].name if sp.parent_id in by_id else "")
+        for sp in spans if sp.name == "dispatch.resolve")
+    tiers = collections.Counter(
+        sp.attrs["tier"] for sp in spans if sp.name == "dispatch.resolve"
+        and (by_id[sp.parent_id].name if sp.parent_id in by_id else "")
+        != "dispatch.probe")
+    if set(tiers) != {"plan"}:
+        raise AssertionError(f"trace: the serve's resolution tiers "
+                             f"{dict(tiers)}, want all plan")
+    admits = [sp.dur * 1e3 for sp in spans if sp.name == "engine.admit"]
+    phase("trace", f"{cfg.name} ({cfg.n_layers}L d={cfg.d_model} bf16) from "
+          f"the tuned store, trace_sample=1.0, status_port=0: "
+          f"{len(prompts)} x 32-token prompts x 16 tokens in "
+          f"{wall * 1e3:.1f} ms, {eng.ticks} ticks ({eng.replays} replays), "
+          f"{eng.prefills} prefills ({eng.prefill_replays} replays), the "
+          f"serve phase's tokens; spans {dict(sorted(names.items()))}; "
+          f"dispatch.resolve by parent {dict(parents)}, the serve's by tier "
+          f"{dict(tiers)}, only in tick 0 (the capture and its warm-up) "
+          f"and the 32-token prefill's capture; {len(roots)} engine.tick "
+          f"roots, one a tick; /status trace sampled "
+          f"{status['trace']['sampled']} dropped "
+          f"{status['trace']['dropped']}; /plan {len(plan['entries'])} "
+          f"entries [{label}]")
+    phase("trace", "scrape ms (median of "
+          f"{TRACE_SCRAPES}, this process, localhost): "
+          + ", ".join(f"{r} {ms[r]:.3f} ({len(bodies[r])} B)"
+                      for r in TRACE_ROUTES) + f" [{label}]")
+    replayed = [r for r in split if not r["resolves"]]
+    phase("trace", f"engine.tick split, replayed ticks: "
+          f"{split_medians(replayed)}; the capturing tick 0: wall "
+          f"{split[0]['wall']:.3f} ms, dispatch.resolve "
+          f"{split[0]['resolve']:.3f} ms over {split[0]['resolves']} "
+          f"resolutions; engine.admit median "
+          f"{statistics.median(admits):.3f} ms [{label}]")
+    return {"scrape_ms": ms, "spans": dict(names), "tick_ms": statistics.median(
+        r["wall"] for r in replayed)}
+
+
+def trace_overhead(eng, serve: dict, label: str) -> dict:
+    """E18.1, a plan hit's µs and E18.2 on the trace phase's engine (see
+    :func:`phase_trace`)."""
+    prompts = serve["prompts"]
+    reset_tracing()
+    eng.tracer = None
+    with count_tracer_calls() as calls:
+        outs = eng.generate(prompts, max_new=16)
+    torch.cuda.synchronize()
+    if calls or outs != serve["outs"]:
+        raise AssertionError(f"trace: E18.1: {len(calls)} Tracer calls "
+                             "with tracing off (want 0), or other tokens")
+    shapes = eng._decode_shapes
+    hit_us = []
+    for _ in range(RESOLVE_REPS):
+        dispatch.reset_counts()
+        hit_us.append(time_tuned_cfg(shapes))
+        if set(t for _, t in dispatch.tier_counts) != {"plan"}:
+            raise AssertionError(f"trace: tiers {dict(dispatch.tier_counts)}")
+    hit_us = statistics.median(hit_us)
+
+    def block(traced: bool) -> float:
+        if traced:
+            eng.tracer = enable_tracing(TRACE_SAMPLE)
+        else:
+            reset_tracing()
+            eng.tracer = None
+        eng.tick_times.clear()
+        eng.generate(prompts, max_new=16)
+        torch.cuda.synchronize()
+        return statistics.median(w for _, w, _ in eng.tick_times)
+
+    block(False)
+    block(True)
+    ratios, aa, quiet, traced = [], [], [], []
+    for _ in range(TRACE_TRIPLETS):
+        q1, s, q2 = block(False), block(True), block(False)
+        ratios.append(2.0 * s / (q1 + q2))
+        aa.append(abs(q2 / q1 - 1.0))
+        quiet += [q1, q2]
+        traced.append(s)
+    reset_tracing()
+    eng.tracer = None
+    overhead = statistics.median(ratios) - 1.0
+    noise = statistics.median(aa)
+    budget = TRACE_OVERHEAD + 2.0 * noise
+    phase("trace", f"E18.1: {len(calls)} Tracer calls over a generate with "
+          f"tracing off (gate 0), the same tokens; a plan hit through "
+          f"dispatch._tuned_cfg with tracing off {hit_us:.3f} us a call "
+          f"(median of {RESOLVE_REPS} x {RESOLVE_CALLS} over the tick's "
+          f"{len(shapes)} shapes); E18.2 at {TRACE_SAMPLE:.0%} sampling over "
+          f"{TRACE_TRIPLETS} quiet/traced/quiet triplets: median tick quiet "
+          f"{statistics.median(quiet) * 1e3:.3f} ms, traced "
+          f"{statistics.median(traced) * 1e3:.3f} ms, overhead {overhead:+.2%} "
+          f"against the budget {TRACE_OVERHEAD:.0%} + 2 x the "
+          f"{noise:.2%} A/A noise = {budget:.2%}: "
+          f"{'within' if overhead <= budget else 'OVER'} [{label}]")
+    return {"tracer_calls_off": len(calls), "plan_hit_us": hit_us,
+            "overhead": overhead, "noise": noise, "budget": budget}
+
+
 PROFILE_REPS = 5                   # graph replays traced in one round
 PROFILE_ROUNDS = 5                 # traced rounds before the phase fails
 
@@ -2870,9 +3240,10 @@ RETUNE_ASYNC_PROMPT = 48
 RETUNE_OVERLAP_LENGTHS = (40, 56, 72, 88, 120, 136)
 RETUNE_COOLDOWN = 10_000           # part C: one epoch from the engine's polls
 RETUNE_AFTER_NEW = 32              # part C: the serve after the epochs
-# the memory an epoch may add beyond the timer's operand cache and the
-# prefill pool's growth: allocator rounding of the graphs' static buffers
-RETUNE_MEM_SLACK = 16 << 20
+# the device memory an inline epoch may leave allocated beyond what it
+# found (its operand sets and gate cases are released when it ends)
+RETUNE_MEM_SLACK = 8 << 20
+RETUNE_SCRAPE_GAP_S = 0.01         # part C: the scraper's pause per round
 
 
 def storage_bytes(tensors) -> int:
@@ -2894,15 +3265,19 @@ def operand_cache_bytes(backend) -> int:
 class RetuneWatch:
     """The retune phase's view of one engine: every poll's decisions
     printed, every report with the tick that returned it, the memory
-    after each epoch, and the GEMM and reduction kernels each replay
-    gives the device (each graph's nodes, read at its capture, times its
-    replays; every captured graph must hold ``per_fwd`` GEMM nodes)."""
+    before the poll that returned it (inline: before its epoch) and after
+    it, the window of every capture, and the GEMM and reduction kernels
+    each replay gives the device (each graph's nodes, read at its capture,
+    times its replays; every captured graph must hold ``per_fwd`` GEMM
+    nodes)."""
 
     def __init__(self, eng, what: str, per_fwd: int):
         self.eng, self.what, self.per_fwd = eng, what, per_fwd
         self.reports: list = []
         self.device = {"gemm": 0, "reduce": 0}
         self.tiers_at_first: Optional[dict] = None
+        self.captures: list = []            # (start, end) perf_counter
+        self._alloc_before: Optional[int] = None
         self._nodes: dict = {}
         ctl = eng.controller
         real_check, real_poll = ctl.check, eng.maybe_retune
@@ -2920,13 +3295,17 @@ class RetuneWatch:
             return decisions
 
         def poll():
+            self._alloc_before = torch.cuda.memory_allocated()
             report = real_poll()
             if report is not None:
                 self.note(report)
+            self._alloc_before = None
             return report
 
         def captured(fn, pool=None, keep=()):
+            t0 = time.perf_counter()
             graph, out, shapes = real_captured(fn, pool=pool, keep=keep)
+            self.captures.append((t0, time.perf_counter()))
             n_gemm, n_reduce, _ = graph_counts(graph)
             if n_gemm != per_fwd:
                 raise AssertionError(f"{what}: a captured graph holds "
@@ -2962,12 +3341,80 @@ class RetuneWatch:
             "report": report, "tick": eng.ticks,
             "tick_index": len(eng.tick_times), "captures": eng.captures,
             "alloc": torch.cuda.memory_allocated(),
+            "alloc_before": self._alloc_before,
             "prefill_pool": eng.prefill_graph_bytes(),
-            "operands": operand_cache_bytes(
-                next(iter(eng.controller.tuners().values())).backend)})
+            "operands": sum(operand_cache_bytes(b) for b in {
+                id(t.backend): t.backend
+                for t in eng.controller.tuners().values()}.values())})
 
     def tuned_reports(self) -> list:
         return [r for r in self.reports if r["report"].tuned]
+
+
+class Scraper:
+    """Scrapes ``/status`` and ``/metrics`` from a thread of its own, round
+    after round until stopped, while the serving thread captures graphs
+    and an async epoch times kernels: each scrape's start, end, route and
+    whether an epoch was in flight, and every failure (a status other than
+    200, a ``/status`` that does not parse, an exception)."""
+
+    ROUTES = ("/status", "/metrics")
+
+    def __init__(self, url: str, ctl):
+        self.url, self.ctl = url, ctl
+        self.rows: list = []
+        self.failures: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="chip-smoke-scraper")
+
+    def start(self) -> "Scraper":
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            for route in self.ROUTES:
+                t0 = time.perf_counter()
+                busy = self.ctl.async_active()
+                try:
+                    code, body, _ = scrape(self.url + route)
+                    if code != 200:
+                        self.failures.append((route, code, body[:200]))
+                    elif route == "/status" and json.loads(body)[
+                            "schema"] != 1:
+                        self.failures.append((route, "schema", body[:200]))
+                except Exception as e:  # noqa: BLE001 — stop() reports it
+                    self.failures.append((route, type(e).__name__, str(e)))
+                self.rows.append((t0, time.perf_counter(), route, busy))
+            self._stop.wait(RETUNE_SCRAPE_GAP_S)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(60)
+        if self._thread.is_alive():
+            raise AssertionError("retune C: the scraper did not stop")
+
+
+def epoch_memory(watch, what: str) -> list:
+    """C12: after every epoch the timer holds no operand set; an inline
+    epoch (run inside the poll) leaves the device memory allocated within
+    :data:`RETUNE_MEM_SLACK` of its level before the poll.  Returns each
+    inline epoch's after-minus-before bytes."""
+    deltas = []
+    for r in watch.reports:
+        if r["operands"]:
+            raise AssertionError(f"{what}: the timer holds {r['operands']} B "
+                                 f"of operands after epoch "
+                                 f"{r['report'].epoch}")
+        if r["report"].mode == "inline" and r["alloc_before"] is not None:
+            grow = r["alloc"] - r["alloc_before"]
+            deltas.append(grow)
+            if grow > RETUNE_MEM_SLACK:
+                raise AssertionError(f"{what}: epoch {r['report'].epoch} "
+                                     f"left {grow} B more allocated than "
+                                     f"before it")
+    return deltas
 
 
 def shape_str(x: dict) -> str:
@@ -3026,7 +3473,8 @@ def tick_ms(eng, lo: int = 0, hi: Optional[int] = None) -> list:
 
 
 def phase_retune(cfg, params, backend, fp: str, tuners: dict,
-                 dev: torch.device, label: str) -> dict:
+                 dev: torch.device, label: str,
+                 serve_device_ms: Optional[float] = None) -> dict:
     """The retune loop on the card: SmolLM-135M at full width serving from
     an empty store notices its own untuned GEMMs and decode split-count
     shapes, tunes them on the card with the tune phase's GEMM and
@@ -3062,8 +3510,8 @@ def phase_retune(cfg, params, backend, fp: str, tuners: dict,
     vocab = cfg.vocab
     out = {"device_launches": 0, "device_reduce_launches": 0}
 
-    # -- A: inline, the untuned start --------------------------------------
-    eng = retune_engine(cfg, params, dev, tuners)
+    # -- A: inline, the untuned start, traced ------------------------------
+    eng = retune_engine(cfg, params, dev, tuners, trace_sample=1.0)
     gen0 = serving_state().generation
     watch = RetuneWatch(eng, "A", per_fwd)
     prompts = [rng.integers(0, vocab, RETUNE_PROMPT)
@@ -3107,6 +3555,9 @@ def phase_retune(cfg, params, backend, fp: str, tuners: dict,
     want = eng.decode_eager(last, idx).clone()
     got = eng.decode_graph(last, idx).clone()
     torch.cuda.synchronize()
+    # the part of a replayed tick's wall the spans leave unsplit that is
+    # the device's: this generation's tick graph, replayed alone
+    a_device_ms = replay_ms(eng.graph)
     if not torch.equal(got, want):
         raise AssertionError(f"retune A: replayed tick logits differ from "
                              f"the eager tick's (max abs "
@@ -3116,6 +3567,13 @@ def phase_retune(cfg, params, backend, fp: str, tuners: dict,
     before_ms = statistics.median(ticks[:trip]) if trip else float("nan")
     after = ticks[trip + 2:] or [float("nan")]
     rep = first["report"]
+    split = tick_split(eng.tracer.spans())
+    if [r["tick"] for r in split] != list(range(len(ticks))):
+        raise AssertionError(f"retune A: {len(split)} engine.tick roots for "
+                             f"{len(ticks)} ticks")
+    out["split_A"] = {"before": split[:trip], "trip": split[trip],
+                      "capture": split[trip + 1] if trip + 1 < len(split)
+                      else None, "after": split[trip + 2:]}
     phase("retune", f"A: {cfg.name} ({cfg.n_layers}L bf16), "
           f"{len(prompts)} x {RETUNE_PROMPT}-token prompts x {RETUNE_NEW} "
           f"tokens from an empty store in {a_wall:.2f} s, {eng.ticks} ticks; "
@@ -3140,23 +3598,33 @@ def phase_retune(cfg, params, backend, fp: str, tuners: dict,
     for r in sorted(recs, key=lambda r: (r.space, sorted(r.inputs.items()))):
         phase("retune", f"  A record {r.space} {shape_str(r.inputs)} -> "
               f"{r.config} {r.tflops:.3f} TFLOPS")
-    mem = []
-    for a, b in zip(watch.reports, watch.reports[1:]):
-        grow = b["alloc"] - a["alloc"]
-        allowed = (b["operands"] + max(0, b["prefill_pool"] - a["prefill_pool"])
-                   + RETUNE_MEM_SLACK)
-        mem.append((grow, allowed))
-        if grow > allowed:
-            raise AssertionError(f"retune A: memory grew {grow} B from epoch "
-                                 f"{a['report'].epoch} to "
-                                 f"{b['report'].epoch}, allowed {allowed}")
+    mem = epoch_memory(watch, "retune A")
     phase("retune", f"A: memory_allocated after each epoch "
-          f"{[round(r['alloc'] / 2**20, 1) for r in watch.reports]} MiB "
-          f"(the timer's operand cache "
-          f"{[round(r['operands'] / 2**20, 1) for r in watch.reports]} MiB, "
-          f"the prefill pool "
+          f"{[round(r['alloc'] / 2**20, 1) for r in watch.reports]} MiB, "
+          f"after minus before the epoch {mem} B (within "
+          f"{RETUNE_MEM_SLACK >> 20} MiB), the timer's operand cache "
+          f"{[r['operands'] for r in watch.reports]} B after each, the "
+          f"prefill pool "
           f"{[round(r['prefill_pool'] / 2**20, 1) for r in watch.reports]} "
-          f"MiB); growth epoch over epoch {[g for g, _ in mem]} B")
+          f"MiB [{label}]")
+    sa = out["split_A"]
+    phase("retune", f"A: engine.tick split (trace_sample=1.0): before the "
+          f"swap {split_medians(sa['before'])}; after it (from the second "
+          f"tick on) {split_medians(sa['after'])}; the tripping tick wall "
+          f"{sa['trip']['wall']:.1f} ms, dispatch.resolve "
+          f"{sa['trip']['resolve']:.3f} ms, the rest "
+          f"{sa['trip']['rest']:.1f} ms (the inline epoch opens no span: "
+          f"its wall {rep.wall_s * 1e3:.1f} ms is in the rest); the "
+          f"capturing tick wall "
+          f"{sa['capture']['wall'] if sa['capture'] else float('nan'):.1f} "
+          f"ms, dispatch.resolve "
+          f"{sa['capture']['resolve'] if sa['capture'] else float('nan'):.1f}"
+          f" ms over "
+          f"{sa['capture']['resolves'] if sa['capture'] else 0} resolutions;"
+          f" the tick graph of the last generation replays alone in "
+          f"{a_device_ms:.3f} ms on the device (the serve phase's tick "
+          f"graph: {serve_device_ms if serve_device_ms else float('nan'):.3f}"
+          f" ms, profile phase) [{label}]")
     inline = {(r.space, shape_key(r.inputs)): r for r in recs}
 
     # -- B: the prefill burst on the same engine ----------------------------
@@ -3198,19 +3666,25 @@ def phase_retune(cfg, params, backend, fp: str, tuners: dict,
           + f"); the {n_prompt}-token prefill graph of generation "
           f"{eng._prefill_gen} resolves its {pre_gemm} GEMMs on "
           f"{len(prefill_m)} tuned shapes, {n_pre} planned exact")
+    b_mem = epoch_memory(watch, "retune B")[len(mem):]
+    phase("retune", f"B: after minus before each epoch {b_mem} B, the "
+          f"timer's operand cache "
+          f"{[r['operands'] for r in watch.reports[b_from:]]} B after each")
     out["device_launches"] += watch.device["gemm"]
     out["device_reduce_launches"] += watch.device["reduce"]
     a_stats = eng.controller.stats()
     a_ticks = eng.ticks
     del eng, watch
     gc.collect()
+    reset_tracing()                 # part C's spans start from none
 
     # -- C: async -----------------------------------------------------------
     # the cooldown keeps the engine's own polls from starting a second
     # epoch, so the short serve after the epochs runs none in flight; the
     # phase's own polls pass no tick, which the cooldown does not count
     eng = retune_engine(cfg, params, dev, tuners, retune_async=True,
-                        retune_cooldown_ticks=RETUNE_COOLDOWN)
+                        retune_cooldown_ticks=RETUNE_COOLDOWN,
+                        trace_sample=1.0, status_port=0)
     ctl = eng.controller
     watch = RetuneWatch(eng, "C", per_fwd)
     prompts = ([rng.integers(0, vocab, RETUNE_PROMPT)
@@ -3228,8 +3702,11 @@ def phase_retune(cfg, params, backend, fp: str, tuners: dict,
     if [len(o) for o in outs] != [RETUNE_NEW] * len(prompts):
         raise AssertionError("retune C: a request was not served whole")
     # a prefill capture of a new length inside an epoch in flight: start
-    # one (novel traffic, then a poll) whenever none runs
+    # one (novel traffic, then a poll) whenever none runs; /status and
+    # /metrics are scraped from another thread all the while
     overlap, tries = None, []
+    n_caps = len(watch.captures)
+    scraper = Scraper(eng.status_server.url, ctl).start()
     for n in RETUNE_OVERLAP_LENGTHS:
         if not ctl.async_active():
             novel = torch.as_tensor(rng.integers(0, vocab, n + 4)[None],
@@ -3262,6 +3739,20 @@ def phase_retune(cfg, params, backend, fp: str, tuners: dict,
         raise AssertionError(f"retune C: no capture inside an epoch in "
                              f"flight: {tries}")
     end_async(ctl, watch, poll=True)          # a later poll reaps it
+    scraper.stop()
+    if scraper.failures:
+        raise AssertionError(f"retune C: scrapes failed: "
+                             f"{scraper.failures[:5]}")
+    caps = watch.captures[n_caps:]
+    busy_scrapes = sum(1 for *_, busy in scraper.rows if busy)
+    in_capture = sum(1 for a, b, *_ in scraper.rows
+                     if any(a < e and s < b for s, e in caps))
+    if not busy_scrapes:
+        raise AssertionError("retune C: no scrape while an epoch was in "
+                             "flight")
+    scrape_ms = {r: statistics.median(1e3 * (b - a) for a, b, rr, _
+                                      in scraper.rows if rr == r)
+                 for r in Scraper.ROUTES}
     async_reports = [r["report"] for r in watch.reports
                      if r["report"].mode == "async" and r["report"].tuned]
     if not async_reports:
@@ -3311,9 +3802,29 @@ def phase_retune(cfg, params, backend, fp: str, tuners: dict,
           f"min {min(ratios) if ratios else float('nan'):.3f}, max "
           f"{max(ratios) if ratios else float('nan'):.3f} over "
           f"{len(ratios)} shapes")
+    epoch_memory(watch, "retune C")
+    torch.cuda.synchronize()            # no epoch in flight now
+    c_device_ms = replay_ms(eng.graph)
+    spans = eng.tracer.spans()
+    c_split = tick_split(spans)
+    epochs = [sp for sp in spans if sp.name == "retune.epoch"]
+    phase("retune", f"C: {len(scraper.rows)} scrapes of /status and "
+          f"/metrics from another thread, none failed; {busy_scrapes} with "
+          f"an epoch in flight, {in_capture} overlapping one of the "
+          f"{len(caps)} captures meanwhile; median ms {scrape_ms}; "
+          f"retune.epoch spans {[round(sp.dur, 3) for sp in epochs]} s "
+          f"({[sp.attrs.get('outcome') for sp in epochs]}); engine.tick "
+          f"split with an epoch in flight "
+          f"{split_medians([r for r in c_split if in_flight(r['t0'])])}; "
+          f"after the epochs (from the serve's second tick) "
+          f"{split_medians([r for r in c_split[n_after + 1:] if not in_flight(r['t0'])])}"
+          f"; the tick graph replays alone in {c_device_ms:.3f} ms on the "
+          f"device [{label}]")
     out["device_launches"] += watch.device["gemm"]
     out["device_reduce_launches"] += watch.device["reduce"]
     out["stats"] = {"A+B": a_stats, "C": ctl.stats()}
+    out["scrapes"] = {"n": len(scraper.rows), "busy": busy_scrapes,
+                      "in_capture": in_capture, "ms": scrape_ms}
     out["wall_s"] = time.perf_counter() - t_phase
     phase("retune", f"controller stats A+B: {a_stats['retunes']} swaps over "
           f"{a_stats['checks']} polls in {a_ticks} ticks; C: "
@@ -3322,6 +3833,8 @@ def phase_retune(cfg, params, backend, fp: str, tuners: dict,
           f"{out['device_launches']}, reduction passes "
           f"{out['device_reduce_launches']}; the phase's wall "
           f"{out['wall_s']:.1f} s")
+    eng.status_server.stop()
+    reset_tracing()
     del eng, watch, ctl
     gc.collect()
     clear_store()
@@ -4374,11 +4887,14 @@ def main() -> int:
                                             label)["counts"]
         launches["degradation"] = phase_degradation(cfg, params, store_path,
                                                     fp, label)["counts"]
+        trace = phase_trace(cfg, params, store_path, fp, serve, label)
+        launches["trace"] = trace["counts"]
         phase_model(cfg, params, dev)
-        phase_profile(serve.pop("engine"), cfg, dev, label)
+        profile = phase_profile(serve.pop("engine"), cfg, dev, label)
         gc.collect()
         reset_launches()
-        retune = phase_retune(cfg, params, backend, fp, tuners, dev, label)
+        retune = phase_retune(cfg, params, backend, fp, tuners, dev, label,
+                              serve_device_ms=profile["device_ms"])
         launches["retune"] = read_launches()
         if not (launches["retune"]["gemm"] and launches["retune"]["attention"]
                 and (launches["retune"]["gemm_reduce"]

@@ -436,6 +436,15 @@ class CudaEventBackend:
             got = self.time_ms(space_name, cfg, inputs) * 1e3
         return got
 
+    def release(self) -> None:
+        """Drop the last shape's operand sets (device memory, at least
+        twice the L2) and the timing log.  A later measurement draws its
+        operands again from :data:`OPERAND_SEED`, so it times the same
+        numbers."""
+        with self.lock:
+            self._operands = ((), [])
+            self._times.clear()
+
 
 @dataclasses.dataclass
 class CheckedBackend:
@@ -443,7 +452,8 @@ class CheckedBackend:
     of labelling a sample (the reference's ``InterpretBackend``).  Each
     (config, gate instance) pair that passes is checked once.  The gate's
     attention and SSD operands and oracles are kept per instance until
-    :meth:`release` (a tuning session calls it when it ends)."""
+    :meth:`release` (a tuning session calls it when it ends), which drops
+    the timer's operand sets and timing log too."""
 
     timer: CudaEventBackend
 
@@ -452,8 +462,10 @@ class CheckedBackend:
         self._cases = dispatch.GateCases()
 
     def release(self) -> None:
-        """Drop the gate's cached operands and oracles (device memory)."""
+        """Drop the gate's cached operands and oracles and the timer's
+        operand sets and timing log (device memory)."""
         self._cases.clear()
+        self.timer.release()
 
     @property
     def fingerprint(self) -> str:

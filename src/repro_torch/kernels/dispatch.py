@@ -77,6 +77,10 @@ _HEURISTIC_MEMO: Dict[tuple, Dict[str, int]] = {}
 # the gate's bound: max-abs error over the oracle's max (the reference's)
 GATE_RTOL = 2e-2
 
+# the trace module, bound at the first resolution (an import here would
+# cycle through tunedb): the tracing probe is one read of its ``_TRACER``
+_TRACE = None
+
 
 def _dtype_bits(dtype: torch.dtype) -> int:
     return torch.finfo(dtype).bits
@@ -214,6 +218,24 @@ def _resolve_cfg(space: str, inputs: Mapping[str, int]
 
 def _tuned_cfg(space: str, inputs: Mapping[str, int]
                ) -> Optional[Dict[str, int]]:
+    """The config of one call (:func:`_resolve_cfg`).  With tracing on, the
+    resolution is timed in a ``dispatch.resolve`` span under the thread's
+    open trace (a no-op where none is open) with its winning ``tier`` and
+    its ``shape``; with tracing off it costs one module-attribute read."""
+    global _TRACE
+    t = _TRACE
+    if t is None:
+        from repro_torch.tunedb.obs import trace as t
+        _TRACE = t
+    tr = t._TRACER
+    if tr is not None:
+        with tr.span("dispatch.resolve", space=space) as sp:
+            cfg, tier = _resolve_cfg(space, inputs)
+            if sp is not None:
+                sp.attrs["tier"] = tier
+                sp.attrs["shape"] = ",".join(
+                    f"{k}={v}" for k, v in sorted(inputs.items()))
+        return cfg
     return _resolve_cfg(space, inputs)[0]
 
 

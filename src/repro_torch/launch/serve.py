@@ -14,6 +14,8 @@
       --retune-async --retune-sentry 0.1        # retune its own shapes
   python -m repro_torch.launch.serve --smoke --device cpu --retune \
       --retune-interval 8                       # the loop on the host
+  python -m repro_torch.launch.serve --status-port 9177 --trace-sample 1 \
+      --trace-out spans.json                    # scrape it, open in Perfetto
 
 With ``--retune`` the engine's retune controller trains a tuner per space
 it retunes (``tunedb.controller._default_tuner_factory``: 4000 gated
@@ -100,6 +102,17 @@ def main(argv=None) -> None:
     p.add_argument("--retune-sentry", type=float, default=None,
                    help="regression-sentry noise margin gating each "
                         "retune's serving swap (omit to disable)")
+    p.add_argument("--status-port", type=int, default=None,
+                   help="serve /metrics, /status, /plan, /trace and "
+                        "/healthz from inside the engine on this port "
+                        "(0 = ephemeral)")
+    p.add_argument("--trace-sample", type=float, default=0.0,
+                   help="request-trace sampling rate (0 = tracing off, "
+                        "1.0 = every trace root); spans export via /trace, "
+                        "--trace-out and `tunedb trace`")
+    p.add_argument("--trace-out", default=None,
+                   help="write the run's spans as Chrome trace-event JSON "
+                        "here after generation (open in Perfetto)")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -126,8 +139,12 @@ def main(argv=None) -> None:
         retune_max_sessions=args.retune_max_sessions,
         retune_window_s=args.retune_window,
         retune_min_gain=args.retune_min_gain,
-        retune_sentry=args.retune_sentry),
+        retune_sentry=args.retune_sentry, status_port=args.status_port,
+        trace_sample=args.trace_sample),
         device=device)
+    if eng.status_server is not None:
+        print(f"status endpoint: {eng.status_server.url} "
+              "(/metrics /status /plan /trace /healthz)", flush=True)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, args.prompt_len)
                for _ in range(args.requests)]
@@ -167,6 +184,16 @@ def main(argv=None) -> None:
         st = plan.stats()
         print(f"plan: {st['source']}, {st['entries']} entries {st['tiers']}, "
               f"{st['hits']} hits, {st['misses']} misses")
+    if eng.tracer is not None:
+        ts = eng.tracer.stats()
+        print(f"trace: {ts['sampled']} root(s) sampled, "
+              f"{ts['dropped']} dropped, {ts['spans']} span(s) retained")
+        if args.trace_out:
+            n = eng.tracer.export(args.trace_out)
+            print(f"trace: wrote {n} span(s) -> {args.trace_out} "
+                  "(open in https://ui.perfetto.dev)")
+    if eng.status_server is not None:
+        eng.status_server.stop()
 
 
 if __name__ == "__main__":

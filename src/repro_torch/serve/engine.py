@@ -83,14 +83,30 @@ one with the tokens it has, and ``shed_threshold`` sheds the newest
 pending requests while the backlog exceeds it (:meth:`Engine._health`
 says so).  An encoder-decoder config is refused at construction, as
 the reference's launcher refuses it; a vision-frontend config is served
-on tokens only, as the reference's engine serves it.  Routing, the
-fleet's retune mode, tracing and the status endpoint wait for their
-slices (ROADMAP A6).
+on tokens only, as the reference's engine serves it.
+
+Observability follows the reference.  ``ServeConfig.trace_sample`` > 0
+installs the process's span tracer (``tunedb.obs.trace``) before anything
+else runs: each admission opens an ``engine.admit`` root with an
+``engine.prefill`` span inside, each decode tick an ``engine.tick`` root,
+and dispatch's resolutions, the idle gap's measurements and an async
+retune's ``retune.epoch`` nest under whichever trace is open.  On CUDA a
+replayed tick resolves nothing on the host, so ``dispatch.resolve`` spans
+come from captures and their warm-ups, and an ``engine.tick`` root spans
+the replay and the sampling's copy of the logits to the host.  With
+``trace_sample=0`` the loop reads one attribute and calls no tracer.
+``ServeConfig.status_port`` starts a ``tunedb.obs.StatusServer``
+(``/metrics``, ``/status``, ``/plan``, ``/trace``, ``/healthz``, the
+last answering 503 while the engine sheds load) on its own thread; it
+reads host state only, so it never synchronises the card under a
+capture.  Routing and the fleet's retune mode wait for their slice
+(ROADMAP A6.3).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -113,6 +129,8 @@ from repro_torch.tunedb.controller import (RetuneConfig, RetuneController,
                                            _default_tuner_factory)
 from repro_torch.tunedb.measure import MeasureQueue, ServingMeasurer
 from repro_torch.tunedb.model import ModelSet, default_models_dir
+from repro_torch.tunedb.obs import StatusServer, enable_tracing, get_registry
+from repro_torch.tunedb.obs.trace import new_trace_id
 from repro_torch.tunedb.plans import (PlanArtifactError, check_freshness,
                                       load_plan, read_manifest)
 from repro_torch.tunedb.store import (RecordStore, install_serving,
@@ -183,6 +201,15 @@ class ServeConfig:
     # the regression sentry's noise margin gating each retune's swap (None
     # turns the gate off; tunedb.obs.sentry.RegressionSentry)
     retune_sentry: Optional[float] = None
+    # -- observability (tunedb.obs) ------------------------------------------
+    # run a StatusServer (/metrics, /status, /plan, /trace, /healthz) inside
+    # this engine on this port; 0 binds an ephemeral one
+    # (Engine.status_server.port says which), None turns it off
+    status_port: Optional[int] = None
+    # the share of trace roots (admissions, decode ticks) the span tracer
+    # keeps; 0 leaves tracing as it is (off unless enabled elsewhere), and
+    # the loop then calls no tracer
+    trace_sample: float = 0.0
 
 
 def _ceil_div(x: int, t: int) -> int:
@@ -257,6 +284,35 @@ def _roofline_floor(space: str, near, inputs: Mapping[str, int],
     return near.tflops * (u_q / t_q) / (u_r / t_r)
 
 
+def _count_admission(space: str, decision: str) -> None:
+    """One :meth:`StoreAwareAdmission.bucket` decision, in the metrics
+    registry's ``tunedb_admission_decisions_total{space, decision}``."""
+    get_registry().counter(
+        "tunedb_admission_decisions_total",
+        "store-aware admission bucket outcomes").inc(
+            space=space, decision=decision)
+
+
+def _count_degraded(kind: str, n: int = 1) -> None:
+    """Requests shed (``kind="shed"``) into
+    ``tunedb_requests_shed_total``, or rejected or retired by the deadline
+    into ``tunedb_request_deadline_exceeded_total{state=kind}``."""
+    reg = get_registry()
+    if kind == "shed":
+        reg.counter("tunedb_requests_shed_total",
+                    "requests rejected unserved by admission load "
+                    "shedding").inc(n)
+    else:
+        reg.counter("tunedb_request_deadline_exceeded_total",
+                    "requests cut short or rejected by "
+                    "request_deadline_s").inc(n, state=kind)
+
+
+_NULL_CTX = contextlib.nullcontext()
+
+# installed shapes a traced engine resolves at start (``dispatch.probe``)
+PROBE_SHAPES = 8
+
 # the dims admission may pad up to a tuned record's (padding M is exact),
 # and the most relative extra work a padded shape may cost
 _PAD_DIMS = ("M",)
@@ -284,7 +340,8 @@ class StoreAwareAdmission:
 
     ``peaks`` defaults to the H100 SXM's (``core.backend.H100_SXM``); the
     counters ``hits`` / ``exact`` / ``padded`` count :meth:`bucket`'s
-    decisions.
+    decisions, as does the metrics registry's
+    ``tunedb_admission_decisions_total{space, decision}``.
     """
 
     def __init__(self, *, peaks: Peaks = H100_SXM):
@@ -304,6 +361,7 @@ class StoreAwareAdmission:
         fp = state.fingerprint
         if store.contains(space, inputs, backend=fp):
             self.hits += 1
+            _count_admission(space, "hit")
             return dict(inputs), "hit"
         floor = 0.0
         near = store.nearest(space, inputs, backend=fp, count=False)
@@ -331,8 +389,10 @@ class StoreAwareAdmission:
                 best_rec, best_eff = rec, eff
         if best_rec is None:
             self.exact += 1
+            _count_admission(space, "exact")
             return dict(inputs), "exact"
         self.padded += 1
+        _count_admission(space, "padded")
         return dict(best_rec.inputs), "padded"
 
     def _length_score(self, n: int, prefill_shapes: Mapping[int, list],
@@ -408,6 +468,12 @@ class Engine:
         if serve_cfg.admission not in ("fifo", "store"):
             raise ValueError(f"admission {serve_cfg.admission!r}: want "
                              "'fifo' or 'store'")
+        # the process's span tracer, installed (or its sampling retuned)
+        # before anything below runs, so the install, the calibration
+        # measurement and the first prefill land in one trace stream
+        self.tracer = None
+        if serve_cfg.trace_sample > 0:
+            self.tracer = enable_tracing(serve_cfg.trace_sample)
         # refused before anything is installed ("sim" is not ported)
         self.measurer: Optional[ServingMeasurer] = None
         self.measure_queue: Optional[MeasureQueue] = None
@@ -469,6 +535,12 @@ class Engine:
                               f"({type(e).__name__}: {e}); re-measurements "
                               "of the model tier's picks may fail too",
                               RuntimeWarning, stacklevel=2)
+        # each installed shape resolved once through dispatch under a
+        # dispatch.probe root, so a trace shows each tuned shape's tier
+        # from the start
+        if self.tracer is not None and (serve_cfg.tunedb
+                                        or serve_cfg.plan_dir):
+            self._probe_dispatch()
         self.cache = init_cache(cfg, serve_cfg.slots, serve_cfg.max_len,
                                 self.device)
         self.lengths = np.zeros(serve_cfg.slots, np.int64)
@@ -524,6 +596,32 @@ class Engine:
         self._next_retune_tick = 0
         if serve_cfg.retune:
             self._init_controller(retune_tuners)
+        # the status endpoint reads the live serving state, this engine's
+        # controller and tracer, and its shedding for /healthz
+        self.status_server: Optional[StatusServer] = None
+        if serve_cfg.status_port is not None:
+            self.status_server = StatusServer(
+                port=serve_cfg.status_port, controller=self.controller,
+                tracer=self.tracer, health=self._health).start()
+
+    def _probe_dispatch(self) -> None:
+        """Resolve the store's first :data:`PROBE_SHAPES` shapes through
+        dispatch under an always-kept ``dispatch.probe`` root; the configs
+        are discarded.  Host code only: nothing runs on the card."""
+        from repro_torch.kernels.dispatch import _tuned_cfg
+        store = serving_state().store
+        if store is None:
+            return
+        seen = set()
+        with self.tracer.root("dispatch.probe", trace_id=new_trace_id()):
+            for rec in store.records():
+                key = (rec.space, shape_key(rec.inputs))
+                if key in seen:
+                    continue
+                seen.add(key)
+                _tuned_cfg(rec.space, rec.inputs)
+                if len(seen) >= PROBE_SHAPES:
+                    break
 
     def _init_controller(self, retune_tuners: Optional[Dict[str, Any]]
                          ) -> None:
@@ -809,9 +907,12 @@ class Engine:
     def generate(self, prompts: List[np.ndarray], max_new: int = 32
                  ) -> List[List[int]]:
         """Continuous-batching loop: shed and expire -> admit -> decode
-        tick -> drain re-measurements in the gap -> retire."""
+        tick -> drain re-measurements in the gap -> retire.  Each admission
+        and each tick opens a trace root when a tracer is on (sampled per
+        ``trace_sample``); ``tr`` None is the untraced path."""
         sc = self.sc
         tel = get_telemetry()
+        tr = self.tracer
         t_arrive = time.monotonic()
         queue = [Request(np.asarray(p, np.int64), max_new,
                          arrived_at=t_arrive) for p in prompts]
@@ -831,6 +932,7 @@ class Engine:
                         req.deadline_exceeded = True
                     pending = [r for r in pending if not r.deadline_exceeded]
                     self.deadline_retired += len(expired)
+                    _count_degraded("rejected", len(expired))
             if sc.shed_threshold is not None:
                 shed_now = 0
                 while active + len(pending) > sc.shed_threshold:
@@ -840,6 +942,7 @@ class Engine:
                 if shed_now:
                     self.shed_requests += shed_now
                     self.shedding = True
+                    _count_degraded("shed", shed_now)
                 elif active + len(pending) < sc.shed_threshold:
                     self.shedding = False        # backlog drained
             while pending:                       # admit into free slots
@@ -852,26 +955,33 @@ class Engine:
                     nxt = self.admission.pick(pending, self._prefill_shapes,
                                               last_len=self._last_admit_len)
                 req = pending.pop(nxt)
-                self._last_admit_len = len(req.prompt)
-                self.admitted.append(len(req.prompt))
-                self._prefill_one(slot, req)
+                n = len(req.prompt)
+                self._last_admit_len = n
+                self.admitted.append(n)
+                with (tr.root("engine.admit", prompt_len=n)
+                      if tr is not None else _NULL_CTX):
+                    with (tr.span("engine.prefill", prompt_len=n)
+                          if tr is not None else _NULL_CTX):
+                        self._prefill_one(slot, req)
                 active += 1
             if active == 0:
                 break
 
             if sc.record_tick_times:
                 t_tick, c_tick = time.perf_counter(), time.thread_time()
-            last = torch.as_tensor(
-                [[r.out[-1] if r is not None and r.out else 0]
-                 for r in self.slot_req], dtype=torch.long,
-                device=self.device)
-            idx = torch.as_tensor(self.lengths, dtype=torch.long,
-                                  device=self.device)
-            logits = self.decode(last, idx)
-            toks = self._sample(logits[:, : self.cfg.vocab])
-            self.ticks += 1
-            tel.drain_pending()          # one fold of the rings a tick
-            self.maybe_retune()
+            with (tr.root("engine.tick", tick=self.ticks)
+                  if tr is not None else _NULL_CTX):
+                last = torch.as_tensor(
+                    [[r.out[-1] if r is not None and r.out else 0]
+                     for r in self.slot_req], dtype=torch.long,
+                    device=self.device)
+                idx = torch.as_tensor(self.lengths, dtype=torch.long,
+                                      device=self.device)
+                logits = self.decode(last, idx)
+                toks = self._sample(logits[:, : self.cfg.vocab])
+                self.ticks += 1
+                tel.drain_pending()          # one fold of the rings a tick
+                self.maybe_retune()
 
             now = (time.monotonic()
                    if sc.request_deadline_s is not None else 0.0)
@@ -888,6 +998,7 @@ class Engine:
                     # retires with the tokens it has
                     req.deadline_exceeded = True
                     self.deadline_retired += 1
+                    _count_degraded("retired", 1)
                 if (overdue or tok == sc.eos_token
                         or len(req.out) >= req.max_new
                         or self.lengths[s] + 1 >= sc.max_len):

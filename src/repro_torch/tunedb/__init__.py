@@ -2,8 +2,8 @@
 dispatch plans, shape telemetry, plan artifacts, tuning sessions, the
 performance models of dispatch's model tier, the retune controller that
 closes the telemetry -> tune -> train -> serve loop, and its observability
-(``obs``: the metrics registry and the regression sentry); a subset of
-``repro.tunedb``."""
+(``obs``: the metrics registry, the status endpoint and its snapshot, the
+regression sentry and request tracing); a subset of ``repro.tunedb``."""
 
 from .controller import (RetuneConfig, RetuneController, RetuneReport,
                          SpaceDecision)
@@ -11,7 +11,9 @@ from .model import (MODEL_SCHEMA_VERSION, ModelArtifactError, ModelSet,
                     PerfModel, backend_slug, clear_models, collect_samples,
                     default_models_dir, get_models, harvest, install_models,
                     train_models)
-from .obs import RegressionSentry, SentryReport, get_registry
+from .obs import (MetricsRegistry, RegressionSentry, SentryReport,
+                  StatusServer, get_registry, plan_snapshot, reset_metrics,
+                  status_snapshot)
 from .session import (SessionReport, TuneJob, TuningSession,
                       backend_fingerprint, record_from_search)
 from .store import (PLAN_HOT_K, DispatchPlan, RecordStore, ServingState,
@@ -21,14 +23,15 @@ from .telemetry import (ShapeTelemetry, clear_telemetry, get_telemetry,
                         record_shape)
 
 __all__ = ["MODEL_SCHEMA_VERSION", "PLAN_HOT_K", "DispatchPlan",
-           "ModelArtifactError", "ModelSet", "PerfModel", "RecordStore",
-           "RegressionSentry", "RetuneConfig", "RetuneController",
-           "RetuneReport", "SentryReport", "ServingState", "SessionReport",
-           "ShapeTelemetry", "SpaceDecision", "Supersession", "TuneJob",
-           "TuneRecord", "TuningSession", "backend_fingerprint",
-           "backend_slug", "clear_models", "clear_store", "clear_telemetry",
-           "collect_samples", "compile_plan", "default_models_dir",
-           "get_models", "get_registry", "get_telemetry", "harvest",
-           "install_models",
-           "install_serving", "install_store", "record_from_search",
-           "record_shape", "serving_state", "shape_key", "train_models"]
+           "MetricsRegistry", "ModelArtifactError", "ModelSet", "PerfModel",
+           "RecordStore", "RegressionSentry", "RetuneConfig",
+           "RetuneController", "RetuneReport", "SentryReport", "ServingState",
+           "SessionReport", "ShapeTelemetry", "SpaceDecision", "StatusServer",
+           "Supersession", "TuneJob", "TuneRecord", "TuningSession",
+           "backend_fingerprint", "backend_slug", "clear_models",
+           "clear_store", "clear_telemetry", "collect_samples", "compile_plan",
+           "default_models_dir", "get_models", "get_registry", "get_telemetry",
+           "harvest", "install_models", "install_serving", "install_store",
+           "plan_snapshot", "record_from_search", "record_shape",
+           "reset_metrics", "serving_state", "shape_key", "status_snapshot",
+           "train_models"]

@@ -28,7 +28,15 @@ export the frozen dispatch plans serving starts from.
            two plan snapshots (``{"entries": [...]}``); exit 1 when the new
            one serves a slower record (beyond ``--margin``) or drops a
            planned shape
-  stats    the store's statistics (and a ``--telemetry`` dump's) as JSON
+  stats    the store's statistics (and a ``--telemetry`` dump's) as JSON;
+           ``--json`` prints the ``/status`` document instead
+           (``obs.status_snapshot``, the status endpoint's serializer)
+  trace export   merge span files (JSONL dumps or Chrome trace JSON; torn
+           files are skipped) into one Chrome trace (Perfetto)
+  trace summary  per-span-name counts and latencies and the dispatch
+           tiers' resolution latency over span files
+  serve-status   the HTTP status endpoint (``/metrics``, ``/status``,
+           ``/plan``, ``/trace``, ``/healthz``) over a store file
   export   write a compacted store: the latest record per shape
   merge    fold stores into one (``--out``)
 
@@ -56,7 +64,12 @@ export the frozen dispatch plans serving starts from.
   $ python -m repro_torch.tunedb watch --telemetry shapes.json \
         --store tunedb.jsonl --interval 60 --device cpu --train-samples 400
   $ python -m repro_torch.tunedb diff old.jsonl new.jsonl --json
-  $ python -m repro_torch.tunedb stats --store tunedb.jsonl
+  $ python -m repro_torch.tunedb stats --store tunedb.jsonl [--json]
+  $ python -m repro_torch.tunedb trace summary --input spans.json
+  $ python -m repro_torch.tunedb trace export --input a.jsonl \
+        --input b.json --out merged.json
+  $ python -m repro_torch.tunedb serve-status --store tunedb.jsonl \
+        --port 9177
   $ python -m repro_torch.tunedb merge a.jsonl b.jsonl --out all.jsonl
 
 ``--space`` is one of gemm, conv, attention, ssd; a ``--shape`` may omit
@@ -80,8 +93,9 @@ the same string (``repro_torch.launch.serve`` does by default).
 ``retune`` and ``watch`` train a tuner per space they retune
 (``--train-samples``, labelled on ``--device``) unless ``--load-tuner``
 gives one.  The reference's other subcommands (fleet, plan publish /
-follow, trace, serve-status, fsck) and ``stats --json`` are not ported
-yet.
+follow, fsck) and the ``--fleet`` inputs of ``trace`` and
+``serve-status`` wait for the fleet and chaos slices (ROADMAP A6.3,
+A6.4).
 """
 
 from __future__ import annotations
@@ -471,10 +485,89 @@ def _cmd_stats(args: argparse.Namespace) -> int:
     from .store import RecordStore
     from .telemetry import ShapeTelemetry
 
-    out = {"store": RecordStore.open(args.store).stats()}
+    store = RecordStore.open(args.store)
+    telemetry = None
     if args.telemetry and os.path.exists(args.telemetry):
-        out["telemetry"] = ShapeTelemetry.load(args.telemetry).stats()
+        telemetry = ShapeTelemetry.load(args.telemetry)
+    if args.json:
+        # the /status schema: one serializer for the CLI and the endpoint
+        from .obs import status_snapshot
+        out = status_snapshot(store=store, telemetry=telemetry)
+    else:
+        out = {"store": store.stats()}
+        if telemetry is not None:
+            out["telemetry"] = telemetry.stats()
     print(json.dumps(out, indent=1, sort_keys=True, default=str))
+    return 0
+
+
+def _trace_spans(args: argparse.Namespace) -> list:
+    """The spans of every ``--input`` file; a torn file is skipped."""
+    from .obs.trace import load_span_file
+
+    spans = []
+    for path in args.inputs or []:
+        spans.extend(load_span_file(path))
+    return spans
+
+
+def _cmd_trace_export(args: argparse.Namespace) -> int:
+    from .obs.trace import chrome_trace
+
+    spans = _trace_spans(args)
+    doc = chrome_trace(spans, pid=0)    # a merged view: no one process
+    out = pathlib.Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(doc))
+    print(f"[trace] wrote {len(spans)} span(s) -> {out} "
+          "(open in https://ui.perfetto.dev)")
+    return 0
+
+
+def _cmd_trace_summary(args: argparse.Namespace) -> int:
+    from .obs.trace import summarize_spans
+
+    summary = summarize_spans(_trace_spans(args))
+    if args.json:
+        print(json.dumps(summary, indent=1, sort_keys=True, default=str))
+        return 0
+    print(f"spans: {summary['spans']}  traces: {summary['traces']}")
+    for name, ent in sorted(summary["names"].items()):
+        print(f"  {name:<20} x{int(ent['count']):<6} "
+              f"mean {ent['mean_us']:.1f}us  max {ent['max_us']:.1f}us")
+    if summary["tiers"]:
+        print("dispatch tiers:")
+        for tier, ent in sorted(summary["tiers"].items()):
+            print(f"  {tier:<20} x{int(ent['count']):<6} "
+                  f"mean {ent['mean_us']:.1f}us")
+    return 0
+
+
+def _cmd_serve_status(args: argparse.Namespace) -> int:
+    from .obs import StatusServer
+    from .store import RecordStore, install_serving
+    from .telemetry import ShapeTelemetry
+
+    store = telemetry = None
+    if args.store and os.path.exists(args.store):
+        store = RecordStore.open(args.store)
+        # the store becomes the process's serving state, so the /metrics
+        # collectors and /plan see it as an engine's would
+        install_serving(store=store, fingerprint=args.backend)
+    if args.telemetry and os.path.exists(args.telemetry):
+        telemetry = ShapeTelemetry.load(args.telemetry)
+    server = StatusServer(host=args.host, port=args.port, store=store,
+                          telemetry=telemetry).start()
+    print(f"[tunedb] status endpoint on {server.url} "
+          "(/metrics /status /plan /trace /healthz); Ctrl-C stops it",
+          flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
     return 0
 
 
@@ -665,7 +758,44 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--store", required=True, help="JSONL record store")
     st.add_argument("--telemetry", default=None,
                     help="a telemetry dump (ShapeTelemetry.save)")
+    st.add_argument("--json", action="store_true",
+                    help="print the /status document (the serializer the "
+                         "status endpoint uses)")
     st.set_defaults(fn=_cmd_stats)
+
+    tc = sub.add_parser("trace", help="request-trace span files")
+    tsub = tc.add_subparsers(dest="trace_cmd", required=True)
+    te = tsub.add_parser(
+        "export", help="merge span files into one Chrome trace JSON")
+    te.add_argument("--input", dest="inputs", action="append", default=None,
+                    metavar="FILE",
+                    help="span JSONL dump or Chrome trace JSON "
+                         "(repeatable); torn files are skipped")
+    te.add_argument("--out", required=True,
+                    help="Chrome trace-event JSON path (Perfetto loads it)")
+    te.set_defaults(fn=_cmd_trace_export)
+    tu = tsub.add_parser(
+        "summary", help="per-span-name latency and dispatch-tier "
+                        "attribution")
+    tu.add_argument("--input", dest="inputs", action="append", default=None,
+                    metavar="FILE",
+                    help="span JSONL dump or Chrome trace JSON "
+                         "(repeatable); torn files are skipped")
+    tu.add_argument("--json", action="store_true")
+    tu.set_defaults(fn=_cmd_trace_summary)
+
+    ss = sub.add_parser(
+        "serve-status",
+        help="HTTP observability endpoint: /metrics, /status, /plan, "
+             "/trace, /healthz")
+    ss.add_argument("--store", required=True, help="JSONL record store")
+    ss.add_argument("--telemetry", default=None,
+                    help="a telemetry dump (ShapeTelemetry.save)")
+    ss.add_argument("--backend", default=None,
+                    help="pin the installed serving view to one fingerprint")
+    ss.add_argument("--host", default="127.0.0.1")
+    ss.add_argument("--port", type=int, default=9177)
+    ss.set_defaults(fn=_cmd_serve_status)
 
     ex = sub.add_parser("export", help="compact a store (latest per shape)")
     ex.add_argument("--store", required=True, help="JSONL record store")

@@ -38,10 +38,16 @@ a watchdog that sets its cancel event.  Admission is budgeted:
 ``min_gain`` skips epochs whose projected gain (the model's best predicted
 TFLOPS over what the nearest record serves) is too small.
 
-Not ported yet (ROADMAP A6): the fleet mode (``fleet_dir``: jobs published
-to external workers) and plan publishing (``RetuneConfig.publish``), which
-raise a ``ValueError`` here, and the reference's ``retune.epoch`` /
-``fleet.merge`` trace spans (the tracing slice).
+With tracing on, an async epoch's submit-to-swap window is one detached
+``retune.epoch`` span, begun on the submitting thread (in its open trace,
+else in an always-kept trace of its own) and ended by the epoch's thread
+at the swap, as in the reference; an inline epoch runs inside the
+polling tick's ``engine.tick`` root and opens no span of its own.
+
+Not ported yet (ROADMAP A6.3): the fleet mode (``fleet_dir``: jobs
+published to external workers) and plan publishing
+(``RetuneConfig.publish``), which raise a ``ValueError`` here, and the
+reference's ``fleet.merge`` span.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ import time
 import warnings
 from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple
 
+from .obs import trace as _trace
 from .obs.metrics import get_registry
 from .session import TuningSession, backend_fingerprint
 from .store import RecordStore, input_key, install_serving, serving_state
@@ -62,6 +69,13 @@ from .telemetry import ShapeTelemetry, SpaceDrift, get_telemetry
 log = logging.getLogger(__name__)
 
 HISTORY_CAP = 64        # epochs kept in the history
+
+def _tracer():
+    """The process-global tracer, ``None`` while tracing is off: one module
+    attribute read per epoch, so the retune path makes no instrument call
+    then."""
+    return _trace._TRACER
+
 
 _NOT_PORTED = ("is not ported yet: it waits for the fleet slice "
                "(ROADMAP A6)")
@@ -400,6 +414,15 @@ class RetuneController:
         self._async_cancel.clear()
         window: List[Optional[float]] = [self.async_submit_t, None]
         self.async_windows.append(window)
+        # the submit-to-swap window as one detached span: begun here, on the
+        # polling thread, ended by the epoch's thread at the swap
+        tr = _tracer()
+        epoch_span = None
+        if tr is not None:
+            epoch_span = tr.begin(
+                "retune.epoch",
+                trace_id=tr.current_trace_id() or _trace.new_trace_id(),
+                spaces=",".join(sorted(triggered)), mode="async")
 
         def body():
             try:
@@ -412,6 +435,11 @@ class RetuneController:
                 self._async_report = None
             finally:
                 self.async_done_t = window[1] = time.perf_counter()
+                if tr is not None:
+                    rep = self._async_report
+                    tr.end(epoch_span,
+                           outcome="failed" if rep is None else "swapped",
+                           tuned=0 if rep is None else rep.tuned)
 
         th = threading.Thread(target=body, name="tunedb-retune", daemon=True)
         self._async = th

@@ -31,9 +31,11 @@ Where the port differs on purpose:
 * Only a gate rejection (``ConfigRejected``) skips a candidate: any other
   failure of a measurement, of the memo commit or of the promotion raises
   (the reference swallows them).
-* Spans and the ``tunedb_measurements_total`` counter wait for the port of
-  ``tunedb/obs`` (ROADMAP A6); :attr:`ServingMeasurer.counts` keeps the
-  count.
+
+Each measurement is counted in :attr:`ServingMeasurer.counts` and in the
+metrics registry's ``tunedb_measurements_total{backend}``; with tracing on
+it is timed in a ``measure.wallclock`` span under the thread's open trace,
+or in a root of its own (always kept) where none is open.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ from repro_torch.core.space import ConfigRejected
 from repro_torch.device import DeviceLike
 
 from .model import _capturing
+from .obs import trace as _trace
+from .obs.metrics import get_registry
 from .store import normalize_inputs, serving_state, shape_key
 
 __all__ = ["MEASURE_MODES", "MeasureQueue", "ServingMeasurer"]
@@ -79,8 +83,32 @@ class ServingMeasurer:
             raise RuntimeError(
                 f"measure: timing a {space} config while a CUDA graph is "
                 "being captured; drain the measure queue between ticks")
+        tr = _trace._TRACER
+        if tr is None:
+            return self._measure(space, cfg, inputs)
+        shape = ",".join(f"{k}={v}" for k, v in sorted(inputs.items()))
+        name = f"measure.{self.mode}"
+        ctx = tr.span(name, space=space, shape=shape)
+        if ctx is _trace._NULL_SPAN:
+            # no trace open on this thread (the engine's calibration, an
+            # idle-gap drain outside a sampled tick): measurements are rare,
+            # so each one is kept in a root of its own
+            ctx = tr.root(name, trace_id=_trace.new_trace_id(), space=space,
+                          shape=shape)
+        with ctx as sp:
+            tflops = self._measure(space, cfg, inputs)
+            sp.attrs["backend"] = self.mode
+            sp.attrs["tflops"] = round(tflops, 3)
+        return tflops
+
+    def _measure(self, space: str, cfg: Mapping[str, int],
+                 inputs: Mapping[str, int]) -> float:
         tflops = float(self.backend.measure(space, cfg, inputs))
-        self.counts["wallclock"] += 1
+        self.counts[self.mode] += 1
+        get_registry().counter(
+            "tunedb_measurements_total",
+            "serving-path kernel measurements by backend").inc(
+                backend=self.mode)
         return tflops
 
     def stats(self) -> Dict[str, object]:

@@ -113,7 +113,8 @@ class TuningSession:
     raises is counted in ``SessionReport.failed`` with its error, and the
     other jobs go on: the caller reads the report.  When the jobs are done
     the backend's ``release`` (where it has one) drops what it kept for
-    them: ``CheckedBackend``'s cached gate oracles.
+    them: ``CheckedBackend``'s cached gate oracles, and its timer's
+    operand sets and timing log.
     """
 
     def __init__(self, tuner, store: RecordStore,
@@ -230,7 +231,7 @@ class TuningSession:
                         print(f"[session:{job.space}] {job.inputs} -> "
                               f"{rec.config} {rec.tflops:.3f} TFLOPS")
         release = getattr(self.tuner.backend, "release", None)
-        if release is not None:         # the gate's cached oracles
+        if release is not None:     # the gate's cases, the timer's operands
             release()
         report.wall_s = time.time() - t0
         return report

@@ -649,7 +649,10 @@ def install_serving(*, store: object = _KEEP, models: object = _KEEP,
     :class:`~repro_torch.tunedb.plans.PlanArtifactError`.  Such a plan is
     re-pinned to the live store's version (the artifact's counts another
     process's appends), adopts its own fingerprint where none is pinned,
-    and loses, with one warning, any entry the kernel cannot launch.
+    and loses, with one warning, any entry the kernel cannot launch.  Each
+    install counts in the metrics registry's ``tunedb_installs_total
+    {planned}`` and sets ``tunedb_plan_built_entries`` to its plan's
+    compiled entries.
     """
     global _STATE
     if plan_dir is not None and plan is None:
@@ -698,6 +701,15 @@ def install_serving(*, store: object = _KEEP, models: object = _KEEP,
             f"sm_90a and are passed over (first: {space} {dict(key)}); "
             "dispatch resolves those shapes on the slow path",
             RuntimeWarning, stacklevel=2)
+    from .obs.metrics import get_registry   # obs reads the store: lazy
+    reg = get_registry()
+    reg.counter("tunedb_installs_total",
+                "serving-state swaps (new generations)").inc(
+                    planned="yes" if plan is not None else "no")
+    if plan is not None:
+        reg.gauge("tunedb_plan_built_entries",
+                  "entries compiled into the current plan").set(
+                      len(plan._table))
     return new
 
 

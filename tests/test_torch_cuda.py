@@ -1064,3 +1064,88 @@ def test_a_flip_during_capture_captures_again(cuda, monkeypatch):
     eng.prefill(0, tokens)
     assert (eng.captures, eng.prefill_captures) == (2, 2)
     assert eng.replays == 3 and eng.prefill_replays == 3
+
+
+def test_a_retune_epoch_returns_the_memory_it_took(cuda, card_tuners):
+    """An inline retune epoch on the card leaves its timer holding no
+    operand sets, and the device memory allocated after it within 8 MiB of
+    its level before it (the poll that runs it captures nothing)."""
+    import numpy as np
+
+    eng = _retune_engine(cuda, card_tuners)
+    timers = {id(t.backend.timer): t.backend.timer
+              for t in card_tuners.values()}
+    epochs = []
+    real_poll = eng.maybe_retune
+
+    def poll():
+        before = torch.cuda.memory_allocated(cuda)
+        report = real_poll()
+        if report is not None:
+            epochs.append((report.tuned, before,
+                           torch.cuda.memory_allocated(cuda),
+                           [t._operands for t in timers.values()],
+                           [len(t._times) for t in timers.values()]))
+        return report
+
+    eng.maybe_retune = poll
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, eng.cfg.vocab, n) for n in (5, 9, 3, 12, 7)]
+    outs = eng.generate(prompts, max_new=24)
+    assert all(len(o) == 24 for o in outs)
+    assert any(tuned for tuned, *_ in epochs)
+    for tuned, before, after, operands, times in epochs:
+        assert after - before <= 8 << 20, (tuned, before, after)
+        assert all(o == ((), []) for o in operands)
+        assert times == [0] * len(timers)
+
+
+def test_status_scrapes_during_a_prefill_capture(cuda):
+    """``/status`` and ``/metrics`` scraped from another thread while the
+    engine captures a prefill graph (the global capture mode refuses a
+    device synchronise from any thread): every scrape answers 200 and the
+    capture succeeds."""
+    import json
+    import threading
+    import urllib.request
+
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tunedb import store as tstore
+    from repro_torch.tunedb.obs import reset_tracing
+
+    tstore.install_serving(store=None, models=None, fingerprint=None)
+    cfg, params = _smoke_engine_params(cuda)
+    eng = Engine(cfg, params, ServeConfig(max_len=64, slots=3, status_port=0,
+                                          trace_sample=1.0), device=cuda)
+    url = eng.status_server.url
+    codes = []
+    real = eng._captured
+
+    def scrape():
+        for route in ("/status", "/metrics", "/trace", "/plan"):
+            with urllib.request.urlopen(url + route, timeout=60) as r:
+                body = r.read()
+                codes.append(r.status)
+                if route == "/status":
+                    assert json.loads(body)["schema"] == 1
+
+    def scraping(fn, **kw):
+        def run():
+            th = threading.Thread(target=scrape)
+            th.start()              # mid-warm-up and mid-capture
+            th.join(120)
+            assert not th.is_alive()
+            return fn()
+        return real(run, **kw)
+
+    eng._captured = scraping
+    try:
+        tokens = torch.arange(7, device=cuda)[None]
+        logits = eng.prefill(0, tokens)
+        torch.cuda.current_stream(cuda).synchronize()
+        assert eng.prefill_captures == 1
+        assert bool(torch.isfinite(logits).all())
+        assert codes == [200] * 8           # the warm-up's and the capture's
+    finally:
+        eng.status_server.stop()
+        reset_tracing()

@@ -58,7 +58,9 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.configs.internvl2_76b",
             "repro_torch.tunedb.controller", "repro_torch.tunedb.obs",
             "repro_torch.tunedb.obs.metrics",
-            "repro_torch.tunedb.obs.sentry", "repro_torch.tunedb.session",
+            "repro_torch.tunedb.obs.sentry", "repro_torch.tunedb.obs.trace",
+            "repro_torch.tunedb.obs.snapshot",
+            "repro_torch.tunedb.obs.server", "repro_torch.tunedb.session",
             "repro_torch.tunedb.__main__",
             "repro_torch.launch.serve"} <= set(out["modules"])
 

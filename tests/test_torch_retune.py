@@ -593,6 +593,36 @@ def test_progress_file_resumes(tuners, tmp_path):
     assert (jplan[0], jplan[1]) == ([], 3)
 
 
+def test_session_releases_the_timers_operands(tuners):
+    """A session through ``CheckedBackend(CudaEventBackend)`` (on the CPU:
+    the plain versions at a shrunken instance) leaves the timer holding no
+    operand sets and no timing log, and its records keep the latency read
+    before the release; a later measurement draws the same operands."""
+    import dataclasses
+
+    from repro_torch.core.backend import CheckedBackend, CudaEventBackend
+    backend = CheckedBackend(CudaEventBackend(device="cpu"))
+    tuner = dataclasses.replace(tuners["gemm"], backend=backend, top_k=3,
+                                _mem_cache={})
+    x = gemm_input(48, 64, 96)
+    first = backend.timer._operand_sets("gemm", backend.timer.instance(
+        "gemm", x))[0]
+    first = [t.clone() for t in first]
+    store = tstore.RecordStore()
+    report = tsession.TuningSession(tuner, store, None, workers=1,
+                                    collect_samples=False).run(shapes=[x])
+    assert report.tuned == 1 and not report.failed
+    assert backend.timer._operands == ((), [])
+    assert backend.timer._times == {}
+    [rec] = store.records()
+    assert rec.latency_us is not None and rec.latency_us > 0
+    again = backend.timer._operand_sets("gemm", backend.timer.instance(
+        "gemm", x))[0]
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    backend.release()
+    assert backend.timer._operands == ((), [])
+
+
 def _saved(tel, tmp_path):
     path = tmp_path / "tel.json"
     tel.save(path)
