@@ -196,6 +196,29 @@ exits non-zero:
                 after (a serve with none in flight), its engine.tick split,
                 the retune.epoch spans and the async records' TFLOP/s over
                 A's printed
+ 20b. fleet     the fleet (``tunedb/fleet``, ``tunedb/plans.py``
+                ``PlanRegistry`` / ``PlanFollower``, ``serve/router.py``):
+                SmolLM-135M at full width (weights from seed 0 as
+                ``launch.serve`` makes them) from an empty disk-backed
+                store.  A: ``python -m repro_torch.tunedb fleet worker``
+                in its own process (the tune phase's GEMM and attention
+                tuners saved to disk, ``--load-tuner``); the engine
+                (``retune_fleet``, ``retune_publish``, telemetry export,
+                the affinity router, tracing, the status endpoint) serves
+                8 x 32-token prompts x 48 tokens round after round until
+                the worker's records are merged, swapped in and published;
+                the jobs, the epoch's split, the ticks during the wait and
+                after, the merged TFLOP/s over the tune phase's, both
+                fingerprints, the longest heartbeat gap and the worker's
+                launches printed; the worker's fleet.job spans in the
+                epoch's trace; /status and /metrics carry the fleet and
+                router.  B: a worker process killed (SIGKILL) after its
+                claim: the job is requeued and tuned once by a second one,
+                the merge gated by the sentry.  C: ``launch.serve --follow``
+                in its own process adopts A's published generation
+                mid-serve and then gives A's tokens; ``fleet route`` over
+                two replica registries.  A child that fails, or is left
+                running, fails the phase
  21. mamba      mamba2-1.3b at full width (48 layers, bf16, random weights
                 from seed 0): its 4 projection GEMMs (M = 4 and 32) tuned
                 into the store, then 8 requests of 32-token prompts x 16
@@ -275,8 +298,9 @@ exits non-zero:
                 four ported TPU kernels and the GEMM's split-K reduction)
 
 Each path (tune, models, serve, plans, admission, measure,
-degradation, trace, retune, serve_mamba, serve_moe, serve_encdec,
-serve_frontend)
+degradation, trace, retune, fleet (the engine's; fleet_worker: the
+worker processes' own counts, from their reports), serve_mamba, serve_moe,
+serve_encdec, serve_frontend)
 runs with every launch count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
 
@@ -294,9 +318,12 @@ import ctypes
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -354,9 +381,10 @@ from repro_torch.tunedb.obs import (Tracer, enable_tracing,  # noqa: E402
 from repro_torch.tunedb.plans import (default_plan_dir, export_plan,  # noqa: E402
                                       load_plan, read_manifest)
 from repro_torch.tunedb.session import TuningSession  # noqa: E402
-from repro_torch.tunedb.store import (RecordStore, clear_store,  # noqa: E402
-                                      install_serving, install_store,
-                                      launchable, serving_state, shape_key)
+from repro_torch.tunedb.store import (RecordStore, TuneRecord,  # noqa: E402
+                                      clear_store, install_serving,
+                                      install_store, launchable,
+                                      serving_state, shape_key)
 from repro_torch.tunedb.telemetry import (clear_telemetry,  # noqa: E402
                                           get_telemetry)
 
@@ -3035,12 +3063,18 @@ def traced_round(graph, nodes: collections.Counter, reps: int,
     events, in start order, split into ``reps`` runs of len(nodes) events
     whose names are exactly the graph's kernel nodes' (the same multiset,
     replay by replay).  Otherwise it holds when no event is foreign to
-    the graph's nodes and at most ``max_lost`` of them are missing."""
+    the graph's nodes and at most ``max_lost`` of them are missing.  One
+    replay before the counted ones runs under the profiler's warm-up step,
+    whose events are dropped: a round lost events of its first replay,
+    from its first nodes on, while the tracer started."""
     with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=reps,
+                                             repeat=1)) as prof:
+        for _ in range(reps + 1):
             graph.replay()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     evs = sorted((ev for ev in prof.events()
                   if ev.device_type == torch.autograd.DeviceType.CUDA
                   and not ev.name.startswith(("Memcpy", "Memset"))),
@@ -3271,7 +3305,7 @@ class RetuneWatch:
     times its replays; every captured graph must hold ``per_fwd`` GEMM
     nodes)."""
 
-    def __init__(self, eng, what: str, per_fwd: int):
+    def __init__(self, eng, what: str, per_fwd: int, label: str = "retune"):
         self.eng, self.what, self.per_fwd = eng, what, per_fwd
         self.reports: list = []
         self.device = {"gemm": 0, "reduce": 0}
@@ -3287,7 +3321,7 @@ class RetuneWatch:
         def check():
             decisions = real_check()
             for sp, d in sorted(decisions.items()):
-                phase("retune", f"  {what} poll at tick {eng.ticks}: {sp} "
+                phase(label, f"  {what} poll at tick {eng.ticks}: {sp} "
                       f"drift {d.drift:.3f}, untuned mass "
                       f"{d.untuned_mass:.3f}, {d.window_calls} window "
                       f"calls, novel {[shape_str(x) for x in d.novel_shapes]}"
@@ -3849,6 +3883,606 @@ MAMBA_TUNE_SAMPLES = 96
 MAMBA_PARITY = (300, 200, 32, 9, 1)
 MAMBA_RECUR = (250, 12)
 MAMBA_RTOL = MAMBA_ATOL = 5e-2
+
+
+# -- the fleet phase ----------------------------------------------------------
+
+FLEET_PROMPTS, FLEET_PROMPT, FLEET_NEW = 8, 32, 48   # part A's traffic
+FLEET_SWAP_TIMEOUT_S = 120.0       # part A: rounds served until the swap
+FLEET_LEASE_TIMEOUT_S = 5.0        # part B's leases
+FLEET_B_SHAPES = ((32, 576, 576), (32, 1536, 576))   # part B's two jobs
+FLEET_SENTRY = 0.10                # part B's merge gate
+FLEET_FOLLOW_INTERVAL = 0.25       # part C's registry polls
+FLEET_CHILD_TIMEOUT_S = 120.0      # a child's start, claim or exit
+
+
+class Child:
+    """One process of the fleet phase: its command, its output lines as
+    they arrive (kept in ``<log>``), its exit.  ``stop`` ends it; a child
+    still running when the phase ends fails the phase."""
+
+    ALL: list = []
+
+    def __init__(self, name: str, cmd: list, log: Path):
+        self.name, self.cmd = name, cmd
+        self.lines: list = []
+        self._fh = log.open("w")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   PYTHONUNBUFFERED="1")
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        Child.ALL.append(self)
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            self._fh.write(line)
+            self._fh.flush()
+
+    def wait_line(self, pred, what: str,
+                  timeout: float = FLEET_CHILD_TIMEOUT_S) -> str:
+        """The first output line ``pred`` accepts; fails the phase if the
+        child exits or the timeout passes first."""
+        deadline = time.perf_counter() + timeout
+        seen = 0
+        while time.perf_counter() < deadline:
+            while seen < len(self.lines):
+                if pred(self.lines[seen]):
+                    return self.lines[seen]
+                seen += 1
+            if self.proc.poll() is not None and seen >= len(self.lines):
+                time.sleep(0.2)         # the reader's last lines
+                if seen >= len(self.lines):
+                    break
+            time.sleep(0.02)
+        raise AssertionError(f"fleet: {self.name} gave no {what} "
+                             f"(rc {self.proc.poll()}); its output ends "
+                             f"{self.lines[-15:]}")
+
+    def wait_exit(self, want_rc: int = 0,
+                  timeout: float = FLEET_CHILD_TIMEOUT_S) -> int:
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"fleet: {self.name} did not exit in "
+                                 f"{timeout:.0f} s")
+        self._reader.join(10)
+        if want_rc is not None and rc != want_rc:
+            raise AssertionError(f"fleet: {self.name} exited {rc}; its "
+                                 f"output ends {self.lines[-15:]}")
+        return rc
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait(30)
+        self._reader.join(10)
+
+    @classmethod
+    def reap(cls) -> list:
+        """Kill every child still running; their names."""
+        left = [c for c in cls.ALL if c.proc.poll() is None]
+        for c in left:
+            c.kill()
+        cls.ALL = []
+        return [c.name for c in left]
+
+
+def fleet_worker(fleet: Path, tuners: Path, name: str, log: Path,
+                 *extra: str) -> Child:
+    return Child(name, [sys.executable, "-m", "repro_torch.tunedb", "fleet",
+                        "worker", "--fleet", str(fleet), "--load-tuner",
+                        str(tuners), *extra], log)
+
+
+def worker_report(child: Child) -> dict:
+    """The worker's last line: claims, outcomes and kernel launches."""
+    line = child.wait_line(lambda s: "kernel launches" in s, "report")
+    m = re.search(r"worker (\S+): (\d+) claimed, (\d+) tuned, (\d+) failed, "
+                  r"(\d+) lost in ([\d.]+)s; kernel launches (\{.*\})", line)
+    if m is None:
+        raise AssertionError(f"fleet: {child.name}'s report {line!r}")
+    return {"worker_id": m.group(1), "claimed": int(m.group(2)),
+            "tuned": int(m.group(3)), "failed": int(m.group(4)),
+            "lost": int(m.group(5)), "wall_s": float(m.group(6)),
+            "launches": json.loads(m.group(7))}
+
+
+class LeaseWatch:
+    """Polls a fleet's ``leases/`` from a thread: the first claim's time
+    and, per lease, the longest stretch its mtime stood still (the gap
+    between heartbeats, or from the last one to the lease's release)."""
+
+    def __init__(self, fleet: Path, period_s: float = 0.02):
+        self.dir = fleet / "leases"
+        self.period_s = period_s
+        self.first_claim: Optional[float] = None
+        self.max_gap_s = 0.0
+        self.beats = 0
+        self._last: dict = {}           # name -> (mtime, time first seen)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            now = time.time()
+            cur = {}
+            try:
+                for p in self.dir.glob("*.json"):
+                    try:
+                        cur[p.name] = p.stat().st_mtime
+                    except FileNotFoundError:
+                        continue
+            except FileNotFoundError:
+                pass
+            if cur and self.first_claim is None:
+                self.first_claim = now
+            for name, mtime in cur.items():
+                prev = self._last.get(name)
+                if prev is not None and mtime != prev[0]:
+                    self.beats += 1
+                    self.max_gap_s = max(self.max_gap_s, mtime - prev[0])
+                if prev is None or mtime != prev[0]:
+                    self._last[name] = (mtime, now)
+            for name in set(self._last) - set(cur):
+                mtime, _ = self._last.pop(name)
+                self.max_gap_s = max(self.max_gap_s, now - mtime)
+            self._stop.wait(self.period_s)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(10)
+
+
+def fleet_tokens(path: Path) -> list:
+    if not path.exists():
+        return []
+    rows = []
+    for line in path.read_text().splitlines():
+        try:
+            rows.append(json.loads(line))
+        except ValueError:
+            continue                    # a round being written
+    return rows
+
+
+def phase_fleet(cfg, fp: str, tuners: dict, tune_store: RecordStore,
+                dev: torch.device, tmp: Path, label: str) -> dict:
+    """The fleet on the card: SmolLM-135M at full width (random weights
+    from seed 0, as ``launch.serve`` makes them) serving from an empty
+    disk-backed store, its retune epochs tuned by a worker process.
+
+    A: ``fleet worker`` as a process (the tune phase's GEMM and attention
+    tuners loaded from disk); the engine serves 8 x 32-token prompts x 48
+    tokens, round after round, with ``retune_fleet``, ``retune_publish``,
+    telemetry export, the affinity router, tracing and the status
+    endpoint, until an epoch's records are merged (merge gate passed),
+    swapped in and published, then one round more.  The merged records
+    are the worker's, under the engine's fingerprint; the tick graph
+    re-captured after the swap plans each tuned shape exact;
+    ``collect_fleet_spans`` joins the worker's ``fleet.job`` spans to the
+    engine's epoch; ``/status`` has its fleet and router sections and
+    ``/metrics`` the fleet and router counters.
+    B: two GEMM jobs (``lease_timeout_s=5``) on a second bus whose store
+    holds the tune phase's records of the two shapes; the first worker
+    process is killed (SIGKILL) once it claims; its lease expires, the
+    job is requeued and a second worker tunes both; the merge (the sentry
+    gate at 10%) holds one fleet record a shape, none from the killed
+    worker.
+    C: ``launch.serve --follow R`` in its own process from an empty store,
+    started with the phase: it adopts the generation A publishes while it
+    serves, its tick graph is captured again, and a round served wholly
+    after the adoption gives A's post-swap tokens; its ``/metrics`` has
+    ``tunedb_follower_*``.  Then ``fleet route`` over two replica
+    registries from ``publish_replica_plans``: the 32-token prefill's
+    shapes land on the replica whose plan covers them."""
+    from repro_torch.tunedb import fleet as tfleet
+    from repro_torch.tunedb.__main__ import main as tunedb_main
+    from repro_torch.tunedb.obs import collect_fleet_spans
+
+    t_phase = time.perf_counter()
+    root = tmp / "fleet-phase"
+    root.mkdir()
+    tuner_dir = root / "tuners"
+    for t in tuners.values():
+        t.save(str(tuner_dir))
+    store_path, fleet, reg = root / "a.jsonl", root / "fleet", root / "reg"
+    store_path.touch()
+    tokens_out = root / "follower.jsonl"
+    out = {}
+    try:
+        # -- C's replica and A's worker start first (their imports and
+        # CUDA contexts overlap A's engine) --------------------------------
+        follower = Child("follower", [
+            sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "smollm-135m", "--follow", str(reg), "--follow-interval",
+            str(FLEET_FOLLOW_INTERVAL), "--status-port", "0",
+            "--requests", str(FLEET_PROMPTS), "--prompt-len",
+            str(FLEET_PROMPT), "--max-new", str(FLEET_NEW), "--slots", "4",
+            "--max-len", "256", "--rounds", "0", "--tokens-out",
+            str(tokens_out)], root / "follower.log")
+        worker_a = fleet_worker(fleet, tuner_dir, "worker A",
+                                root / "worker_a.log", "--trace-sample",
+                                "1.0")
+        victim = fleet_worker(root / "fleet_b", tuner_dir, "worker B1",
+                              root / "worker_b1.log", "--worker-id", "b1")
+        # -- A -------------------------------------------------------------
+        clear_telemetry()
+        clear_models()
+        install_serving(store=None, models=None, fingerprint=None)
+        dispatch.reset_counts()
+        reset_launches()
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(0)
+        params = init_params(cfg, gen)
+        eng = Engine(cfg, params, ServeConfig(
+            slots=4, max_len=256, tunedb=str(store_path), tunedb_backend=fp,
+            retune=True, retune_interval=RETUNE_INTERVAL,
+            retune_cooldown_ticks=RETUNE_COOLDOWN, retune_fleet=str(fleet),
+            retune_publish=str(reg), telemetry_export_s=0.5,
+            router="affinity", trace_sample=1.0, status_port=0,
+            record_tick_times=True), device=dev)
+        ctl = eng.controller
+        per_fwd = GEMMS_PER_LAYER * cfg.n_layers
+        watch = RetuneWatch(eng, "fleet A", per_fwd, label="fleet")
+        stamps = {}
+        real_wait = tfleet.Coordinator.wait
+        real_publish = tfleet.Coordinator.publish
+
+        def publish(self, jobs, **kw):
+            stamps.setdefault("publish0", time.perf_counter())
+            stamps.setdefault("publish0_wall", time.time())
+            n = real_publish(self, jobs, **kw)
+            stamps.setdefault("publish1", time.perf_counter())
+            return n
+
+        def wait(self, **kw):
+            stamps.setdefault("wait0", time.perf_counter())
+            ok = real_wait(self, **kw)
+            stamps.setdefault("wait1", time.perf_counter())
+            return ok
+        tfleet.Coordinator.publish, tfleet.Coordinator.wait = publish, wait
+        lease_watch = LeaseWatch(fleet)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, FLEET_PROMPT)
+                   for _ in range(FLEET_PROMPTS)]
+        # the follower serves before anything is published: its adoption
+        # lands mid-serve
+        deadline = time.perf_counter() + FLEET_CHILD_TIMEOUT_S
+        while not fleet_tokens(tokens_out):
+            if follower.proc.poll() is not None \
+                    or time.perf_counter() > deadline:
+                raise AssertionError(f"fleet C: the follower served no round "
+                                     f"(rc {follower.proc.poll()}): "
+                                     f"{follower.lines[-10:]}")
+            time.sleep(0.05)
+        rounds = []
+        deadline = time.perf_counter() + FLEET_SWAP_TIMEOUT_S
+        try:
+            while True:
+                for child in (worker_a, follower, victim):
+                    if child.proc.poll() is not None:
+                        raise AssertionError(
+                            f"fleet: {child.name} exited unasked (rc "
+                            f"{child.proc.poll()}): {child.lines[-10:]}")
+                t0 = time.perf_counter()
+                gen_before = serving_state().generation
+                outs = eng.generate(prompts, max_new=FLEET_NEW)
+                torch.cuda.current_stream(dev).synchronize()
+                rounds.append({"t0": t0, "t1": time.perf_counter(),
+                               "gen0": gen_before, "tokens": outs,
+                               "gen1": serving_state().generation,
+                               "ticks": eng.ticks})
+                if [len(o) for o in outs] != [FLEET_NEW] * FLEET_PROMPTS:
+                    raise AssertionError("fleet A: a request was not served "
+                                         "whole")
+                if rounds[-1]["gen0"] == rounds[-1]["gen1"] and any(
+                        r["gen1"] > r["gen0"] for r in rounds[:-1]) \
+                        and ctl.published_plans:
+                    break               # a whole round after the swap
+                if time.perf_counter() > deadline:
+                    raise AssertionError(
+                        f"fleet A: no swap after {len(rounds)} rounds "
+                        f"({FLEET_SWAP_TIMEOUT_S:.0f} s); controller "
+                        f"{ctl.stats()['async']}, worker output "
+                        f"{worker_a.lines[-10:]}")
+        finally:
+            tfleet.Coordinator.publish = real_publish
+            tfleet.Coordinator.wait = real_wait
+            lease_watch.stop()
+        launches_a = read_launches()
+        tuned = watch.tuned_reports()
+        if not tuned:
+            raise AssertionError(f"fleet A: no epoch tuned ({watch.reports})")
+        rep = tuned[0]["report"]
+        if rep.mode != "fleet":
+            raise AssertionError(f"fleet A: epoch mode {rep.mode}")
+        store = eng.tunedb_store
+        recs = store.records()
+        worker_id = worker_a.wait_line(lambda s: "claiming from" in s,
+                                       "start line").split()[2]
+        if not recs or any(r.merged_from != worker_id or r.backend != fp
+                           or r.source != "retune" for r in recs):
+            raise AssertionError(f"fleet A: records "
+                                 f"{[(r.merged_from, r.backend, r.source) for r in recs]}")
+        report_json = json.loads((fleet / "report.json").read_text())
+        done = tfleet.FleetDir(fleet).done_meta()
+        # the tick graph of the live generation: replayed, and every shape
+        # of it with a record planned exact on its record's config
+        last = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 1)),
+                               device=dev)
+        idx = torch.full((4,), 40, dtype=torch.long, device=dev)
+        eng.decode(last, idx)
+        n_exact = graph_shapes_exact(eng, eng._decode_shapes, fp,
+                                     "fleet A tick")
+        # the status endpoint
+        code, body, _ = scrape(eng.status_server.url + "/status")
+        status = json.loads(body) if code == 200 else {}
+        mcode, metrics, _ = scrape(eng.status_server.url + "/metrics")
+        if code != 200 or mcode != 200 or status.get("fleet") is None \
+                or status.get("router") is None:
+            raise AssertionError(f"fleet A: /status {code} (fleet "
+                                 f"{status.get('fleet') is not None}, router "
+                                 f"{status.get('router') is not None}), "
+                                 f"/metrics {mcode}")
+        for fam in ("tunedb_fleet_jobs", "tunedb_fleet_merged_records",
+                    "tunedb_router_decisions_total",
+                    "tunedb_telemetry_dumps_total"):
+            if fam not in metrics:
+                raise AssertionError(f"fleet A: /metrics lacks {fam}")
+        # the worker drains, exports its spans, reports
+        tfleet.FleetDir(fleet).request_drain()
+        wrep = worker_report(worker_a)
+        worker_a.wait_exit()
+        if wrep["failed"] or wrep["lost"] or wrep["tuned"] != len(done):
+            raise AssertionError(f"fleet A: worker report {wrep}, "
+                                 f"{len(done)} done markers")
+        spans = eng.tracer.spans()
+        epochs = {sp.trace_id for sp in spans if sp.name == "retune.epoch"}
+        merges = [sp for sp in spans if sp.name == "fleet.merge"]
+        jobs = [sp for sp in collect_fleet_spans(fleet)
+                if sp.name == "fleet.job"]
+        if not jobs or any(sp.trace_id not in epochs for sp in jobs) \
+                or not merges:
+            raise AssertionError(f"fleet A: {len(jobs)} fleet.job spans, "
+                                 f"their trace ids "
+                                 f"{sorted({s.trace_id for s in jobs})}, the "
+                                 f"epochs' {sorted(epochs)}, {len(merges)} "
+                                 "fleet.merge spans")
+        trip = next(i for i, r in enumerate(rounds) if r["gen1"] > r["gen0"])
+        ticks = list(eng.tick_times)
+        wait0, wait1 = stamps["wait0"], stamps["wait1"]
+        waiting = [1e3 * w for t, w, _ in ticks if wait0 <= t < wait1]
+        after = [1e3 * w for t, w, _ in ticks if t >= rounds[-1]["t0"]]
+        ratio = {}
+        for r in recs:
+            ref = tune_store.get(r.space, r.inputs, backend=fp)
+            if ref is not None:
+                ratio[shape_str(r.inputs)] = r.tflops / ref.tflops
+        phase("fleet", f"A: {cfg.name} ({cfg.n_layers}L bf16) from an empty "
+              f"store, {len(rounds)} rounds of {FLEET_PROMPTS} x "
+              f"{FLEET_PROMPT}-token prompts x {FLEET_NEW} tokens; the swap "
+              f"in round {trip + 1} (generation {rounds[trip]['gen0']} -> "
+              f"{rounds[trip]['gen1']}); jobs published "
+              f"{report_json['published']}, claimed {wrep['claimed']}, "
+              f"tuned {wrep['tuned']}, failed {wrep['failed']}, lost "
+              f"{wrep['lost']}; the worker's wall a job "
+              f"{[round(m['wall_s'], 3) for m in done]} s [{label}]")
+        rel = lambda key: stamps[key] - stamps["publish0"]
+        merge_ms = 1e3 * merges[0].dur
+        first_claim = (lease_watch.first_claim - stamps["publish0_wall"]
+                       if lease_watch.first_claim else float("nan"))
+        phase("fleet", f"A: the epoch: publish {1e3 * rel('publish1'):.1f} "
+              f"ms, the first claim {first_claim:.3f} s after it, the wait "
+              f"{stamps['wait1'] - stamps['wait0']:.3f} s, fleet.merge "
+              f"{merge_ms:.1f} ms, retrain {rep.retrain_s:.3f} s, install "
+              f"{rep.install_s:.3f} s, plan publish {1e3 * rep.publish_s:.1f}"
+              f" ms; epoch wall {rep.wall_s:.3f} s; {rep.tuned} tuned, "
+              f"retrained {rep.retrained}")
+        phase("fleet", f"A: ticks during the wait: median "
+              f"{statistics.median(waiting) if waiting else float('nan'):.2f}"
+              f" ms, max {max(waiting, default=float('nan')):.2f} ms over "
+              f"{len(waiting)}; after the swap: median "
+              f"{statistics.median(after) if after else float('nan'):.2f} "
+              f"ms, max {max(after, default=float('nan')):.2f} ms over "
+              f"{len(after)} (the worker, and the follower replica of C, "
+              f"share the card) [{label}]")
+        phase("fleet", f"A: merged records' TFLOP/s over the tune phase's "
+              f"for the same shape {ratio}; refusals: merge gate "
+              f"{report_json['sentry_blocked']}, install gate "
+              f"{ctl.sentry_blocked}; fingerprints: engine pin {fp}, "
+              f"worker records {sorted({r.backend for r in recs})}; the "
+              f"longest lease stretch without a heartbeat "
+              f"{lease_watch.max_gap_s:.3f} s ({lease_watch.beats} "
+              f"heartbeats seen); the worker's kernel launches "
+              f"{wrep['launches']}")
+        phase("fleet", f"A: the tick graph of generation "
+              f"{serving_state().generation}: {n_exact} shapes with records, "
+              f"each planned exact; {len(jobs)} fleet.job spans joined to "
+              f"the epoch's trace; /status fleet counts "
+              f"{status['fleet']['counts']}, router outcomes "
+              f"{status['router']['outcomes']}; engine launches "
+              f"{launches_a}, GEMM kernels given to the device "
+              f"{watch.device}")
+        for r in sorted(recs, key=lambda r: (r.space, sorted(r.inputs.items()))):
+            phase("fleet", f"  A record {r.space} {shape_str(r.inputs)} -> "
+                  f"{r.config} {r.tflops:.3f} TFLOPS (merged from "
+                  f"{r.merged_from})")
+        out["a"] = {"launches": launches_a, "worker_launches":
+                    wrep["launches"], "device": dict(watch.device)}
+        a_tokens = rounds[-1]["tokens"]
+        # -- C: the follower adopted A's generation --------------------------
+        published = json.loads((reg / "CURRENT.json").read_text())
+        url = follower.wait_line(lambda s: s.startswith("status endpoint"),
+                                 "status endpoint").split()[2]
+        deadline = time.perf_counter() + FLEET_CHILD_TIMEOUT_S
+        adopted = None
+        while adopted is None:
+            rows = fleet_tokens(tokens_out)
+            adopted = next((r for r in rows if r["follower_generation"]
+                            == published["generation"]
+                            and r["generation_before"]
+                            == r["generation_after"]
+                            and any(p["follower_generation"] !=
+                                    published["generation"]
+                                    for p in rows[:rows.index(r)])), None)
+            if adopted is None:
+                if follower.proc.poll() is not None \
+                        or time.perf_counter() > deadline:
+                    raise AssertionError(f"fleet C: the follower never "
+                                         f"served a round under generation "
+                                         f"{published['generation']} "
+                                         f"({len(rows)} rounds; rc "
+                                         f"{follower.proc.poll()})")
+                time.sleep(0.1)
+        fcode, fstatus, _ = scrape(url + "/status")
+        fmcode, fmetrics, _ = scrape(url + "/metrics")
+        fol = json.loads(fstatus)["follower"] if fcode == 200 else None
+        if fol is None or "tunedb_follower_installs_total" not in fmetrics:
+            raise AssertionError(f"fleet C: /status {fcode} follower {fol}, "
+                                 f"/metrics {fmcode}")
+        follower.proc.send_signal(signal.SIGINT)
+        follower.wait_exit()
+        first_adopted = next(r for r in rows if r["follower_generation"]
+                             == published["generation"])
+        same = adopted["tokens"] == a_tokens
+        phase("fleet", f"C: the follower (its own process, an empty store) "
+              f"served {len(rows)} rounds; it adopted generation "
+              f"{published['generation']} {fol['lag_s']:.3f} s after its "
+              f"publish ({fol['installs']} install(s), refused digest "
+              f"{fol['refused_digest']} stale {fol['refused_stale']} sentry "
+              f"{fol['refused_sentry']}), in round {first_adopted['round']}; "
+              f"its tick graph captured again at tick "
+              f"{first_adopted['last_capture_tick']}; round "
+              f"{adopted['round']} (wholly after) gives A's post-swap "
+              f"tokens: {same}")
+        if not same:
+            diff = [i for i, (x, y) in enumerate(zip(adopted["tokens"],
+                                                      a_tokens)) if x != y]
+            raise AssertionError(f"fleet C: the follower's tokens differ "
+                                 f"from A's in requests {diff}")
+        # fleet route over two replica registries
+        coord = tfleet.Coordinator(fleet)
+        summary = coord.publish_replica_plans(root / "replicas", 2,
+                                              fingerprint=fp)
+        pre = eng._prefill_shapes[FLEET_PROMPT]
+        gemm_pre = sorted({shape_str(x): x for sp, x in pre
+                           if sp == "gemm"}.values(),
+                          key=lambda x: sorted(x.items()))
+        args = ["fleet", "route", "--registry-root", str(root / "replicas"),
+                "--space", "gemm"]
+        for x in gemm_pre:
+            args += ["--shape", f"M={x['M']},N={x['N']},K={x['K']}"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if tunedb_main(args) != 0:
+                raise AssertionError("fleet route failed")
+        routed = json.loads(buf.getvalue())
+        cover = routed["coverage"]
+        if cover[routed["replica"]] != max(cover.values()) \
+                or cover[routed["replica"]] <= 0:
+            raise AssertionError(f"fleet route: {routed}")
+        phase("fleet", f"C: replica plans {[(s['replica'], s['entries']) for s in summary]}; "
+              f"fleet route of the {FLEET_PROMPT}-token prefill's "
+              f"{len(gemm_pre)} GEMM shapes -> {routed['replica']} "
+              f"({routed['outcome']}, coverage {cover})")
+        eng.exporter.stop()
+        eng.status_server.stop()
+        # -- B: a worker killed mid-job ---------------------------------------
+        store_b = RecordStore.open(root / "b.jsonl")
+        jobs_b = [gemm_input(M, N, K, 16) for M, N, K in FLEET_B_SHAPES]
+        for x in jobs_b:
+            ref = tune_store.get("gemm", x, backend=fp)
+            store_b.add(dataclasses.replace(ref, merged_from=None))
+        coord_b = tfleet.Coordinator(root / "fleet_b", store_b,
+                                     lease_timeout_s=FLEET_LEASE_TIMEOUT_S,
+                                     sentry_margin=FLEET_SENTRY)
+        coord_b.publish([tfleet.FleetJob(space="gemm", inputs=x,
+                                         count=len(jobs_b) - i)
+                         for i, x in enumerate(jobs_b)])
+        leases = root / "fleet_b" / "leases"
+        deadline = time.perf_counter() + FLEET_CHILD_TIMEOUT_S
+        while not list(leases.glob("*.json")):
+            if victim.proc.poll() is not None \
+                    or time.perf_counter() > deadline:
+                raise AssertionError(f"fleet B: worker B1 never claimed "
+                                     f"({victim.lines[-10:]})")
+            time.sleep(0.01)
+        victim.proc.send_signal(signal.SIGKILL)
+        t_kill = time.time()
+        victim.wait_exit(want_rc=-signal.SIGKILL)
+        lease = next(leases.glob("*.json"))
+        killed_job = lease.stem
+        t_claim = lease.stat().st_mtime
+        survivor = fleet_worker(root / "fleet_b", tuner_dir, "worker B2",
+                                root / "worker_b2.log", "--worker-id", "b2")
+        t_requeue = None
+        deadline = time.perf_counter() + FLEET_CHILD_TIMEOUT_S
+        while True:
+            st = coord_b.poll()
+            if st["reclaimed"] and t_requeue is None:
+                t_requeue = time.time()
+            if coord_b.outstanding() == 0:
+                break
+            if survivor.proc.poll() is not None \
+                    or time.perf_counter() > deadline:
+                raise AssertionError(f"fleet B: {coord_b.outstanding()} "
+                                     f"jobs outstanding "
+                                     f"({survivor.lines[-10:]})")
+            time.sleep(0.05)
+        coord_b.fleet.request_drain()
+        srep = worker_report(survivor)
+        survivor.wait_exit()
+        coord_b.poll()
+        rep_b = coord_b.report()
+        shard_lines = {}
+        for p in coord_b.fleet.shard_dir().glob("*.jsonl"):
+            shard_lines[p.stem] = [TuneRecord.from_json(line) for line in
+                                   p.read_text().splitlines() if line]
+        served_b = [r for r in shard_lines.get("b2", [])
+                    if r.source != "sample"]
+        if (t_requeue is None or rep_b.done != 2 or rep_b.failed
+                or rep_b.requeued != 1 or shard_lines.get("b1")
+                or srep["tuned"] != 2 or srep["failed"]
+                or sorted(shape_str(r.inputs) for r in served_b)
+                != sorted(shape_str(x) for x in jobs_b)):
+            raise AssertionError(f"fleet B: report {rep_b}, survivor "
+                                 f"{srep}, shards "
+                                 f"{ {k: len(v) for k, v in shard_lines.items()} }")
+        fleet_recs = [r for r in RecordStore.open(root / "b.jsonl")
+                      .training_records() if r.merged_from is not None
+                      and r.source != "sample"]
+        if len(fleet_recs) > len(jobs_b):
+            raise AssertionError(f"fleet B: {len(fleet_recs)} fleet records "
+                                 "merged for 2 jobs")
+        phase("fleet", f"B: worker B1 killed (SIGKILL) {t_kill - t_claim:.3f}"
+              f" s after it claimed {killed_job}; requeued "
+              f"{t_requeue - t_claim:.3f} s after the claim (lease timeout "
+              f"{FLEET_LEASE_TIMEOUT_S:.0f} s); worker B2 tuned both "
+              f"({srep['claimed']} claims, kernel launches "
+              f"{srep['launches']}); the merge gate ({FLEET_SENTRY:.0%}) "
+              f"refused {rep_b.sentry_blocked} of the 2 against the tune "
+              f"phase's records, merged {rep_b.merged_records} (+ "
+              f"{rep_b.merged_samples} samples); B1's shard holds nothing; "
+              + "; ".join(f"{shape_str(r.inputs)}: {r.tflops:.3f} TFLOPS vs "
+                          f"the tune phase's "
+                          f"{tune_store.get('gemm', r.inputs, backend=fp).tflops:.3f}"
+                          for r in served_b) + f" [{label}]")
+        out["b"] = {"worker_launches": srep["launches"]}
+        out["device_launches"] = watch.device["gemm"]
+        out["device_reduce_launches"] = watch.device["reduce"]
+    finally:
+        left = Child.reap()
+        install_serving(store=None, models=None, fingerprint=None)
+        reset_tracing()
+    if left:
+        raise AssertionError(f"fleet: processes left running: {left}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    phase("fleet", f"the phase's wall {out['wall_s']:.1f} s")
+    return out
 
 
 def nbytes(tensors) -> int:
@@ -4901,6 +5535,22 @@ def main() -> int:
                      or not retune["device_reduce_launches"])):
             raise AssertionError(f"retune path launches {launches['retune']}")
         phase("retune", f"launches on the retune path: {launches['retune']}")
+        gc.collect()
+        fleet = phase_fleet(cfg, fp, tuners, store, dev, Path(tmp), label)
+        launches["fleet"] = fleet["a"]["launches"]
+        launches["fleet_worker"] = {
+            k: fleet["a"]["worker_launches"][k] + fleet["b"]["worker_launches"][k]
+            for k in fleet["a"]["worker_launches"]}
+        # the engine's attention is plain PyTorch (only its split count is
+        # a dispatch lookup, ROADMAP A4.2): the attention kernel runs in
+        # the worker's timings of the decode attention shape
+        if not (launches["fleet"]["gemm"] and launches["fleet"]["gemm_reduce"]
+                and launches["fleet_worker"]["gemm"]
+                and launches["fleet_worker"]["attention"]):
+            raise AssertionError(f"fleet path launches {launches['fleet']}, "
+                                 f"the workers' {launches['fleet_worker']}")
+        phase("fleet", f"launches on the fleet path: the engine "
+              f"{launches['fleet']}, the workers {launches['fleet_worker']}")
         mamba = phase_mamba(backend, store, store_path, fp, dev, peaks,
                             label)
         launches["serve_mamba"] = mamba["counts"]
@@ -4919,7 +5569,8 @@ def main() -> int:
             "ssd": ssd_rows}
     line = kernels_line(rows, worst, launches, cfg.n_layers)
     line["kernels"][0]["device_launches"] = serve["device_launches"]
-    served = {"serve": serve, "serve_retune": retune, "serve_mamba": mamba,
+    served = {"serve": serve, "serve_retune": retune, "serve_fleet": fleet,
+              "serve_mamba": mamba,
               "serve_moe": moe, "serve_encdec": encdec,
               "serve_frontend": frontend}
     line["kernels"][0]["device_launches_by_path"] = {

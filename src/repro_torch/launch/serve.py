@@ -16,15 +16,26 @@
       --retune-interval 8                       # the loop on the host
   python -m repro_torch.launch.serve --status-port 9177 --trace-sample 1 \
       --trace-out spans.json                    # scrape it, open in Perfetto
+  python -m repro_torch.launch.serve --tunedb db.jsonl --retune \
+      --retune-fleet fleet/ --retune-publish registry/ --telemetry-export 2 \
+      --router affinity        # epochs tuned by `tunedb fleet worker`s
+  python -m repro_torch.launch.serve --follow registry/ --follow-interval 1 \
+      --rounds 0 --status-port 0    # a replica following the plans, until
+                                    # Ctrl-C
 
 With ``--retune`` the engine's retune controller trains a tuner per space
 it retunes (``tunedb.controller._default_tuner_factory``: 4000 gated
-samples labelled on this device, minutes a space on the card).
+samples labelled on this device, minutes a space on the card), unless
+``--retune-fleet`` hands the epochs to fleet workers.  ``--rounds`` serves
+the same prompts that many times (0: until interrupted), and
+``--tokens-out`` writes each round's tokens and serving generation as a
+JSON line, so two replicas' outputs compare.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -102,6 +113,33 @@ def main(argv=None) -> None:
     p.add_argument("--retune-sentry", type=float, default=None,
                    help="regression-sentry noise margin gating each "
                         "retune's serving swap (omit to disable)")
+    p.add_argument("--retune-fleet", default=None,
+                   help="fleet directory each retune epoch publishes its "
+                        "shapes to (run `python -m repro_torch.tunedb "
+                        "fleet worker` processes on it); implies --retune "
+                        "and async epochs")
+    p.add_argument("--retune-publish", default=None,
+                   help="plan registry each successful retune publishes "
+                        "its plan to")
+    p.add_argument("--telemetry-export", type=float, default=0.0,
+                   help="with --retune-fleet: dump this engine's telemetry "
+                        "onto the bus every N seconds and retune off the "
+                        "fleet-global view (0 = process-local)")
+    p.add_argument("--follow", default=None,
+                   help="plan registry to follow: each published "
+                        "generation is pulled, verified and installed")
+    p.add_argument("--follow-interval", type=float, default=2.0,
+                   help="seconds between plan-registry polls")
+    p.add_argument("--router", choices=["affinity", "round_robin", "random"],
+                   default=None,
+                   help="request-router policy (this engine its first "
+                        "replica); omit to route nothing")
+    p.add_argument("--rounds", type=int, default=1,
+                   help="serve the prompts this many times (0 = until "
+                        "interrupted)")
+    p.add_argument("--tokens-out", default=None,
+                   help="append each round's tokens, serving generation "
+                        "and follower generation here as a JSON line")
     p.add_argument("--status-port", type=int, default=None,
                    help="serve /metrics, /status, /plan, /trace and "
                         "/healthz from inside the engine on this port "
@@ -139,8 +177,11 @@ def main(argv=None) -> None:
         retune_max_sessions=args.retune_max_sessions,
         retune_window_s=args.retune_window,
         retune_min_gain=args.retune_min_gain,
-        retune_sentry=args.retune_sentry, status_port=args.status_port,
-        trace_sample=args.trace_sample),
+        retune_sentry=args.retune_sentry, retune_fleet=args.retune_fleet,
+        retune_publish=args.retune_publish,
+        telemetry_export_s=args.telemetry_export, follow=args.follow,
+        follow_interval_s=args.follow_interval, router=args.router,
+        status_port=args.status_port, trace_sample=args.trace_sample),
         device=device)
     if eng.status_server is not None:
         print(f"status endpoint: {eng.status_server.url} "
@@ -150,16 +191,35 @@ def main(argv=None) -> None:
                for _ in range(args.requests)]
     kmatmul.launches = 0
     t0 = time.perf_counter()
-    outs = eng.generate(prompts, max_new=args.max_new)
-    if device.type == "cuda":
-        # a stream's sync: an async retune's timer may be capturing
-        torch.cuda.current_stream(device).synchronize()
+    rounds = 0
+    total = 0
+    try:
+        while args.rounds <= 0 or rounds < args.rounds:
+            gen_before = serving_state().generation
+            outs = eng.generate(prompts, max_new=args.max_new)
+            if device.type == "cuda":
+                # a stream's sync: an async retune's timer may be capturing
+                torch.cuda.current_stream(device).synchronize()
+            rounds += 1
+            total += sum(len(o) for o in outs)
+            if args.tokens_out:
+                with open(args.tokens_out, "a", encoding="utf-8") as fh:
+                    fh.write(json.dumps({
+                        "round": rounds, "tokens": outs,
+                        "generation_before": gen_before,
+                        "generation_after": serving_state().generation,
+                        "follower_generation": (
+                            eng.follower.generation
+                            if eng.follower is not None else None),
+                        "ticks": eng.ticks, "captures": eng.captures,
+                        "last_capture_tick": eng.last_capture_tick}) + "\n")
+    except KeyboardInterrupt:
+        print(f"interrupted after {rounds} round(s)", flush=True)
     dt = time.perf_counter() - t0
-    total = sum(len(o) for o in outs)
-    print(f"{cfg.name} on {device}: {len(outs)} requests, {total} tokens in "
-          f"{dt:.2f}s ({total / dt:.1f} tok/s, {eng.ticks} decode ticks, "
-          f"{eng.prefills} prefills, {kmatmul.launches} GEMM kernel "
-          "launches)")
+    print(f"{cfg.name} on {device}: {rounds * len(prompts)} requests, "
+          f"{total} tokens in {dt:.2f}s ({total / max(dt, 1e-9):.1f} tok/s, "
+          f"{eng.ticks} decode ticks, {eng.prefills} prefills, "
+          f"{kmatmul.launches} GEMM kernel launches)")
     if args.shed_threshold is not None or args.request_deadline is not None:
         print(f"degradation: {eng.shed_requests} request(s) shed, "
               f"{eng.deadline_retired} deadline-retired")
@@ -173,12 +233,32 @@ def main(argv=None) -> None:
     if eng.controller is not None:
         if eng.controller.async_active():
             print("waiting for the in-flight async retune to land...")
-            eng.controller.wait_async()     # an in-process epoch ends
+            if (eng.controller.wait_async(timeout=60.0) is None
+                    and eng.controller.async_active()):
+                # a fleet with no live worker can outwait this launcher;
+                # its jobs stay queued on the bus
+                print("async retune still in flight after 60s; exiting "
+                      "(fleet jobs stay queued: run `fleet worker` / `fleet "
+                      "drain --wait` to finish and merge them)")
         st = eng.controller.stats()
         print(f"retune: {st['retunes']} epoch(s) over {st['checks']} polls, "
               f"serving generation {st['generation']}, "
               f"{st['sentry_blocked']} refused by the sentry; last "
               f"{st['last']}")
+    if eng.router is not None:
+        rt = eng.router.stats()
+        print(f"router[{rt['policy']}]: {rt['decisions']} decision(s) "
+              f"by outcome {rt['outcomes']}")
+    if eng.follower is not None:
+        eng.follower.stop()
+        fs = eng.follower.stats()
+        print(f"follower: generation {fs['generation']} of "
+              f"{fs['published_generation']} published, {fs['installs']} "
+              f"install(s), lag {fs['lag_s']} s, refused digest "
+              f"{fs['refused_digest']} stale {fs['refused_stale']} sentry "
+              f"{fs['refused_sentry']}")
+    if eng.exporter is not None:
+        eng.exporter.stop()
     plan = serving_state().plan
     if plan is not None:
         st = plan.stats()

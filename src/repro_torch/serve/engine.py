@@ -1,6 +1,5 @@
 """Batched serving engine: slot-based continuous batching over a shared
-decode cache (port of ``repro.serve.engine`` short of the fleet and
-observability).  The cache is the model's: K/V rows per attention layer,
+decode cache (port of ``repro.serve.engine``).  The cache is the model's: K/V rows per attention layer,
 conv and SSM state per Mamba-2 layer; the engine walks its tree and never
 names a leaf.
 
@@ -99,8 +98,24 @@ the replay and the sampling's copy of the logits to the host.  With
 (``/metrics``, ``/status``, ``/plan``, ``/trace``, ``/healthz``, the
 last answering 503 while the engine sheds load) on its own thread; it
 reads host state only, so it never synchronises the card under a
-capture.  Routing and the fleet's retune mode wait for their slice
-(ROADMAP A6.3).
+capture.
+
+The fleet follows the reference.  ``ServeConfig.retune_fleet`` runs the
+retune loop's epochs through a fleet directory: the controller publishes
+the epoch's shapes as lease-file jobs, worker processes (``python -m
+repro_torch.tunedb fleet worker``) tune them on the card, and the swap
+comes after the coordinator merged their shards into the store.
+``telemetry_export_s`` (with ``retune_fleet``) dumps this process's
+telemetry onto the bus and hands the controller the fleet-global view
+(``tunedb.telemetry.FleetTelemetryView``, its own dump left out).
+``retune_publish`` publishes each swapped generation's plan to a registry;
+``follow`` starts a ``tunedb.plans.PlanFollower`` that installs each
+generation published there (its install reads host state only, so it may
+land during a capture: the graph is captured again at its next use).
+``router`` registers this engine as the first replica of a
+``serve.router`` router; each admission asks it for a replica with the
+length's prefill shapes (kept at the length's first prefill), a
+``request.route`` span when traced.
 """
 
 from __future__ import annotations
@@ -135,7 +150,8 @@ from repro_torch.tunedb.plans import (PlanArtifactError, check_freshness,
                                       load_plan, read_manifest)
 from repro_torch.tunedb.store import (RecordStore, install_serving,
                                       serving_state, shape_key)
-from repro_torch.tunedb.telemetry import get_telemetry
+from repro_torch.tunedb.telemetry import (FleetTelemetryView,
+                                          TelemetryExporter, get_telemetry)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,6 +217,24 @@ class ServeConfig:
     # the regression sentry's noise margin gating each retune's swap (None
     # turns the gate off; tunedb.obs.sentry.RegressionSentry)
     retune_sentry: Optional[float] = None
+    # -- the fleet (tunedb.fleet, tunedb.plans, serve.router) ----------------
+    # a fleet directory the retune epochs publish their shapes to, as jobs
+    # for `fleet worker` processes (implies async epochs and retune)
+    retune_fleet: Optional[str] = None
+    # > 0 (with retune_fleet): dump this engine's telemetry onto the fleet
+    # bus every this many seconds, and retune off the fleet-global view
+    telemetry_export_s: float = 0.0
+    # a request-router policy ("affinity", "round_robin", "random"); the
+    # engine is the first replica, peers join through router.add_replica
+    router: Optional[str] = None
+    # a plan registry to follow: each published generation is pulled,
+    # verified and installed by a PlanFollower thread
+    follow: Optional[str] = None
+    follow_interval_s: float = 2.0  # seconds between registry polls
+    # the follower's sentry margin for a coverage loss (None: no gate)
+    follow_sentry: Optional[float] = 0.10
+    # a plan registry each successful retune swap publishes its plan to
+    retune_publish: Optional[str] = None
     # -- observability (tunedb.obs) ------------------------------------------
     # run a StatusServer (/metrics, /status, /plan, /trace, /healthz) inside
     # this engine on this port; 0 binds an ephemeral one
@@ -577,8 +611,8 @@ class Engine:
             collections.deque(maxlen=cap if cap > 0 else None)
         # the shapes a captured decode tick runs (counted once a replay)
         # and each prompt length's prefill (on CUDA every length's, kept at
-        # its capture; on the CPU under store-aware admission, its first
-        # prefill's)
+        # its capture; on the CPU under store-aware admission or a router,
+        # its first prefill's)
         self._decode_shapes: List[Tuple[str, Dict[str, int]]] = []
         self._prefill_shapes: Dict[int, List[Tuple[str, Dict[str, int]]]] = {}
         self.admission = (StoreAwareAdmission()
@@ -592,17 +626,60 @@ class Engine:
         self.shed_requests = 0
         self.deadline_retired = 0
         self.shedding = False
+        # the tick count at the decode graph's latest capture
+        self.last_capture_tick: Optional[int] = None
+        # the fleet-global telemetry: this engine's counters dumped onto
+        # the bus, and every other replica's dumps aggregated for the
+        # controller (its own dump left out: its live counts fold in once)
+        self.exporter: Optional[TelemetryExporter] = None
+        self._fleet_view: Optional[FleetTelemetryView] = None
+        if serve_cfg.retune_fleet and serve_cfg.telemetry_export_s > 0:
+            from repro_torch.tunedb.fleet import FleetDir
+            tel_dir = FleetDir(serve_cfg.retune_fleet).telemetry_dir()
+            self.exporter = TelemetryExporter(
+                get_telemetry(), tel_dir,
+                interval_s=serve_cfg.telemetry_export_s).start()
+            self._fleet_view = FleetTelemetryView(
+                tel_dir, exclude={self.exporter.worker_id},
+                refresh_s=serve_cfg.telemetry_export_s)
         self.controller: Optional[RetuneController] = None
         self._next_retune_tick = 0
-        if serve_cfg.retune:
+        if serve_cfg.retune or serve_cfg.retune_fleet:
             self._init_controller(retune_tuners)
+        # the request router: this engine is its first replica (its live
+        # plan, its active slots as the load)
+        self.router = None
+        if serve_cfg.router:
+            from .router import make_router
+            self.router = make_router(serve_cfg.router)
+            self.router.add_replica(
+                "local", plan=lambda: serving_state().plan,
+                load=lambda: sum(r is not None for r in self.slot_req))
+        # the plan follower: a daemon thread installing each generation
+        # published to the registry, verified and sentry-diffed
+        self.follower = None
+        if serve_cfg.follow:
+            from repro_torch.tunedb.obs import RegressionSentry
+            from repro_torch.tunedb.plans import PlanFollower
+            follow_sentry = None
+            if serve_cfg.follow_sentry is not None:
+                follow_sentry = RegressionSentry(
+                    noise_margin=serve_cfg.follow_sentry)
+            self.follower = PlanFollower(
+                serve_cfg.follow, store=self.tunedb_store,
+                fingerprint=serve_cfg.tunedb_backend,
+                poll_s=serve_cfg.follow_interval_s,
+                sentry=follow_sentry).start()
         # the status endpoint reads the live serving state, this engine's
-        # controller and tracer, and its shedding for /healthz
+        # controller, fleet bus, follower, router and tracer, and its
+        # shedding for /healthz
         self.status_server: Optional[StatusServer] = None
         if serve_cfg.status_port is not None:
             self.status_server = StatusServer(
                 port=serve_cfg.status_port, controller=self.controller,
-                tracer=self.tracer, health=self._health).start()
+                fleet=serve_cfg.retune_fleet, follower=self.follower,
+                router=self.router, tracer=self.tracer,
+                health=self._health).start()
 
     def _probe_dispatch(self) -> None:
         """Resolve the store's first :data:`PROBE_SHAPES` shapes through
@@ -638,11 +715,12 @@ class Engine:
             install_serving(store=store, fingerprint=sc.tunedb_backend)
         self.tunedb_store = store
         self.controller = RetuneController(
-            store, tuners=retune_tuners,
+            store, telemetry=self._fleet_view, tuners=retune_tuners,
             tuner_factory=functools.partial(_default_tuner_factory,
                                             device=self.device),
             models_dir=self._models_dir,
-            async_mode=sc.retune_async, measurer=self.measurer,
+            async_mode=sc.retune_async, fleet_dir=sc.retune_fleet,
+            measurer=self.measurer,
             measure_queue=self.measure_queue,
             cfg=RetuneConfig(
                 drift_threshold=sc.retune_drift,
@@ -654,7 +732,8 @@ class Engine:
                 max_sessions_per_window=sc.retune_max_sessions,
                 session_window_s=sc.retune_window_s,
                 min_gain=sc.retune_min_gain,
-                sentry=sc.retune_sentry))
+                sentry=sc.retune_sentry,
+                publish=sc.retune_publish))
         self._next_retune_tick = sc.retune_interval
 
     def _load_plan(self, plan_dir: str):
@@ -719,11 +798,12 @@ class Engine:
             t[:, slot].zero_()
         single = tree_map(lambda t: t[:, slot:slot + 1], self.cache)
         n = tokens.shape[1]
-        if self.admission is None or n in self._prefill_shapes:
+        if (self.admission is None and self.router is None) \
+                or n in self._prefill_shapes:
             return prefill(self.params, self.cfg, {"tokens": tokens},
                            single)[0]
-        # the length's first prefill under store-aware admission: counted
-        # as it runs, and its shapes kept for pick
+        # the length's first prefill under store-aware admission or a
+        # router: counted as it runs, and its shapes kept for pick / route
         with get_telemetry().capture() as cap:
             logits = prefill(self.params, self.cfg, {"tokens": tokens},
                              single)[0]
@@ -902,6 +982,7 @@ class Engine:
         self._graph, self._static = graph, (s_last, s_idx, logits)
         self._decode_shapes = shapes
         self.captures += 1
+        self.last_capture_tick = self.ticks
 
     # -- main loop --------------------------------------------------------------
     def generate(self, prompts: List[np.ndarray], max_new: int = 32
@@ -960,6 +1041,11 @@ class Engine:
                 self.admitted.append(n)
                 with (tr.root("engine.admit", prompt_len=n)
                       if tr is not None else _NULL_CTX):
+                    if self.router is not None:
+                        # one process, one replica: the decision is made and
+                        # counted all the same; a front-end holding this
+                        # router over several engines places by it
+                        self.router.route(self._prefill_shapes.get(n, []))
                     with (tr.span("engine.prefill", prompt_len=n)
                           if tr is not None else _NULL_CTX):
                         self._prefill_one(slot, req)

@@ -19,6 +19,22 @@ export the frozen dispatch plans serving starts from.
            ``--telemetry`` dump's hot set) into a plan artifact under
            ``<store>.plan/<generation>/`` (``ServeConfig.plan_dir``)
   plan inspect  verify an artifact (schema, digest) and print its manifest
+  plan publish  compile the store and publish it as a registry's next
+           generation (``<registry>/generations/<n>/`` and ``CURRENT.json``)
+  plan follow   poll a registry and install each new generation (digest
+           verified, sentry-diffed)
+  fleet start   create a fleet directory (the bus) and publish jobs (mined
+           from ``--telemetry`` or explicit ``--shape``s); ``--workers N``
+           starts N local worker processes and waits for them
+  fleet worker  claim jobs (the hottest first), tune them on ``--device``
+           (cuda by default) and append to the worker's own shard
+  fleet status  queue, lease, done and failed counts and shard sizes
+           (``--json``: the ``/status`` document with its fleet section)
+  fleet drain   tell the workers to exit once the queue is empty;
+           ``--wait`` merges the shards, ``--train`` retrains,
+           ``--publish`` publishes the merged store's plan
+  fleet route   dry-run one routing decision of a ``--shape`` request
+           against the per-replica registries of ``publish_replica_plans``
   retune   one retune-controller pass over a telemetry dump: diff it against
            the saved epoch baseline (``<telemetry>.epoch``); when drift or
            untuned mass crosses its threshold, tune the novel hot shapes,
@@ -30,13 +46,16 @@ export the frozen dispatch plans serving starts from.
            planned shape
   stats    the store's statistics (and a ``--telemetry`` dump's) as JSON;
            ``--json`` prints the ``/status`` document instead
-           (``obs.status_snapshot``, the status endpoint's serializer)
+           (``obs.status_snapshot``, the status endpoint's serializer;
+           ``--fleet`` adds a fleet bus's section)
   trace export   merge span files (JSONL dumps or Chrome trace JSON; torn
-           files are skipped) into one Chrome trace (Perfetto)
+           files are skipped; ``--fleet``: the workers' dumps) into one
+           Chrome trace (Perfetto)
   trace summary  per-span-name counts and latencies and the dispatch
            tiers' resolution latency over span files
   serve-status   the HTTP status endpoint (``/metrics``, ``/status``,
-           ``/plan``, ``/trace``, ``/healthz``) over a store file
+           ``/plan``, ``/trace``, ``/healthz``) over a store file (and a
+           ``--fleet`` bus)
   export   write a compacted store: the latest record per shape
   merge    fold stores into one (``--out``)
 
@@ -71,6 +90,21 @@ export the frozen dispatch plans serving starts from.
   $ python -m repro_torch.tunedb serve-status --store tunedb.jsonl \
         --port 9177
   $ python -m repro_torch.tunedb merge a.jsonl b.jsonl --out all.jsonl
+  $ python -m repro_torch.tunedb fleet start --fleet /tmp/fleet \
+        --store tunedb.jsonl --telemetry shapes.json --drain
+  $ python -m repro_torch.tunedb fleet worker --fleet /tmp/fleet \
+        --load-tuner tuners/                     # one per process, the card
+  $ python -m repro_torch.tunedb fleet drain --fleet /tmp/fleet --wait \
+        --train --publish registry/
+  $ python -m repro_torch.tunedb fleet start --fleet /tmp/fleet \
+        --store /tmp/db.jsonl --space gemm --shape M=4,N=576,K=576 \
+        --workers 2 --device cpu --worker-train-samples 64 --worker-epochs 2
+  $ python -m repro_torch.tunedb plan publish --store tunedb.jsonl \
+        --registry registry/
+  $ python -m repro_torch.tunedb plan follow --registry registry/ \
+        --max-polls 10 --interval 1
+  $ python -m repro_torch.tunedb fleet route --registry-root replicas/ \
+        --space gemm --shape M=32,N=576,K=576
 
 ``--space`` is one of gemm, conv, attention, ssd; a ``--shape`` may omit
 ``dtype_bits`` (16), ``trans_a``/``trans_b`` (0) and ``causal`` (1).
@@ -90,12 +124,11 @@ The records carry ``backend_fingerprint`` of the timing backend, which
 names the package, the backend class and the device (not ``--seed``, which
 seeds the training draws and the regressor); serving pins its lookups to
 the same string (``repro_torch.launch.serve`` does by default).
-``retune`` and ``watch`` train a tuner per space they retune
-(``--train-samples``, labelled on ``--device``) unless ``--load-tuner``
-gives one.  The reference's other subcommands (fleet, plan publish /
-follow, fsck) and the ``--fleet`` inputs of ``trace`` and
-``serve-status`` wait for the fleet and chaos slices (ROADMAP A6.3,
-A6.4).
+``retune``, ``watch`` and ``fleet worker`` train a tuner per space they
+tune (``--train-samples``, labelled on ``--device``) unless
+``--load-tuner`` gives one (a directory of ``InputAwareTuner.save``
+files, one set a space).  The reference's ``fsck`` waits for the chaos
+slice (ROADMAP A6.4).
 """
 
 from __future__ import annotations
@@ -355,7 +388,8 @@ def _build_retune_controller(args: argparse.Namespace, telemetry, baseline,
         cfg=RetuneConfig(
             drift_threshold=args.drift, untuned_mass_threshold=args.untuned,
             min_calls=args.min_calls, top_k_shapes=args.top_k,
-            workers=args.workers, retrain=not args.no_train, seed=args.seed),
+            workers=args.workers, retrain=not args.no_train, seed=args.seed,
+            publish=args.publish),
         baseline=baseline, verbose=True)
 
 
@@ -492,7 +526,8 @@ def _cmd_stats(args: argparse.Namespace) -> int:
     if args.json:
         # the /status schema: one serializer for the CLI and the endpoint
         from .obs import status_snapshot
-        out = status_snapshot(store=store, telemetry=telemetry)
+        out = status_snapshot(store=store, telemetry=telemetry,
+                              fleet=args.fleet)
     else:
         out = {"store": store.stats()}
         if telemetry is not None:
@@ -502,10 +537,13 @@ def _cmd_stats(args: argparse.Namespace) -> int:
 
 
 def _trace_spans(args: argparse.Namespace) -> list:
-    """The spans of every ``--input`` file; a torn file is skipped."""
-    from .obs.trace import load_span_file
+    """The spans of a ``--fleet``'s worker dumps and of every ``--input``
+    file; a torn file is skipped."""
+    from .obs.trace import collect_fleet_spans, load_span_file
 
     spans = []
+    if args.fleet:
+        spans.extend(collect_fleet_spans(args.fleet))
     for path in args.inputs or []:
         spans.extend(load_span_file(path))
     return spans
@@ -557,7 +595,7 @@ def _cmd_serve_status(args: argparse.Namespace) -> int:
     if args.telemetry and os.path.exists(args.telemetry):
         telemetry = ShapeTelemetry.load(args.telemetry)
     server = StatusServer(host=args.host, port=args.port, store=store,
-                          telemetry=telemetry).start()
+                          telemetry=telemetry, fleet=args.fleet).start()
     print(f"[tunedb] status endpoint on {server.url} "
           "(/metrics /status /plan /trace /healthz); Ctrl-C stops it",
           flush=True)
@@ -589,6 +627,385 @@ def _cmd_merge(args: argparse.Namespace) -> int:
     print(f"[tunedb] merged {total} records from {len(args.stores)} "
           f"stores -> {args.out} ({len(merged)} shapes)")
     return 0
+
+
+# ---------------------------------------------------------------------------
+# fleet: distributed tuning over a shared directory
+# ---------------------------------------------------------------------------
+
+def _fleet_finalize(coord, args: argparse.Namespace, t0: float) -> int:
+    """Wait out the outstanding jobs, merge, retrain (``--train``),
+    publish (``--publish``) and report.  The report's done and failed
+    counts are the directory's; the exit code judges this invocation:
+    a failure that appeared while it waited, or a timeout."""
+    from .model import default_models_dir
+
+    failed_before = coord.fleet.counts()["failed"]
+    ok = coord.wait(timeout_s=args.timeout if args.timeout > 0 else None,
+                    poll_s=0.2, verbose=True)
+    coord.poll()                         # the final merge
+    retrained: List[str] = []
+    if args.train and coord.affected:
+        models_dir = args.models_dir or default_models_dir(coord.store.path)
+        retrained = coord.retrain(models_dir=models_dir,
+                                  min_samples=args.min_samples,
+                                  epochs=args.epochs, seed=args.seed)
+        print(f"[fleet] retrained {retrained or 'nothing'} -> {models_dir}")
+    if args.publish:
+        from .plans import PlanArtifactError
+        try:
+            man = coord.publish_plan(
+                args.publish,
+                models_dir=(args.models_dir
+                            or default_models_dir(coord.store.path)))
+            print(f"[fleet] published plan generation {man.generation} "
+                  f"({man.n_entries} entries) -> {args.publish}")
+        except (PlanArtifactError, ValueError) as e:
+            print(f"[fleet] plan publish refused: {e}", file=sys.stderr)
+    rep = coord.report(retrained=retrained, wall_s=time.time() - t0)
+    print(json.dumps(rep.to_dict(), indent=1, sort_keys=True))
+    if not ok:
+        print(f"[fleet] timed out with {coord.outstanding()} job(s) "
+              "outstanding", file=sys.stderr)
+    if args.compact:
+        if ok and coord.outstanding() == 0:
+            archived = coord.compact_shards()
+            print(f"[fleet] compacted {len(archived)} merged shard(s) "
+                  f"-> {coord.fleet.shard_dir() / 'archive'}")
+        else:
+            print("[fleet] skipping --compact: jobs still outstanding",
+                  file=sys.stderr)
+    return 0 if ok and rep.failed <= failed_before else 1
+
+
+def _add_fleet_finalize_args(sp) -> None:
+    sp.add_argument("--timeout", type=float, default=0.0,
+                    help="give up waiting after this many seconds "
+                         "(0 = wait forever)")
+    sp.add_argument("--train", action="store_true",
+                    help="retrain the affected regressors after the merge")
+    sp.add_argument("--models-dir", default=None,
+                    help="retrained artifacts dir (default: <store>.models/)")
+    sp.add_argument("--min-samples", type=int, default=24)
+    sp.add_argument("--epochs", type=int, default=20)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--compact", action="store_true",
+                    help="once every job landed and merged, archive the "
+                         "merged shards out of <store>.shards/")
+    sp.add_argument("--publish", default=None,
+                    help="after the merge (and the --train retrain), "
+                         "publish the merged store's plan to this registry "
+                         "for serving replicas to follow")
+
+
+def _spawn_workers(args: argparse.Namespace) -> List:
+    """Start ``--workers`` local ``fleet worker`` processes on the bus,
+    each with its own default id, this checkout first on their
+    ``PYTHONPATH``."""
+    import subprocess
+
+    import repro_torch
+
+    env = dict(os.environ)
+    src_root = str(pathlib.Path(repro_torch.__file__).resolve().parents[1])
+    env["PYTHONPATH"] = src_root + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "repro_torch.tunedb", "fleet", "worker",
+           "--fleet", str(args.fleet),
+           "--train-samples", str(args.worker_train_samples),
+           "--epochs", str(args.worker_epochs)]
+    if args.load_tuner:
+        cmd += ["--load-tuner", args.load_tuner]
+    if args.device:
+        cmd += ["--device", args.device]
+    procs = [subprocess.Popen(cmd, env=env) for _ in range(args.workers)]
+    print(f"[fleet] spawned {len(procs)} local worker process(es): "
+          f"{' '.join(str(p.pid) for p in procs)}", flush=True)
+    return procs
+
+
+def _reap_workers(procs: List) -> None:
+    import subprocess
+
+    for proc in procs:
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            print(f"[fleet] worker pid {proc.pid} did not exit; terminating",
+                  file=sys.stderr)
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+
+
+def _cmd_fleet_start(args: argparse.Namespace) -> int:
+    from repro_torch.core.space import SPACES
+
+    from .fleet import Coordinator, FleetJob
+    from .store import RecordStore
+    from .telemetry import ShapeTelemetry
+
+    t0 = time.time()
+    store = RecordStore.open(args.store)
+    coord = Coordinator(args.fleet, store,
+                        lease_timeout_s=args.lease_timeout,
+                        max_attempts=args.max_attempts)
+    jobs: List = []
+    if args.telemetry:
+        if not os.path.exists(args.telemetry):
+            raise SystemExit(f"telemetry file not found: {args.telemetry}")
+        telemetry = ShapeTelemetry.load(args.telemetry)
+        jobs += coord.plan_from_telemetry(
+            telemetry, spaces=[args.space] if args.space else None,
+            top_k=args.top_k, backend=args.backend,
+            skip_existing=not args.retune)
+    if args.shape and not args.space:
+        raise SystemExit("--shape needs --space")
+    for spec in args.shape:
+        jobs.append(FleetJob(space=args.space,
+                             inputs=parse_shape(spec, SPACES[args.space])))
+    if not jobs and not args.wait:
+        print("[fleet] nothing to publish (no --telemetry/--shape jobs, or "
+              "the store already serves them)", file=sys.stderr)
+    # --retune also queues again jobs an earlier run of this directory
+    # finished: a terminal marker must not pin a shape forever
+    n = coord.publish(jobs, force=args.retune)
+    print(f"[fleet] published {n} job(s) ({len(jobs) - n} already known) "
+          f"-> {args.fleet}", flush=True)
+    if args.workers > 0:
+        args.drain = True               # spawned workers exit when it empties
+    if args.drain:
+        coord.fleet.request_drain()
+    else:
+        coord.fleet.clear_drain()
+    procs = _spawn_workers(args) if args.workers > 0 else []
+    if args.wait or procs:
+        # --workers implies --wait: merge, report and reap the children
+        # even when finalizing fails
+        try:
+            return _fleet_finalize(coord, args, t0)
+        finally:
+            _reap_workers(procs)
+    return 0
+
+
+def _launch_counts() -> Dict[str, int]:
+    """This process's kernel launches (each wrapper's counter)."""
+    from repro_torch.kernels import attention, conv, matmul, ssd
+
+    return {"gemm": matmul.launches, "gemm_reduce": matmul.reduce_launches,
+            "conv": conv.launches, "attention": attention.launches,
+            "ssd": ssd.launches}
+
+
+def _cmd_fleet_worker(args: argparse.Namespace) -> int:
+    from repro_torch.core.backend import CheckedBackend, CudaEventBackend
+    from repro_torch.core.space import SPACES
+    from repro_torch.core.tuner import InputAwareTuner
+
+    from .fleet import Worker
+
+    def tuner_factory(space_name: str):
+        backend = CheckedBackend(CudaEventBackend(device=args.device))
+        if args.load_tuner:
+            return InputAwareTuner.load(args.load_tuner, SPACES[space_name],
+                                        backend=backend)
+        print(f"[fleet] training {space_name} tuner on "
+              f"{backend.fingerprint} ({args.train_samples} samples, "
+              f"{args.epochs} epochs)...", flush=True)
+        return InputAwareTuner.train(
+            SPACES[space_name], n_samples=args.train_samples,
+            epochs=args.epochs, backend=backend, seed=args.seed)
+
+    if args.trace_sample > 0:
+        from .obs.trace import enable_tracing
+        enable_tracing(args.trace_sample)
+    worker = Worker(args.fleet, worker_id=args.worker_id,
+                    tuner_factory=tuner_factory,
+                    remeasure=not args.no_remeasure, verbose=True,
+                    telemetry_export_s=args.telemetry_export,
+                    trace_export=args.trace_sample > 0)
+    print(f"[fleet] worker {worker.worker_id} claiming from {args.fleet}",
+          flush=True)
+    report = worker.run(
+        max_jobs=args.max_jobs if args.max_jobs > 0 else None,
+        idle_timeout_s=(args.idle_timeout if args.idle_timeout > 0
+                        else None))
+    print(f"[fleet] worker {report.worker_id}: {report.claimed} claimed, "
+          f"{report.tuned} tuned, {report.failed} failed, {report.lost} "
+          f"lost in {report.wall_s:.1f}s; kernel launches "
+          f"{json.dumps(_launch_counts(), sort_keys=True)}", flush=True)
+    for err in report.errors:
+        print(f"[fleet]   failed: {err}", file=sys.stderr)
+    return 1 if report.failed and not report.tuned else 0
+
+
+def _cmd_fleet_status(args: argparse.Namespace) -> int:
+    from .fleet import FleetDir
+
+    if args.json or args.watch:
+        # the /status schema off the bus: the endpoint's serializer
+        from .obs import status_snapshot
+        polls = 0
+        while True:
+            snap = status_snapshot(fleet=args.fleet)
+            if args.watch:
+                _print_fleet_line(snap)
+            else:
+                print(json.dumps(snap, indent=1, sort_keys=True,
+                                 default=str))
+            polls += 1
+            if not args.watch or (args.max_polls and polls >= args.max_polls):
+                return 0
+            try:
+                time.sleep(args.interval)
+            except KeyboardInterrupt:
+                return 0
+    fleet = FleetDir(args.fleet)
+    out = fleet.status()
+    report = fleet.root / "report.json"
+    if report.exists():
+        out["report"] = json.loads(report.read_text())
+    print(json.dumps(out, indent=1, sort_keys=True))
+    return 0
+
+
+def _print_fleet_line(snap: Dict) -> None:
+    """One ``--watch`` line from the status document."""
+    fleet = snap.get("fleet") or {}
+    counts = fleet.get("counts") or {}
+    report = fleet.get("report") or {}
+    shards = fleet.get("shard_records") or {}
+    print(f"[fleet] queue={counts.get('queue', 0)} "
+          f"leases={counts.get('leases', 0)} done={counts.get('done', 0)} "
+          f"failed={counts.get('failed', 0)} "
+          f"shard_records={sum(shards.values())} "
+          f"merged={report.get('merged_records', 0)} "
+          f"sentry_blocked={report.get('sentry_blocked', 0)} "
+          f"draining={bool(fleet.get('draining'))}", flush=True)
+
+
+def _cmd_fleet_drain(args: argparse.Namespace) -> int:
+    from .fleet import Coordinator, FleetDir
+
+    t0 = time.time()
+    FleetDir(args.fleet).request_drain()
+    print(f"[fleet] drain requested: workers exit once {args.fleet} "
+          "has an empty queue")
+    if args.wait:
+        return _fleet_finalize(Coordinator(args.fleet), args, t0)
+    if args.compact:
+        coord = Coordinator(args.fleet)
+        coord.poll()                     # sweep and merge what landed
+        if coord.outstanding() == 0:
+            archived = coord.compact_shards()
+            print(f"[fleet] compacted {len(archived)} merged shard(s) "
+                  f"-> {coord.fleet.shard_dir() / 'archive'}")
+        else:
+            print(f"[fleet] skipping --compact: {coord.outstanding()} "
+                  "job(s) still outstanding (use --wait)", file=sys.stderr)
+    return 0
+
+
+def _cmd_fleet_route(args: argparse.Namespace) -> int:
+    """One routing decision, dry-run, against the per-replica registries
+    ``Coordinator.publish_replica_plans`` writes: the ``--shape`` request
+    scored against each replica's current plan by ``plan_coverage``."""
+    from repro_torch.core.space import SPACES
+    from repro_torch.serve.router import make_router, plan_coverage
+
+    from .plans import PlanArtifactError, PlanRegistry
+
+    if args.shape and not args.space:
+        raise SystemExit("--shape needs --space")
+    shapes = [(args.space, parse_shape(spec, SPACES[args.space]))
+              for spec in args.shape]
+    root = pathlib.Path(args.registry_root)
+    replica_dirs = sorted(d for d in root.glob(args.glob) if d.is_dir())
+    if not replica_dirs:
+        raise SystemExit(f"[fleet] no replica registries matching "
+                         f"{args.glob!r} under {root}")
+    router = make_router(args.policy)
+    plans: Dict[str, object] = {}
+    for d in replica_dirs:
+        reg = PlanRegistry(d)
+        pointer = reg.current()
+        plan = None
+        if pointer is not None:
+            try:
+                plan = reg.pull(pointer)
+            except PlanArtifactError as e:
+                print(f"[fleet] {d.name}: plan rejected ({e})",
+                      file=sys.stderr)
+        plans[d.name] = plan
+        router.add_replica(d.name, plan=plan)
+    picked = router.route(shapes)
+    out = {
+        "policy": args.policy,
+        "replica": picked.name,
+        "outcome": next(iter(router.stats()["outcomes"])),
+        "shapes": [{"space": s, "inputs": i} for s, i in shapes],
+        "coverage": {name: plan_coverage(p, shapes)
+                     for name, p in plans.items()},
+        "plan_entries": {name: (len(p) if p is not None else 0)
+                         for name, p in plans.items()},
+    }
+    print(json.dumps(out, indent=1, sort_keys=True))
+    return 0
+
+
+def _cmd_plan_publish(args: argparse.Namespace) -> int:
+    from .plans import PlanArtifactError, PlanRegistry
+
+    store, plan = _compile_plan_from_args(args)
+    try:
+        manifest = PlanRegistry(args.registry).publish(plan, store=store)
+    except PlanArtifactError as e:
+        print(f"[tunedb] plan publish refused: {e}", file=sys.stderr)
+        return 1
+    print(f"[tunedb] published generation {manifest.generation} "
+          f"({manifest.n_entries} entries, {manifest.digest}) "
+          f"-> {args.registry}")
+    return 0
+
+
+def _cmd_plan_follow(args: argparse.Namespace) -> int:
+    from .obs import RegressionSentry
+    from .plans import PlanFollower
+    from .store import RecordStore
+
+    store = None
+    if args.store and os.path.exists(args.store):
+        store = RecordStore.open(args.store)
+    sentry = None if args.no_sentry else RegressionSentry(
+        noise_margin=args.margin)
+    follower = PlanFollower(args.registry, store=store,
+                            fingerprint=args.backend,
+                            poll_s=args.interval, sentry=sentry)
+    print(f"[tunedb] following {args.registry} every {args.interval:g}s; "
+          "Ctrl-C stops", flush=True)
+    polls = 0
+    try:
+        while True:
+            installed = follower.poll_once()
+            polls += 1
+            if installed is not None:
+                print(f"[tunedb] installed generation "
+                      f"{installed['generation']} "
+                      f"({installed.get('n_entries', '?')} entries, "
+                      f"lag {follower.lag_s:.2f}s)", flush=True)
+            if args.max_polls and polls >= args.max_polls:
+                break
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        follower.stop()
+    stats = follower.stats()
+    print(json.dumps(stats, indent=1, sort_keys=True))
+    return 0 if stats["installs"] or not args.max_polls else 1
 
 
 def _hidden(spec: str):
@@ -673,20 +1090,25 @@ def build_parser() -> argparse.ArgumentParser:
 
     pl = sub.add_parser("plan", help="frozen dispatch-plan artifacts")
     psub = pl.add_subparsers(dest="plan_cmd", required=True)
+
+    def add_plan_compile_args(sp):
+        sp.add_argument("--store", required=True, help="JSONL record store")
+        sp.add_argument("--models-dir", default=None,
+                        help="model artifacts consulted for the hot set "
+                             "(default: <store>.models/)")
+        sp.add_argument("--no-models", action="store_true",
+                        help="compile from records and nearest only")
+        sp.add_argument("--telemetry", default=None,
+                        help="telemetry dump whose hot set is pre-resolved")
+        sp.add_argument("--backend", default=None,
+                        help="fingerprint the plan is keyed to "
+                             "(default: any)")
+        sp.add_argument("--hot-k", type=int, default=32,
+                        help="hot shapes per space to pre-resolve")
+
     pe = psub.add_parser(
         "export", help="compile a store into a versioned plan artifact")
-    pe.add_argument("--store", required=True, help="JSONL record store")
-    pe.add_argument("--models-dir", default=None,
-                    help="model artifacts consulted for the hot set "
-                         "(default: <store>.models/)")
-    pe.add_argument("--no-models", action="store_true",
-                    help="compile from records and nearest only")
-    pe.add_argument("--telemetry", default=None,
-                    help="telemetry dump whose hot set is pre-resolved")
-    pe.add_argument("--backend", default=None,
-                    help="fingerprint the plan is keyed to (default: any)")
-    pe.add_argument("--hot-k", type=int, default=32,
-                    help="hot shapes per space to pre-resolve")
+    add_plan_compile_args(pe)
     pe.add_argument("--out", default=None,
                     help="artifact root (default: <store>.plan/)")
     pe.add_argument("--generation", type=int, default=None,
@@ -696,6 +1118,138 @@ def build_parser() -> argparse.ArgumentParser:
         "inspect", help="verify (schema, digest) and print a plan artifact")
     pi.add_argument("plan_dir", help="one generation's artifact directory")
     pi.set_defaults(fn=_cmd_plan_inspect)
+    pp = psub.add_parser(
+        "publish", help="compile and publish the next generation to a "
+                        "registry")
+    add_plan_compile_args(pp)
+    pp.add_argument("--registry", required=True,
+                    help="plan registry directory followers poll")
+    pp.set_defaults(fn=_cmd_plan_publish)
+    pf = psub.add_parser(
+        "follow", help="poll a registry, install each new generation")
+    pf.add_argument("--registry", required=True)
+    pf.add_argument("--store", default=None,
+                    help="record store to serve beside the plan")
+    pf.add_argument("--backend", default=None,
+                    help="fingerprint pin for the serving state")
+    pf.add_argument("--interval", type=float, default=2.0,
+                    help="seconds between registry polls")
+    pf.add_argument("--max-polls", type=int, default=0,
+                    help="stop after N polls (0 = until Ctrl-C)")
+    pf.add_argument("--margin", type=float, default=0.10,
+                    help="sentry noise margin for the coverage diff")
+    pf.add_argument("--no-sentry", action="store_true",
+                    help="skip the sentry's plan diff before an install")
+    pf.set_defaults(fn=_cmd_plan_follow)
+
+    fl = sub.add_parser("fleet", help="distributed tuning over a shared dir")
+    fsub = fl.add_subparsers(dest="fleet_cmd", required=True)
+    fs = fsub.add_parser("start", help="init a fleet dir and publish a plan")
+    fs.add_argument("--fleet", required=True, help="fleet directory (the bus)")
+    fs.add_argument("--store", required=True,
+                    help="parent record store (shards land beside it)")
+    fs.add_argument("--telemetry", default=None,
+                    help="mine hot shapes from this telemetry dump")
+    fs.add_argument("--space", default=None,
+                    choices=["gemm", "conv", "attention", "ssd"],
+                    help="restrict mining to one space (needed by --shape)")
+    fs.add_argument("--shape", action="append", default=[],
+                    help="explicit job, e.g. M=4,N=576,K=576 (repeatable)")
+    fs.add_argument("--top-k", type=int, default=8,
+                    help="hot shapes per space to publish")
+    fs.add_argument("--backend", default=None,
+                    help="skip shapes already tuned under this fingerprint "
+                         "(default: any backend)")
+    fs.add_argument("--retune", action="store_true",
+                    help="publish shapes the store already serves too")
+    fs.add_argument("--lease-timeout", type=float, default=30.0,
+                    help="seconds without a heartbeat before a lease goes "
+                         "back to the queue")
+    fs.add_argument("--max-attempts", type=int, default=3)
+    fs.add_argument("--drain", action="store_true",
+                    help="mark the plan final: workers exit when it empties")
+    fs.add_argument("--wait", action="store_true",
+                    help="poll until every job lands, merging shards as "
+                         "they fill; then report")
+    fs.add_argument("--workers", type=int, default=0,
+                    help="start N local fleet-worker processes (implies "
+                         "--wait and --drain)")
+    fs.add_argument("--load-tuner", default=None,
+                    help="trained tuner dir passed to the started workers")
+    fs.add_argument("--device", default=None,
+                    help="where the started workers label: cuda (default) "
+                         "or cpu")
+    fs.add_argument("--worker-train-samples", type=int, default=4000,
+                    help="tuner training size of the started workers")
+    fs.add_argument("--worker-epochs", type=int, default=12)
+    _add_fleet_finalize_args(fs)
+    fs.set_defaults(fn=_cmd_fleet_start)
+
+    fw = fsub.add_parser("worker", help="run one fleet worker process")
+    fw.add_argument("--fleet", required=True)
+    fw.add_argument("--worker-id", default=None,
+                    help="stable shard id (default: host-pid-random)")
+    fw.add_argument("--device", default=None,
+                    help="where the tuners label: cuda (default) or cpu")
+    fw.add_argument("--max-jobs", type=int, default=0,
+                    help="exit after this many claims (0 = until drained)")
+    fw.add_argument("--idle-timeout", type=float, default=0.0,
+                    help="exit after this long with an empty queue "
+                         "(0 = wait for DRAIN)")
+    fw.add_argument("--no-remeasure", action="store_true")
+    fw.add_argument("--load-tuner", default=None,
+                    help="load a trained tuner dir (a space's files each) "
+                         "instead of training")
+    fw.add_argument("--train-samples", type=int, default=4000)
+    fw.add_argument("--epochs", type=int, default=12)
+    fw.add_argument("--seed", type=int, default=0)
+    fw.add_argument("--telemetry-export", type=float, default=0.0,
+                    help="dump this worker's shape telemetry onto the bus "
+                         "every N seconds (0 = off)")
+    fw.add_argument("--trace-sample", type=float, default=0.0,
+                    help="enable tracing at this root sample rate (jobs "
+                         "carrying a coordinator trace id are always "
+                         "kept); spans dump to <fleet>/traces/<worker>.jsonl "
+                         "at exit")
+    fw.set_defaults(fn=_cmd_fleet_worker)
+
+    fst = fsub.add_parser("status", help="print fleet state as JSON")
+    fst.add_argument("--fleet", required=True)
+    fst.add_argument("--json", action="store_true",
+                     help="print the /status document (the status "
+                          "endpoint's serializer)")
+    fst.add_argument("--watch", action="store_true",
+                     help="print one progress line every --interval "
+                          "seconds (Ctrl-C stops)")
+    fst.add_argument("--interval", type=float, default=2.0)
+    fst.add_argument("--max-polls", type=int, default=0,
+                     help="stop --watch after N polls (0 = until Ctrl-C)")
+    fst.set_defaults(fn=_cmd_fleet_status)
+
+    fd = fsub.add_parser("drain", help="stop the fleet once the queue empties")
+    fd.add_argument("--fleet", required=True)
+    fd.add_argument("--wait", action="store_true",
+                    help="wait for outstanding jobs, merge, and report")
+    _add_fleet_finalize_args(fd)
+    fd.set_defaults(fn=_cmd_fleet_drain)
+
+    fr = fsub.add_parser(
+        "route", help="dry-run request routing against per-replica plan "
+                      "registries")
+    fr.add_argument("--registry-root", required=True,
+                    help="the directory holding the per-replica registries "
+                         "(Coordinator.publish_replica_plans writes them)")
+    fr.add_argument("--glob", default="replica-*",
+                    help="registry subdirectory pattern under the root")
+    fr.add_argument("--space", default=None,
+                    choices=["gemm", "conv", "attention", "ssd"],
+                    help="the space of the --shape flags")
+    fr.add_argument("--shape", action="append", default=[],
+                    help="request shape, e.g. M=32,N=576,K=576 "
+                         "(repeatable: a request may carry several)")
+    fr.add_argument("--policy", default="affinity",
+                    choices=["affinity", "round_robin", "random"])
+    fr.set_defaults(fn=_cmd_fleet_route)
 
     def add_retune_args(rp):
         rp.add_argument("--store", required=True, help="JSONL record store")
@@ -728,6 +1282,9 @@ def build_parser() -> argparse.ArgumentParser:
         rp.add_argument("--train-samples", type=int, default=4000)
         rp.add_argument("--epochs", type=int, default=12)
         rp.add_argument("--seed", type=int, default=0)
+        rp.add_argument("--publish", default=None,
+                        help="after a successful swap, publish the new "
+                             "generation's plan to this registry dir")
 
     rt = sub.add_parser(
         "retune", help="one drift-triggered retune pass over a telemetry dump")
@@ -761,12 +1318,17 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--json", action="store_true",
                     help="print the /status document (the serializer the "
                          "status endpoint uses)")
+    st.add_argument("--fleet", default=None,
+                    help="with --json: include this fleet bus's section")
     st.set_defaults(fn=_cmd_stats)
 
     tc = sub.add_parser("trace", help="request-trace span files")
     tsub = tc.add_subparsers(dest="trace_cmd", required=True)
     te = tsub.add_parser(
         "export", help="merge span files into one Chrome trace JSON")
+    te.add_argument("--fleet", default=None,
+                    help="merge every worker span dump under "
+                         "<fleet>/traces/")
     te.add_argument("--input", dest="inputs", action="append", default=None,
                     metavar="FILE",
                     help="span JSONL dump or Chrome trace JSON "
@@ -777,6 +1339,9 @@ def build_parser() -> argparse.ArgumentParser:
     tu = tsub.add_parser(
         "summary", help="per-span-name latency and dispatch-tier "
                         "attribution")
+    tu.add_argument("--fleet", default=None,
+                    help="merge every worker span dump under "
+                         "<fleet>/traces/")
     tu.add_argument("--input", dest="inputs", action="append", default=None,
                     metavar="FILE",
                     help="span JSONL dump or Chrome trace JSON "
@@ -791,6 +1356,8 @@ def build_parser() -> argparse.ArgumentParser:
     ss.add_argument("--store", required=True, help="JSONL record store")
     ss.add_argument("--telemetry", default=None,
                     help="a telemetry dump (ShapeTelemetry.save)")
+    ss.add_argument("--fleet", default=None,
+                    help="include this fleet bus in /status")
     ss.add_argument("--backend", default=None,
                     help="pin the installed serving view to one fingerprint")
     ss.add_argument("--host", default="127.0.0.1")

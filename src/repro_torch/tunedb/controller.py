@@ -38,16 +38,25 @@ a watchdog that sets its cancel event.  Admission is budgeted:
 ``min_gain`` skips epochs whose projected gain (the model's best predicted
 TFLOPS over what the nearest record serves) is too small.
 
+With ``fleet_dir`` the epoch runs through the fleet instead (always on a
+background thread): its shapes are published as lease-file jobs (each
+carrying its telemetry count and the epoch's trace id), worker processes
+(``python -m repro_torch.tunedb fleet worker``) tune them on the card, a
+:class:`~repro_torch.tunedb.fleet.Coordinator` requeues crashed workers'
+jobs and merges their shards into the store, and only then does the epoch
+retrain and swap.  The store must have a file behind it (the workers'
+shards live beside it): an in-memory store is refused with a warning, and
+the epoch runs as an in-process async session.  ``RetuneConfig.publish``
+names a plan registry each swapped generation's plan is published to, for
+follower replicas (``tunedb.plans.PlanFollower``).
+
 With tracing on, an async epoch's submit-to-swap window is one detached
 ``retune.epoch`` span, begun on the submitting thread (in its open trace,
 else in an always-kept trace of its own) and ended by the epoch's thread
-at the swap, as in the reference; an inline epoch runs inside the
-polling tick's ``engine.tick`` root and opens no span of its own.
-
-Not ported yet (ROADMAP A6.3): the fleet mode (``fleet_dir``: jobs
-published to external workers) and plan publishing
-(``RetuneConfig.publish``), which raise a ``ValueError`` here, and the
-reference's ``fleet.merge`` span.
+at the swap, as in the reference; a fleet epoch's final merge is a
+``fleet.merge`` span under it, and the workers' ``fleet.job`` roots carry
+its trace id.  An inline epoch runs inside the polling tick's
+``engine.tick`` root and opens no span of its own.
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple
 
 from .obs import trace as _trace
 from .obs.metrics import get_registry
-from .session import TuningSession, backend_fingerprint
+from .session import SessionReport, TuningSession, backend_fingerprint
 from .store import RecordStore, input_key, install_serving, serving_state
 from .telemetry import ShapeTelemetry, SpaceDrift, get_telemetry
 
@@ -75,10 +84,6 @@ def _tracer():
     attribute read per epoch, so the retune path makes no instrument call
     then."""
     return _trace._TRACER
-
-
-_NOT_PORTED = ("is not ported yet: it waits for the fleet slice "
-               "(ROADMAP A6)")
 
 
 def _default_tuner_factory(space_name: str, device=None):
@@ -128,7 +133,10 @@ class RetuneConfig:
     # the regression sentry's noise margin gating the epoch's swap (None:
     # no gate); a refused swap counts in stats()["sentry_blocked"]
     sentry: Optional[float] = None
-    # a plan registry to publish each swapped generation to: not ported yet
+    # a plan registry (tunedb.plans.PlanRegistry) each swapped generation's
+    # plan is published to for follower replicas; None keeps retunes
+    # process-local.  A failed publish warns and counts in
+    # stats()["publish_failed"]; the local swap stays
     publish: Optional[str] = None
 
 
@@ -158,9 +166,10 @@ class RetuneReport:
     sessions: Dict[str, object]          # space -> SessionReport
     retrained: List[str]                 # "space/backend" regressors replaced
     wall_s: float = 0.0
-    mode: str = "inline"                 # inline | async
+    mode: str = "inline"                 # inline | async | fleet
     retrain_s: float = 0.0               # the wall of the retrain ...
-    install_s: float = 0.0               # ... and of the swap
+    install_s: float = 0.0               # ... of the swap
+    publish_s: float = 0.0               # ... and of the plan's publish
 
     @property
     def tuned(self) -> int:
@@ -179,7 +188,10 @@ class RetuneController:
     trained once by ``tuner_factory`` (:func:`_default_tuner_factory`).
     ``store`` is where sessions commit: normally the installed serving
     store.  ``models_dir``, when set, receives every retrained model set.
-    ``async_mode`` runs triggered epochs on a daemon thread.
+    ``async_mode`` runs triggered epochs on a daemon thread; ``fleet_dir``
+    (which implies it) runs them through a fleet directory's workers,
+    whose leases expire after ``fleet_lease_timeout_s``, the epoch waiting
+    at most ``fleet_timeout_s`` for them, polling every ``fleet_poll_s``.
     ``measurer`` / ``measure_queue`` are the engine's deferred §6
     re-measurement, drained by :meth:`process_measurements`.
     """
@@ -193,21 +205,24 @@ class RetuneController:
                  baseline=None,
                  async_mode: bool = False,
                  fleet_dir=None,
+                 fleet_lease_timeout_s: float = 30.0,
+                 fleet_timeout_s: float = 600.0,
+                 fleet_poll_s: float = 0.25,
                  measurer=None,
                  measure_queue=None,
                  verbose: bool = False):
-        if fleet_dir is not None:
-            raise ValueError(f"RetuneController(fleet_dir=) {_NOT_PORTED}")
         self.cfg = cfg or RetuneConfig()
-        if self.cfg.publish is not None:
-            raise ValueError(f"RetuneConfig.publish {_NOT_PORTED}")
         self.store = store
         self.measurer = measurer
         self.measure_queue = measure_queue
         self.telemetry = telemetry if telemetry is not None else get_telemetry()
         self.models_dir = models_dir
         self.verbose = verbose
-        self.async_mode = async_mode
+        self.async_mode = async_mode or fleet_dir is not None
+        self.fleet_dir = fleet_dir
+        self.fleet_lease_timeout_s = fleet_lease_timeout_s
+        self.fleet_timeout_s = fleet_timeout_s
+        self.fleet_poll_s = fleet_poll_s
         self._tuners: Dict[str, object] = dict(tuners or {})
         self._tuner_factory = tuner_factory or _default_tuner_factory
         self._lock = threading.Lock()        # one retune at a time
@@ -215,6 +230,8 @@ class RetuneController:
         self.checks = 0                      # polls (triggered or not)
         self.retunes = 0                     # epochs that swapped
         self.sentry_blocked = 0              # swaps the sentry refused
+        self.published_plans = 0             # generations published
+        self.publish_failed = 0              # publishes refused or failed
         self.last_report: Optional[RetuneReport] = None
         self.history: collections.deque = collections.deque(
             maxlen=HISTORY_CAP)
@@ -406,7 +423,18 @@ class RetuneController:
                       triggered: Dict[str, SpaceDecision], t0: float,
                       tick: Optional[int]) -> None:
         """Run the epoch on a daemon thread; the poll returns at once.  Its
-        swap is the same single ``install_serving`` flip as inline."""
+        swap is the same single ``install_serving`` flip as inline.  A
+        fleet epoch needs a store with a file behind it: an in-memory one
+        is refused (one warning) and the epoch runs in-process."""
+        fleet_dir = self.fleet_dir
+        if fleet_dir is not None and self.store.path is None:
+            if "fleet-store" not in self._warned_pins:
+                self._warned_pins.add("fleet-store")
+                warnings.warn(
+                    "fleet retunes need a disk-backed store (workers shard "
+                    "next to it); falling back to the in-process async "
+                    "session", RuntimeWarning, stacklevel=3)
+            fleet_dir = None
         self._note_session_start(tick)
         self.async_submits += 1
         self.async_submit_t = time.perf_counter()
@@ -418,18 +446,27 @@ class RetuneController:
         # polling thread, ended by the epoch's thread at the swap
         tr = _tracer()
         epoch_span = None
+        trace_id = ""
         if tr is not None:
+            trace_id = tr.current_trace_id() or _trace.new_trace_id()
             epoch_span = tr.begin(
-                "retune.epoch",
-                trace_id=tr.current_trace_id() or _trace.new_trace_id(),
-                spaces=",".join(sorted(triggered)), mode="async")
+                "retune.epoch", trace_id=trace_id,
+                spaces=",".join(sorted(triggered)),
+                mode="fleet" if fleet_dir is not None else "async")
 
         def body():
             try:
                 with self._lock:
-                    report = self._retune(decisions, triggered, t0)
-                    report.mode = "async"
-                    self._async_report = report
+                    if fleet_dir is not None:
+                        self._async_report = self._retune_fleet(
+                            decisions, triggered, t0, fleet_dir,
+                            trace_id=trace_id,
+                            parent_id=(epoch_span.span_id
+                                       if epoch_span is not None else ""))
+                    else:
+                        report = self._retune(decisions, triggered, t0)
+                        report.mode = "async"
+                        self._async_report = report
             except Exception:   # noqa: BLE001 — a dead thread must be seen
                 log.exception("async retune epoch failed")
                 self._async_report = None
@@ -546,6 +583,90 @@ class RetuneController:
         return self._finish_epoch(decisions, sessions, affected, t0, state,
                                   "inline")
 
+    def _retune_fleet(self, decisions: Dict[str, SpaceDecision],
+                      triggered: Dict[str, SpaceDecision], t0: float,
+                      fleet_dir, trace_id: str = "",
+                      parent_id: str = "") -> RetuneReport:
+        """One triggered epoch through the fleet bus: the novel shapes
+        published as jobs for worker processes; the coordinator requeues
+        crashed workers' leases and merges the finished shards into the
+        store; then (merge done) the retrain and the swap.  A fleet that
+        does not finish within ``fleet_timeout_s`` still swaps in what
+        landed; its stragglers stay queued, and count as novel again."""
+        from .fleet import Coordinator, FleetJob
+
+        state = serving_state()
+        coord = Coordinator(fleet_dir, self.store,
+                            lease_timeout_s=self.fleet_lease_timeout_s)
+        # markers of earlier runs of this directory are not this epoch's
+        stale_done = {m.name for m in coord.fleet.done.glob("*.json")}
+        stale_failed = {m.name for m in coord.fleet.failed.glob("*.json")}
+        jobs: List[FleetJob] = []
+        for space, dec in triggered.items():
+            for inputs in dec.novel_shapes:
+                # the count lets workers claim the hottest shapes first; the
+                # trace id links their fleet.job spans to this epoch
+                jobs.append(FleetJob(space=space, inputs=dict(inputs),
+                                     count=self.telemetry.count(space, inputs),
+                                     source="retune", trace_id=trace_id))
+                self._attempted.add((space, input_key(space, inputs)))
+        published = coord.publish(jobs)
+        if self.verbose:
+            print(f"[retune:fleet] published {published} job(s) "
+                  f"-> {fleet_dir}")
+        finished = coord.wait(timeout_s=self.fleet_timeout_s,
+                              poll_s=self.fleet_poll_s,
+                              verbose=self.verbose,
+                              cancel=self._async_cancel)
+        if not finished:
+            warnings.warn(
+                f"fleet retune timed out after {self.fleet_timeout_s:.0f}s "
+                f"with {coord.outstanding()} job(s) outstanding; publishing "
+                "the records that did land", RuntimeWarning, stacklevel=2)
+            done_now = {m.name for m in coord.fleet.done.glob("*.json")}
+            fail_now = {m.name for m in coord.fleet.failed.glob("*.json")}
+            for job in jobs:
+                name = f"{job.job_id}.json"
+                if name not in done_now and name not in fail_now:
+                    self._attempted.discard(
+                        (job.space, input_key(job.space, job.inputs)))
+        tr = _tracer()
+        merge_span = (tr.begin("fleet.merge", trace_id=trace_id,
+                               parent_id=parent_id, jobs=published)
+                      if tr is not None and trace_id else None)
+        coord.poll()                     # the final merge
+        if merge_span is not None:
+            tr.end(merge_span, outstanding=coord.outstanding())
+        if (state.fingerprint is not None and coord.affected
+                and all(b != state.fingerprint for _, b in coord.affected)
+                and ("fleet", state.fingerprint) not in self._warned_pins):
+            self._warned_pins.add(("fleet", state.fingerprint))
+            warnings.warn(
+                f"fleet workers committed records under backends "
+                f"{sorted({b for _, b in coord.affected})}, none matching "
+                f"the active fingerprint pin {state.fingerprint!r}; the "
+                "exact tier will not serve them", RuntimeWarning,
+                stacklevel=2)
+        # per-space session reports from this epoch's markers, so a fleet
+        # report reads as an in-process one does
+        done_ids = {p.stem for p in coord.fleet.done.glob("*.json")
+                    if p.name not in stale_done}
+        failed_ids = {p.stem for p in coord.fleet.failed.glob("*.json")
+                      if p.name not in stale_failed}
+        sessions: Dict[str, object] = {}
+        for space, dec in triggered.items():
+            ids = [j.job_id for j in jobs if j.space == space]
+            sessions[space] = SessionReport(
+                space=space, jobs=len(ids),
+                tuned=sum(1 for i in ids if i in done_ids),
+                skipped=len(dec.novel_shapes) - len(ids),
+                failed=sum(1 for i in ids if i in failed_ids),
+                wall_s=time.time() - t0)
+        report = self._finish_epoch(decisions, sessions, set(coord.affected),
+                                    t0, state, "fleet")
+        coord.report(retrained=report.retrained, wall_s=report.wall_s)
+        return report
+
     def _finish_epoch(self, decisions: Dict[str, SpaceDecision],
                       sessions: Dict[str, object],
                       affected: Set[Tuple[str, str]], t0: float,
@@ -614,15 +735,40 @@ class RetuneController:
             else:
                 self.retunes += 1
         install_s = time.perf_counter() - t_install
+        t_publish = time.perf_counter()
+        if (cfg.publish and new_state.plan is not None
+                and new_state.generation != cur.generation):
+            self._publish_plan(new_state.plan)
+        publish_s = time.perf_counter() - t_publish
         self._baseline = self.telemetry.snapshot()
         self.epoch += 1
         self.last_report = RetuneReport(
             epoch=self.epoch, generation=new_state.generation,
             decisions=decisions, sessions=sessions, retrained=retrained,
             wall_s=time.time() - t0, mode=mode, retrain_s=retrain_s,
-            install_s=install_s)
+            install_s=install_s, publish_s=publish_s)
         self._observe_epoch(self.last_report)
         return self.last_report
+
+    def _publish_plan(self, plan) -> None:
+        """Publish the swapped generation's plan to ``cfg.publish`` for
+        follower replicas.  The local swap already happened: a refused or
+        failed publish (a racing append made the plan stale, a registry
+        that cannot be written) warns and counts, and the next epoch
+        publishes again."""
+        try:
+            from .plans import PlanRegistry
+            manifest = PlanRegistry(self.cfg.publish).publish(
+                plan, store=self.store)
+            self.published_plans += 1
+            if self.verbose:
+                print(f"[retune] published plan generation "
+                      f"{manifest.generation} ({manifest.n_entries} "
+                      f"entries) -> {self.cfg.publish}")
+        except Exception as e:  # noqa: BLE001 — warned and counted
+            self.publish_failed += 1
+            warnings.warn(f"plan publish to {self.cfg.publish} failed: {e}",
+                          RuntimeWarning, stacklevel=3)
 
     # -- reporting ------------------------------------------------------------
     def _observe_epoch(self, report: RetuneReport) -> None:
@@ -667,6 +813,8 @@ class RetuneController:
             "retunes": self.retunes,
             "telemetry_scope": getattr(self.telemetry, "scope", "process"),
             "sentry_blocked": self.sentry_blocked,
+            "published_plans": self.published_plans,
+            "publish_failed": self.publish_failed,
             "history": list(self.history),
             "generation": serving_state().generation,
             "config": dataclasses.asdict(self.cfg),
@@ -677,6 +825,8 @@ class RetuneController:
             }),
             "async": {
                 "enabled": self.async_mode,
+                "fleet_dir": (None if self.fleet_dir is None
+                              else str(self.fleet_dir)),
                 "submits": self.async_submits,
                 "in_flight": self.async_active(),
                 "watchdog_cancels": self.watchdog_cancels,

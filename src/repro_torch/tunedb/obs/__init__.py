@@ -8,7 +8,9 @@ registry, the status endpoint, the regression sentry and request tracing.
 
 ``snapshot``
     :func:`status_snapshot` / :func:`plan_snapshot`: the one serializer
-    behind ``/status``, ``/plan`` and ``tunedb stats --json``.
+    behind ``/status``, ``/plan``, ``tunedb stats --json`` and ``tunedb
+    fleet status --json`` (its ``fleet``, ``follower`` and ``router``
+    sections included).
 
 ``server``
     :class:`StatusServer`: a stdlib HTTP endpoint (``/metrics``,
@@ -18,17 +20,15 @@ registry, the status endpoint, the regression sentry and request tracing.
 
 ``sentry``
     :class:`RegressionSentry`: generation diffs that gate
-    ``install_serving`` and back ``tunedb diff``.
+    ``install_serving``, the fleet's shard merge and the plan follower's
+    installs, and back ``tunedb diff``.
 
 ``trace``
     :class:`Tracer`: spans with deterministic sampling and Chrome
     trace-event (Perfetto) export, enabled via
     ``ServeConfig(trace_sample=...)`` / :func:`enable_tracing`, surfaced at
-    ``/trace`` and ``tunedb trace {export,summary}``.
-
-The reference's fleet parts (``collect_fleet_spans``, the ``fleet``,
-``follower`` and ``router`` sections of ``/status``) wait for the fleet
-slice (ROADMAP A6.3).
+    ``/trace`` and ``tunedb trace {export,summary}``; a fleet's worker
+    span dumps merge back through :func:`collect_fleet_spans`.
 """
 
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
@@ -37,9 +37,9 @@ from .sentry import (DEFAULT_NOISE_MARGIN, Regression, RegressionSentry,
                      SentryReport, last_report)
 from .server import StatusServer
 from .snapshot import plan_snapshot, status_snapshot
-from .trace import (Span, Tracer, chrome_trace, enable_tracing, get_tracer,
-                    load_span_file, new_trace_id, reset_tracing,
-                    summarize_spans)
+from .trace import (Span, Tracer, chrome_trace, collect_fleet_spans,
+                    enable_tracing, get_tracer, load_span_file,
+                    new_trace_id, reset_tracing, summarize_spans)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
@@ -48,6 +48,7 @@ __all__ = [
     "last_report",
     "StatusServer",
     "plan_snapshot", "status_snapshot",
-    "Span", "Tracer", "chrome_trace", "enable_tracing", "get_tracer",
-    "load_span_file", "new_trace_id", "reset_tracing", "summarize_spans",
+    "Span", "Tracer", "chrome_trace", "collect_fleet_spans",
+    "enable_tracing", "get_tracer", "load_span_file", "new_trace_id",
+    "reset_tracing", "summarize_spans",
 ]

@@ -20,8 +20,9 @@ instruments:
 :meth:`MetricsRegistry.render_prometheus` writes the Prometheus text
 format (a histogram as a ``summary`` with quantile labels);
 :meth:`MetricsRegistry.snapshot` gives the same data as JSON-able dicts.
-The reference's plan-follower collector waits for the fleet's
-``PlanFollower`` (ROADMAP A6).
+The plan followers' state is read at scrape time too (the
+``tunedb_follower_*`` families), so their poll path makes no instrument
+call.
 """
 
 from __future__ import annotations
@@ -394,12 +395,41 @@ def _serving_collector():
     return out
 
 
+def _follower_collector():
+    """Each live plan follower's (``tunedb.plans.PlanFollower``) state:
+    its generation, how far it lags the registry (one ``CURRENT`` read a
+    follower a scrape), its polls, installs and refusals."""
+    from ..plans import active_followers
+
+    out = []
+    for f in active_followers():
+        labels = {"follower": f.name}
+        out.append(("tunedb_follower_generation", "gauge", labels,
+                    float(f.generation)))
+        out.append(("tunedb_follower_lag_generations", "gauge", labels,
+                    float(f.lag_generations())))
+        if f.lag_s is not None:
+            out.append(("tunedb_follower_lag_seconds", "gauge", labels,
+                        float(f.lag_s)))
+        out.append(("tunedb_follower_polls_total", "counter", labels,
+                    float(f.polls)))
+        out.append(("tunedb_follower_installs_total", "counter", labels,
+                    float(f.installs)))
+        for reason, n in (("digest", f.refused_digest),
+                          ("stale", f.refused_stale),
+                          ("sentry", f.refused_sentry)):
+            out.append(("tunedb_follower_refusals_total", "counter",
+                        {**labels, "reason": reason}, float(n)))
+    return out
+
+
 _REGISTRY = MetricsRegistry()
 _REGISTRY_LOCK = threading.Lock()
 
 
 def _register_default_collectors(registry: MetricsRegistry) -> None:
     registry.register_collector(_serving_collector)
+    registry.register_collector(_follower_collector)
 
 
 _register_default_collectors(_REGISTRY)

@@ -17,8 +17,12 @@ next dispatch plan; nothing else asks whether the replacement is faster.
 
 A record counts as a regression only when the newer one is slower than
 the one it replaces by more than ``noise_margin`` (10% by default):
-repeated measurements of one config jitter.  The reference's third edge,
-the fleet coordinator's merge gate, waits for the fleet (ROADMAP A6).
+repeated measurements of one config jitter.  The third edge is the fleet
+coordinator's merge gate (``Coordinator(sentry_margin=...)``): a worker's
+shard record that would replace a faster serving record is refused
+before it reaches the parent store (:meth:`RegressionSentry.regresses`).
+A fourth is the plan follower's: a published plan whose coverage drops
+planned shapes is refused (:meth:`RegressionSentry.diff_plans`).
 """
 
 from __future__ import annotations

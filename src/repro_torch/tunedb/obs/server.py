@@ -45,18 +45,23 @@ __all__ = ["StatusServer"]
 class StatusServer:
     """Owns the HTTP server's lifetime and the snapshot context.
 
-    ``controller`` / ``store`` / ``telemetry`` / ``models`` / ``tracer``
-    are optional handles passed into every ``/status`` build; whatever is
-    omitted falls back to the process's live serving state, so an engine
-    only needs to pass its controller.
+    ``controller`` / ``fleet`` / ``store`` / ``telemetry`` / ``models`` /
+    ``follower`` / ``router`` / ``tracer`` are optional handles passed into
+    every ``/status`` build; whatever is omitted falls back to the
+    process's live serving state, so an engine passes its controller, its
+    fleet directory, follower and router.
     """
 
     def __init__(self, *, host: str = "127.0.0.1", port: int = 0,
-                 controller=None, store=None, telemetry=None, models=None,
+                 controller=None, fleet: Optional[str] = None, store=None,
+                 telemetry=None, models=None, follower=None, router=None,
                  tracer=None, health=None) -> None:
         self.host = host
         self.port = port
         self.controller = controller
+        self.fleet = fleet
+        self.follower = follower
+        self.router = router
         self.store = store
         self.telemetry = telemetry
         self.models = models
@@ -73,8 +78,9 @@ class StatusServer:
 
     def status_json(self) -> dict:
         return status_snapshot(store=self.store, telemetry=self.telemetry,
-                               controller=self.controller,
-                               models=self.models, tracer=self.tracer)
+                               controller=self.controller, fleet=self.fleet,
+                               models=self.models, follower=self.follower,
+                               router=self.router, tracer=self.tracer)
 
     def plan_json(self) -> dict:
         return plan_snapshot()

@@ -1,9 +1,10 @@
 """One serializer for every status surface.
 
-A port of ``repro.tunedb.obs.snapshot``.  ``/status`` (HTTP) and
-``tunedb stats --json`` both call :func:`status_snapshot`, so the schema
-lives in one place.  Every section is present in every snapshot; a
-subsystem that is not running serializes to ``None``.
+A port of ``repro.tunedb.obs.snapshot``.  ``/status`` (HTTP),
+``tunedb stats --json`` and ``tunedb fleet status --json`` all call
+:func:`status_snapshot`, so the schema lives in one place.  Every section
+is present in every snapshot; a subsystem that is not running serializes
+to ``None``.
 
 Schema (version 1)::
 
@@ -13,16 +14,16 @@ Schema (version 1)::
       "tiers":    {counts per tier, "rates" per tier, "total"},
       "telemetry": ShapeTelemetry.stats() | null,
       "retune":   RetuneController.stats() (incl. "history") | null,
-      "fleet":    null,
-      "follower": null,
-      "router":   null,
+      "fleet":    {FleetDir.status(), "telemetry_replicas", "report"}
+                  | null,
+      "follower": PlanFollower.stats() | null,
+      "router":   Router.stats() | null,
       "trace":    Tracer.stats() | null,
       "metrics":  MetricsRegistry.snapshot(),
     }
 
-The ``fleet``, ``follower`` and ``router`` sections are always ``None``
-here: the fleet bus, the plan follower and the request router wait for
-the fleet slice (ROADMAP A6.3).
+The follower, when none is passed, is the process's first live one
+(``tunedb.plans.active_followers``).
 
 Every read is of host state: a snapshot (built on the status server's
 thread while the serving thread may be capturing a CUDA graph) makes no
@@ -32,7 +33,9 @@ device call, no copy from the card and no synchronise, and takes no
 
 from __future__ import annotations
 
-from typing import Dict, List
+import json
+import pathlib
+from typing import Dict, List, Optional
 
 __all__ = ["SCHEMA_VERSION", "status_snapshot", "plan_snapshot"]
 
@@ -42,13 +45,15 @@ PLAN_SNAPSHOT_CAP = 2000    # /plan entry cap: a plan can hold thousands
 
 
 def status_snapshot(*, store=None, telemetry=None, controller=None,
-                    models=None, registry=None,
+                    fleet: Optional[str] = None, models=None, registry=None,
+                    follower=None, router=None,
                     tracer=None) -> Dict[str, object]:
     """Build the shared status document.
 
     With no arguments, reads the process's live serving state (what the
-    HTTP endpoint inside an engine does); an explicit ``store`` or
-    ``telemetry`` overrides it for the offline CLI that inspects files.
+    HTTP endpoint inside an engine does); an explicit ``store``,
+    ``telemetry`` or ``fleet`` overrides it for the offline CLIs that
+    inspect files or a fleet bus.
     """
     from ..store import serving_state
     from ..telemetry import get_telemetry
@@ -66,6 +71,10 @@ def status_snapshot(*, store=None, telemetry=None, controller=None,
         registry = get_registry()
     if tracer is None:
         tracer = get_tracer()
+    if follower is None:
+        from ..plans import active_followers
+        live = active_followers()
+        follower = live[0] if live else None
     plan = state.plan
 
     store_stats = store.stats() if store is not None else None
@@ -92,9 +101,9 @@ def status_snapshot(*, store=None, telemetry=None, controller=None,
         "tiers": _tier_rates(store, models, plan),
         "telemetry": telemetry.stats(),
         "retune": controller.stats() if controller is not None else None,
-        "fleet": None,
-        "follower": None,
-        "router": None,
+        "fleet": _fleet_section(fleet) if fleet else None,
+        "follower": follower.stats() if follower is not None else None,
+        "router": router.stats() if router is not None else None,
         "trace": tracer.stats() if tracer is not None else None,
         "metrics": registry.snapshot(),
     }
@@ -126,6 +135,38 @@ def _tier_rates(store, models, plan) -> Dict[str, object]:
     if plan is not None:
         out["plan"] = {"hits": plan.hits, "misses": plan.misses}
     return out
+
+
+def _fleet_section(fleet: str) -> Optional[Dict[str, object]]:
+    """The fleet bus's status, its telemetry replicas and its last
+    report; None when the directory does not exist."""
+    from ..fleet.lease import REPORT, FleetDir
+
+    root = pathlib.Path(fleet)
+    if not root.exists():
+        return None
+    fd = FleetDir(root)
+    try:
+        section: Dict[str, object] = dict(fd.status())
+    except FileNotFoundError:
+        # a telemetry-only bus: exporters may dump before any coordinator
+        # writes the manifest
+        section = {"root": str(root), "store": None, "counts": None,
+                   "draining": False, "lease_age_s": {},
+                   "shard_records": {}}
+    tel_dir = fd.telemetry_dir()
+    if tel_dir.is_dir():
+        from ..telemetry import FleetTelemetryView, ShapeTelemetry
+        section["telemetry_replicas"] = FleetTelemetryView(
+            tel_dir, local=ShapeTelemetry(), refresh_s=0.0).replicas()
+    report = None
+    if (root / REPORT).exists():
+        try:
+            report = json.loads((root / REPORT).read_text())
+        except (OSError, ValueError):
+            report = None
+    section["report"] = report
+    return section
 
 
 def plan_snapshot(plan=None, *, cap: int = PLAN_SNAPSHOT_CAP

@@ -32,10 +32,13 @@ engine replays each prefill and tick from a CUDA graph, so an
 from graph captures, their eager warm-ups and eager paths: a replay
 resolves nothing on the host.  This module imports no ``torch``.
 
-Not ported yet: ``collect_fleet_spans`` (the fleet's span dumps, ROADMAP
-A6.3), and the fault-injection shim the reference's
-:meth:`Tracer.export_jsonl` writes through (A6.4): the port writes the
-lines plainly.
+A fleet worker process dumps its finished spans to
+``<fleet>/traces/<worker>.jsonl`` (:meth:`Tracer.export_jsonl`), and
+:func:`collect_fleet_spans` merges them back (a torn file or line is
+skipped): a worker's ``fleet.job`` roots carry the trace id of the retune
+epoch that published the job, so one trace holds the epoch's submit to
+its swap across processes.  The reference writes the dumps through its
+fault-injection shim (ROADMAP A6.4); the port writes the lines plainly.
 """
 
 from __future__ import annotations
@@ -52,8 +55,9 @@ from typing import Deque, Dict, Iterable, List, Optional, Tuple
 from ..telemetry import _Ring
 
 __all__ = [
-    "Span", "Tracer", "chrome_trace", "enable_tracing", "get_tracer",
-    "load_span_file", "new_trace_id", "reset_tracing", "summarize_spans",
+    "Span", "Tracer", "chrome_trace", "collect_fleet_spans",
+    "enable_tracing", "get_tracer", "load_span_file", "new_trace_id",
+    "reset_tracing", "summarize_spans",
 ]
 
 TRACE_SCHEMA_VERSION = 1
@@ -61,8 +65,7 @@ SPAN_RING_SIZE = 2048       # finished spans buffered per writer thread
 MAX_SPANS = 20000           # retained finished spans (process-wide cap)
 FLEET_TRACE_DIR = "traces"  # <fleet>/traces/<worker>.jsonl span dumps
 
-# Span-name taxonomy (the reference's; request.route, fleet.job,
-# fleet.merge and plan.install wait for the fleet slice):
+# Span-name taxonomy (the reference's):
 #   request.route     router decision            engine.admit      admission
 #   engine.prefill    prefill compile+run        engine.tick       decode tick
 #   dispatch.resolve  tier resolution            retune.epoch      submit->swap
@@ -478,6 +481,19 @@ def load_span_file(path) -> List[Span]:
             spans.append(Span.from_json(json.loads(line)))
         except (KeyError, TypeError, ValueError):
             continue                                # torn line: skip it
+    return spans
+
+
+def collect_fleet_spans(fleet_dir) -> List[Span]:
+    """Every worker span dump under ``<fleet>/traces/`` (and any Chrome
+    export dropped there) merged, unreadable files skipped."""
+    root = pathlib.Path(fleet_dir) / FLEET_TRACE_DIR
+    spans: List[Span] = []
+    if not root.is_dir():
+        return spans
+    for p in sorted(root.iterdir()):
+        if p.suffix in (".jsonl", ".json"):
+            spans.extend(load_span_file(p))
     return spans
 
 

@@ -23,8 +23,32 @@ the store has gained records since the compile, the plan no longer
 reflects it.  The artifact directory appears whole or not at all (written
 under a temporary name, then renamed).
 
-The reference's registry and follower (publish / follow a plan across
-replicas) are not ported.
+**Registry** (:class:`PlanRegistry`): the fleet's filesystem bus reused
+for distribution::
+
+    <registry>/
+        generations/<generation>/   # immutable plan artifacts (as above)
+        CURRENT.json                # the pointer: {generation, fingerprint,
+                                    # digest, path, published_at, ...}
+
+``publish`` writes the artifact (a temporary directory renamed into
+``generations/``; a racing publisher takes the next number), then
+replaces ``CURRENT.json`` atomically, so a reader sees the previous whole
+generation or the new whole one.
+
+**Follower** (:class:`PlanFollower`): the replica side.  A daemon thread
+polls ``CURRENT.json``; when the generation advances it pulls the
+artifact, verifies its digest against the pointer, optionally diffs its
+coverage against the plan it serves through a
+:class:`~repro_torch.tunedb.obs.sentry.RegressionSentry`, and installs it
+through ``install_serving(plan=...)``.  A torn artifact, a rolled-back
+pointer or a coverage loss beyond the margin is counted and refused; the
+replica keeps serving what it had.  An install reads host state only (no
+copy from the card, no synchronise), so it may land while the engine
+captures a graph; the engine captures that graph again at its next use.
+
+The reference writes these files through its fault-injection shim
+(``chaos._IO``); the port writes them plainly (ROADMAP A6.4).
 """
 
 from __future__ import annotations
@@ -34,16 +58,23 @@ import hashlib
 import json
 import os
 import pathlib
+import threading
 import time
-from typing import Dict, List, Mapping, Optional, Tuple
+import warnings
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
-from .store import (DispatchPlan, RecordStore, normalize_config,
-                    normalize_inputs, shape_key)
+from .obs import trace as _trace
+from .obs.metrics import get_registry
+from .store import (_KEEP, DispatchPlan, RecordStore, install_serving,
+                    normalize_config, normalize_inputs, serving_state,
+                    shape_key)
 
 PLAN_SCHEMA_VERSION = 1
 
 MANIFEST_NAME = "manifest.json"
 ENTRIES_NAME = "entries.jsonl"
+CURRENT_NAME = "CURRENT.json"
+GENERATIONS = "generations"
 
 
 class PlanArtifactError(RuntimeError):
@@ -278,3 +309,286 @@ def check_freshness(manifest: PlanManifest,
                 "loaded plan may shadow fresher tuning — consider "
                 "re-exporting")
     return None
+
+
+# ---------------------------------------------------------------------------
+# registry: publish and follow over a shared directory
+# ---------------------------------------------------------------------------
+
+def _atomic_write(path: pathlib.Path, text: str) -> None:
+    tmp = path.with_name(path.name + f".tmp-{os.getpid()}")
+    tmp.write_text(text, encoding="utf-8")
+    os.replace(tmp, path)
+
+
+class PlanRegistry:
+    """One coordinator publishes plan generations; replicas follow.
+
+    ``CURRENT.json`` is the only mutable file, replaced atomically, and it
+    points at a complete artifact under ``generations/``.
+    """
+
+    def __init__(self, root: os.PathLike):
+        self.root = pathlib.Path(root)
+        self.generations_dir = self.root / GENERATIONS
+
+    def init(self) -> "PlanRegistry":
+        self.generations_dir.mkdir(parents=True, exist_ok=True)
+        return self
+
+    def generation_dir(self, generation: int) -> pathlib.Path:
+        return self.generations_dir / _generation_name(generation)
+
+    def publish(self, plan: DispatchPlan, *,
+                store: Optional[RecordStore] = None) -> PlanManifest:
+        """Export ``plan`` as the next generation, then point ``CURRENT``
+        at it: a follower that reads the new pointer always finds the
+        whole artifact behind it.  A stale plan is refused
+        (:class:`StalePlanError`) before the registry is touched."""
+        if plan is None:
+            raise ValueError("nothing to publish: plan is None")
+        self.init()
+        gen = _next_generation(self.generations_dir)
+        while True:
+            dest = self.generation_dir(gen)
+            try:
+                manifest = _write_artifact(plan, dest, generation=gen,
+                                           store=store)
+                break
+            except FileExistsError:
+                gen += 1                # a racing publisher took the slot
+        pointer = dict(manifest.to_dict())
+        pointer["path"] = f"{GENERATIONS}/{_generation_name(gen)}"
+        pointer["published_at"] = time.time()
+        _atomic_write(self.root / CURRENT_NAME,
+                      json.dumps(pointer, sort_keys=True))
+        self._count("published")
+        return manifest
+
+    def current(self) -> Optional[Dict[str, object]]:
+        """The published pointer, or None (nothing published yet, or an
+        unreadable pointer: both mean "try again at the next poll")."""
+        try:
+            doc = json.loads((self.root / CURRENT_NAME).read_text(
+                encoding="utf-8"))
+        except (OSError, ValueError):
+            return None
+        if not isinstance(doc, dict) or "generation" not in doc:
+            return None
+        return doc
+
+    def pull(self, pointer: Mapping[str, object]) -> DispatchPlan:
+        """Load the artifact behind a ``current()`` pointer and check it is
+        the one the pointer names (digest equality)."""
+        rel = str(pointer.get("path") or f"{GENERATIONS}/"
+                  f"{_generation_name(int(pointer['generation']))}")
+        plan = load_plan(self.root / rel)
+        want = pointer.get("digest")
+        if want and plan.digest != want:
+            raise PlanArtifactError(
+                f"{self.root / rel}: artifact digest {plan.digest} does not "
+                f"match the published pointer ({want})")
+        return plan
+
+    @staticmethod
+    def _count(event: str) -> None:
+        get_registry().counter(
+            "tunedb_plan_registry_events_total",
+            "plan registry publishes/pulls").inc(event=event)
+
+
+# the live followers, which the metrics registry's collector reads at
+# scrape time (the poll path itself makes no instrument call)
+_FOLLOWERS: List["PlanFollower"] = []
+_FOLLOWERS_LOCK = threading.Lock()
+
+
+def active_followers() -> List["PlanFollower"]:
+    with _FOLLOWERS_LOCK:
+        return list(_FOLLOWERS)
+
+
+class PlanFollower:
+    """Poll a :class:`PlanRegistry` and adopt each new generation.
+
+    By default an adopted plan goes into the process's serving state
+    (``install_serving(plan=...)``, ``store`` and ``fingerprint`` when
+    given, else the installed ones kept); ``install=`` / ``current_plan=``
+    follow into another target (tests, simulated replicas).  A candidate
+    is refused, counted, and the serving generation kept, when:
+
+    * its artifact fails verification (``refused_digest``);
+    * ``CURRENT`` points below what this follower installed
+      (``refused_stale``);
+    * the sentry finds planned shapes losing coverage against the plan
+      served now (``refused_sentry``).
+
+    Each candidate's pull-verify-install attempt is one ``plan.install``
+    span, always kept while tracing is on.
+    """
+
+    def __init__(self, registry, *,
+                 store: Optional[RecordStore] = None,
+                 fingerprint: Optional[str] = None,
+                 poll_s: float = 2.0,
+                 sentry=None,
+                 install: Optional[Callable] = None,
+                 current_plan: Optional[Callable] = None,
+                 name: Optional[str] = None):
+        self.registry = (registry if isinstance(registry, PlanRegistry)
+                         else PlanRegistry(registry))
+        self.store = store
+        self.fingerprint = fingerprint
+        self.poll_s = float(poll_s)
+        self.sentry = sentry
+        self.name = name or f"follower-{os.getpid()}-{id(self) & 0xffff}"
+        self.generation = -1            # the last installed generation
+        self.installed_at: Optional[float] = None
+        self.lag_s: Optional[float] = None   # publish -> install delay
+        self.polls = 0
+        self.installs = 0
+        self.refused_digest = 0
+        self.refused_stale = 0
+        self.refused_sentry = 0
+        self.errors = 0
+        self._install = install or self._install_serving
+        self._current_plan = current_plan or self._serving_plan
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        with _FOLLOWERS_LOCK:
+            _FOLLOWERS.append(self)
+
+    # -- the default target: the process's serving state -----------------------
+    @staticmethod
+    def _serving_plan():
+        return serving_state().plan
+
+    def _install_serving(self, plan: DispatchPlan,
+                         pointer: Mapping[str, object]) -> bool:
+        install_serving(
+            store=self.store if self.store is not None else _KEEP,
+            fingerprint=(self.fingerprint if self.fingerprint is not None
+                         else _KEEP),
+            plan=plan)
+        return True
+
+    # -- one round -----------------------------------------------------------
+    def poll_once(self) -> Optional[Dict[str, object]]:
+        """Check the registry once: the pointer installed this round, or
+        None (nothing new, or the candidate was refused)."""
+        self.polls += 1
+        pointer = self.registry.current()
+        if pointer is None:
+            return None
+        try:
+            gen = int(pointer["generation"])
+        except (TypeError, ValueError):
+            self.errors += 1
+            return None
+        if gen <= self.generation:
+            if gen < self.generation:
+                self.refused_stale += 1     # a rollback: keep serving
+            return None
+        tr = _trace._TRACER
+        sp = (tr.begin("plan.install", trace_id=_trace.new_trace_id(),
+                       follower=self.name, generation=gen)
+              if tr is not None else None)
+        outcome = "installed"
+        try:
+            try:
+                plan = self.registry.pull(pointer)
+            except PlanArtifactError:
+                self.refused_digest += 1    # torn: the next poll retries
+                outcome = "refused_digest"
+                return None
+            if self.sentry is not None:
+                cur = self._current_plan()
+                if cur is not None:
+                    from .obs.snapshot import plan_snapshot
+                    report = self.sentry.diff_plans(plan_snapshot(cur),
+                                                    plan_snapshot(plan))
+                    if not report.ok:
+                        self.refused_sentry += 1
+                        outcome = "refused_sentry"
+                        warnings.warn(
+                            f"plan follower {self.name} refused generation "
+                            f"{gen}: {len(report.regressions)} planned "
+                            "shape(s) lose coverage vs the serving plan; "
+                            f"keeping generation {self.generation}",
+                            RuntimeWarning, stacklevel=2)
+                        return None
+            if not self._install(plan, pointer):
+                self.errors += 1
+                outcome = "error"
+                return None
+            self.generation = gen
+            self.installs += 1
+            self.installed_at = time.time()
+            published = pointer.get("published_at")
+            if isinstance(published, (int, float)) and published > 0:
+                self.lag_s = max(self.installed_at - float(published), 0.0)
+            return dict(pointer)
+        finally:
+            if sp is not None:
+                tr.end(sp, outcome=outcome)
+
+    # -- the daemon loop -----------------------------------------------------
+    def start(self) -> "PlanFollower":
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, name=self.name,
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.poll_once()
+            except Exception:   # noqa: BLE001 — counted, the loop goes on
+                self.errors += 1
+            self._stop.wait(self.poll_s)
+
+    def stop(self, timeout: float = 5.0) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+            self._thread = None
+        with _FOLLOWERS_LOCK:
+            if self in _FOLLOWERS:
+                _FOLLOWERS.remove(self)
+
+    # -- reporting -----------------------------------------------------------
+    def published_generation(self) -> Optional[int]:
+        pointer = self.registry.current()
+        if pointer is None:
+            return None
+        try:
+            return int(pointer["generation"])
+        except (TypeError, ValueError):
+            return None
+
+    def lag_generations(self) -> int:
+        """How many generations behind the registry this follower is."""
+        published = self.published_generation()
+        if published is None:
+            return 0
+        return max(published - max(self.generation, 0), 0)
+
+    def stats(self) -> Dict[str, object]:
+        return {
+            "name": self.name,
+            "registry": str(self.registry.root),
+            "generation": self.generation,
+            "published_generation": self.published_generation(),
+            "lag_generations": self.lag_generations(),
+            "lag_s": self.lag_s,
+            "polls": self.polls,
+            "installs": self.installs,
+            "refused_digest": self.refused_digest,
+            "refused_stale": self.refused_stale,
+            "refused_sentry": self.refused_sentry,
+            "errors": self.errors,
+            "running": self._thread is not None,
+        }

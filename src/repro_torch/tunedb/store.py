@@ -162,11 +162,16 @@ class RecordStore:
 
     ``path=None`` keeps the store in memory, with every record added (the
     training log).  Lines that do not parse (a torn tail, a CRC mismatch)
-    are skipped and counted in ``n_skipped``.
+    are skipped and counted in ``n_skipped``.  ``fsync=False`` drops the
+    per-append durability barrier: a fleet worker's shard store (whose
+    jobs lease expiry requeues) is opened so, and the fleet's merge calls
+    :meth:`sync` once a batch instead.
     """
 
-    def __init__(self, path: Optional[os.PathLike] = None):
+    def __init__(self, path: Optional[os.PathLike] = None, *,
+                 fsync: bool = True):
         self.path = pathlib.Path(path) if path is not None else None
+        self.fsync = fsync
         self._lock = threading.Lock()
         # (backend, space, shape) -> latest record
         self._index: Dict[Tuple[str, str, ShapeKey], TuneRecord] = {}
@@ -257,7 +262,8 @@ class RecordStore:
                         self._needs_newline = False
                     fh.write(rec.to_json() + "\n")
                     fh.flush()
-                    os.fsync(fh.fileno())
+                    if self.fsync:
+                        os.fsync(fh.fileno())
                 self.n_lines += 1
             else:
                 self._all.append(rec)
@@ -266,6 +272,15 @@ class RecordStore:
                 self.supersessions.append(Supersession(
                     version=self.version, old=replaced, new=rec))
         return rec
+
+    def sync(self) -> None:
+        """The durability barrier of an ``fsync=False`` store: flush what
+        was appended to the disk now (the fleet's merge calls it once a
+        pass, not once a record)."""
+        if self.path is None or not self.path.exists():
+            return
+        with self.path.open("rb") as fh:
+            os.fsync(fh.fileno())
 
     def _exact(self, space: str, sk: ShapeKey, backend: Optional[str]
                ) -> Optional[TuneRecord]:

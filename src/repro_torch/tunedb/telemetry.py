@@ -38,10 +38,14 @@ its compiling call as the first execution) reaches the same totals.
 distance between the window's hot-shape mass and the mass ``prev`` had
 accumulated, and the window's shape counts.
 
+Fleet scope: :class:`TelemetryExporter` dumps one process's counters,
+cumulatively, onto the fleet bus every few seconds, and
+:class:`FleetTelemetryView` reads the fleet-global view: its own
+process's live counters merged with every other process's latest dump.
+
 The reference's dump writes go through its fault-injection shim
 (``chaos.retry_io``); the port writes atomically (a temporary file,
-fsync, ``os.replace``) without it.  The fleet's exporter and aggregated
-view are not ported.
+fsync, ``os.replace``) without it (ROADMAP A6.4).
 """
 
 from __future__ import annotations
@@ -51,7 +55,9 @@ import dataclasses
 import json
 import os
 import pathlib
+import socket
 import threading
+import time
 import weakref
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
@@ -383,6 +389,211 @@ class ShapeTelemetry:
                 "ticks": dict(self._ticks),
                 "epoch": self._seq,
             }
+
+
+# ---------------------------------------------------------------------------
+# Fleet scope: periodic cumulative dumps and the aggregated global view.
+# ---------------------------------------------------------------------------
+
+def _count_dump(worker_id: str) -> None:
+    from .obs.metrics import get_registry       # obs imports telemetry
+    get_registry().counter(
+        "tunedb_telemetry_dumps_total",
+        "cumulative telemetry dumps exported to the fleet bus",
+    ).inc(worker=worker_id)
+
+
+class TelemetryExporter:
+    """Periodic export of one process's telemetry to the fleet bus.
+
+    Every ``interval_s`` a daemon thread writes a cumulative dump of
+    ``telemetry`` to ``<out_dir>/<worker_id>/<epoch>.json``
+    (:meth:`ShapeTelemetry.save`: a temporary file, then a rename), the
+    epoch in the name bumped each time.  Cumulative dumps make the
+    aggregation idempotent: a reader folds only each worker's latest
+    epoch, so a torn read or a missed interval never counts a call twice.
+    The last ``keep`` epochs are kept, so the directory stays
+    O(workers).
+    """
+
+    def __init__(self, telemetry: ShapeTelemetry, out_dir: os.PathLike, *,
+                 worker_id: Optional[str] = None, interval_s: float = 5.0,
+                 keep: int = 2) -> None:
+        self.telemetry = telemetry
+        self.out_dir = pathlib.Path(out_dir)
+        self.worker_id = worker_id or (
+            f"{socket.gethostname()}-{os.getpid()}")
+        self.interval_s = float(interval_s)
+        self.keep = max(1, int(keep))
+        self.exports = 0
+        self._epoch = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def export_once(self) -> pathlib.Path:
+        """Write one cumulative dump; returns its path."""
+        self._epoch += 1
+        dest = self.out_dir / self.worker_id / f"{self._epoch:08d}.json"
+        self.telemetry.save(dest)
+        self.exports += 1
+        _count_dump(self.worker_id)
+        for p in sorted(dest.parent.glob("*.json"))[:-self.keep]:
+            try:
+                p.unlink()
+            except OSError:              # a concurrent reader won the race
+                pass
+        return dest
+
+    def start(self) -> "TelemetryExporter":
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+
+        def loop() -> None:
+            while not self._stop.wait(self.interval_s):
+                try:
+                    self.export_once()
+                except OSError:          # the next interval tries again
+                    pass
+
+        self._thread = threading.Thread(
+            target=loop, name=f"telemetry-export-{self.worker_id}",
+            daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self, *, final_export: bool = True) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        if final_export:
+            try:                         # the window's tail lands too
+                self.export_once()
+            except OSError:
+                pass
+
+    def stats(self) -> Dict[str, object]:
+        return {"worker_id": self.worker_id, "epoch": self._epoch,
+                "exports": self.exports, "interval_s": self.interval_s,
+                "out_dir": str(self.out_dir)}
+
+
+class FleetTelemetryView:
+    """Fleet-global telemetry: local counters merged with every worker's
+    latest dump.
+
+    Reads as a :class:`ShapeTelemetry` does (``snapshot`` / ``diff`` /
+    ``count`` / ``hot_shapes`` / ``spaces`` / ``total`` / ``stats`` /
+    ``drain_pending``), so the retune controller and the coordinator's
+    planning consume the global view unchanged.  Each :meth:`refresh`
+    rebuilds a merged :class:`ShapeTelemetry` from ``local`` and the
+    latest readable dump of every worker under ``dump_root`` (a torn or
+    pruned one falls back to the worker's previous epoch); ``exclude``
+    names the worker directories to skip (a process that exports and
+    aggregates leaves its own dump out, so its live counts fold in once).
+    Reads are throttled to ``refresh_s``; ``snapshot`` / ``diff`` /
+    ``stats`` always rebuild.
+    """
+
+    scope = "fleet"
+
+    def __init__(self, dump_root: os.PathLike, *,
+                 local: Optional[ShapeTelemetry] = None,
+                 refresh_s: float = 2.0,
+                 exclude: Iterable[str] = ()) -> None:
+        self.dump_root = pathlib.Path(dump_root)
+        self.local = local if local is not None else get_telemetry()
+        self.refresh_s = float(refresh_s)
+        self.exclude = frozenset(exclude)
+        self.refreshes = 0
+        self._lock = threading.Lock()
+        self._merged = ShapeTelemetry()
+        self._replicas: Dict[str, Dict[str, object]] = {}
+        self._last_refresh: Optional[float] = None
+
+    def refresh(self, force: bool = False) -> ShapeTelemetry:
+        """The merged view, rebuilt unless the throttle window holds."""
+        now = time.monotonic()
+        with self._lock:
+            if (not force and self._last_refresh is not None
+                    and now - self._last_refresh < self.refresh_s):
+                return self._merged
+            merged = ShapeTelemetry()
+            merged.merge(self.local)
+            replicas: Dict[str, Dict[str, object]] = {}
+            if self.dump_root.is_dir():
+                for wdir in sorted(self.dump_root.iterdir()):
+                    if not wdir.is_dir() or wdir.name in self.exclude:
+                        continue
+                    prov = self._merge_worker(merged, wdir)
+                    if prov is not None:
+                        replicas[wdir.name] = prov
+            self._merged = merged
+            self._replicas = replicas
+            self._last_refresh = now
+            self.refreshes += 1
+            return merged
+
+    @staticmethod
+    def _merge_worker(merged: ShapeTelemetry,
+                      wdir: pathlib.Path) -> Optional[Dict[str, object]]:
+        """Fold one worker's latest readable dump; its provenance, or
+        None."""
+        for latest in sorted(wdir.glob("*.json"), reverse=True):
+            try:
+                dump = ShapeTelemetry.load(latest)
+                age_s = max(0.0, time.time() - latest.stat().st_mtime)
+            except (OSError, ValueError):    # pruned or torn: an older one
+                continue
+            merged.merge(dump)
+            try:
+                epoch = int(latest.stem)
+            except ValueError:
+                epoch = -1
+            from .obs.metrics import get_registry
+            get_registry().gauge(
+                "tunedb_fleet_telemetry_lag_seconds",
+                "age of the newest readable telemetry dump per worker",
+            ).set(age_s, worker=wdir.name)
+            return {"epoch": epoch, "calls": dump.total(), "age_s": age_s}
+        return None
+
+    def replicas(self) -> Dict[str, Dict[str, object]]:
+        """Per-replica provenance: worker -> {epoch, calls, age_s}."""
+        self.refresh()
+        with self._lock:
+            return {w: dict(p) for w, p in self._replicas.items()}
+
+    # -- the ShapeTelemetry read surface ---------------------------------------
+    def snapshot(self) -> TelemetrySnapshot:
+        return self.refresh(force=True).snapshot()
+
+    def diff(self, prev: TelemetrySnapshot) -> Dict[str, SpaceDrift]:
+        return self.refresh(force=True).diff(prev)
+
+    def count(self, space: str, inputs: Mapping[str, int]) -> int:
+        return self.refresh().count(space, inputs)
+
+    def hot_shapes(self, space: str, top_k: int = 8
+                   ) -> List[Tuple[Dict[str, int], int]]:
+        return self.refresh().hot_shapes(space, top_k)
+
+    def spaces(self) -> List[str]:
+        return self.refresh().spaces()
+
+    def total(self, space: Optional[str] = None) -> int:
+        return self.refresh().total(space)
+
+    def drain_pending(self) -> int:
+        return self.local.drain_pending()
+
+    def stats(self) -> Dict[str, object]:
+        out = self.refresh(force=True).stats()
+        with self._lock:
+            out["scope"] = self.scope
+            out["replicas"] = {w: dict(p) for w, p in self._replicas.items()}
+        return out
 
 
 # the process-global telemetry the dispatcher feeds

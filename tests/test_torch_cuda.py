@@ -1149,3 +1149,126 @@ def test_status_scrapes_during_a_prefill_capture(cuda):
     finally:
         eng.status_server.stop()
         reset_tracing()
+
+
+def test_worker_process_tunes_while_an_engine_replays(cuda, card_tuners,
+                                                      tmp_path):
+    """A ``fleet worker`` process (the GEMM tuner loaded from disk) tunes
+    one of the SMOKE engine's decode GEMM shapes on the card while this
+    process's engine replays its graphs; the coordinator merges the shard
+    as it lands, and the merged record, installed, serves the shape from
+    the plan on an entry compiled from it (tier exact)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+
+    from repro_torch.kernels import dispatch as tdispatch
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tunedb import fleet as tfleet
+    from repro_torch.tunedb import store as tstore
+
+    tstore.install_serving(store=None, models=None, fingerprint=None)
+    cfg, params = _smoke_engine_params(cuda)
+    eng = Engine(cfg, params, ServeConfig(max_len=64, slots=3), device=cuda)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 9, 3)]
+    eng.generate(prompts, max_new=8)
+    x = next(x for sp, x in eng._decode_shapes if sp == "gemm")
+    tuners = tmp_path / "tuners"
+    card_tuners["gemm"].save(str(tuners))
+    store = tstore.RecordStore.open(tmp_path / "db.jsonl")
+    coord = tfleet.Coordinator(tmp_path / "fleet", store)
+    coord.publish([tfleet.FleetJob(space="gemm", inputs=x)])
+    coord.fleet.request_drain()
+    env = dict(os.environ,
+               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.tunedb", "fleet", "worker",
+         "--fleet", str(tmp_path / "fleet"), "--load-tuner", str(tuners)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    replays = eng.replays
+    try:
+        while proc.poll() is None:       # the engine serves meanwhile
+            eng.generate(prompts, max_new=8)
+            coord.poll()
+        out = proc.communicate(timeout=60)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, out
+    assert "1 tuned" in out and eng.replays > replays
+    coord.poll()
+    fp = CudaEventBackend(device=cuda).fingerprint
+    rec = store.get("gemm", x, backend=fp)
+    assert rec is not None and rec.merged_from and rec.source == "fleet"
+    tstore.install_serving(store=store, fingerprint=fp)
+    plan = tstore.serving_state().plan
+    assert plan.lookup("gemm", tstore.shape_key(x)) == (rec.config, "exact")
+    assert tdispatch._resolve_cfg("gemm", x) == (rec.config, "plan")
+    tstore.install_serving(store=None, models=None, fingerprint=None)
+
+
+def test_follower_install_during_a_prefill_capture(cuda, tmp_path):
+    """A plan follower's install lands (on another thread) while the
+    engine captures a prefill graph: the capture succeeds, the graph is
+    captured again at its length's next use under the new generation, and
+    the greedy tokens equal those of the same engine's run without it (the
+    plan covers none of the engine's shapes, so its configs stay)."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.space import gemm_input
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tunedb import plans as tplans
+    from repro_torch.tunedb import store as tstore
+
+    tstore.install_serving(store=None, models=None, fingerprint=None)
+    cfg, params = _smoke_engine_params(cuda)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 9, 5, 3)]
+    want = Engine(cfg, params, ServeConfig(max_len=64, slots=3),
+                  device=cuda).generate(prompts, max_new=8)
+    reg = tplans.PlanRegistry(tmp_path / "reg")
+    other = gemm_input(999, 64, 64, 32)
+    reg.publish(tstore.DispatchPlan(
+        generation=0, fingerprint=None, store_version=-1,
+        table={("gemm", tstore.shape_key(other)): (
+            {"bm": 64, "bn": 64, "bk": 64, "k_unroll": 1, "k_split": 1,
+             "order": 0, "acc32": 1, "prefetch": 1}, "exact")}))
+    follower = tplans.PlanFollower(reg, name="capture-test")
+    eng = Engine(cfg, params, ServeConfig(max_len=64, slots=3), device=cuda)
+    real = eng._captured
+    landed = []
+
+    def captured(fn, pool=None, keep=()):
+        calls = [0]
+
+        def run():
+            calls[0] += 1
+            if pool is not None and calls[0] == 2 and not landed:
+                # inside the capture: the install on another thread
+                t = threading.Thread(target=lambda: landed.append(
+                    (tstore.serving_state().generation,
+                     follower.poll_once())))
+                t.start()
+                t.join(60)
+            return fn()
+        return real(run, pool=pool, keep=keep)
+
+    eng._captured = captured
+    try:
+        got = eng.generate(prompts, max_new=8)
+        torch.cuda.current_stream(cuda).synchronize()
+    finally:
+        follower.stop()
+    assert landed and landed[0][1] is not None and follower.installs == 1
+    assert tstore.serving_state().plan.source == "loaded"
+    assert got == want
+    # 5 (the install lands), 9, 5 again (captured anew), 3
+    assert eng.prefill_captures == 4
+    tstore.install_serving(store=None, models=None, fingerprint=None)

@@ -62,6 +62,10 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.tunedb.obs.snapshot",
             "repro_torch.tunedb.obs.server", "repro_torch.tunedb.session",
             "repro_torch.tunedb.__main__",
+            "repro_torch.tunedb.fleet", "repro_torch.tunedb.fleet.lease",
+            "repro_torch.tunedb.fleet.worker",
+            "repro_torch.tunedb.fleet.coordinator",
+            "repro_torch.serve.router",
             "repro_torch.launch.serve"} <= set(out["modules"])
 
 

@@ -5,9 +5,15 @@ sequence through tier 0 (hits, promotions, stand-aside until the next
 install), an artifact exported by either package loads in the other with
 the same table and digest, and every damaged artifact is refused (the
 cases of ``tests/test_plans.py``).  The port's own rule holds on top: no
-plan entry the kernel cannot launch is ever served."""
+plan entry the kernel cannot launch is ever served.  A plan registry's
+pointers and digests equal the reference's and each package pulls the
+other's; the plan follower installs and refuses (a rollback, a torn
+artifact, a coverage loss) as the reference's does; ``plan publish`` and
+``plan follow`` round-trip."""
 
 import json
+import threading
+import time
 import warnings
 
 import pytest
@@ -419,3 +425,211 @@ def test_store_merge_export_and_stats(tmp_path):
               "sample_records", "per_space", "per_backend", "lookups",
               "schema_version"):
         assert ts[k] == js[k], k
+
+
+# ---------------------------------------------------------------------------
+# the registry and the follower (the cases of ``tests/test_plans.py``)
+# ---------------------------------------------------------------------------
+
+REG_SHAPES = [gemm_input(128 * (i + 1), 64, 512, 16) for i in range(4)]
+GEN_BM = (16, 32, 64, 128)
+
+
+def _gen_plan(mod, gen, shapes=REG_SHAPES):
+    """A plan whose every entry names its generation through ``bm``."""
+    table = {("gemm", mod.shape_key(x)): (dict(CFG_A, bm=GEN_BM[gen % 4]),
+                                          "exact") for x in shapes}
+    return mod.DispatchPlan(generation=0, fingerprint=FP, store_version=-1,
+                            table=table)
+
+
+def _gen_of(plan, shape=REG_SHAPES[0]):
+    return GEN_BM.index(plan.lookup("gemm", tstore.shape_key(shape))[0]["bm"])
+
+
+@pytest.mark.parametrize("published_by", ["jax", "port"])
+def test_registry_pointers_and_digests_match_the_reference(tmp_path,
+                                                           published_by):
+    assert all(gemm_fits(dict(CFG_A, bm=b), 16) for b in GEN_BM)
+    pointers = []
+    for mod, pl in ((jstore, jplans), (tstore, tplans)):
+        reg = pl.PlanRegistry(tmp_path / pl.__name__)
+        assert reg.current() is None
+        m1 = reg.publish(_gen_plan(mod, 1))
+        m2 = reg.publish(_gen_plan(mod, 2))
+        assert (m1.generation, m2.generation) == (1, 2)
+        pointer = reg.current()
+        pointers.append({k: v for k, v in pointer.items()
+                         if k not in ("published_at", "created_at")})
+    assert pointers[1] == pointers[0]
+    assert pointers[1]["path"] == "generations/00000002"
+    # each package pulls the other's registry, digest checked
+    pub = jplans if published_by == "jax" else tplans
+    root = tmp_path / pub.__name__
+    for pl in (jplans, tplans):
+        reg = pl.PlanRegistry(root)
+        plan = reg.pull(reg.current())
+        assert plan.digest == pointers[1]["digest"]
+    bad = dict(tplans.PlanRegistry(root).current(),
+               digest="sha256:" + "0" * 64)
+    with pytest.raises(tplans.PlanArtifactError, match="does not match"):
+        tplans.PlanRegistry(root).pull(bad)
+
+
+def _follow_sequence(mod, pl, root, sentry):
+    """Publish 1, 2; roll CURRENT back to 1; publish 3 torn; publish 4
+    dropping three planned shapes; publish 5 whole: what the follower
+    installs, and its counters."""
+    reg = pl.PlanRegistry(root)
+    holder = {}
+    f = pl.PlanFollower(reg, name="t", sentry=sentry,
+                        install=lambda p, ptr: holder.update(p=p) or True,
+                        current_plan=lambda: holder.get("p"))
+    seen = [f.poll_once()]                          # nothing published
+    reg.publish(_gen_plan(mod, 1))
+    seen.append(f.poll_once()["generation"])
+    seen.append(f.poll_once())                      # the same: no reinstall
+    reg.publish(_gen_plan(mod, 2))
+    seen.append(f.poll_once()["generation"])
+    old = json.loads((reg.generation_dir(1) / jplans.MANIFEST_NAME)
+                     .read_text())
+    old["path"] = "generations/00000001"
+    (root / "CURRENT.json").write_text(json.dumps(old))
+    seen.append(f.poll_once())                      # a rollback: refused
+    reg.publish(_gen_plan(mod, 3))
+    torn = reg.generation_dir(3) / jplans.ENTRIES_NAME
+    torn.write_bytes(torn.read_bytes()[:10])
+    seen.append(f.poll_once())                      # torn: refused
+    reg.publish(_gen_plan(mod, 0, REG_SHAPES[:1]))  # loses 3 shapes
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        seen.append(f.poll_once())
+    seen.append(any("lose coverage" in str(w.message) for w in caught))
+    reg.publish(_gen_plan(mod, 1))
+    seen.append(f.poll_once()["generation"])
+    st = {k: v for k, v in f.stats().items()
+          if k not in ("lag_s", "registry")}
+    f.stop()
+    return seen, st, _gen_of(holder["p"])
+
+
+def test_follower_refusals_match_the_reference(tmp_path):
+    from repro.tunedb.obs import RegressionSentry as JSentry
+    from repro_torch.tunedb.obs import RegressionSentry as TSentry
+    got = [_follow_sequence(jstore, jplans, tmp_path / "j", JSentry()),
+           _follow_sequence(tstore, tplans, tmp_path / "t", TSentry())]
+    assert got[1] == got[0]
+    seen, st, gen = got[1]
+    assert seen == [None, 1, None, 2, None, None, None, True, 5]
+    assert (st["refused_stale"], st["refused_digest"],
+            st["refused_sentry"]) == (1, 1, 1)
+    assert st["installs"] == 3 and st["generation"] == 5 and gen == 1
+
+
+def test_follower_installs_into_the_serving_state(tmp_path):
+    """The default target: ``install_serving(plan=...)``, the artifact's
+    fingerprint adopted, dispatch resolving on the plan; the collector
+    and ``/status`` carry the follower."""
+    from repro_torch.tunedb.obs import get_registry, status_snapshot
+    reg = tplans.PlanRegistry(tmp_path / "reg")
+    reg.publish(_gen_plan(tstore, 2))
+    f = tplans.PlanFollower(reg, name="rep-0")
+    assert f.poll_once()["generation"] == 1
+    state = tstore.serving_state()
+    assert state.plan.source == "loaded" and state.fingerprint == FP
+    cfg = tdispatch._tuned_cfg("gemm", REG_SHAPES[1])
+    assert cfg["bm"] == GEN_BM[2]
+    doc = status_snapshot()
+    assert doc["follower"]["name"] == "rep-0"
+    assert doc["follower"]["generation"] == 1
+    text = get_registry().render_prometheus()
+    assert 'tunedb_follower_generation{follower="rep-0"} 1' in text
+    assert 'tunedb_follower_installs_total{follower="rep-0"} 1' in text
+    assert 'tunedb_plan_source{source="loaded"} 1' in text
+    f.stop()
+    assert status_snapshot()["follower"] is None
+
+
+def test_threaded_follower_never_serves_a_torn_or_stale_plan(tmp_path):
+    reg = tplans.PlanRegistry(tmp_path / "reg")
+    holder = {}
+    f = tplans.PlanFollower(
+        reg, name="t", poll_s=0.001,
+        install=lambda p, ptr: holder.update(p=(p, int(ptr["generation"])))
+        or True,
+        current_plan=lambda: holder["p"][0] if "p" in holder else None)
+    torn, stale, reads, last = [], [], [0], [0]
+    stop = threading.Event()
+
+    def read_loop():
+        while not stop.is_set():
+            got = holder.get("p")
+            if got is None:
+                continue
+            plan, gen = got
+            if gen < last[0]:
+                stale.append(gen)
+            last[0] = max(last[0], gen)
+            marks = {plan.lookup("gemm", tstore.shape_key(x))[0]["bm"]
+                     for x in REG_SHAPES}
+            if len(marks) > 1:
+                torn.append(marks)
+            reads[0] += 1
+
+    reader = threading.Thread(target=read_loop, daemon=True)
+    f.start()
+    reader.start()
+    for gen in range(1, 9):
+        reg.publish(_gen_plan(tstore, gen))
+    deadline = time.time() + 5
+    while f.generation != 8 and time.time() < deadline:
+        time.sleep(0.01)
+    stop.set()
+    reader.join(5)
+    f.stop()
+    assert f.generation == 8 and reads[0] > 0
+    assert torn == [] and stale == []
+
+
+def test_coordinator_publish_plan_matches_the_reference(tmp_path):
+    import repro.tunedb.fleet as jfleet
+    from repro_torch.tunedb import fleet as tfleet
+    out = []
+    for mod, fl, pl in ((jstore, jfleet, jplans), (tstore, tfleet, tplans)):
+        path = tmp_path / pl.__name__ / "db.jsonl"
+        _write(mod, path)
+        coord = fl.Coordinator(tmp_path / pl.__name__ / "fleet",
+                               mod.RecordStore.open(path))
+        man = coord.publish_plan(tmp_path / pl.__name__ / "reg",
+                                 fingerprint=FP)
+        reg = pl.PlanRegistry(tmp_path / pl.__name__ / "reg")
+        out.append((man.generation, man.n_entries, man.digest,
+                    reg.pull(reg.current()).fingerprint))
+    # the port plans no entry its kernel cannot launch: the same records
+    # here are all launchable, so the artifacts are byte for byte equal
+    assert out[1] == out[0]
+    assert out[1][1] == 4 and out[1][3] == FP
+
+
+def test_cli_plan_publish_and_follow(tmp_path, capsys):
+    from repro.tunedb.__main__ import main as jmain
+    from repro_torch.tunedb.__main__ import main as tmain
+    path = tmp_path / "db.jsonl"
+    _write(tstore, path)
+    outs = []
+    for main, reg in ((jmain, tmp_path / "jreg"), (tmain, tmp_path / "treg")):
+        assert main(["plan", "publish", "--store", str(path), "--no-models",
+                     "--backend", FP, "--registry", str(reg)]) == 0
+        published = capsys.readouterr().out
+        assert "published generation 1" in published
+        outs.append(json.loads((reg / "CURRENT.json").read_text())["digest"])
+    assert outs[1] == outs[0]
+    assert tmain(["plan", "follow", "--registry", str(tmp_path / "treg"),
+                  "--store", str(path), "--interval", "0.01",
+                  "--max-polls", "5"]) == 0
+    out = capsys.readouterr().out
+    stats = json.loads(out[out.index("{"):])
+    assert stats["installs"] == 1 and stats["generation"] == 1
+    assert tstore.serving_state().plan.source == "loaded"
+    assert tmain(["plan", "follow", "--registry", str(tmp_path / "none"),
+                  "--interval", "0.01", "--max-polls", "2"]) == 1

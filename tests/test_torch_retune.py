@@ -455,13 +455,30 @@ def test_async_epoch_reaped_once_and_the_watchdog(tuners):
     assert "watchdog" in done.sessions["gemm"].errors[0]
 
 
-def test_fleet_and_publish_are_refused():
-    with pytest.raises(ValueError, match="ROADMAP A6"):
-        tcontroller.RetuneController(tstore.RecordStore(), fleet_dir="f")
-    with pytest.raises(ValueError, match="ROADMAP A6"):
-        tcontroller.RetuneController(
-            tstore.RecordStore(),
-            cfg=tcontroller.RetuneConfig(publish="registry"))
+def test_fleet_and_publish_are_refused(tuners, tmp_path):
+    """The fleet mode refuses a store with no file behind it (the workers'
+    shards live beside it): a warning, and the epoch runs in-process, as
+    the reference's does; a publish to a registry that cannot be written
+    is refused and counted, the local swap kept."""
+    store = tstore.RecordStore()
+    tstore.install_serving(store=store)
+    (tmp_path / "blocked").write_text("a file, not a registry directory")
+    ctl = tcontroller.RetuneController(
+        store, fleet_dir=tmp_path / "fleet", tuners=tuners,
+        cfg=tcontroller.RetuneConfig(min_calls=8, top_k_shapes=1,
+                                     workers=1, retrain=False,
+                                     publish=str(tmp_path / "blocked")))
+    assert ctl.async_mode
+    for _ in range(40):
+        ttelemetry.get_telemetry().record("gemm", A)
+    with pytest.warns(RuntimeWarning, match="disk-backed"):
+        assert ctl.maybe_retune() is None
+    with pytest.warns(RuntimeWarning, match="plan publish"):
+        report = ctl.wait_async(timeout=120)
+    assert report is not None and report.mode == "async" and report.tuned
+    assert not (tmp_path / "fleet").exists()
+    assert ctl.publish_failed == 1 and ctl.published_plans == 0
+    assert ctl.retunes == 1 and store.contains("gemm", A)
 
 
 # ---------------------------------------------------------------------------
