@@ -219,7 +219,25 @@ exits non-zero:
                 mid-serve and then gives A's tokens; ``fleet route`` over
                 two replica registries.  A child that fails, or is left
                 running, fails the phase
- 21. mamba      mamba2-1.3b at full width (48 layers, bf16, random weights
+ 21. chaos      crash safety (``tunedb/chaos.py``, the store's quarantine
+                and ``repair``, ``tunedb fsck``): A: 3 worker threads,
+                each with its own copies of the tune phase's GEMM and
+                attention tuners loaded from disk, tune SmolLM-135M's 8
+                projection GEMMs and its decode attention shape on the
+                card under ``FaultPlan(seed=11)`` (``worker.*`` kill,
+                ``lease.*`` EIO, ``store.append`` torn write; a dead
+                worker's thread starts a new one); disarmed, expired
+                leases requeue and sweep workers drain the queue:
+                every job done or failed exactly once, every done job's
+                record merged; the faults by kind and site, the retries
+                by site.  B: a merge killed by a torn append: the store
+                reopened quarantines the fragment, ``fsck --fleet`` exits
+                1, 0 (``--repair``), 0, and a restarted coordinator merges
+                again.  C: SmolLM-135M at full width serves 8 x 32-token
+                prompts x 16 tokens from the repaired store from its
+                graphs: every resolution a plan hit on an exact record,
+                tokens equal to eager, 0 ``FaultyIO`` calls disarmed
+ 22. mamba      mamba2-1.3b at full width (48 layers, bf16, random weights
                 from seed 0): its 4 projection GEMMs (M = 4 and 32) tuned
                 into the store, then 8 requests of 32-token prompts x 16
                 tokens served through ``Engine.generate`` from the
@@ -241,7 +259,7 @@ exits non-zero:
                 inputs at L=300 (both timed; not on the path); the
                 replayed tick's device time against its byte bound; the
                 phase's wall time
- 22. moe        dbrx-132b at full width (d_model 6144, 48 / 8 heads, d_ff
+ 23. moe        dbrx-132b at full width (d_model 6144, 48 / 8 heads, d_ff
                 10752, 16 experts top-4, vocab 100352, bf16, random weights
                 from seed 0), its depth cut to 8 of 40 layers (all 40 need
                 about 262 GB): the earlier phases' memory freed first; its
@@ -265,7 +283,7 @@ exits non-zero:
                 kernels split into GEMM, reduction and other from a traced
                 round held to the graph's nodes; parameter bytes and peak
                 memory
- 23. encdec     whisper-base at full width, nothing cut (6 encoder + 6
+ 24. encdec     whisper-base at full width, nothing cut (6 encoder + 6
                 decoder layers, d_model 512, bf16, random weights from seed
                 0), through the model's entry points as the reference
                 serves an encoder-decoder (its engine takes tokens only):
@@ -280,7 +298,7 @@ exits non-zero:
                 cross-q/o + 3 MLP)) and one reduction node per projection
                 whose tuned config splits K; encode, prefill and eager tick
                 ms; the replayed tick's device time against its byte bound
- 24. frontend   internvl2-76b at full width (d_model 8192, 64 / 8 heads,
+ 25. frontend   internvl2-76b at full width (d_model 8192, 64 / 8 heads,
                 d_ff 28672, vocab 128256, bf16), its depth cut to 32 of 80
                 layers (all 80 need about 139 GB), after the earlier
                 phases' memory is freed: its 4 projection GEMMs (M = 4 and
@@ -294,12 +312,13 @@ exits non-zero:
                 greedy decode steps from index 288; the replayed tick
                 against its byte bound; the peak allocated held under 75
                 GB; the two phases' wall
- 25. kernels    one JSON line summarising every hand-written kernel (the
+ 26. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
 
 Each path (tune, models, serve, plans, admission, measure,
 degradation, trace, retune, fleet (the engine's; fleet_worker: the
-worker processes' own counts, from their reports), serve_mamba, serve_moe,
+worker processes' own counts, from their reports), chaos (the engine's;
+chaos_workers: the worker threads' timings), serve_mamba, serve_moe,
 serve_encdec, serve_frontend)
 runs with every launch count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
@@ -316,9 +335,11 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import errno
 import functools
 import gc
 import io
+import itertools
 import json
 import math
 import os
@@ -377,7 +398,8 @@ from repro_torch.tunedb.model import (ModelSet, clear_models,  # noqa: E402
                                       collect_samples, default_models_dir,
                                       train_models)
 from repro_torch.tunedb.obs import (Tracer, enable_tracing,  # noqa: E402
-                                    load_span_file, reset_tracing)
+                                    get_registry, load_span_file,
+                                    reset_tracing)
 from repro_torch.tunedb.plans import (default_plan_dir, export_plan,  # noqa: E402
                                       load_plan, read_manifest)
 from repro_torch.tunedb.session import TuningSession  # noqa: E402
@@ -4485,6 +4507,367 @@ def phase_fleet(cfg, fp: str, tuners: dict, tune_store: RecordStore,
     return out
 
 
+# -- the chaos phase ----------------------------------------------------------
+
+CHAOS_SEED = 11
+CHAOS_WORKERS = 3
+CHAOS_LEASE_TIMEOUT_S = 5.0        # well above a job (0.7-2.4 s on an H100)
+CHAOS_MAX_ATTEMPTS = 10            # as the reference test's recovery
+CHAOS_HEARTBEAT_S = 0.5
+CHAOS_RECOVER_S = 90.0             # part A's recovery deadline
+CHAOS_PROMPTS, CHAOS_PROMPT, CHAOS_NEW = 8, 32, 16
+CHAOS_SHIM = ("probe", "read_text", "read_bytes", "write_text",
+              "write_bytes", "file_write", "replace", "rename", "fsync",
+              "utime", "unlink")
+
+
+def chaos_tuners(tuner_dir: Path, dev: torch.device) -> dict:
+    """One worker's own tuners, loaded from disk as ``fleet worker
+    --load-tuner`` loads them, each with a gated timing backend of its
+    own: no two workers share a tuner or a backend."""
+    from repro_torch.core.space import SPACES
+    return {name: InputAwareTuner.load(
+        str(tuner_dir), SPACES[name],
+        backend=CheckedBackend(CudaEventBackend(device=dev)))
+        for name in ("gemm", "attention")}
+
+
+def retries_by_site() -> dict:
+    """``tunedb_io_retries_total`` summed by call site."""
+    out: dict = {}
+    for s in get_registry().counter("tunedb_io_retries_total").samples():
+        site = dict(s.labels)["site"]
+        out[site] = out.get(site, 0) + int(s.value)
+    return out
+
+
+def fsck(*args: str) -> tuple:
+    """``tunedb fsck`` in this process: (exit code, its output lines)."""
+    from repro_torch.tunedb.__main__ import main as tunedb_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the repair's reload warns
+        rc = tunedb_main(["fsck", *args])
+    return rc, buf.getvalue().splitlines()
+
+
+def phase_chaos(cfg, params, fp: str, tuners: dict, dev: torch.device,
+                tmp: Path, serve_tick_ms: float, label: str) -> dict:
+    """Crash safety on the card: the fleet tunes SmolLM-135M's shapes under
+    a seeded fault plan, a merge dies mid-append and is repaired, and the
+    engine serves from the repaired store.
+
+    A: a ``Coordinator`` over an empty disk store (``lease_timeout_s=5``)
+    publishes the 8 projection GEMM shapes (M = 4 and 32) and the decode
+    attention shape; 3 in-process ``Worker`` threads, each with its own
+    copies of the tune phase's tuners loaded from disk, tune them on the
+    card under ``FaultPlan(seed=11)`` with the reference test's rules
+    (``worker.*`` kill p 0.15 max 2, ``lease.*`` EIO p 0.10 max 6,
+    ``store.append`` torn write p 0.05 max 1); a thread whose worker dies
+    starts a new one (a new id), still armed, until one ends idle.
+    Disarmed, expired leases are requeued and sweep workers run until the
+    queue and the leases are empty: every job done or failed exactly
+    once, every done job's record merged.  No shim site runs inside a capture: the workers' timings
+    capture under ``DEVICE_LOCK`` and no engine exists yet.
+    B: two GEMM jobs on a fresh bus, tuned; one ``poll`` with a torn
+    ``store.append`` (p 1, max 1) dies with ``KillPoint``; the store
+    reopened warns, keeps every complete line and quarantines the
+    fragment; ``fsck --fleet`` reports (1), repairs (0) and then passes
+    clean (0); a restarted coordinator merges the shard again from its
+    unmoved cursor.
+    C: ``Engine(ServeConfig(slots=4, max_len=256, tunedb=<repaired
+    store>))`` serves 8 x 32-token prompts x 16 tokens from its graphs:
+    every resolution a plan hit on an entry compiled from its exact
+    record, graphed tokens equal to eager, and 0 shim calls in the graph
+    round with every ``FaultyIO`` method a counting trap."""
+    from repro_torch.tunedb import chaos
+    from repro_torch.tunedb import fleet as tfleet
+    from repro_torch.tunedb.chaos import FaultPlan, FaultRule, KillPoint
+
+    t_phase = time.perf_counter()
+    root = tmp / "chaos-phase"
+    root.mkdir()
+    tuner_dir = root / "tuners"
+    for t in tuners.values():
+        t.save(str(tuner_dir))
+    store_path = root / "chaos.jsonl"
+    out: dict = {}
+    # -- A: the lease protocol under faults --------------------------------
+    coord = tfleet.Coordinator(root / "fleet_a", RecordStore(store_path),
+                               lease_timeout_s=CHAOS_LEASE_TIMEOUT_S,
+                               max_attempts=CHAOS_MAX_ATTEMPTS)
+    shapes = [("gemm", gemm_input(M, N, K, 16)) for M in SLICE_M
+              for (N, K) in SLICE_NK] + [("attention", ATTN_TARGETS[0][1])]
+    jobs = [tfleet.FleetJob(space=sp, inputs=x) for sp, x in shapes]
+    if coord.publish(jobs) != len(jobs):
+        raise AssertionError("chaos A: publish")
+    own = [chaos_tuners(tuner_dir, dev) for _ in range(CHAOS_WORKERS)]
+    retries0 = retries_by_site()
+    reset_launches()
+    died: dict = {}
+    reports: dict = {}
+
+    def run_slot(slot: int, wtuners: dict) -> None:
+        """One worker slot: a worker that dies is replaced (a new id, as a
+        supervisor starts a new process), still armed, until one ends
+        idle: the queue is empty and the dead workers' leases wait for
+        expiry."""
+        for n in itertools.count():
+            wid = f"w{slot}.{n}"
+            w = tfleet.Worker(root / "fleet_a", worker_id=wid,
+                              tuners=wtuners, poll_s=0.01,
+                              heartbeat_s=CHAOS_HEARTBEAT_S)
+            try:
+                reports[wid] = w.run(idle_timeout_s=1.0)
+                return
+            except KillPoint as e:
+                died[wid] = f"killed at {e.site}"
+            except OSError as e:        # a lease write past its retries
+                died[wid] = f"{type(e).__name__} errno {e.errno}"
+
+    plan = FaultPlan(seed=CHAOS_SEED, rules=[
+        FaultRule(site="worker.*", kind="kill", p=0.15, max_count=2),
+        FaultRule(site="lease.*", kind="errno", p=0.10, errno=errno.EIO,
+                  max_count=6),
+        FaultRule(site="store.append", kind="torn_write", p=0.05,
+                  max_count=1)])
+    t0 = time.perf_counter()
+    with chaos.armed(plan) as shim:
+        threads = [threading.Thread(target=run_slot, args=(i, t))
+                   for i, t in enumerate(own)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("chaos A: a worker thread did not end")
+    t_armed = time.perf_counter() - t0
+    report = shim.report()
+    if shim.calls <= 0:
+        raise AssertionError("chaos A: the plan saw no shim call")
+    # faults off: requeue expired leases, sweep until nothing is left
+    requeued, sweeps = [], 0
+    deadline = time.perf_counter() + CHAOS_RECOVER_S
+    while True:
+        requeued += coord.fleet.reclaim_expired(
+            lease_timeout_s=CHAOS_LEASE_TIMEOUT_S,
+            max_attempts=CHAOS_MAX_ATTEMPTS)
+        c = coord.fleet.counts()
+        if c["queue"] == 0 and c["leases"] == 0:
+            break
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"chaos A: not recovered: {c}")
+        if c["queue"]:
+            sweeps += 1
+            tfleet.Worker(root / "fleet_a", worker_id=f"sweep{sweeps}",
+                          tuners=own[0], poll_s=0.01,
+                          heartbeat_s=CHAOS_HEARTBEAT_S).run(
+                idle_timeout_s=0.2)
+        else:
+            time.sleep(0.25)            # a dead worker's lease expiring
+    t_recover = time.perf_counter() - t0 - t_armed
+    done = {p.stem for p in coord.fleet.done.glob("*.json")}
+    failed = {p.stem for p in coord.fleet.failed.glob("*.json")}
+    if done | failed != {j.job_id for j in jobs} or done & failed:
+        raise AssertionError(f"chaos A: done {sorted(done)}, failed "
+                             f"{sorted(failed)}")
+    coord.poll()
+    store = coord.store
+    for j in jobs:
+        rec = store.get(j.space, j.inputs, backend=fp)
+        if j.job_id in done and (rec is None or not rec.merged_from
+                                 or rec.source != "fleet"):
+            raise AssertionError(f"chaos A: no merged record for "
+                                 f"{j.space} {shape_str(j.inputs)}: {rec}")
+    retries = {k: v - retries0.get(k, 0) for k, v in retries_by_site().items()
+               if v - retries0.get(k, 0)}
+    finished = sorted(reports.items())
+    phase("chaos", f"A: {len(jobs)} jobs (8 GEMM, the decode attention "
+          f"shape), {CHAOS_WORKERS} worker threads under FaultPlan(seed="
+          f"{CHAOS_SEED}) for {t_armed:.2f} s: {report['calls']} shim "
+          f"calls, injected {report['by_kind']}, by site {report['by_site']};"
+          f" workers died {died or 'none'}, finished "
+          f"{ {w: (r.claimed, r.tuned, r.failed) for w, r in finished} }"
+          f" (claimed, tuned, failed); retried by site {retries}; recovery "
+          f"{t_recover:.2f} s: {len(requeued)} leases requeued on expiry, "
+          f"{sweeps} sweep workers; jobs done {len(done)}, failed "
+          f"{len(failed)}, each exactly once; the merge holds a fleet "
+          f"record for every done job [{label}]")
+    out["a"] = {"report": report, "retries": retries, "died": died,
+                "done": len(done), "failed": len(failed),
+                "requeued": len(requeued), "armed_s": t_armed,
+                "recover_s": t_recover}
+    # -- B: a crash in the middle of a merge -------------------------------
+    t0 = time.perf_counter()
+    fleet_b = root / "fleet_b"
+    coord_b = tfleet.Coordinator(fleet_b, RecordStore.open(store_path),
+                                 lease_timeout_s=CHAOS_LEASE_TIMEOUT_S,
+                                 max_attempts=CHAOS_MAX_ATTEMPTS)
+    jobs_b = [tfleet.FleetJob(space="gemm", inputs=gemm_input(M, N, K, 16))
+              for M, N, K in FLEET_B_SHAPES]
+    coord_b.publish(jobs_b)
+    rep_b = tfleet.Worker(fleet_b, worker_id="b", tuners=own[1],
+                          poll_s=0.01).run(idle_timeout_s=0.0)
+    if rep_b.tuned != len(jobs_b):
+        raise AssertionError(f"chaos B: worker {rep_b}")
+    lines_before = store_path.read_text().count("\n")
+    torn = FaultPlan(seed=CHAOS_SEED, rules=[
+        FaultRule(site="store.append", kind="torn_write", p=1.0,
+                  max_count=1)])
+    with chaos.armed(torn):
+        try:
+            coord_b.poll()
+        except KillPoint as e:
+            killed_at = e.site
+        else:
+            raise AssertionError("chaos B: the torn merge did not raise")
+    raw = store_path.read_text()
+    fragment = raw[raw.rfind("\n") + 1:]
+    if raw.count("\n") != lines_before or not fragment.strip():
+        raise AssertionError(f"chaos B: {raw.count(chr(10))} lines after "
+                             f"the torn merge ({lines_before} before), "
+                             f"fragment {len(fragment)} chars")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reopened = RecordStore.open(store_path)
+    qfiles = sorted(reopened.quarantine_dir().glob("*-load.jsonl"))
+    if not (any("quarantined" in str(w.message) for w in caught)
+            and reopened.n_lines == lines_before
+            and reopened.n_skipped == 1 and len(qfiles) == 1
+            and qfiles[0].read_text() == fragment.strip() + "\n"):
+        raise AssertionError(f"chaos B: reopened {reopened.n_lines} lines "
+                             f"({lines_before} complete), "
+                             f"{reopened.n_skipped} skipped, quarantine "
+                             f"{[p.name for p in qfiles]}, warnings "
+                             f"{[str(w.message) for w in caught]}")
+    args = [str(store_path), "--fleet", str(fleet_b)]
+    rcs, found = [], []
+    for extra in ([], ["--repair"], []):
+        rc, lines = fsck(*args, *extra)
+        rcs.append(rc)
+        found.append([ln.replace(f"{root}/", "") for ln in lines
+                      if "verdict" in ln or "bad (" in ln
+                      or "orphan(s)," in ln])
+    if rcs != [1, 0, 0]:
+        raise AssertionError(f"chaos B: fsck exit codes {rcs}: {found}")
+    again = tfleet.Coordinator(fleet_b)     # a restarted coordinator
+    merged = again.poll()["merged_now"]
+    final = RecordStore.open(store_path)
+    for j in jobs_b:
+        rec = final.get("gemm", j.inputs, backend=fp)
+        if rec is None or rec.merged_from != "b":
+            raise AssertionError(f"chaos B: {shape_str(j.inputs)} after the "
+                                 f"second merge: {rec}")
+    t_b = time.perf_counter() - t0
+    phase("chaos", f"B: 2 GEMM jobs tuned on a fresh bus; a poll with a "
+          f"torn store.append died at {killed_at} leaving a "
+          f"{len(fragment)}-char fragment after {lines_before} complete "
+          f"lines; reopened: warned, {reopened.n_lines} lines kept, the "
+          f"fragment quarantined ({qfiles[0].name}); fsck --fleet exit "
+          f"codes {rcs} (plain, --repair, plain): "
+          + " | ".join("; ".join(f) for f in found)
+          + f"; a restarted coordinator merged {merged} records again from "
+          f"the unmoved cursor, both shapes served from worker b's; "
+          f"{t_b:.2f} s")
+    worker_launches = read_launches()
+    if not (worker_launches["gemm"] and worker_launches["gemm_reduce"]
+            and worker_launches["attention"]):
+        raise AssertionError(f"chaos workers' launches {worker_launches}")
+    del own
+    # -- C: serving from the repaired store --------------------------------
+    clear_telemetry()
+    clear_models()
+    install_serving(store=None, models=None, fingerprint=None)
+    dispatch.reset_counts()
+    reset_launches()
+    eng = Engine(cfg, params, ServeConfig(
+        slots=4, max_len=256, tunedb=str(store_path), tunedb_backend=fp,
+        record_tick_times=True), device=dev)
+    plan_c = serving_state().plan
+    per_fwd = GEMMS_PER_LAYER * cfg.n_layers
+    st = eng.tunedb_store
+    red = {M: cfg.n_layers * sum(n * splits(st, fp, M, N, K)
+                                 for (N, K), n in SLICE_NK.items())
+           for M in SLICE_M}
+    run = functools.partial(serve_run, eng, per_fwd=per_fwd,
+                            red_pre=red[32], red_tick=red[4],
+                            attn_per_tick=cfg.n_layers)
+    rng = np.random.default_rng(11)
+    warm = [rng.integers(0, cfg.vocab, CHAOS_PROMPT) for _ in range(2)]
+    prompts = [rng.integers(0, cfg.vocab, CHAOS_PROMPT)
+               for _ in range(CHAOS_PROMPTS)]
+    w = run("chaos C warm-up", warm, 2)
+    if (w["captures"], w["prefill_captures"]) != (1, 1):
+        raise AssertionError(f"chaos C: warm-up captured {w['captures']} "
+                             f"ticks, {w['prefill_captures']} prefills")
+    shim_calls = collections.Counter()
+    saved = {m: getattr(chaos.FaultyIO, m) for m in CHAOS_SHIM}
+
+    def trap(name):
+        def counted(self, *a, **kw):
+            shim_calls[name] += 1
+            return saved[name](self, *a, **kw)
+        return counted
+
+    for m in CHAOS_SHIM:
+        setattr(chaos.FaultyIO, m, trap(m))
+    try:
+        if chaos._IO is not None:
+            raise AssertionError("chaos C: the shim is armed")
+        g = run("chaos C graph", prompts, CHAOS_NEW)
+    finally:
+        for m, fn in saved.items():
+            setattr(chaos.FaultyIO, m, fn)
+    if sum(shim_calls.values()):
+        raise AssertionError(f"chaos C: {dict(shim_calls)} shim calls "
+                             "while disarmed")
+    if g["captures"] or g["prefill_captures"] or g["launches"]:
+        raise AssertionError(f"chaos C: the graph run captured or launched "
+                             f"from the host ({g['launches']})")
+    tick_gemm, tick_reduce, _ = graph_counts(eng.graph)
+    pre_gemm, pre_reduce, _ = graph_counts(eng.prefill_graphs[CHAOS_PROMPT])
+    g["device_launches"] = tick_gemm * g["replays"] + pre_gemm * g["prefills"]
+    g["device_reduce_launches"] = (tick_reduce * g["replays"]
+                                   + pre_reduce * g["prefills"])
+    if g["device_launches"] != per_fwd * (g["prefills"] + g["replays"]):
+        raise AssertionError(f"chaos C: {g['device_launches']} GEMM kernels "
+                             f"given to the device")
+    counts = read_launches()
+    eng.prefill, eng.decode = eng.prefill_eager, eng.decode_eager
+    try:
+        e = run("chaos C eager", prompts, CHAOS_NEW)
+    finally:
+        eng.prefill, eng.decode = eng.prefill_graph, eng.decode_graph
+    if e["outs"] != g["outs"]:
+        raise AssertionError("chaos C: graphed tokens differ from eager")
+    check_plan_exact(plan_c, st, fp, g["shapes"], "chaos C")
+    unserved = {(sp, shape_key(x)) for sp, x in shapes} - set(g["shapes"])
+    if unserved:
+        raise AssertionError(f"chaos C: tuned shapes not served {unserved}")
+    if not (counts["gemm"] and counts["gemm_reduce"]):
+        raise AssertionError(f"chaos C: engine launches {counts}")
+    phase("chaos", f"C: {cfg.name} ({cfg.n_layers}L d={cfg.d_model} bf16) "
+          f"from the repaired store ({len(st)} served records): "
+          f"{CHAOS_PROMPTS} x {CHAOS_PROMPT}-token prompts x {CHAOS_NEW} "
+          f"tokens from the graphs, every resolution a plan hit on an "
+          f"exact record ({len(g['shapes'])} shapes), "
+          f"{g['device_launches']} GEMM kernels and "
+          f"{g['device_reduce_launches']} reduction passes given to the "
+          f"device, graphed tokens = eager tokens; 0 shim calls over the "
+          f"graph round (every FaultyIO method a counting trap, disarmed); "
+          f"median tick {g['tick_ms']:.2f} ms (the serve phase's "
+          f"{serve_tick_ms:.2f} ms), {g['tok_s']:.1f} tok/s; launches: the "
+          f"workers {worker_launches}, the engine {counts} [{label}]")
+    install_serving(store=None, models=None, fingerprint=None)
+    out.update(counts=counts, worker_launches=worker_launches,
+               device_launches=g["device_launches"],
+               device_reduce_launches=g["device_reduce_launches"],
+               tick_ms=g["tick_ms"], tok_s=g["tok_s"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    phase("chaos", f"the phase's wall {out['wall_s']:.1f} s")
+    return out
+
+
 def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -5551,6 +5934,13 @@ def main() -> int:
                                  f"the workers' {launches['fleet_worker']}")
         phase("fleet", f"launches on the fleet path: the engine "
               f"{launches['fleet']}, the workers {launches['fleet_worker']}")
+        gc.collect()
+        chaos = phase_chaos(cfg, params, fp, tuners, dev, Path(tmp),
+                            serve["tick_ms"], label)
+        launches["chaos"] = chaos["counts"]
+        launches["chaos_workers"] = chaos["worker_launches"]
+        phase("chaos", f"launches on the chaos path: the engine "
+              f"{launches['chaos']}, the workers {launches['chaos_workers']}")
         mamba = phase_mamba(backend, store, store_path, fp, dev, peaks,
                             label)
         launches["serve_mamba"] = mamba["counts"]
@@ -5570,7 +5960,7 @@ def main() -> int:
     line = kernels_line(rows, worst, launches, cfg.n_layers)
     line["kernels"][0]["device_launches"] = serve["device_launches"]
     served = {"serve": serve, "serve_retune": retune, "serve_fleet": fleet,
-              "serve_mamba": mamba,
+              "serve_chaos": chaos, "serve_mamba": mamba,
               "serve_moe": moe, "serve_encdec": encdec,
               "serve_frontend": frontend}
     line["kernels"][0]["device_launches_by_path"] = {

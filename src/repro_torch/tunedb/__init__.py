@@ -3,11 +3,13 @@ dispatch plans, shape telemetry (process and fleet-global), plan
 artifacts and their registry and follower, tuning sessions, the
 performance models of dispatch's model tier, the retune controller that
 closes the telemetry -> tune -> train -> serve loop, the tuning fleet
-(``fleet``: lease-file jobs, workers, the coordinator's merge) and its
-observability (``obs``: the metrics registry, the status endpoint and its
-snapshot, the regression sentry and request tracing); a subset of
-``repro.tunedb``."""
+(``fleet``: lease-file jobs, workers, the coordinator's merge), the
+fault-injection shim every bus file operation goes through when armed
+(``chaos``) and its observability (``obs``: the metrics registry, the
+status endpoint and its snapshot, the regression sentry and request
+tracing); a subset of ``repro.tunedb``."""
 
+from . import chaos
 from .controller import (RetuneConfig, RetuneController, RetuneReport,
                          SpaceDecision)
 from .model import (MODEL_SCHEMA_VERSION, ModelArtifactError, ModelSet,
@@ -34,7 +36,7 @@ __all__ = ["MODEL_SCHEMA_VERSION", "PLAN_HOT_K", "DispatchPlan",
            "SessionReport", "ShapeTelemetry", "SpaceDecision", "StatusServer",
            "Supersession", "TelemetryExporter", "TuneJob", "TuneRecord",
            "TuningSession",
-           "backend_fingerprint", "backend_slug", "clear_models",
+           "backend_fingerprint", "chaos", "backend_slug", "clear_models",
            "clear_store", "clear_telemetry", "collect_samples", "compile_plan",
            "default_models_dir", "get_models", "get_registry", "get_telemetry",
            "harvest", "install_models", "install_serving", "install_store",

@@ -58,6 +58,9 @@ export the frozen dispatch plans serving starts from.
            ``--fleet`` bus)
   export   write a compacted store: the latest record per shape
   merge    fold stores into one (``--out``)
+  fsck     check a store's lines (CRC), a plan registry's generations
+           (digest) and a fleet bus (orphan and unparseable entries);
+           ``--repair`` quarantines the damage; exit 1 while damage stays
 
   $ python -m repro_torch.tunedb tune --space gemm --shape M=4,N=576,K=576 \\
         --store tunedb.jsonl                                   # on the card
@@ -127,8 +130,7 @@ the same string (``repro_torch.launch.serve`` does by default).
 ``retune``, ``watch`` and ``fleet worker`` train a tuner per space they
 tune (``--train-samples``, labelled on ``--device``) unless
 ``--load-tuner`` gives one (a directory of ``InputAwareTuner.save``
-files, one set a space).  The reference's ``fsck`` waits for the chaos
-slice (ROADMAP A6.4).
+files, one set a space).
 """
 
 from __future__ import annotations
@@ -626,6 +628,159 @@ def _cmd_merge(args: argparse.Namespace) -> int:
         total += merged.merge(RecordStore.open(path))
     print(f"[tunedb] merged {total} records from {len(args.stores)} "
           f"stores -> {args.out} ({len(merged)} shapes)")
+    return 0
+
+
+def _cmd_fsck(args: argparse.Namespace) -> int:
+    """Check a store, and a plan registry or artifact and a fleet bus.
+
+    Exit 0 when everything verifies (or ``--repair`` quarantined every
+    finding); exit 1 while damage stays, or on a loss no repair undoes (a
+    registry's ``CURRENT`` pointing at an artifact that fails its digest:
+    compile and publish again).  The reference's findings, lines and JSON
+    report, word for word.
+    """
+    from .store import RecordStore, TuneRecord
+
+    report: dict = {"store": None, "plans": None, "fleet": None}
+    damaged = 0          # findings --repair quarantines
+    unrecoverable = 0    # findings no repair undoes
+
+    # -- the store: each line's CRC, read raw (no load side effects) --------
+    store_path = pathlib.Path(args.store)
+    bad_lines: List[int] = []
+    n_lines = 0
+    if store_path.exists():
+        raw = store_path.read_text(encoding="utf-8")
+        lines = raw.splitlines()
+        torn_tail = bool(raw) and not raw.endswith("\n")
+        for i, line in enumerate(lines, 1):
+            if not line.strip():
+                continue
+            n_lines += 1
+            try:
+                TuneRecord.from_json(line)
+            except (ValueError, TypeError, KeyError):
+                bad_lines.append(i)
+        damaged += len(bad_lines)
+        repaired = None
+        if bad_lines and args.repair:
+            store = RecordStore.open(store_path)   # the load quarantines
+            repaired = store.repair()              # the rewrite drops them
+            qdir = store.quarantine_dir()
+            print(f"[fsck] store {store_path}: quarantined "
+                  f"{repaired['quarantined']} line(s) -> {qdir}, "
+                  f"kept {repaired['kept']}")
+        report["store"] = {
+            "path": str(store_path), "lines": n_lines,
+            "bad_lines": bad_lines, "torn_tail": torn_tail,
+            "repaired": repaired}
+        status = "clean" if not bad_lines else (
+            "repaired" if args.repair else "DAMAGED")
+        print(f"[fsck] store {store_path}: {n_lines} line(s), "
+              f"{len(bad_lines)} bad ({status})")
+    else:
+        print(f"[fsck] store {store_path}: missing (nothing to check)")
+
+    # -- plan artifacts: every generation against its digest ----------------
+    from .plans import (CURRENT_NAME, GENERATIONS, MANIFEST_NAME,
+                        PlanArtifactError, default_plan_dir, load_plan)
+    plans_dir = pathlib.Path(args.plans) if args.plans else None
+    if plans_dir is None and default_plan_dir(store_path).is_dir():
+        plans_dir = default_plan_dir(store_path)
+    if plans_dir is not None:
+        gen_root = plans_dir / GENERATIONS
+        targets = (sorted(d for d in gen_root.iterdir() if d.is_dir())
+                   if gen_root.is_dir() else
+                   [plans_dir] if (plans_dir / MANIFEST_NAME).exists()
+                   else [])
+        current_gen = None
+        if (plans_dir / CURRENT_NAME).exists():
+            try:
+                current_gen = int(json.loads(
+                    (plans_dir / CURRENT_NAME).read_text())["generation"])
+            except (ValueError, KeyError, TypeError, OSError):
+                print(f"[fsck] plans {plans_dir}: CURRENT pointer "
+                      "unreadable (UNRECOVERABLE: republish)")
+                unrecoverable += 1
+        bad_gens: List[str] = []
+        for gdir in targets:
+            try:
+                load_plan(gdir)
+            except PlanArtifactError as e:
+                bad_gens.append(gdir.name)
+                if (current_gen is not None
+                        and gdir.name == f"{current_gen:08d}"):
+                    # the pointer's own artifact: followers cannot pull
+                    # it, and moving it would orphan the pointer
+                    print(f"[fsck] plans {plans_dir}: CURRENT generation "
+                          f"{gdir.name} failed verification "
+                          f"(UNRECOVERABLE: {e})")
+                    unrecoverable += 1
+                else:
+                    damaged += 1
+                    if args.repair:
+                        qdir = plans_dir / "quarantine"
+                        qdir.mkdir(parents=True, exist_ok=True)
+                        os.replace(gdir, qdir / gdir.name)
+                        print(f"[fsck] plans {plans_dir}: quarantined torn "
+                              f"generation {gdir.name} -> {qdir}")
+        report["plans"] = {"path": str(plans_dir),
+                           "generations": len(targets),
+                           "bad": bad_gens, "current": current_gen}
+        status = "clean" if not bad_gens and not unrecoverable else (
+            "repaired" if args.repair and not unrecoverable else "DAMAGED")
+        print(f"[fsck] plans {plans_dir}: {len(targets)} artifact(s), "
+              f"{len(bad_gens)} bad ({status})")
+
+    # -- the fleet bus ------------------------------------------------------
+    if args.fleet:
+        from .fleet.lease import FleetDir, FleetJob
+        fd = FleetDir(args.fleet)
+        orphans: List[str] = []      # a lease or queue entry behind a marker
+        garbage: List[str] = []      # protocol files that do not parse
+        for kind, d in (("queue", fd.queue), ("lease", fd.leases)):
+            if not d.is_dir():
+                continue
+            for p in sorted(d.glob("*.json")):
+                try:
+                    FleetJob.from_json(p.read_text(encoding="utf-8"))
+                except (ValueError, KeyError, TypeError):
+                    garbage.append(f"{kind}:{p.name}")
+                    damaged += 1
+                    if args.repair:
+                        qdir = fd.root / "quarantine"
+                        qdir.mkdir(parents=True, exist_ok=True)
+                        os.replace(p, qdir / f"{kind}-{p.name}")
+                    continue
+                if (fd.done / p.name).exists():
+                    # the done marker is the truth: a leftover lease or a
+                    # requeued copy of a finished job is an orphan
+                    orphans.append(f"{kind}:{p.name}")
+                    damaged += 1
+                    if args.repair:
+                        p.unlink(missing_ok=True)
+        if args.repair and (orphans or garbage):
+            print(f"[fsck] fleet {fd.root}: removed {len(orphans)} "
+                  f"orphan(s), quarantined {len(garbage)} garbage file(s)")
+        report["fleet"] = {"path": str(fd.root), "orphans": orphans,
+                           "garbage": garbage, "counts": fd.counts()}
+        status = "clean" if not orphans and not garbage else (
+            "repaired" if args.repair else "DAMAGED")
+        print(f"[fsck] fleet {fd.root}: {len(orphans)} orphan(s), "
+              f"{len(garbage)} garbage file(s) ({status})")
+
+    if args.json:
+        print(json.dumps(report, indent=1, sort_keys=True))
+    if unrecoverable:
+        print(f"[fsck] verdict: UNRECOVERABLE ({unrecoverable} finding(s))")
+        return 1
+    if damaged and not args.repair:
+        print(f"[fsck] verdict: {damaged} finding(s) "
+              "(re-run with --repair to quarantine)")
+        return 1
+    print("[fsck] verdict: OK" if not damaged
+          else f"[fsck] verdict: OK ({damaged} finding(s) repaired)")
     return 0
 
 
@@ -1373,6 +1528,24 @@ def build_parser() -> argparse.ArgumentParser:
     me.add_argument("stores", nargs="+")
     me.add_argument("--out", required=True)
     me.set_defaults(fn=_cmd_merge)
+
+    fk = sub.add_parser(
+        "fsck", help="verify store/plan/fleet integrity; --repair "
+                     "quarantines damage")
+    fk.add_argument("store", help="record store to scan (line + CRC "
+                                  "integrity)")
+    fk.add_argument("--plans", default=None,
+                    help="plan registry or artifact dir to digest-verify "
+                         "(default: <store>.plan when present)")
+    fk.add_argument("--fleet", default=None,
+                    help="fleet bus dir to check for orphan leases, "
+                         "done-marker duplicates, and garbage files")
+    fk.add_argument("--repair", action="store_true",
+                    help="quarantine damaged lines/artifacts and remove "
+                         "orphaned bus entries")
+    fk.add_argument("--json", action="store_true",
+                    help="print the full finding report as JSON")
+    fk.set_defaults(fn=_cmd_fsck)
     return p
 
 

@@ -32,6 +32,8 @@ import pathlib
 import time
 from typing import Dict, Iterable, List, Mapping, Optional, Set, Tuple
 
+from .. import chaos
+from ..chaos import retry_io
 from ..obs.metrics import get_registry
 from ..obs.sentry import RegressionSentry
 from ..store import (SAMPLE_SOURCE, DispatchPlan, RecordStore, TuneRecord,
@@ -288,9 +290,11 @@ class Coordinator:
             return 0, 0
 
     def _save_cursor(self, worker_id: str, merged: int, offset: int) -> None:
-        _atomic_write(self._merged_dir / f"{worker_id}.json",
-                      json.dumps({"merged": merged, "offset": offset,
-                                  "updated_at": time.time()}))
+        retry_io(lambda: _atomic_write(
+            self._merged_dir / f"{worker_id}.json",
+            json.dumps({"merged": merged, "offset": offset,
+                        "updated_at": time.time()}),
+            site="coord.cursor"), site="coord.cursor")
 
     def merge_completed(self) -> Tuple[int, int]:
         """Fold every shard's new records into the parent store, each once
@@ -332,6 +336,7 @@ class Coordinator:
 
     def _merge_pass(self, shard_dir: pathlib.Path) -> Tuple[int, int]:
         n_recs = n_samples = 0
+        io = chaos._IO
         for shard_path in sorted(shard_dir.glob("*.jsonl")):
             worker_id = shard_path.stem
             try:
@@ -345,11 +350,16 @@ class Coordinator:
             # cursor without an offset pays one full parse)
             start, skip = (offset, 0) if offset >= 0 else (0, count)
             try:
+                if io is not None:
+                    io.probe("coord.merge.read")
                 with shard_path.open("rb") as fh:
                     fh.seek(start)
                     chunk = fh.read()
+            except FileNotFoundError:
+                continue                 # compacted under us
             except OSError:
-                continue                 # compacted or unreadable: next poll
+                continue                 # transient: the size stays stale,
+                                         # so the next poll reads it again
             upto = chunk.rfind(b"\n")    # only complete lines are consumed
             if upto < 0:
                 self._shard_sizes[worker_id] = size

@@ -30,9 +30,10 @@ the record store is a shared JSONL file.
 Every transition is atomic (a rename, or a temporary file and a replace)
 but not fsynced: the bus recovers crashed processes, and a host's power
 loss may drop in-flight markers, whose jobs lease expiry or the next
-publish queue again.  The reference writes these files through its
-fault-injection shim (``chaos._IO`` / ``retry_io``); the port writes them
-plainly (the shim is ROADMAP A6.4).
+publish queue again.  Every file operation of a transition goes through
+the fault-injection shim when it is armed (``tunedb.chaos``, under the
+reference's site names), and transient errors are retried by
+``chaos.retry_io`` where the reference retries them.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ import pathlib
 import time
 from typing import Dict, List, Mapping, Optional, Tuple
 
+from .. import chaos
+from ..chaos import retry_io
 from ..store import input_key, normalize_inputs
 
 FLEET_SCHEMA_VERSION = 1
@@ -95,10 +98,16 @@ class FleetJob:
         return cls(**d)
 
 
-def _atomic_write(path: pathlib.Path, text: str) -> None:
+def _atomic_write(path: pathlib.Path, text: str, *,
+                  site: str = "fleet.write") -> None:
+    io = chaos._IO
     tmp = path.with_name(path.name + ".tmp")
-    tmp.write_text(text, encoding="utf-8")
-    os.replace(tmp, path)
+    if io is None:
+        tmp.write_text(text, encoding="utf-8")
+        os.replace(tmp, path)
+    else:
+        io.write_text(tmp, text, site)
+        io.replace(tmp, path, site + ".replace")
 
 
 class FleetDir:
@@ -186,7 +195,9 @@ class FleetDir:
                 marker.unlink(missing_ok=True)
         if job.created_at <= 0:
             job = dataclasses.replace(job, created_at=time.time())
-        _atomic_write(self.queue / f"{jid}.json", job.to_json())
+        retry_io(lambda: _atomic_write(self.queue / f"{jid}.json",
+                                       job.to_json(), site="lease.publish"),
+                 site="lease.publish")
         return True
 
     # -- claim / heartbeat (worker side) --------------------------------------
@@ -218,34 +229,60 @@ class FleetDir:
                 entries.append((-cached[1], p.name))
         except FileNotFoundError:
             return None
+        io = chaos._IO
         for _, name in sorted(entries):
             src, dst = self.queue / name, self.leases / name
             try:
                 # freshen before the rename (which keeps the mtime): a job
                 # that sat queued past the lease timeout must not be born
                 # expired
-                os.utime(src)
-                os.rename(src, dst)
-            except OSError:
+                if io is None:
+                    os.utime(src)
+                    os.rename(src, dst)
+                else:
+                    retry_io(lambda: io.utime(src, "lease.claim.utime"),
+                             site="lease.claim.utime")
+                    retry_io(lambda: io.rename(src, dst, "lease.claim"),
+                             site="lease.claim")
+            except FileNotFoundError:
                 continue                # lost the race for this entry
+            except OSError:
+                continue                # still failing after retries: next
+            # only a parse failure proves garbage: on a read error that
+            # outlasts its retries the lease stays, and expiry requeues it
             try:
-                job = FleetJob.from_json(dst.read_text())
+                reader = (dst.read_text if io is None
+                          else lambda: io.read_text(dst, "lease.claim.read"))
+                job = FleetJob.from_json(retry_io(reader,
+                                                  site="lease.claim.read"))
             except ValueError:
                 dst.unlink(missing_ok=True)      # foreign garbage: drop it
                 continue
-            except OSError:
+            except FileNotFoundError:
                 continue                # reclaimed or completed under us
+            except OSError:
+                continue                # transient burst: expiry requeues it
             try:
-                os.utime(dst)           # the claim is the first heartbeat
+                # the claim is the first heartbeat; a transient failure
+                # here is survivable, the heartbeat loop tries again
+                if io is None:
+                    os.utime(dst)
+                else:
+                    io.utime(dst, "lease.claim.heartbeat")
             except OSError:
                 pass
             return job, dst
         return None
 
     def heartbeat(self, lease_path: pathlib.Path) -> bool:
-        """Refresh the lease's mtime; False means it was reclaimed."""
+        """Refresh the lease's mtime; False means it was reclaimed.  Only a
+        vanished lease says False: a transient error is retried and, if it
+        persists, says True while the lease file exists."""
+        io = chaos._IO
         try:
-            os.utime(lease_path)
+            op = ((lambda: os.utime(lease_path)) if io is None
+                  else (lambda: io.utime(lease_path, "lease.heartbeat")))
+            retry_io(op, site="lease.heartbeat")
             return True
         except FileNotFoundError:
             return False
@@ -265,11 +302,18 @@ class FleetDir:
             payload = dict(meta)
             payload.update(job_id=job.job_id, space=job.space,
                            inputs=job.inputs, finished_at=time.time())
-            _atomic_write(marker, json.dumps(payload, sort_keys=True))
+            retry_io(lambda: _atomic_write(
+                marker, json.dumps(payload, sort_keys=True),
+                site="lease.complete"), site="lease.complete")
         try:
-            lease_path.unlink(missing_ok=True)
+            io = chaos._IO
+            if io is None:
+                lease_path.unlink(missing_ok=True)
+            else:
+                io.unlink(lease_path, "lease.complete.release",
+                          missing_ok=True)
         except OSError:
-            pass
+            pass        # the marker is written: the sweep drops the lease
         return not already
 
     def fail(self, job: FleetJob, lease_path: pathlib.Path, error: str, *,
@@ -278,14 +322,17 @@ class FleetDir:
         ``"requeued"`` or ``"failed"``."""
         attempts = job.attempts + 1
         if attempts >= max_attempts:
-            _atomic_write(self.failed / f"{job.job_id}.json", json.dumps({
-                "job": json.loads(job.to_json()), "attempts": attempts,
-                "error": error, "failed_at": time.time()}, sort_keys=True))
+            retry_io(lambda: _atomic_write(
+                self.failed / f"{job.job_id}.json", json.dumps({
+                    "job": json.loads(job.to_json()), "attempts": attempts,
+                    "error": error, "failed_at": time.time()},
+                    sort_keys=True), site="lease.fail"), site="lease.fail")
             outcome = "failed"
         else:
             requeued = dataclasses.replace(job, attempts=attempts)
-            _atomic_write(self.queue / f"{job.job_id}.json",
-                          requeued.to_json())
+            retry_io(lambda: _atomic_write(
+                self.queue / f"{job.job_id}.json", requeued.to_json(),
+                site="lease.requeue"), site="lease.requeue")
             outcome = "requeued"
         lease_path.unlink(missing_ok=True)
         return outcome
@@ -298,6 +345,7 @@ class FleetDir:
         failed this pass."""
         now = time.time()
         touched: List[str] = []
+        io = chaos._IO
         for lease in sorted(self.leases.glob("*.json")):
             if (self.done / lease.name).exists():
                 lease.unlink(missing_ok=True)      # finished, stale lease
@@ -308,13 +356,21 @@ class FleetDir:
                 continue
             if age <= lease_timeout_s:
                 continue
+            # a read error that outlasts its retries leaves the lease for
+            # the next pass: only a parse failure (garbage) unlinks it
             try:
-                job = FleetJob.from_json(lease.read_text())
+                reader = (lease.read_text if io is None
+                          else lambda: io.read_text(lease,
+                                                    "lease.reclaim.read"))
+                job = FleetJob.from_json(retry_io(reader,
+                                                  site="lease.reclaim.read"))
             except ValueError:
                 lease.unlink(missing_ok=True)      # unparseable: job lost
                 continue
-            except OSError:
+            except FileNotFoundError:
                 continue                           # released under us
+            except OSError:
+                continue                           # retry on the next pass
             self.fail(job, lease, f"lease expired after {age:.1f}s",
                       max_attempts=max_attempts)
             touched.append(lease.stem)

@@ -10,7 +10,11 @@ touches the parent.
 
 While a job runs a daemon thread refreshes the lease's mtime every
 ``heartbeat_s``; a worker that dies mid-job stops heartbeating and the
-coordinator's expiry pass queues the job again.  Workers may be threads
+coordinator's expiry pass queues the job again.  The chaos shim's
+kill-points ``worker.claimed``, ``worker.tuned``, ``worker.appended`` and
+``worker.complete`` raise :class:`~repro_torch.tunedb.chaos.KillPoint`
+(a ``BaseException``) past the job isolation, as a real kill would end
+the worker between those steps.  Workers may be threads
 of one process (tests, ``run_fleet_inline``) or processes of their own
 (``python -m repro_torch.tunedb fleet worker``): the protocol is the
 filesystem either way.
@@ -37,6 +41,7 @@ import time
 import uuid
 from typing import Callable, Dict, List, Mapping, Optional
 
+from .. import chaos
 from ..controller import _default_tuner_factory
 from ..obs import trace as _trace
 from ..obs.metrics import get_registry
@@ -145,7 +150,17 @@ class Worker:
             t.join()
         rec = record_from_search(job.space, job.inputs, result,
                                  tuner.backend, source=job.source)
+        # kill-point: tuned, nothing written yet: a crash here loses only
+        # work that lease expiry queues again
+        io = chaos._IO
+        if io is not None:
+            io.probe("worker.tuned")
         self.shard.add(rec)
+        if io is not None:
+            # kill-point: the record is in the shard, no done marker yet:
+            # the job runs again and the merge's newest-wins index absorbs
+            # the second record
+            io.probe("worker.appended")
         if self.collect_samples and result.measured:
             for cfg, tflops in result.measured:
                 if cfg == result.best:
@@ -167,6 +182,11 @@ class Worker:
             return None
         job, lease_path = claimed
         self.report.claimed += 1
+        # kill-point: claimed, nothing done: a crashed worker's case, which
+        # lease expiry and a requeue recover
+        io = chaos._IO
+        if io is not None:
+            io.probe("worker.claimed")
         t0 = time.time()
         tr = _trace._TRACER             # None: untraced, no instrument call
         # the coordinator's trace id from the job file: the tuning shows up
@@ -192,6 +212,9 @@ class Worker:
             if sp is not None:
                 sp.attrs["outcome"] = "tuned"
                 sp.attrs["tflops"] = round(float(rec.tflops), 3)
+        if io is not None:
+            # kill-point: between the shard append and the done marker
+            io.probe("worker.complete")
         ok = self.fleet.complete(job, lease_path, {
             "worker_id": self.worker_id, "tflops": rec.tflops,
             "backend": rec.backend, "wall_s": round(time.time() - t0, 4),

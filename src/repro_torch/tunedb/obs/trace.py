@@ -401,8 +401,13 @@ class Tracer:
         path = pathlib.Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         buf = "".join(json.dumps(sp.to_json()) + "\n" for sp in spans)
+        from .. import chaos               # obs is imported by tunedb: lazy
+        io = chaos._IO
         with open(path, "a") as f:
-            f.write(buf)
+            if io is None:
+                f.write(buf)
+            else:                          # a torn dump is a torn last
+                io.file_write(f, buf, "trace.export")  # line: read past
         with self._lock:
             self._spans.clear()
         return len(spans)

@@ -47,8 +47,9 @@ replica keeps serving what it had.  An install reads host state only (no
 copy from the card, no synchronise), so it may land while the engine
 captures a graph; the engine captures that graph again at its next use.
 
-The reference writes these files through its fault-injection shim
-(``chaos._IO``); the port writes them plainly (ROADMAP A6.4).
+Every artifact, pointer and manifest read or write goes through the
+fault-injection shim when it is armed (``tunedb.chaos``: ``plan.export.*``,
+``plan.pull.*``, ``plan.registry.*``).
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ import time
 import warnings
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
+from . import chaos
 from .obs import trace as _trace
 from .obs.metrics import get_registry
 from .store import (_KEEP, DispatchPlan, RecordStore, install_serving,
@@ -191,11 +193,20 @@ def _write_artifact(plan: DispatchPlan, dest: pathlib.Path, *,
     dest.parent.mkdir(parents=True, exist_ok=True)
     tmp = dest.parent / f".tmp-{dest.name}-{os.getpid()}-{id(plan) & 0xffff}"
     tmp.mkdir(parents=True, exist_ok=True)
+    io = chaos._IO
     try:
-        (tmp / ENTRIES_NAME).write_bytes(blob)
-        (tmp / MANIFEST_NAME).write_text(
-            json.dumps(manifest.to_dict(), sort_keys=True), encoding="utf-8")
-        os.rename(tmp, dest)            # the whole artifact or nothing
+        if io is None:
+            (tmp / ENTRIES_NAME).write_bytes(blob)
+            (tmp / MANIFEST_NAME).write_text(
+                json.dumps(manifest.to_dict(), sort_keys=True),
+                encoding="utf-8")
+            os.rename(tmp, dest)        # the whole artifact or nothing
+        else:
+            io.write_bytes(tmp / ENTRIES_NAME, blob, "plan.export.entries")
+            io.write_text(tmp / MANIFEST_NAME,
+                          json.dumps(manifest.to_dict(), sort_keys=True),
+                          "plan.export.manifest")
+            io.rename(tmp, dest, "plan.export.rename")
     except BaseException:
         for p in (tmp / ENTRIES_NAME, tmp / MANIFEST_NAME):
             p.unlink(missing_ok=True)
@@ -246,8 +257,11 @@ def export_plan(plan: DispatchPlan, out_dir: os.PathLike, *,
 def read_manifest(plan_dir: os.PathLike) -> PlanManifest:
     """Parse and schema-gate a plan directory's manifest."""
     path = pathlib.Path(plan_dir) / MANIFEST_NAME
+    io = chaos._IO
     try:
-        doc = json.loads(path.read_text(encoding="utf-8"))
+        text = (path.read_text(encoding="utf-8") if io is None
+                else io.read_text(path, "plan.pull.manifest"))
+        doc = json.loads(text)
     except FileNotFoundError:
         raise PlanArtifactError(f"{path}: not a plan artifact (no manifest)")
     except (OSError, ValueError) as e:
@@ -263,8 +277,10 @@ def load_plan(plan_dir: os.PathLike) -> DispatchPlan:
     plan_dir = pathlib.Path(plan_dir)
     manifest = read_manifest(plan_dir)
     entries_path = plan_dir / ENTRIES_NAME
+    io = chaos._IO
     try:
-        blob = entries_path.read_bytes()
+        blob = (entries_path.read_bytes() if io is None
+                else io.read_bytes(entries_path, "plan.pull.entries"))
     except OSError as e:
         raise PlanArtifactError(f"{entries_path}: unreadable entries ({e})")
     digest = plan_digest(blob)
@@ -315,10 +331,16 @@ def check_freshness(manifest: PlanManifest,
 # registry: publish and follow over a shared directory
 # ---------------------------------------------------------------------------
 
-def _atomic_write(path: pathlib.Path, text: str) -> None:
+def _atomic_write(path: pathlib.Path, text: str, *,
+                  site: str = "plan.registry.write") -> None:
+    io = chaos._IO
     tmp = path.with_name(path.name + f".tmp-{os.getpid()}")
-    tmp.write_text(text, encoding="utf-8")
-    os.replace(tmp, path)
+    if io is None:
+        tmp.write_text(text, encoding="utf-8")
+        os.replace(tmp, path)
+    else:
+        io.write_text(tmp, text, site)
+        io.replace(tmp, path, site + ".replace")
 
 
 class PlanRegistry:
@@ -368,9 +390,12 @@ class PlanRegistry:
     def current(self) -> Optional[Dict[str, object]]:
         """The published pointer, or None (nothing published yet, or an
         unreadable pointer: both mean "try again at the next poll")."""
+        io = chaos._IO
         try:
-            doc = json.loads((self.root / CURRENT_NAME).read_text(
-                encoding="utf-8"))
+            path = self.root / CURRENT_NAME
+            text = (path.read_text(encoding="utf-8") if io is None
+                    else io.read_text(path, "plan.registry.current"))
+            doc = json.loads(text)
         except (OSError, ValueError):
             return None
         if not isinstance(doc, dict) or "generation" not in doc:

@@ -24,7 +24,11 @@ Every ``add`` that replaces the record behind a ``(backend, space,
 shape)`` slot logs a :class:`Supersession` (a bounded deque, load-time
 replays not logged): ``install_serving(sentry=)`` replays it to refuse a
 generation that would serve a slower record (``tunedb.obs.sentry``).
-The reference's quarantine, ``repair`` and fsck are not ported.
+A line that does not parse (a torn tail, a CRC mismatch) is kept in
+``<store>.quarantine/`` at load, with one warning a path and a metric;
+:meth:`RecordStore.repair` (``tunedb fsck --repair``) rewrites the file
+without such lines.  Appends, syncs and loads go through the chaos shim
+(``tunedb.chaos``) when it is armed.
 """
 
 from __future__ import annotations
@@ -46,7 +50,13 @@ from typing import (Callable, Deque, Dict, Iterator, List, Mapping,
 
 from repro_torch.core.space import FITS
 
+from . import chaos
+
 SCHEMA_VERSION = 1
+
+# store paths already warned about quarantined lines (one warning a path
+# a process; the metric keeps the whole count)
+_QUARANTINE_WARNED: set = set()
 
 # records of this source are model-training samples, never served
 SAMPLE_SOURCE = "sample"
@@ -162,10 +172,10 @@ class RecordStore:
 
     ``path=None`` keeps the store in memory, with every record added (the
     training log).  Lines that do not parse (a torn tail, a CRC mismatch)
-    are skipped and counted in ``n_skipped``.  ``fsync=False`` drops the
-    per-append durability barrier: a fleet worker's shard store (whose
-    jobs lease expiry requeues) is opened so, and the fleet's merge calls
-    :meth:`sync` once a batch instead.
+    are skipped, counted in ``n_skipped`` and moved to quarantine.
+    ``fsync=False`` drops the per-append durability barrier: a fleet
+    worker's shard store (whose jobs lease expiry requeues) is opened so,
+    and the fleet's merge calls :meth:`sync` once a batch instead.
     """
 
     def __init__(self, path: Optional[os.PathLike] = None, *,
@@ -201,23 +211,29 @@ class RecordStore:
     def open(cls, path: os.PathLike) -> "RecordStore":
         return cls(path)
 
-    def _parse(self) -> Iterator[Optional[TuneRecord]]:
-        """The file's records in order; ``None`` for a line that does not
-        parse (a torn tail, a CRC mismatch)."""
+    def _parse(self) -> Iterator[Tuple[str, Optional[TuneRecord]]]:
+        """The file's non-blank lines, stripped, each with its record, in
+        order; ``None`` for a line that does not parse (a torn tail, a CRC
+        mismatch)."""
         with self.path.open("r", encoding="utf-8") as fh:
             for line in fh:
                 line = line.strip()
                 if not line:
                     continue
                 try:
-                    yield TuneRecord.from_json(line)
+                    yield line, TuneRecord.from_json(line)
                 except (ValueError, TypeError, KeyError):
-                    yield None
+                    yield line, None
 
     def _load(self) -> None:
-        for rec in self._parse():
+        io = chaos._IO
+        if io is not None:
+            io.probe("store.load")
+        bad: List[str] = []
+        for line, rec in self._parse():
             if rec is None:
                 self.n_skipped += 1
+                bad.append(line)
                 continue
             self.n_lines += 1
             self._admit(rec)
@@ -226,6 +242,69 @@ class RecordStore:
             if fh.tell():
                 fh.seek(-1, os.SEEK_END)
                 self._needs_newline = fh.read(1) != b"\n"
+        if bad:
+            self._quarantine(bad, reason="load")
+
+    def quarantine_dir(self) -> Optional[pathlib.Path]:
+        if self.path is None:
+            return None
+        return self.path.with_name(self.path.name + ".quarantine")
+
+    def _quarantine(self, lines: List[str], *, reason: str
+                    ) -> Optional[pathlib.Path]:
+        """Keep lines that do not parse in ``<store>.quarantine/<ms>-
+        <reason>.jsonl``, so a torn tail or a corrupt record is never
+        dropped unseen (``tunedb fsck`` and an operator read them there).
+        Best effort: a failure here never blocks a load."""
+        if self.path is None or not lines:
+            return None
+        try:
+            qdir = self.quarantine_dir()
+            qdir.mkdir(parents=True, exist_ok=True)
+            dest = qdir / f"{int(time.time() * 1000):013d}-{reason}.jsonl"
+            with dest.open("a", encoding="utf-8") as fh:
+                fh.write("".join(line + "\n" for line in lines))
+        except OSError:
+            return None
+        try:
+            from .obs.metrics import get_registry   # obs reads the store
+            get_registry().counter(
+                "tunedb_store_quarantined_lines_total",
+                "torn/corrupt store lines moved to quarantine").inc(
+                    len(lines))
+        except Exception:
+            pass        # observability never blocks recovery
+        key = str(self.path)
+        if key not in _QUARANTINE_WARNED:
+            _QUARANTINE_WARNED.add(key)
+            warnings.warn(
+                f"tunedb store {self.path}: quarantined {len(lines)} "
+                f"unparseable line(s) to {dest}; parsed records keep "
+                "serving (run `tunedb fsck --repair` to rewrite the file)",
+                RuntimeWarning, stacklevel=2)
+        return dest
+
+    def repair(self) -> Dict[str, int]:
+        """Rewrite the store file with only the lines that parse; the rest
+        go to quarantine (``fsck --repair``).  ``{"kept": n,
+        "quarantined": m}``."""
+        if self.path is None or not self.path.exists():
+            return {"kept": 0, "quarantined": 0}
+        good: List[str] = []
+        bad: List[str] = []
+        with self._lock:
+            for line, rec in self._parse():
+                (bad if rec is None else good).append(line)
+            if bad:
+                self._quarantine(bad, reason="repair")
+                tmp = self.path.with_name(self.path.name + ".repair-tmp")
+                with tmp.open("w", encoding="utf-8") as fh:
+                    fh.write("".join(line + "\n" for line in good))
+                    fh.flush()
+                    os.fsync(fh.fileno())
+                os.replace(tmp, self.path)
+                self._needs_newline = False
+        return {"kept": len(good), "quarantined": len(bad)}
 
     def _admit(self, rec: TuneRecord) -> Optional[TuneRecord]:
         """Index one record; returns the served record it replaced."""
@@ -256,14 +335,22 @@ class RecordStore:
             self.version += 1
             if self.path is not None:
                 self.path.parent.mkdir(parents=True, exist_ok=True)
+                io = chaos._IO
                 with self.path.open("a", encoding="utf-8") as fh:
-                    if self._needs_newline:
+                    if self._needs_newline:     # seal a torn tail first
                         fh.write("\n")
                         self._needs_newline = False
-                    fh.write(rec.to_json() + "\n")
+                    line = rec.to_json() + "\n"
+                    if io is None:
+                        fh.write(line)
+                    else:
+                        io.file_write(fh, line, "store.append")
                     fh.flush()
                     if self.fsync:
-                        os.fsync(fh.fileno())
+                        if io is None:
+                            os.fsync(fh.fileno())
+                        else:
+                            io.fsync(fh, "store.append.fsync")
                 self.n_lines += 1
             else:
                 self._all.append(rec)
@@ -279,8 +366,12 @@ class RecordStore:
         pass, not once a record)."""
         if self.path is None or not self.path.exists():
             return
+        io = chaos._IO
         with self.path.open("rb") as fh:
-            os.fsync(fh.fileno())
+            if io is None:
+                os.fsync(fh.fileno())
+            else:
+                io.fsync(fh, "store.sync")
 
     def _exact(self, space: str, sk: ShapeKey, backend: Optional[str]
                ) -> Optional[TuneRecord]:
@@ -347,7 +438,7 @@ class RecordStore:
                 return [r for r in self._all if keep(r)]
         if not self.path.exists():
             return []
-        return [r for r in self._parse() if r is not None and keep(r)]
+        return [r for _, r in self._parse() if r is not None and keep(r)]
 
     def backends(self) -> List[str]:
         """The backend fingerprints that have served records."""
@@ -431,11 +522,22 @@ class RecordStore:
         path.parent.mkdir(parents=True, exist_ok=True)
         recs = self.records()
         tmp = path.with_name(path.name + ".tmp")
+        io = chaos._IO
         with tmp.open("w", encoding="utf-8") as fh:
-            fh.write("".join(rec.to_json() + "\n" for rec in reversed(recs)))
+            blob = "".join(rec.to_json() + "\n" for rec in reversed(recs))
+            if io is None:
+                fh.write(blob)
+            else:
+                io.file_write(fh, blob, "store.export")
             fh.flush()
-            os.fsync(fh.fileno())
-        os.replace(tmp, path)
+            if io is None:
+                os.fsync(fh.fileno())
+            else:
+                io.fsync(fh, "store.export.fsync")
+        if io is None:
+            os.replace(tmp, path)
+        else:
+            io.replace(tmp, path, "store.export.replace")
         return len(recs)
 
     def stats(self) -> Dict[str, object]:

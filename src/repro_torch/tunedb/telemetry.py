@@ -43,9 +43,10 @@ cumulatively, onto the fleet bus every few seconds, and
 :class:`FleetTelemetryView` reads the fleet-global view: its own
 process's live counters merged with every other process's latest dump.
 
-The reference's dump writes go through its fault-injection shim
-(``chaos.retry_io``); the port writes atomically (a temporary file,
-fsync, ``os.replace``) without it (ROADMAP A6.4).
+A dump is written atomically (a temporary file, fsync, ``os.replace``),
+through the chaos shim when it is armed (``telemetry.save*``,
+``telemetry.load``), and the exporter retries transient errors with
+``chaos.retry_io`` (``telemetry.export``).
 """
 
 from __future__ import annotations
@@ -61,6 +62,8 @@ import time
 import weakref
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
+from . import chaos
+from .chaos import retry_io
 from .store import normalize_inputs, shape_key
 
 TELEMETRY_VERSION = 1
@@ -348,16 +351,31 @@ class ShapeTelemetry:
                 "ticks": dict(self._ticks),
             }
         tmp = path.with_name(path.name + ".tmp")
-        with tmp.open("w", encoding="utf-8") as fh:
-            fh.write(json.dumps(payload, sort_keys=True))
-            fh.flush()
-            os.fsync(fh.fileno())
-        os.replace(tmp, path)
+        io = chaos._IO
+        if io is None:
+            with tmp.open("w", encoding="utf-8") as fh:
+                fh.write(json.dumps(payload, sort_keys=True))
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp, path)
+        else:
+            with tmp.open("w", encoding="utf-8") as fh:
+                io.file_write(fh, json.dumps(payload, sort_keys=True),
+                              "telemetry.save")
+                fh.flush()
+                io.fsync(fh, "telemetry.save.fsync")
+            io.replace(tmp, path, "telemetry.save.replace")
 
     @classmethod
     def load(cls, path: os.PathLike) -> "ShapeTelemetry":
         t = cls()
-        payload = json.loads(pathlib.Path(path).read_text(encoding="utf-8"))
+        path = pathlib.Path(path)
+        io = chaos._IO
+        # a stale or truncated read here takes the fleet view's fallback
+        # to an older dump
+        text = (path.read_text(encoding="utf-8") if io is None
+                else io.read_text(path, "telemetry.load"))
+        payload = json.loads(text)
         for space, entries in payload.get("counts", {}).items():
             for e in entries:
                 t.record(space, e["inputs"], n=int(e["count"]))
@@ -452,8 +470,11 @@ class TelemetryExporter:
         def loop() -> None:
             while not self._stop.wait(self.interval_s):
                 try:
-                    self.export_once()
-                except OSError:          # the next interval tries again
+                    # a transient error is retried in the tick (counted in
+                    # tunedb_io_retries_total); a lasting one waits for
+                    # the next interval
+                    retry_io(self.export_once, site="telemetry.export")
+                except OSError:
                     pass
 
         self._thread = threading.Thread(
@@ -469,7 +490,7 @@ class TelemetryExporter:
             self._thread = None
         if final_export:
             try:                         # the window's tail lands too
-                self.export_once()
+                retry_io(self.export_once, site="telemetry.export")
             except OSError:
                 pass
 

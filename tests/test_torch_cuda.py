@@ -1272,3 +1272,60 @@ def test_follower_install_during_a_prefill_capture(cuda, tmp_path):
     # 5 (the install lands), 9, 5 again (captured anew), 3
     assert eng.prefill_captures == 4
     tstore.install_serving(store=None, models=None, fingerprint=None)
+
+
+def test_kill_point_after_a_card_search_leaves_the_device_usable(
+        cuda, card_tuners, tmp_path):
+    """A ``KillPoint`` in a worker thread right after its search on the
+    card (``worker.tuned``) ends the thread, not the device: the lease is
+    left for expiry, no stream is left capturing, and the next engine's
+    captures and replays succeed with the tokens of an engine served
+    before the kill."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tunedb import chaos
+    from repro_torch.tunedb import fleet as tfleet
+    from repro_torch.tunedb import store as tstore
+
+    tstore.install_serving(store=None, models=None, fingerprint=None)
+    cfg, params = _smoke_engine_params(cuda)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 9, 3)]
+    want = Engine(cfg, params, ServeConfig(max_len=64, slots=3),
+                  device=cuda).generate(prompts, max_new=8)
+    store = tstore.RecordStore.open(tmp_path / "db.jsonl")
+    coord = tfleet.Coordinator(tmp_path / "fleet", store,
+                               lease_timeout_s=30.0)
+    x = gemm_input(4, 64, 64, 16)
+    coord.publish([tfleet.FleetJob(space="gemm", inputs=x)])
+    worker = tfleet.Worker(tmp_path / "fleet", worker_id="doomed",
+                           tuners={"gemm": card_tuners["gemm"]},
+                           heartbeat_s=0.1)
+    died = []
+
+    def run():
+        try:
+            worker.run_one()
+        except chaos.KillPoint as e:
+            died.append(e.site)
+
+    plan = chaos.FaultPlan(seed=0, rules=[chaos.FaultRule(
+        site="worker.tuned", kind="kill", p=1.0, max_count=1)])
+    with chaos.armed(plan):
+        t = threading.Thread(target=run)
+        t.start()
+        t.join(300)
+    assert not t.is_alive() and died == ["worker.tuned"]
+    assert coord.fleet.counts() == {"queue": 0, "leases": 1, "done": 0,
+                                    "failed": 0}
+    assert not torch.cuda.is_current_stream_capturing()
+    torch.cuda.synchronize()
+    eng = Engine(cfg, params, ServeConfig(max_len=64, slots=3), device=cuda)
+    got = eng.generate(prompts, max_new=8)
+    torch.cuda.synchronize()
+    assert got == want
+    assert eng.captures >= 1 and eng.replays > 0
+    tstore.install_serving(store=None, models=None, fingerprint=None)

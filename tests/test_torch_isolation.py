@@ -65,7 +65,7 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.tunedb.fleet", "repro_torch.tunedb.fleet.lease",
             "repro_torch.tunedb.fleet.worker",
             "repro_torch.tunedb.fleet.coordinator",
-            "repro_torch.serve.router",
+            "repro_torch.serve.router", "repro_torch.tunedb.chaos",
             "repro_torch.launch.serve"} <= set(out["modules"])
 
 
