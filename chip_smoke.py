@@ -312,6 +312,24 @@ exits non-zero:
                 greedy decode steps from index 288; the replayed tick
                 against its byte bound; the peak allocated held under 75
                 GB; the two phases' wall
+ 25b. train    SmolLM-135M training at full width (30 layers, bf16, params
+                from seed 0; 8 x 512 tokens a step, the launcher's
+                defaults) from an empty store: A 20 steps on the heuristic
+                tier (step wall, tokens/s, loss falling, peak memory, model
+                TFLOP/s; each step 840 GEMM launches, each a dispatch call
+                through the autograd Function, the split-K reduction
+                launches of the resolved configs, no plain version); B the
+                tune phase's GEMM tuner over A's 9 shapes, then 10 steps on
+                the plan; C per shape tuned / heuristic / kernel alone /
+                reduction / torch.matmul / bound times the calls a step,
+                the transposed-operand copies, one eager step's device
+                time by kernel kind; D the Function's output and both
+                grads against the plain version at the 9 shapes, and a
+                full step's loss and gradient norm; E checkpoint every 3
+                of 6 steps, a new Trainer resumes at 6; F microbatches 2
+                with int8 compression, and one SMOKE step of 5 other
+                families; G ``python -m repro_torch.launch.train`` in a
+                process of its own
  26. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
 
@@ -319,7 +337,7 @@ Each path (tune, models, serve, plans, admission, measure,
 degradation, trace, retune, fleet (the engine's; fleet_worker: the
 worker processes' own counts, from their reports), chaos (the engine's;
 chaos_workers: the worker threads' timings), serve_mamba, serve_moe,
-serve_encdec, serve_frontend)
+serve_encdec, serve_frontend, train)
 runs with every launch count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
 
@@ -363,7 +381,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.core.backend import (HBM_GBPS, PEAK_BF16_TFLOPS,  # noqa: E402
                                       PEAK_FP32_TFLOPS, CheckedBackend,
                                       CudaEventBackend, problem_flops)
@@ -386,12 +404,14 @@ from repro_torch.kernels import matmul as kmatmul  # noqa: E402
 from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref, conv2d_ref,  # noqa: E402
                                      matmul_ref, ssd_ref)
+from repro_torch.data import DataConfig  # noqa: E402
 from repro_torch.models import (decode_step, encode,  # noqa: E402
-                                init_cache, init_params, prefill,
+                                init_cache, init_params, loss_fn, prefill,
                                 tree_leaves, tree_map)
 from repro_torch.models import moe as mmoe  # noqa: E402
 from repro_torch.models import ssm as mssm  # noqa: E402
 from repro_torch.models.layers import attention, rms_norm  # noqa: E402
+from repro_torch.optim import AdamWConfig, global_norm  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.serve.flash_decode import resolve_decode_splits  # noqa: E402
 from repro_torch.tunedb.model import (ModelSet, clear_models,  # noqa: E402
@@ -409,6 +429,8 @@ from repro_torch.tunedb.store import (RecordStore, TuneRecord,  # noqa: E402
                                       serving_state, shape_key)
 from repro_torch.tunedb.telemetry import (clear_telemetry,  # noqa: E402
                                           get_telemetry)
+from repro_torch.train import (TrainConfig, Trainer,  # noqa: E402
+                               init_train_state)
 
 # (N, K) of the serving path's projections and their count per layer:
 # q and o (576x576), k and v (576->192), gate and up (576->1536), down
@@ -641,6 +663,17 @@ def read_launches() -> dict:
     return {"gemm": kmatmul.launches, "gemm_reduce": kmatmul.reduce_launches,
             "conv": kconv.launches, "attention": kattention.launches,
             "ssd": kssd.launches}
+
+
+def rel_norm_diff(got: list, want: list) -> float:
+    """|got - want| / |want| over lists of tensors, in fp32 (0 where both
+    are 0)."""
+    d = math.sqrt(sum(float(torch.sum(torch.square(g.detach().float()
+                                                   - w.detach().float())))
+                      for g, w in zip(got, want, strict=True)))
+    n = math.sqrt(sum(float(torch.sum(torch.square(w.detach().float())))
+                      for w in want))
+    return d / n if n else d
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -1885,6 +1918,9 @@ def per_tick(rows: list, key: str, n_layers: int) -> float:
 # split-K reduction pass (``csrc/gemm.cu``)
 GEMM_KERNEL = re.compile(r"(^|[\s:]|\d)gemm_(mma|simt)_kernel(\b|I)")
 REDUCE_KERNEL = re.compile(r"(^|[\s:]|\d)splitk_reduce_kernel(\b|I)")
+# cuBLAS / CUTLASS kernels (torch.matmul, bmm, einsum): the tied head and
+# the attention's products in a training step
+CUBLAS_KERNEL = re.compile(r"cublas|cutlass|xmma|nvjet|gemv|gemm", re.I)
 
 
 def _cu(fn, *args) -> None:
@@ -5762,6 +5798,538 @@ def phase_frontend(backend, store: RecordStore, store_path: Path, fp: str,
             "tick_bound_ms": tb["bound_ms"], "wall_s": wall}
 
 
+# SmolLM-135M's training step at the launcher's defaults: 4,096 tokens
+TRAIN_SEQ, TRAIN_BATCH = 512, 8
+TRAIN_STEPS_A, TRAIN_STEPS_B = 20, 10
+TRAIN_SHAPES = 9
+TRAIN_RESUME = (6, 3, 8)           # part E: steps, checkpoint_every, then to
+# part E: the resumed run's losses and final state (parameters, AdamW m
+# and v, error feedback) against the uninterrupted run's, in relative
+# (norm) difference; the step has read deterministic on the card (the
+# resumed losses equal to the uninterrupted ones)
+TRAIN_RESUME_RTOL = 1e-6
+# threads of the retune loop, the fleet and the follower (C11); a fleet
+# worker's heartbeat and a coordinator's workers are unnamed: "(beat)",
+# "(run)"
+BACKGROUND_THREADS = ("tunedb-retune", "telemetry-export", "follower-")
+TRAIN_SMOKE_ARCHS = ("mamba2-1.3b", "dbrx-132b", "jamba-v0.1-52b",
+                     "whisper-base", "internvl2-76b")
+
+
+@contextlib.contextmanager
+def no_plain_gemm():
+    """Fail any call of the GEMM's or the reduction's plain version: on the
+    card the wrappers launch their kernels, and nothing else may stand in
+    for them."""
+    saved = kmatmul.matmul_plain, kmatmul.splitk_reduce_plain
+
+    def boom(*a, **k):
+        raise AssertionError("a plain GEMM version was called on the card")
+    kmatmul.matmul_plain = kmatmul.splitk_reduce_plain = boom
+    try:
+        yield
+    finally:
+        kmatmul.matmul_plain, kmatmul.splitk_reduce_plain = saved
+
+
+def train_flops(cfg, B: int, S: int) -> dict:
+    """Model FLOPs of one training step (the remat recompute excluded):
+    3 x (the projections' 2·M·N·K at M = B·S, the tied head's
+    2·B·(S-1)·D·V and the causal attention's 2·B·H·S²·hd a layer): the
+    forward once, the backward's two products twice."""
+    M, d = B * S, cfg.d_model
+    proj = cfg.n_layers * sum(2.0 * M * n * k * c
+                              for (n, k), c in SLICE_NK.items())
+    head = 2.0 * B * (S - 1) * d * cfg.padded_vocab
+    attn = cfg.n_layers * 2.0 * B * cfg.n_heads * S * S * cfg.hd
+    return {"proj": 3 * proj, "head": 3 * head, "attn": 3 * attn,
+            "total": 3 * (proj + head + attn)}
+
+
+def train_step_shapes(cfg, M: int) -> dict:
+    """Calls per step of each GEMM shape (M, N, K) of a training step, and
+    of each transposed-operand copy (rows, cols) the backward makes: the
+    forward and its recompute (M, N, K) twice, dA = dC·Bᵀ (M, K, N) with
+    the weight's (N, K) copy, dB = Aᵀ·dC (K, N, M) with the activation's
+    (K, M) copy, for each projection (K -> N) of each layer."""
+    calls, copies = collections.Counter(), collections.Counter()
+    for (n, k), c in SLICE_NK.items():
+        c *= cfg.n_layers
+        calls[(M, n, k)] += 2 * c
+        calls[(M, k, n)] += c
+        calls[(k, n, M)] += c
+        copies[(n, k)] += c
+        copies[(k, M)] += c
+    return {"calls": calls, "copies": copies}
+
+
+def train_run(step_fn, state, batch_of, steps: range, per_step: int,
+              what: str) -> tuple:
+    """Run ``steps`` train steps; per step the host wall (to the loss read
+    on the host), the loss, the GEMM and reduction launches and the
+    telemetry's GEMM calls by shape.  Each step's GEMM launches must equal
+    its dispatch calls, ``per_step``, and its reduction launches the calls
+    whose resolved config splits K."""
+    tel = get_telemetry()
+    rows = []
+    for step in steps:
+        batch = batch_of(step)
+        torch.cuda.synchronize()
+        l0, r0 = kmatmul.launches, kmatmul.reduce_launches
+        prev = tel.snapshot()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+        win = tel.diff(prev).get("gemm")
+        shapes = {shape_key(x): (x, c) for x, c in win.window_shapes}
+        launches = kmatmul.launches - l0
+        reduces = kmatmul.reduce_launches - r0
+        want_red = 0
+        for x, c in shapes.values():
+            cfg, _ = dispatch._resolve_cfg("gemm", x)
+            run = ops.shrink_gemm_cfg(cfg or {}, x["M"], x["N"], x["K"])
+            want_red += c * (run["k_split"] > 1)
+        if not (launches == win.window_calls == per_step
+                and reduces == want_red and math.isfinite(loss)):
+            raise AssertionError(f"{what} step {step}: {launches} GEMM "
+                                 f"launches, {win.window_calls} dispatch "
+                                 f"calls (want {per_step}), "
+                                 f"{reduces} reduction launches (want "
+                                 f"{want_red}), loss {loss}")
+        rows.append({"step": step, "wall_ms": 1e3 * wall, "loss": loss,
+                     "shapes": shapes, "launches": launches,
+                     "reduces": reduces,
+                     "grad_norm": float(m["grad_norm"])})
+    return state, rows
+
+
+def device_split(fn) -> dict:
+    """Run ``fn()`` once under the profiler: its kernels' device time by
+    kind (the hand-written GEMM, its reduction pass, cuBLAS, the rest),
+    the busy time (the union of the kernel intervals), the wall (traced:
+    the host's tracing adds to it), the host ops called and the ones with
+    the most self CPU time."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    evs = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and not ev.name.startswith(("Memcpy", "Memset"))]
+    kinds = {"gemm": [0.0, 0], "gemm_reduce": [0.0, 0], "cublas": [0.0, 0],
+             "other": [0.0, 0]}
+    for ev in evs:
+        kind = kernel_kind(ev.name)
+        if kind == "other" and CUBLAS_KERNEL.search(ev.name):
+            kind = "cublas"
+        kinds[kind][0] += ev.time_range.elapsed_us() / 1e3
+        kinds[kind][1] += 1
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in evs)
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    top = sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]
+    return {"kinds": kinds, "busy_ms": busy / 1e3, "wall_ms": wall,
+            "events": len(evs), "host_ops": sum(e.count for e in host),
+            "host_top": [(e.key, e.count,
+                          round(e.self_cpu_time_total / 1e3, 1))
+                         for e in top]}
+
+
+def phase_train(fp: str, tuners: dict, dev: torch.device, peaks: dict,
+                tmp: Path, label: str) -> dict:
+    """SmolLM-135M training at full width (30 layers, d_model 576, vocab
+    49,152, bf16, params from seed 0) on the card, ``DataConfig(seq_len=
+    512, global_batch=8)`` as the launcher's defaults, microbatches 1,
+    ``AdamWConfig(lr=3e-4, warmup_steps=1)``, from an empty store.
+
+    A: 20 steps from the heuristic tier: the median step wall after step
+    0, tokens/s, the loss at steps 0 and 19 (finite, falling), the peak
+    allocated, the model TFLOP/s (``train_flops``) and its share of the
+    peak; each step 840 GEMM launches, each a dispatch call, the split-K
+    reduction launches those of the resolved configs, no plain version.
+    B: the tune phase's GEMM tuner over A's telemetry (9 shapes) in a
+    ``TuningSession``; installed, 10 more steps, every resolution a plan
+    hit.  The train path's launches are A's and B's steps' (30 x 840
+    GEMMs), not the session's timings.  C: at the 9 shapes ``ops.matmul`` under the tuned and the
+    heuristic's config, the kernel alone, the reduction pass alone,
+    ``torch.matmul`` and the bound, times the calls a step; the
+    transposed-operand copies; one eager step traced and its device time
+    split by kernel kind.  D: at the 9 shapes the Function's output, dA
+    and dB held to the plain version on the card; one full-width step's
+    loss and gradient norm held to the same step through the plain
+    version.  E: 6 steps with checkpoint_every=3, async saves, int8
+    compression and stochastic rounding, a new ``Trainer`` resumes at 6
+    and runs 6 and 7 only; its losses and final state (parameters, m, v,
+    error feedback, AdamW step, key) against an uninterrupted 8-step
+    run's.  F: 4 steps at microbatches=2 with int8
+    compression (``ef_norm``); one step each of the other families at
+    SMOKE.  G: ``python -m repro_torch.launch.train --arch smollm-135m
+    --steps 3`` in a process of its own, no ``--device``."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(BACKGROUND_THREADS)
+             or t.name.endswith(("(beat)", "(run)"))]
+    if alive:
+        raise AssertionError(f"train: background threads alive (C11): "
+                             f"{alive}")
+    cfg = get_config("smollm-135m")
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    M = B * S
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1,
+                      total_steps=TRAIN_STEPS_A + TRAIN_STEPS_B)
+    tc = TrainConfig(steps=TRAIN_STEPS_A + TRAIN_STEPS_B)
+    data = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    trainer = Trainer(cfg, opt, tc, data, device=dev)
+    train_store = RecordStore()
+    install_serving(store=train_store, models=None, fingerprint=fp)
+    clear_telemetry()
+    dispatch.reset_counts()
+    flops = train_flops(cfg, B, S)
+    shapes = train_step_shapes(cfg, M)
+    per_step = 4 * GEMMS_PER_LAYER * cfg.n_layers  # fwd, recompute, dA, dB
+    if (sum(shapes["calls"].values()) != per_step
+            or len(shapes["calls"]) != TRAIN_SHAPES):
+        raise AssertionError(f"train: {dict(shapes['calls'])}")
+
+    # A: from the heuristic tier
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, opt, tc, dev)
+    reset_launches()
+    with no_plain_gemm():
+        state, rows_a = train_run(trainer.step_fn, state, trainer.batch,
+                                  range(TRAIN_STEPS_A), per_step, "train A")
+    counts_a = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    tiers_a = {t: c for (sp, t), c in dispatch.tier_counts.items()
+               if sp == "gemm"}
+    seen = {k: x for r in rows_a for k, (x, _) in r["shapes"].items()}
+    want = {shape_key(gemm_input(m, n, k, 16)) for m, n, k in shapes["calls"]}
+    if set(seen) != want:
+        raise AssertionError(f"train A: shapes {sorted(seen)}, want "
+                             f"{sorted(want)}")
+    wall_a = statistics.median(r["wall_ms"] for r in rows_a[1:])
+    loss0, loss_n = rows_a[0]["loss"], rows_a[-1]["loss"]
+    if not loss_n < loss0:
+        raise AssertionError(f"train A: loss {loss0} -> {loss_n}")
+    tflops_a = flops["total"] / (wall_a * 1e-3) / 1e12
+    phase("train", f"A: {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}, bf16), {B} x {S} "
+          f"tokens a step, from an empty store (tiers {tiers_a}): "
+          f"{TRAIN_STEPS_A} steps, median step wall {wall_a:.2f} ms after "
+          f"step 0 (step 0 {rows_a[0]['wall_ms']:.1f} ms), "
+          f"{M / (wall_a * 1e-3):.0f} tokens/s, loss {loss0:.4f} at step 0 "
+          f"-> {loss_n:.4f} at step {TRAIN_STEPS_A - 1}; peak allocated "
+          f"{peak / 1e9:.3f} GB; model {flops['total'] / 1e12:.3f} TFLOP a "
+          f"step (projections {flops['proj'] / 1e12:.3f}, head "
+          f"{flops['head'] / 1e12:.3f}, attention {flops['attn'] / 1e12:.3f}"
+          f"; recompute excluded): {tflops_a:.1f} TFLOP/s, "
+          f"{tflops_a / (peaks[torch.bfloat16] / 1e12):.1%} of the "
+          f"{peaks[torch.bfloat16] / 1e12:.0f} TFLOP/s peak; "
+          f"{rows_a[-1]['launches']} GEMM launches a step (each a dispatch "
+          f"call), {rows_a[-1]['reduces']} reduction launches a step (the "
+          f"resolved configs' split-K calls), no plain version [{label}]")
+
+    # B: tune the step's shapes, then train on from A's state
+    heur = {k: dispatch._heuristic_cfg("gemm", x) for k, x in seen.items()}
+    t0 = time.perf_counter()
+    report = TuningSession(tuners["gemm"], train_store, get_telemetry(),
+                           top_k_shapes=16, workers=4).run()
+    session_s = time.perf_counter() - t0
+    if report.failed or report.tuned != TRAIN_SHAPES:
+        raise AssertionError(f"train B: {report.tuned}/{TRAIN_SHAPES} tuned, "
+                             f"{report.failed} failed: {report.errors}")
+    install_store(train_store, fingerprint=fp)
+    plan = serving_state().plan
+    tiers_b = {}
+    for k, x in seen.items():
+        rec = train_store.get("gemm", x, backend=fp)
+        tiers_b[k] = plan.lookup("gemm", k)
+        if tiers_b[k] != (rec.config, "exact"):
+            raise AssertionError(f"train B: plan entry of {k} {tiers_b[k]}, "
+                                 f"want the exact record's {rec.config}")
+    dispatch.reset_counts()
+    reset_launches()
+    with no_plain_gemm():
+        state, rows_b = train_run(
+            trainer.step_fn, state, trainer.batch,
+            range(TRAIN_STEPS_A, TRAIN_STEPS_A + TRAIN_STEPS_B), per_step,
+            "train B")
+    counts_b = read_launches()
+    tiers_after = {t: c for (sp, t), c in dispatch.tier_counts.items()
+                   if sp == "gemm"}
+    if set(tiers_after) != {"plan"}:
+        raise AssertionError(f"train B: tiers {tiers_after}")
+    # the train path's launches: A's and B's steps only, not B's tuning
+    counts = {k: counts_a[k] + counts_b[k] for k in counts_a}
+    reduces = sum(r["reduces"] for r in rows_a + rows_b)
+    want = {"gemm": per_step * (TRAIN_STEPS_A + TRAIN_STEPS_B),
+            "gemm_reduce": reduces, "conv": 0, "attention": 0, "ssd": 0}
+    if counts != want:
+        raise AssertionError(f"train: launches in A's and B's steps "
+                             f"{counts}, want {want}")
+    wall_b = statistics.median(r["wall_ms"] for r in rows_b)
+    phase("train", f"B: TuningSession over A's telemetry with the tune "
+          f"phase's GEMM tuner: {report.tuned} shapes tuned in "
+          f"{session_s:.1f} s, all planned exact; {TRAIN_STEPS_B} more "
+          f"steps (tiers {tiers_after}): median step wall {wall_b:.2f} ms "
+          f"(A: {wall_a:.2f} ms), loss {rows_b[-1]['loss']:.4f} at step "
+          f"{rows_b[-1]['step']} [{label}]")
+    for k, x in sorted(seen.items()):
+        rec = train_store.get("gemm", x, backend=fp)
+        phase("train", f"  M={x['M']} N={x['N']} K={x['K']}: tuned "
+              f"{rec.config} {rec.tflops:.1f} TFLOP/s; heuristic "
+              f"{heur[k]}")
+
+    # C: where the step's GEMM time goes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows_c, sums = [], collections.Counter()
+    for (m, n, k), calls in sorted(shapes["calls"].items()):
+        x = gemm_input(m, n, k, 16)
+        cfg_t = train_store.get("gemm", x, backend=fp).config
+        cfg_h = heur[shape_key(x)]
+        run = ops.shrink_gemm_cfg(cfg_t, m, n, k)
+        a, bs = gemm_weights(m, n, k, gen, dev)
+        nc = len(bs)
+        t = {"tuned": time_ms(lambda i: ops.matmul(a, bs[i], cfg_t), nc),
+             "heuristic": time_ms(lambda i: ops.matmul(a, bs[i], cfg_h), nc),
+             "kernel": time_ms(lambda i: kmatmul.gemm(a, bs[i], run), nc),
+             "library": time_ms(lambda i: torch.matmul(a, bs[i]), nc)}
+        with plain_kernels():
+            t["plain"] = time_ms(lambda i: ops.matmul(a, bs[i], cfg_t), nc)
+        t["reduce"] = 0.0
+        if run["k_split"] > 1:
+            parts = kmatmul.gemm(a, bs[0], run)
+            t["reduce"] = time_ms(lambda i: kmatmul.splitk_reduce(parts), nc)
+        b = gemm_bound(m, n, k, torch.bfloat16, peaks)
+        del a, bs
+        rows_c.append({"M": m, "N": n, "K": k, "calls": calls,
+                       "k_split": run["k_split"], "cfg": cfg_t,
+                       "heuristic_cfg": cfg_h,
+                       **{f"{key}_ms": v for key, v in t.items()},
+                       "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]})
+        for key, v in t.items():
+            sums[key] += calls * v
+        sums["bound"] += calls * b["bound_ms"]
+        phase("train", f"C: M={m} N={n} K={k} x {calls} a step: tuned "
+              f"{t['tuned'] * 1e3:.1f} us (k_split {run['k_split']}; kernel "
+              f"alone {t['kernel'] * 1e3:.1f} us, reduction "
+              f"{t['reduce'] * 1e3:.1f} us), heuristic "
+              f"{t['heuristic'] * 1e3:.1f} us, plain {t['plain'] * 1e3:.1f} "
+              f"us, torch.matmul {t['library'] * 1e3:.1f} us, bound "
+              f"{b['bound_ms'] * 1e3:.1f} us ({b['bound_by']}) [{label}]")
+    copy_ms = 0.0
+    for (r, c), calls in sorted(shapes["copies"].items()):
+        src = [torch.randn((c, r), generator=gen, device=dev).bfloat16()
+               for _ in range(max(2, math.ceil(2.5 * L2_BYTES / (2 * r * c))))]
+        copy_ms += calls * time_ms(lambda i: src[i].t().contiguous(),
+                                   len(src))
+        del src
+    batch = trainer.batch(TRAIN_STEPS_A + TRAIN_STEPS_B)
+    split = device_split(lambda: trainer.step_fn(state, batch))
+    kinds = {k: round(v[0], 3) for k, v in split["kinds"].items()}
+    phase("train", f"C: the step's {per_step} GEMMs: tuned "
+          f"{sums['tuned']:.2f} ms (kernel alone {sums['kernel']:.2f} ms, "
+          f"reduction passes {sums['reduce']:.2f} ms), heuristic "
+          f"{sums['heuristic']:.2f} ms, plain {sums['plain']:.2f} ms, "
+          f"torch.matmul {sums['library']:.2f} ms, bound "
+          f"{sums['bound']:.2f} ms; transposed-operand copies "
+          f"{copy_ms:.2f} ms; step wall {wall_b:.2f} ms (tuned); one eager "
+          f"step traced: wall {split['wall_ms']:.1f} ms, device busy "
+          f"{split['busy_ms']:.2f} ms ({1 - split['busy_ms'] / split['wall_ms']:.1%} "
+          f"idle), {split['events']} kernels, device ms by kind {kinds}; "
+          f"{split['host_ops']} host ops, the most self CPU time (name, "
+          f"calls, ms): {split['host_top']} [{label}]")
+
+    # D: gradients on the card against the plain version
+    worst = 0.0
+    for (m, n, k) in sorted(shapes["calls"]):
+        a = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+        b = (torch.randn((k, n), generator=gen, device=dev) / k ** 0.5
+             ).bfloat16()
+        dc = torch.randn((m, n), generator=gen, device=dev).bfloat16()
+        outs = []
+        for plain in (False, True):
+            ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(
+                True)
+            with plain_kernels() if plain else contextlib.nullcontext():
+                out = dispatch.matmul(ta, tb)
+                da, db = torch.autograd.grad(out, (ta, tb), dc)
+            if not plain and not isinstance(
+                    out.grad_fn, dispatch._TunedGemm._backward_cls):
+                raise AssertionError("train D: the output is not the "
+                                     "Function's")
+            outs.append((out.detach(), da, db))
+        for got, want in zip(*outs):
+            er = rel_err(got, want)[1]
+            worst = max(worst, er)
+            if er > TOL[torch.bfloat16] or not torch.isfinite(got).all():
+                raise AssertionError(f"train D: M={m} N={n} K={k}: rel err "
+                                     f"{er:.3e} against the plain version")
+    full = {}
+    for plain in (False, True):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            loss, _ = loss_fn(state["params"], cfg, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(state["params"]))
+        full[plain] = (float(loss.detach()), float(global_norm(dict(enumerate(
+            grads)))))
+        del grads
+    er_loss = abs(full[False][0] - full[True][0]) / abs(full[True][0])
+    er_norm = abs(full[False][1] - full[True][1]) / full[True][1]
+    if max(er_loss, er_norm) > TOL[torch.bfloat16]:
+        raise AssertionError(f"train D: full step kernel {full[False]} vs "
+                             f"plain {full[True]}")
+    phase("train", f"D: the Function's output, dA and dB at the "
+          f"{TRAIN_SHAPES} shapes within {worst:.3e} of the plain version "
+          f"(tolerance {TOL[torch.bfloat16]}); one full-width step: loss "
+          f"{full[False][0]:.5f} vs plain {full[True][0]:.5f} (rel "
+          f"{er_loss:.2e}), gradient norm {full[False][1]:.5f} vs "
+          f"{full[True][1]:.5f} (rel {er_norm:.2e}) [{label}]")
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # E: checkpoint and resume
+    n1, every, n2 = TRAIN_RESUME
+    opt_e = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=n2)
+    ck = tmp / "train_ckpt"
+    # compression and stochastic rounding on, so that the error feedback
+    # and the key are state the resume must carry
+    mk = lambda steps, d: Trainer(cfg, opt_e, TrainConfig(
+        steps=steps, checkpoint_every=every, checkpoint_dir=d,
+        compress_grads=True, stochastic_rounding=True,
+        log_every=1000), data, device=dev)
+    with no_plain_gemm():
+        first = mk(n1, str(ck)).run(verbose=False)
+        steps_on_disk = sorted(int(p.name.split("-")[1])
+                               for p in ck.glob("step-*"))
+        second = mk(n2, str(ck)).run(verbose=False)
+        whole = mk(n2, None).run(verbose=False)
+    resumed = [h["step"] for h in second["history"]]
+    if resumed != list(range(n1, n2)) or steps_on_disk != [every, n1]:
+        raise AssertionError(f"train E: checkpoints {steps_on_disk}, resumed "
+                             f"steps {resumed}")
+    diffs = [abs(h["loss"] - w["loss"]) / abs(w["loss"])
+             for h, w in zip(second["history"], whole["history"][n1:])]
+    s2, sw = second["state"], whole["state"]
+    state_diffs = {
+        what: rel_norm_diff(tree_leaves(got), tree_leaves(want))
+        for what, got, want in (
+            ("params", s2["params"], sw["params"]),
+            ("m", s2["opt"].m, sw["opt"].m), ("v", s2["opt"].v, sw["opt"].v),
+            ("ef", s2["ef"], sw["ef"]))}
+    steps_e = (s2["opt"].step, sw["opt"].step)
+    if (max(diffs) > TRAIN_RESUME_RTOL
+            or max(state_diffs.values()) > TRAIN_RESUME_RTOL
+            or steps_e != (n2, n2)
+            or not np.array_equal(s2["rng"], sw["rng"])):
+        raise AssertionError(f"train E: resumed losses differ by {diffs}, "
+                             f"the final state by {state_diffs}; AdamW "
+                             f"steps {steps_e}; keys {s2['rng']} "
+                             f"{sw['rng']}")
+    phase("train", f"E: {n1} steps with checkpoint_every={every}, int8 "
+          f"compression and stochastic rounding (async; on disk "
+          f"{steps_on_disk}), a new Trainer resumed at {resumed[0]} and ran "
+          f"steps {resumed}: losses "
+          f"{[round(h['loss'], 5) for h in second['history']]} vs "
+          f"uninterrupted {[round(w['loss'], 5) for w in whole['history'][n1:]]} "
+          f"(rel diff {max(diffs):.2e}); the final state's rel norm diff "
+          f"{ {k: f'{v:.2e}' for k, v in state_diffs.items()} }, AdamW step "
+          f"{steps_e[0]} in both, the same key; all held to "
+          f"{TRAIN_RESUME_RTOL}")
+    del first, second, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # F: the example's settings, then the other families at SMOKE
+    tc_f = TrainConfig(steps=4, microbatches=2, compress_grads=True)
+    tr = Trainer(cfg, opt, tc_f, data, device=dev)
+    with no_plain_gemm():
+        st = init_train_state(cfg, opt, tc_f, dev)
+        ef_norms = []
+        for step in range(4):
+            st, m = tr.step_fn(st, tr.batch(step))
+            ef_norms.append(float(m["ef_norm"]))
+            if not (math.isfinite(float(m["loss"])) and math.isfinite(
+                    float(m["grad_norm"])) and math.isfinite(ef_norms[-1])):
+                raise AssertionError(f"train F: step {step} metrics {m}")
+    del st, tr
+    smoke = {}
+    for arch in TRAIN_SMOKE_ARCHS:
+        scfg = smoke_config(arch)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        params = init_params(scfg, g)
+        for t in tree_leaves(params):
+            t.requires_grad_(True)
+        rng = np.random.default_rng(0)
+        sb = {"tokens": torch.as_tensor(rng.integers(0, scfg.vocab, (2, 32)),
+                                        device=dev)}
+        if scfg.frontend == "vision":
+            sb["patch_embeds"] = torch.randn(
+                (2, scfg.n_frontend_tokens, scfg.d_model), generator=g,
+                device=dev)
+        if scfg.is_encdec:
+            sb["encoder_embeds"] = torch.randn(
+                (2, scfg.encoder_len, scfg.d_model), generator=g, device=dev)
+        l0 = kmatmul.launches
+        with no_plain_gemm():
+            loss, _ = loss_fn(params, scfg, sb)
+            grads = torch.autograd.grad(loss, tree_leaves(params),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        n = kmatmul.launches - l0
+        loss = float(loss.detach())
+        ok = math.isfinite(loss) and all(
+            bool(torch.isfinite(gr).all()) for gr in grads)
+        if not (ok and n):
+            raise AssertionError(f"train F: {arch} loss {loss}, "
+                                 f"{n} GEMM launches, finite grads {ok}")
+        smoke[arch] = (round(loss, 4), n)
+    phase("train", f"F: 4 full-width steps at microbatches=2 with int8 "
+          f"compression: ef_norm {[round(e, 4) for e in ef_norms]}, all "
+          f"finite; one step of each family at SMOKE (fp32, the SIMT GEMM), "
+          f"(loss, GEMM launches): {smoke}")
+
+    # G: the launcher in a process of its own, on the card by default
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--arch", "smollm-135m", "--steps", "3"],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=ROOT, env={**os.environ,
+                                      "PYTHONPATH": str(ROOT / "src")})
+    if r.returncode != 0 or "final loss" not in r.stdout:
+        raise AssertionError(f"train G: launcher exit {r.returncode}: "
+                             f"{r.stdout[-500:]} {r.stderr[-2000:]}")
+    last = r.stdout.strip().splitlines()[-1]
+    wall = time.perf_counter() - t_phase
+    phase("train", f"G: python -m repro_torch.launch.train --arch "
+          f"smollm-135m --steps 3 exited 0 in {time.perf_counter() - t0:.1f} "
+          f"s: {last!r}; phase wall {wall:.1f} s")
+    clear_store()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "reduces": reduces, "wall_a_ms": wall_a,
+            "wall_b_ms": wall_b, "rows_c": rows_c, "sums": dict(sums),
+            "copy_ms": copy_ms, "split": split, "tflops": tflops_a,
+            "wall_s": wall}
+
+
 REPLACES = {"gemm": "src/repro/kernels/matmul.py:36",
             "conv": "src/repro/kernels/conv.py:38",
             "attention": "src/repro/kernels/attention.py:29",
@@ -5953,6 +6521,10 @@ def main() -> int:
         launches["serve_frontend"] = frontend["counts"]
         phase("frontend", f"the encdec and frontend phases' wall "
               f"{encdec['wall_s'] + frontend['wall_s']:.1f} s")
+        train = phase_train(fp, tuners, dev, peaks, Path(tmp), label)
+        launches["train"] = train["counts"]
+        phase("train", f"launches on the train path (A's and B's steps): "
+              f"{launches['train']}")
         clear_store()
         clear_models()
     rows = {"gemm": gemm_rows, "conv": conv_rows, "attention": attn_rows,
@@ -5970,6 +6542,8 @@ def main() -> int:
     line["kernels"][0]["gemm_ms"] = per_tick(gemm_rows, "gemm_ms",
                                              cfg.n_layers)
     line["kernels"][0]["table4"] = table4
+    # one SmolLM-135M training step's 840 GEMMs under the tuned configs
+    line["kernels"][0]["train_gemm_ms"] = train["sums"]["tuned"]
     line["kernels"][-1]["device_launches"] = serve["device_reduce_launches"]
     line["kernels"][-1]["device_launches_by_path"] = {
         p: r["device_reduce_launches"] for p, r in served.items()}

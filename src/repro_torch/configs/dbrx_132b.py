@@ -23,5 +23,5 @@ SMOKE = ModelConfig(
     vocab=512, head_dim=16,
     pattern=(("attn", "moe"),),
     n_experts=4, top_k=2,
-    dtype=torch.float32, attn_chunk=64,
+    dtype=torch.float32, attn_chunk=64, logit_chunk=64,
 )

@@ -18,5 +18,5 @@ SMOKE = ModelConfig(
     name="glm4-9b-smoke",
     n_layers=2, d_model=64, n_heads=4, n_kv=1, d_ff=128,
     vocab=512, head_dim=16,
-    dtype=torch.float32, attn_chunk=64,
+    dtype=torch.float32, attn_chunk=64, logit_chunk=64,
 )

@@ -25,5 +25,5 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128,
     vocab=512, head_dim=16,
     frontend="vision", n_frontend_tokens=8,
-    dtype=torch.float32, attn_chunk=64,
+    dtype=torch.float32, attn_chunk=64, logit_chunk=64,
 )

@@ -38,5 +38,5 @@ SMOKE = ModelConfig(
     pattern=PERIOD,
     n_experts=4, top_k=2,
     ssm_state=16, ssm_head_dim=16,
-    dtype=torch.float32, ssd_chunk=32, attn_chunk=64,
+    dtype=torch.float32, ssd_chunk=32, attn_chunk=64, logit_chunk=64,
 )

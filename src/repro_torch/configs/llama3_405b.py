@@ -19,5 +19,5 @@ SMOKE = ModelConfig(
     name="llama3-405b-smoke",
     n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=192,
     vocab=512, head_dim=16, rope_theta=5e5,
-    dtype=torch.float32, attn_chunk=64,
+    dtype=torch.float32, attn_chunk=64, logit_chunk=64,
 )

@@ -22,5 +22,5 @@ SMOKE = ModelConfig(
     vocab=512,
     pattern=(("mamba", "none"),),
     ssm_state=16, ssm_head_dim=16,
-    dtype=torch.float32, ssd_chunk=32,
+    dtype=torch.float32, ssd_chunk=32, logit_chunk=64,
 )

@@ -19,5 +19,5 @@ SMOKE = ModelConfig(
     name="qwen3-14b-smoke",
     n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128,
     vocab=512, head_dim=16, qk_norm=True,
-    dtype=torch.float32, attn_chunk=64,
+    dtype=torch.float32, attn_chunk=64, logit_chunk=64,
 )

@@ -17,5 +17,5 @@ SMOKE = ModelConfig(
     name="smollm-135m-smoke",
     n_layers=2, d_model=72, n_heads=3, n_kv=1, d_ff=192,
     vocab=512, head_dim=24,
-    dtype=torch.float32, attn_chunk=64,
+    dtype=torch.float32, attn_chunk=64, logit_chunk=64,
 )

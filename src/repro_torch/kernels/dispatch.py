@@ -244,13 +244,48 @@ def _record(space: str, inputs: Mapping[str, int]) -> None:
     record_shape(space, inputs)
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Model-facing 2-D GEMM through the tuned config."""
+def _gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One GEMM: the shape recorded, its config resolved, ``ops.matmul``."""
     inputs = gemm_input(a.shape[0], b.shape[1], a.shape[1],
                         _dtype_bits(a.dtype))
     _record("gemm", inputs)
     cfg = _tuned_cfg("gemm", inputs)
     return ops.matmul(a, b, cfg)
+
+
+class _TunedGemm(torch.autograd.Function):
+    """C = A @ B through the tuned dispatch, with its gradient: dA = dC·Bᵀ
+    and dB = Aᵀ·dC, each a GEMM of its own through :func:`matmul` (so
+    through the hand-written kernel on the card), only where
+    ``needs_input_grad`` asks for it.  Each backward product records its
+    own shape in the telemetry and resolves its own tuned config, so the
+    tuner sees the training step's backward shapes; the reference's
+    telemetry records shapes at trace time and never sees XLA's backward
+    dots.  ``ops.matmul`` makes the transposed operand (Bᵀ or Aᵀ, a view)
+    row-major: that copy is the relayout a transposed operand costs."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return _gemm(a, b)
+
+    @staticmethod
+    def backward(ctx, dc: torch.Tensor):
+        a, b = ctx.saved_tensors
+        dc = dc.to(a.dtype).contiguous()
+        da = matmul(dc, b.t()) if ctx.needs_input_grad[0] else None
+        db = matmul(a.t(), dc) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Model-facing 2-D GEMM through the tuned config.  Where autograd
+    records (grad mode on and an operand requiring grad) the call goes
+    through :class:`_TunedGemm`, on the CPU as on the card, so the
+    gradient runs the same kernel; otherwise it makes no autograd node."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _TunedGemm.apply(a, b)
+    return _gemm(a, b)
 
 
 def matmul2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,12 @@ on the card each one runs the hand-written GEMM under its tuned config.
 Parameters are plain dicts of tensors; activations keep the model dtype,
 normalisation and attention run in fp32.  The reference's sharding
 constraints have no counterpart on one GPU and are dropped.
+
+Where autograd records (:func:`recording`), the attention's chunk bodies
+run under ``torch.utils.checkpoint``, as the reference's run under
+``jax.checkpoint``: the backward pass then keeps no chunk's score matrix
+alive.  Without autograd (serving, a CUDA graph capture) the same ops run
+with no checkpoint wrapper.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import dispatch
 
@@ -20,6 +27,30 @@ Params = Dict[str, torch.Tensor]
 IndexLike = Union[int, torch.Tensor]
 
 NEG_INF = -1e30
+
+
+def recording(*trees) -> bool:
+    """Does autograd record a graph through these tensors (or the tensors
+    of these nested dicts)?  Grad mode on and one of them requiring grad:
+    the condition under which the training path's checkpoints apply."""
+    if not torch.is_grad_enabled():
+        return False
+
+    def any_grad(t) -> bool:
+        if isinstance(t, dict):
+            return any(any_grad(v) for v in t.values())
+        return isinstance(t, torch.Tensor) and t.requires_grad
+    return any(any_grad(t) for t in trees)
+
+
+def maybe_checkpoint(fn, *args, record: bool):
+    """``fn(*args)``, under a non-reentrant checkpoint where ``record``:
+    its activations are recomputed in the backward pass instead of kept.
+    ``fn`` draws no random numbers, so no RNG state is stashed."""
+    if record:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +136,9 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q (B, Sq, H, D); k/v (B, Skv, G, D), H % G == 0.  ``q_start`` is the
     absolute position of q[0] and ``kv_len`` the number of valid KV
-    positions, each a scalar or per-slot (B,).
+    positions, each a scalar or per-slot (B,).  Where autograd records,
+    each chunk's body runs under a checkpoint (the reference's
+    ``jax.checkpoint(body)``).
     """
     B, Sq, H, D = q.shape
     Skv, G = k.shape[1], k.shape[2]
@@ -114,18 +147,16 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(D)
     chunk = min(chunk, Skv)
     n_chunks = -(-Skv // chunk)
+    record = recording(q, k, v)
     qf = q.float() * scale
     q_pos = (device_index(q_start, dev).reshape(-1, 1)
              + torch.arange(Sq, device=dev)[None, :])               # (B|1, Sq)
     valid = device_index(Skv if kv_len is None else kv_len,
                          dev).reshape(-1, 1, 1)
-    m = torch.full((B, H, Sq), float("-inf"), device=dev)
-    l = torch.zeros((B, H, Sq), device=dev)
-    acc = torch.zeros((B, H, Sq, D), device=dev)
-    for c in range(n_chunks):
-        lo = c * chunk
-        kb = k[:, lo:lo + chunk].repeat_interleave(rep, dim=2).float()
-        vb = v[:, lo:lo + chunk].repeat_interleave(rep, dim=2).float()
+
+    def body(m, l, acc, kc, vc, lo):
+        kb = kc.repeat_interleave(rep, dim=2).float()
+        vb = vc.repeat_interleave(rep, dim=2).float()
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
         kv_pos = lo + torch.arange(kb.shape[1], device=dev)
         mask = kv_pos[None, None, :] < valid                       # (B|1,1,ck)
@@ -137,9 +168,71 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
-        m = m_new
+        return m_new, l, acc
+
+    m = torch.full((B, H, Sq), float("-inf"), device=dev)
+    l = torch.zeros((B, H, Sq), device=dev)
+    acc = torch.zeros((B, H, Sq, D), device=dev)
+    for c in range(n_chunks):
+        lo = c * chunk
+        m, l, acc = maybe_checkpoint(body, m, l, acc, k[:, lo:lo + chunk],
+                                     v[:, lo:lo + chunk], lo, record=record)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.transpose(1, 2).to(q.dtype)                          # (B,Sq,H,D)
+
+
+def _block_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, chunk: int = 1024
+                            ) -> torch.Tensor:
+    """Causal self-attention that skips the blocks above the diagonal (the
+    reference's ``_block_causal_attention``): both axes are cut into
+    chunks and only the nq·(nq+1)/2 (q chunk, kv chunk) pairs with kv <= q
+    are computed, each updating its q chunk's running (max, sum, acc),
+    q-major as the reference's pair list runs.  Only the diagonal block is
+    masked.  Requires Sq == Skv, a start at position 0 and every position
+    valid (training and a whole-prompt self-attention); Sq must be a
+    multiple of min(chunk, Sq).  Each pair's body runs under a checkpoint
+    where autograd records."""
+    B, Sq, H, D = q.shape
+    G = k.shape[2]
+    rep = H // G
+    dev = q.device
+    ck = min(chunk, Sq)
+    if Sq % ck or k.shape[1] != Sq:
+        raise ValueError(f"block-causal attention wants Sq == Skv and Sq a "
+                         f"multiple of the chunk; got Sq {Sq}, Skv "
+                         f"{k.shape[1]}, chunk {ck}")
+    nq = Sq // ck
+    record = recording(q, k, v)
+    qf = q.float() * (1.0 / math.sqrt(D))
+    tri = torch.ones((ck, ck), dtype=torch.bool, device=dev).tril()
+
+    def body(m, l, acc, qb, kc, vc, diag: bool):
+        kb = kc.repeat_interleave(rep, dim=2).float()
+        vb = vc.repeat_interleave(rep, dim=2).float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qb, kb)
+        if diag:
+            s = torch.where(tri[None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+        return m_new, l, acc
+
+    outs = []
+    for qi in range(nq):
+        qb = qf[:, qi * ck:(qi + 1) * ck]
+        m = torch.full((B, H, ck), float("-inf"), device=dev)
+        l = torch.zeros((B, H, ck), device=dev)
+        acc = torch.zeros((B, H, ck, D), device=dev)
+        for ki in range(qi + 1):
+            sl = slice(ki * ck, (ki + 1) * ck)
+            m, l, acc = maybe_checkpoint(body, m, l, acc, qb, k[:, sl],
+                                         v[:, sl], qi == ki, record=record)
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.cat(outs, dim=2)                                    # (B,H,Sq,D)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def _write_cache(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor
@@ -173,6 +266,7 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
               memory: Optional[torch.Tensor] = None,
               attn_chunk: int = 1024,
               decode_kv_splits: int = 1,
+              causal_block_skip: bool = False,
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """GQA attention block body (no residual / pre-norm).
 
@@ -182,7 +276,10 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
     of tokens already in it, a scalar or per-slot (B,).  ``memory`` (B,
     L_enc, D), the encoder output, makes it cross-attention: K and V are
     projected from it instead of ``x``, with no RoPE on q or k, no causal
-    mask and no cache.
+    mask and no cache.  ``causal_block_skip`` takes
+    :func:`_block_causal_attention` where the reference takes it: causal
+    self-attention with no cache, Sq == Skv and Sq a multiple of the
+    chunk.
     """
     B, S, _ = x.shape
     kv_src = x if memory is None else memory
@@ -224,6 +321,9 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
             n_splits = 0
     if n_splits > 1:
         out = flash_decode_attention(q, k, v, kv_len, n_splits=n_splits)
+    elif (causal_block_skip and causal and memory is None and cache is None
+          and S == Skv and S % min(attn_chunk, S) == 0):
+        out = _block_causal_attention(q, k, v, chunk=attn_chunk)
     else:
         out = _chunked_attention(q, k, v, causal=causal and memory is None,
                                  q_start=q_start, kv_len=kv_len,

@@ -21,11 +21,24 @@ The forward pass is a Python loop over the repeats in place of
 
 Entry points:
   init_params(cfg, gen)                         -> params
+  forward(params, cfg, batch)                  -> (final hidden (B,S,D), aux)
+  loss_fn(params, cfg, batch, aux_weight=0.01) -> (loss, metrics)
   init_cache(cfg, batch, max_len, device)      -> decode cache
   encode(cfg, params, frames)                  -> encoder memory (B, L_enc, D)
   prefill(params, cfg, batch, cache)           -> (last logits (B, V), cache)
   decode_step(params, cfg, tokens, cache, index, memory=None)
                                                -> (logits (B, V), cache)
+
+Training: ``loss_fn`` is the reference's next-token cross-entropy (plus
+``aux_weight`` times the MoE layers' summed load-balancing loss), the
+logits formed ``logit_chunk`` positions at a time (``_chunked_xent``).
+Where autograd records (grad mode on and a parameter requiring grad),
+each repeat of the stack runs under ``torch.utils.checkpoint`` when
+``cfg.remat`` (the reference's ``jax.checkpoint(body)``), as does each
+logit chunk and each attention chunk.  The stacked parameters are split
+into their repeats with one ``unbind`` a leaf (views, no kernel), whose
+backward stacks the repeats' grads in one op.  Without autograd (the
+serving engine, a CUDA graph capture) no checkpoint runs.
 
 ``prefill``'s batch holds ``tokens`` and, for an encoder-decoder,
 ``encoder_embeds`` (B, L_enc, D), which it encodes itself; for a vision
@@ -37,6 +50,7 @@ wants the memory from ``encode``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -80,9 +94,13 @@ class ModelConfig:
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True                     # training: recompute each repeat
     attn_chunk: int = 1024
+    logit_chunk: int = 512                 # training: positions per logit chunk
     tie_embeddings: bool = True
     decode_kv_splits: int = 1      # >1: flash-decoding over the KV cache
+    causal_block_skip: bool = False        # skip attention blocks past the
+    #   diagonal (causal self-attention without a cache)
 
     @property
     def hd(self) -> int:
@@ -300,11 +318,80 @@ def _slice(tree: Any, r: int) -> Any:
     return tree[r]
 
 
+def _unstack(tree: Any, n: int) -> List[Any]:
+    """The ``n`` repeats of a stacked tree, each leaf split by one
+    ``unbind``: under autograd its backward stacks the repeats' grads in
+    one op, where ``n`` selects would each add a zero-filled copy of the
+    whole stacked leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in parts} for r in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _apply_repeat(cfg: ModelConfig, p_r: Params, c_r: Params,
+                  x: torch.Tensor, *, pattern: Tuple[Tuple[str, str], ...],
+                  positions: torch.Tensor, causal: bool,
+                  memory: Optional[torch.Tensor], has_cache: bool,
+                  cache_index, want_aux: bool) -> Tuple[torch.Tensor, Any]:
+    """One repeat of the stack: ``pattern``'s layers in order.  Returns
+    (x, the summed fp32 aux loss of its capacity-path MoE layers where
+    ``want_aux``, else 0.0: the serving path adds no op for it)."""
+    aux: Any = 0.0
+    for i, (mixer, mlp_kind) in enumerate(pattern):
+        p = p_r[f"pos{i}"]
+        c = c_r.get(f"pos{i}", {})
+        h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        if mixer == ATTN:
+            out, _ = L.attention(
+                p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                head_dim=cfg.hd, positions=positions, causal=causal,
+                rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+                norm_eps=cfg.norm_eps, cache=c.get("attn"),
+                cache_index=cache_index, attn_chunk=cfg.attn_chunk,
+                decode_kv_splits=cfg.decode_kv_splits,
+                causal_block_skip=cfg.causal_block_skip)
+        else:
+            out, _ = SSM.mamba_block(
+                p["mamba"], h, d_model=cfg.d_model, state=cfg.ssm_state,
+                head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk,
+                cache=c.get("mamba"))
+        x = x + out
+        if memory is not None and "cross" in p:
+            h = L.rms_norm(x, p["norm_cross"], cfg.norm_eps)
+            out, _ = L.attention(
+                p["cross"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                head_dim=cfg.hd, positions=positions, causal=False,
+                rope_theta=cfg.rope_theta, qk_norm=False,
+                norm_eps=cfg.norm_eps, memory=memory,
+                attn_chunk=cfg.attn_chunk)
+            x = x + out
+        if mlp_kind == NONE:
+            continue
+        h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        out = None
+        if mlp_kind in (DENSE, MOE_DENSE):
+            out = L.mlp(p["mlp"], h)
+        if mlp_kind in (MOE_MLP, MOE_DENSE):
+            if has_cache and h.shape[1] == 1:
+                mo = MOE.moe_decode(p["moe"], h, n_experts=cfg.n_experts,
+                                    top_k=cfg.top_k)
+            else:
+                mo, a = MOE.moe(p["moe"], h, n_experts=cfg.n_experts,
+                                top_k=cfg.top_k,
+                                capacity_factor=cfg.capacity_factor)
+                if want_aux:
+                    aux = aux + a
+            out = mo if out is None else out + mo
+        x = x + out
+    return x, aux
+
+
 def _run_stack(cfg: ModelConfig, stack: Params, x: torch.Tensor, *,
                pattern: Tuple[Tuple[str, str], ...], positions: torch.Tensor,
                causal: bool, memory: Optional[torch.Tensor] = None,
-               cache: Optional[Params] = None, cache_index=None
-               ) -> torch.Tensor:
+               cache: Optional[Params] = None, cache_index=None,
+               want_aux: bool = False) -> Tuple[torch.Tensor, Any]:
     """Pre-norm residual blocks over the repeats of ``stack`` (its leaves'
     leading dim), ``pattern``'s positions in order inside each; with a
     ``cache``, each repeat's slices are written in place.  Where a layer
@@ -313,52 +400,25 @@ def _run_stack(cfg: ModelConfig, stack: Params, x: torch.Tensor, *,
     ``none`` is skipped with its norm; a dense MLP and a MoE in one layer
     are summed before the residual add.  The MoE takes its decode path
     where the reference's does: with a cache and one position (a tick, or
-    a 1-token prompt's prefill), else the capacity path."""
-    for r in range(tree_leaves(stack)[0].shape[0]):
-        for i, (mixer, mlp_kind) in enumerate(pattern):
-            p = _slice(stack[f"pos{i}"], r)
-            c = _slice(cache[f"pos{i}"], r) if cache is not None else {}
-            h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-            if mixer == ATTN:
-                out, _ = L.attention(
-                    p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                    head_dim=cfg.hd, positions=positions, causal=causal,
-                    rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-                    norm_eps=cfg.norm_eps, cache=c.get("attn"),
-                    cache_index=cache_index, attn_chunk=cfg.attn_chunk,
-                    decode_kv_splits=cfg.decode_kv_splits)
-            else:
-                out, _ = SSM.mamba_block(
-                    p["mamba"], h, d_model=cfg.d_model, state=cfg.ssm_state,
-                    head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk,
-                    cache=c.get("mamba"))
-            x = x + out
-            if memory is not None and "cross" in p:
-                h = L.rms_norm(x, p["norm_cross"], cfg.norm_eps)
-                out, _ = L.attention(
-                    p["cross"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                    head_dim=cfg.hd, positions=positions, causal=False,
-                    rope_theta=cfg.rope_theta, qk_norm=False,
-                    norm_eps=cfg.norm_eps, memory=memory,
-                    attn_chunk=cfg.attn_chunk)
-                x = x + out
-            if mlp_kind == NONE:
-                continue
-            h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-            out = None
-            if mlp_kind in (DENSE, MOE_DENSE):
-                out = L.mlp(p["mlp"], h)
-            if mlp_kind in (MOE_MLP, MOE_DENSE):
-                if cache is not None and h.shape[1] == 1:
-                    mo = MOE.moe_decode(p["moe"], h, n_experts=cfg.n_experts,
-                                        top_k=cfg.top_k)
-                else:
-                    mo, _ = MOE.moe(p["moe"], h, n_experts=cfg.n_experts,
-                                    top_k=cfg.top_k,
-                                    capacity_factor=cfg.capacity_factor)
-                out = mo if out is None else out + mo
-            x = x + out
-    return x
+    a 1-token prompt's prefill), else the capacity path.  Returns (x, aux):
+    with ``want_aux`` the capacity-path MoE layers' load-balancing losses
+    summed in fp32, as the reference's scan carries them (0.0 where there
+    are none); without it 0.0, and no op is added for it.  Where autograd
+    records and ``cfg.remat``, each repeat runs under a checkpoint."""
+    n = tree_leaves(stack)[0].shape[0]
+    record = L.recording(x, stack, memory)
+    reps = _unstack(stack, n)
+    aux: Any = 0.0
+    for r, p_r in enumerate(reps):
+        c_r = _slice(cache, r) if cache is not None else {}
+        fn = functools.partial(
+            _apply_repeat, cfg, p_r, c_r, pattern=pattern,
+            positions=positions, causal=causal, memory=memory,
+            has_cache=cache is not None, cache_index=cache_index,
+            want_aux=want_aux)
+        x, a = L.maybe_checkpoint(fn, x, record=record and cfg.remat)
+        aux = aux + a
+    return x, aux
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -379,6 +439,94 @@ def _frontend_concat(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
     return x
 
 
+def _frontend_concat_shapes(cfg: ModelConfig, batch: Dict[str, Any],
+                            device: torch.device
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(targets (B, S), loss mask (B, S) fp32) aligned with the decoder's
+    sequence: the batch's ``targets`` (default: the tokens) and
+    ``loss_mask`` (default: ones), behind zeros for the vision frontend's
+    patch positions, without running the embedding again."""
+    tokens = torch.as_tensor(batch["tokens"], device=device)
+    targets = torch.as_tensor(batch.get("targets", tokens), device=device)
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(tokens.shape, dtype=torch.float32, device=device)
+            if mask is None else torch.as_tensor(mask, device=device))
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        B, npatch = tokens.shape[0], batch["patch_embeds"].shape[1]
+        targets = torch.cat([targets.new_zeros((B, npatch)), targets], dim=1)
+        mask = torch.cat([mask.new_zeros((B, npatch)), mask], dim=1)
+    return targets, mask
+
+
+def _chunked_xent(cfg: ModelConfig, x: torch.Tensor, embed: torch.Tensor,
+                  targets: torch.Tensor, mask: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean cross-entropy, accuracy) over the masked positions, without
+    the whole (B, S, V) logits: ``logit_chunk`` positions at a time, each
+    chunk's fp32 logits formed (the tied head in the model dtype, a plain
+    ``torch.matmul`` as the reference's ``einsum``), reduced and dropped;
+    where autograd records each chunk runs under a checkpoint, so the
+    backward pass recomputes it.  A last chunk shorter than the rest is
+    the reference's zero-padded one without its pad (masked rows add
+    nothing)."""
+    B, S, _ = x.shape
+    ck = min(cfg.logit_chunk, S)
+    w_t = embed.to(cfg.dtype).t()
+    targets = targets.long()
+    mask = mask.float()
+    record = L.recording(x, embed)
+
+    def body(xc, tc, mc):
+        logits = torch.matmul(xc, w_t).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
+        loss = torch.sum((lse - tgt) * mc)
+        correct = torch.sum((logits.argmax(-1) == tc).float() * mc)
+        return loss, correct
+
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    correct = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, S, ck):
+        sl = slice(lo, lo + ck)
+        ls, c = L.maybe_checkpoint(body, x[:, sl], targets[:, sl],
+                                   mask[:, sl], record=record)
+        loss_sum = loss_sum + ls
+        correct = correct + c
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return loss_sum / denom, correct / denom
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: ``batch`` as for :func:`prefill`, no cache.
+    Returns (final hidden (B, S, D), the MoE layers' summed load-balancing
+    loss, fp32)."""
+    x = _frontend_concat(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    memory = (encode(cfg, params, batch["encoder_embeds"])
+              if cfg.is_encdec else None)
+    x, aux = _run_stack(cfg, params["layers"], x, pattern=cfg.pattern,
+                        positions=positions, causal=True, memory=memory,
+                        want_aux=True)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+            aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token loss: position t predicts t+1.  ``batch`` holds
+    ``tokens`` (B, T) and optionally ``targets``, ``loss_mask``,
+    ``patch_embeds`` and ``encoder_embeds``.  Returns (loss, {"loss",
+    "xent", "aux", "acc"}), loss = xent + ``aux_weight`` * aux."""
+    x, aux = forward(params, cfg, batch)
+    targets, mask = _frontend_concat_shapes(cfg, batch, x.device)
+    xent, acc = _chunked_xent(cfg, x[:, :-1], params["embed"],
+                              targets[:, 1:], mask[:, 1:])
+    loss = xent + aux_weight * aux
+    return loss, {"loss": loss, "xent": xent, "aux": aux, "acc": acc}
+
+
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
            ) -> torch.Tensor:
     """The encoder stack over stub frame embeddings (B, L_enc, D): its
@@ -387,8 +535,9 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
     enc = params["encoder"]
     x = frames.to(device=enc["norm"].device, dtype=cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_stack(cfg, {"pos0": enc["pos0"]}, x, pattern=((ATTN, DENSE),),
-                   positions=positions, causal=False)
+    x, _ = _run_stack(cfg, {"pos0": enc["pos0"]}, x,
+                      pattern=((ATTN, DENSE),), positions=positions,
+                      causal=False)
     return L.rms_norm(x, enc["norm"], cfg.norm_eps)
 
 
@@ -405,9 +554,9 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     idx = torch.as_tensor(index, device=dev)
     positions = idx.reshape(-1, 1) + torch.arange(tokens.shape[1],
                                                   device=dev)[None, :]
-    x = _run_stack(cfg, params["layers"], x, pattern=cfg.pattern,
-                   positions=positions, causal=True, memory=memory,
-                   cache=cache, cache_index=index)
+    x, _ = _run_stack(cfg, params["layers"], x, pattern=cfg.pattern,
+                      positions=positions, causal=True, memory=memory,
+                      cache=cache, cache_index=index)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, x)[:, -1], cache
 
@@ -422,8 +571,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     positions = torch.arange(x.shape[1], device=x.device)
     memory = (encode(cfg, params, batch["encoder_embeds"])
               if cfg.is_encdec else None)
-    x = _run_stack(cfg, params["layers"], x, pattern=cfg.pattern,
-                   positions=positions, causal=True, memory=memory,
-                   cache=cache, cache_index=0)
+    x, _ = _run_stack(cfg, params["layers"], x, pattern=cfg.pattern,
+                      positions=positions, causal=True, memory=memory,
+                      cache=cache, cache_index=0)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, x[:, -1:])[:, -1], cache

@@ -14,6 +14,9 @@ the ``encoder`` tree (``pos0``, one (attn, dense) layer stacked over
 leaf must have the dtype the reference gives it: the config's, except
 Mamba's fp32 ``a_log``, ``dt_bias`` and ``d_skip`` and the MoE's fp32
 ``router``.
+
+``train_state_from_jax`` carries a reference training state across: its
+params as above, the AdamW step, m and v, the error feedback and the key.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import ATTN, DENSE, MOE, MOE_DENSE, ModelConfig
+from repro_torch.models import (ATTN, DENSE, MOE, MOE_DENSE, ModelConfig,
+                                tree_leaves)
 from repro_torch.models.moe import MOE_KEYS
 from repro_torch.models.ssm import FP32_LEAVES
 
@@ -102,3 +106,52 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
         return out
 
     return conv(tree, _dtypes(cfg), "params")
+
+
+def _like(tree: Any, params: Any, where: str, dtype=None) -> Any:
+    """``tree`` (numpy leaves) as tensors on the devices of ``params``, key
+    for key and shape for shape; each leaf keeps its stored dtype, which
+    must be ``dtype`` where given."""
+    if isinstance(params, dict):
+        if not isinstance(tree, Mapping) or set(tree) != set(params):
+            got = sorted(tree) if isinstance(tree, Mapping) else type(tree)
+            raise KeyError(f"{where}: expected keys {sorted(params)}, got "
+                           f"{got}")
+        return {k: _like(tree[k], params[k], f"{where}.{k}", dtype)
+                for k in params}
+    out = _tensor(tree, params.device)
+    if out.shape != params.shape:
+        raise ValueError(f"{where}: shape {tuple(out.shape)}, the parameter "
+                         f"is {tuple(params.shape)}")
+    if dtype is not None and out.dtype != dtype:
+        raise TypeError(f"{where}: dtype {out.dtype}, want {dtype}")
+    return out
+
+
+def train_state_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
+                         device: DeviceLike = None) -> dict:
+    """A reference training state (``repro.train.trainer``'s dict, numpy
+    leaves) -> the port's (``repro_torch.train.trainer``): ``params``
+    through :func:`params_from_jax`, made trainable; ``opt``, the
+    reference's ``AdamWState`` (or a mapping with ``step``, ``m``, ``v``),
+    as ``optim.AdamWState`` with a host int step and m and v in their
+    stored dtype; ``ef`` in fp32 where present; ``rng``, the reference's
+    two uint32 key words, kept as they are (the port seeds its own draws
+    from them)."""
+    from repro_torch.optim import AdamWState
+
+    params = params_from_jax(tree["params"], cfg, device)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    opt = tree["opt"]
+    get = (lambda k: opt[k]) if isinstance(opt, Mapping) else (
+        lambda k: getattr(opt, k))
+    m = _like(get("m"), params, "opt.m")
+    v = _like(get("v"), params, "opt.v")
+    out = {"params": params,
+           "opt": AdamWState(step=int(np.asarray(get("step"))), m=m, v=v),
+           "rng": np.asarray(tree["rng"], np.uint32)}
+    if "ef" in tree:
+        out["ef"] = _like(tree["ef"], params, "ef", torch.float32)
+    return out
+

@@ -1329,3 +1329,90 @@ def test_kill_point_after_a_card_search_leaves_the_device_usable(
     assert got == want
     assert eng.captures >= 1 and eng.replays > 0
     tstore.install_serving(store=None, models=None, fingerprint=None)
+
+
+# (M, N, K) of a SmolLM-135M training step at 8 x 512 tokens: the forward
+# projections, dA = dC·Bᵀ and dB = Aᵀ·dC
+TRAIN_SHAPES = [(4096, 576, 576), (4096, 192, 576), (4096, 1536, 576),
+                (4096, 576, 1536), (4096, 576, 192), (576, 576, 4096),
+                (576, 192, 4096), (576, 1536, 4096), (1536, 576, 4096)]
+SPLIT_CFG = {"bm": 64, "bn": 64, "bk": 64, "k_unroll": 1, "k_split": 4,
+             "order": 0, "acc32": 1, "prefetch": 2}
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_tuned_gemm_function_and_grads_match_plain(cuda, shape, split,
+                                                   monkeypatch):
+    """``dispatch.matmul`` under autograd: its output and both grads (two
+    more GEMMs on the kernel) against the plain version on the card, at
+    the training step's shapes, under the ops default and a split-K
+    config."""
+    from repro_torch.kernels import dispatch as tdispatch
+    cfg = SPLIT_CFG if split else dict(tops.DEFAULT_GEMM)
+    monkeypatch.setattr(tdispatch, "_tuned_cfg", lambda s, x: cfg)
+    M, N, K = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(M + 3 * N + 7 * K)
+    a = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    b = (torch.randn((K, N), generator=gen, device=cuda) / K ** 0.5
+         ).bfloat16()
+    dc = torch.randn((M, N), generator=gen, device=cuda).bfloat16()
+    got = []
+    for plain in (False, True):
+        ta, tb = (t.clone().requires_grad_(True) for t in (a, b))
+        l0, r0 = kmatmul.launches, kmatmul.reduce_launches
+        if plain:
+            monkeypatch.setattr(kmatmul, "gemm", kmatmul.matmul_plain)
+            monkeypatch.setattr(kmatmul, "splitk_reduce",
+                                kmatmul.splitk_reduce_plain)
+        out = tdispatch.matmul(ta, tb)
+        da, db = torch.autograd.grad(out, (ta, tb), dc)
+        torch.cuda.synchronize()
+        if not plain:
+            assert isinstance(out.grad_fn,
+                              tdispatch._TunedGemm._backward_cls)
+            assert kmatmul.launches == l0 + 3
+            assert (kmatmul.reduce_launches > r0) == split
+        got.append((out.detach(), da, db))
+    for k, p in zip(*got):
+        err = (k.float() - p.float()).abs().max() / p.float().abs().max()
+        assert float(err) <= 2e-2
+
+
+def test_smoke_train_step_runs_the_kernels(cuda, monkeypatch):
+    """One SmolLM SMOKE train step on the card: every GEMM of the forward,
+    its recompute and both gradients is a kernel launch, and neither plain
+    version is ever called."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.trainer import init_train_state
+
+    def boom(*a, **k):
+        raise AssertionError("plain GEMM version called on the card")
+    monkeypatch.setattr(kmatmul, "matmul_plain", boom)
+    monkeypatch.setattr(kmatmul, "splitk_reduce_plain", boom)
+    cfg = smoke_config("smollm-135m")
+    tr = Trainer(cfg, AdamWConfig(), TrainConfig(steps=1),
+                 DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4),
+                 device=cuda)
+    state = init_train_state(cfg, AdamWConfig(), TrainConfig(), cuda)
+    l0 = kmatmul.launches
+    state, m = tr.step_fn(state, tr.batch(0))
+    torch.cuda.synchronize()
+    assert kmatmul.launches - l0 == 4 * 7 * cfg.n_layers
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+
+
+def test_trainer_defaults_to_the_card(cuda):
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = smoke_config("smollm-135m")
+    tr = Trainer(cfg, AdamWConfig(), TrainConfig(steps=1),
+                 DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2))
+    assert tr.device.type == "cuda"
+    assert tr.batch(0)["tokens"].device.type == "cuda"

@@ -66,7 +66,12 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.tunedb.fleet.worker",
             "repro_torch.tunedb.fleet.coordinator",
             "repro_torch.serve.router", "repro_torch.tunedb.chaos",
-            "repro_torch.launch.serve"} <= set(out["modules"])
+            "repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.compress", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.train",
+            "repro_torch.train.checkpoint", "repro_torch.train.fault",
+            "repro_torch.train.trainer"} <= set(out["modules"])
 
 
 @pytest.fixture
