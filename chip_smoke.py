@@ -330,6 +330,16 @@ exits non-zero:
                 with int8 compression, and one SMOKE step of 5 other
                 families; G ``python -m repro_torch.launch.train`` in a
                 process of its own
+ 25c. parallel a 1-rank NCCL process group and ``make_host_mesh(model=1)``
+                on the card (no fallback): dbrx-132b at full width, 2
+                layers, a 4 x 32-token prefill under ``use_rules(mesh)``
+                through ``moe_ep`` and through ``moe_ep_a2a``, each
+                bitwise the no-mesh prefill (logits, K/V rows), GEMM
+                launches > 0, collective bytes the formula's; one
+                ``loss_fn`` step through ``moe_ep``, its gradients within
+                1e-2 of the no-mesh step's; ``pipeline_apply`` over one
+                stage running SmolLM-135M's 30 layers on 4 microbatches of
+                hidden states, bitwise the plain walk; the ms of each path
  26. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
 
@@ -337,7 +347,7 @@ Each path (tune, models, serve, plans, admission, measure,
 degradation, trace, retune, fleet (the engine's; fleet_worker: the
 worker processes' own counts, from their reports), chaos (the engine's;
 chaos_workers: the worker threads' timings), serve_mamba, serve_moe,
-serve_encdec, serve_frontend, train)
+serve_encdec, serve_frontend, train, parallel)
 runs with every launch count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
 
@@ -377,10 +387,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis import comm  # noqa: E402
+from repro_torch.analysis.comm import collective_bytes  # noqa: E402
+from repro_torch.compat import make_mesh  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.core.backend import (HBM_GBPS, PEAK_BF16_TFLOPS,  # noqa: E402
                                       PEAK_FP32_TFLOPS, CheckedBackend,
@@ -409,9 +423,14 @@ from repro_torch.models import (decode_step, encode,  # noqa: E402
                                 init_cache, init_params, loss_fn, prefill,
                                 tree_leaves, tree_map)
 from repro_torch.models import moe as mmoe  # noqa: E402
+from repro_torch.models.model import _run_stack as model_run_stack  # noqa: E402
 from repro_torch.models import ssm as mssm  # noqa: E402
 from repro_torch.models.layers import attention, rms_norm  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.optim import AdamWConfig, global_norm  # noqa: E402
+from repro_torch.parallel import sharding as shd  # noqa: E402
+from repro_torch.parallel.pipeline import (pipeline_apply,  # noqa: E402
+                                           stage_split)
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.serve.flash_decode import resolve_decode_splits  # noqa: E402
 from repro_torch.tunedb.model import (ModelSet, clear_models,  # noqa: E402
@@ -665,15 +684,18 @@ def read_launches() -> dict:
             "ssd": kssd.launches}
 
 
-def rel_norm_diff(got: list, want: list) -> float:
+def rel_norm_diff(got: list, want: list, chunk: int = 1 << 26) -> float:
     """|got - want| / |want| over lists of tensors, in fp32 (0 where both
-    are 0)."""
-    d = math.sqrt(sum(float(torch.sum(torch.square(g.detach().float()
-                                                   - w.detach().float())))
-                      for g, w in zip(got, want, strict=True)))
-    n = math.sqrt(sum(float(torch.sum(torch.square(w.detach().float())))
-                      for w in want))
-    return d / n if n else d
+    are 0), ``chunk`` elements at a time: a bf16 leaf of several GB is
+    never widened whole."""
+    d = n = 0.0
+    for g, w in zip(got, want, strict=True):
+        for a, b in zip(g.detach().reshape(-1).split(chunk),
+                        w.detach().reshape(-1).split(chunk)):
+            a, b = a.float(), b.float()
+            d += float(torch.sum(torch.square(a - b)))
+            n += float(torch.sum(torch.square(b)))
+    return math.sqrt(d / n) if n else math.sqrt(d)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -6330,6 +6352,202 @@ def phase_train(fp: str, tuners: dict, dev: torch.device, peaks: dict,
             "wall_s": wall}
 
 
+PARALLEL_LAYERS = 2                # dbrx-132b's depth in the parallel phase
+PARALLEL_B, PARALLEL_S = 4, 32     # its prompts
+PARALLEL_REPS = 3                  # timed calls of each path
+PARALLEL_GRAD_TOL = 1e-2           # loss_fn grads, relative norm
+PIPE_MICRO, PIPE_MB, PIPE_S = 4, 2, 64   # the pipeline's microbatches
+
+
+def check_bytes(ops: list, want: dict, what: str) -> dict:
+    got = collective_bytes(ops)
+    if got != want:
+        raise AssertionError(f"parallel: {what}: collective bytes {got}, "
+                             f"the formula {want}")
+    return got
+
+
+def phase_parallel(dev: torch.device, tmp: Path, label: str) -> dict:
+    """The multi-device path on one card: a 1-rank NCCL process group
+    (rendezvous through a file under the run's temp directory, no
+    fallback to another backend or device) and ``make_host_mesh(model=1)``
+    on the card, so every collective runs through NCCL over a group of
+    one.
+
+    dbrx-132b at full width (d_model 6144, 16 experts top-4, bf16, random
+    weights from seed 0), cut to :data:`PARALLEL_LAYERS` layers: a 4 x
+    32-token ``prefill`` under ``use_rules(mesh)`` through ``moe_ep``
+    (``moe_a2a=False``) and ``moe_ep_a2a`` (``True``), each bitwise equal
+    to the no-mesh prefill in logits and K/V rows, its GEMM launches > 0
+    and its recorded collective bytes the formula's
+    (``analysis.comm.moe_bytes`` a layer); one ``loss_fn`` forward and
+    backward through ``moe_ep``, its gradients within
+    :data:`PARALLEL_GRAD_TOL` relative norm of the no-mesh step's.  Then
+    ``pipeline_apply`` over one stage whose ``stage_fn`` is SmolLM-135M's
+    30 layers through the model's layer walk, on 4 microbatches of hidden
+    states: bitwise the plain walk, GEMM launches > 0, its bytes the
+    formula's.  The ms of each path, median of :data:`PARALLEL_REPS`
+    calls between synchronisations."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv-nccl",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh(model=1, device=dev)
+        if (tuple(mesh.shape), tuple(mesh.mesh_dim_names)) != (
+                (1, 1), ("data", "model")) or mesh.device_type != "cuda":
+            raise AssertionError(f"parallel: host mesh {mesh}")
+        return parallel_checks(dev, mesh, label, t_phase)
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def parallel_checks(dev: torch.device, mesh, label: str,
+                    t_phase: float) -> dict:
+    full = get_config("dbrx-132b")
+    B, S = PARALLEL_B, PARALLEL_S
+    ms, counts, nbytes_by_path = {}, {}, {}
+    base = dataclasses.replace(full, n_layers=PARALLEL_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(base, gen)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, base.vocab, (B, S))).to(dev)
+
+    def run_prefill(cfg):
+        cache = init_cache(cfg, B, S, dev)
+        with torch.no_grad():
+            logits, cache = prefill(params, cfg, {"tokens": tokens}, cache)
+        return logits, cache
+
+    def kv(cache):
+        return [t for pos in cache.values() for t in pos["attn"].values()]
+
+    want_logits, want_cache = run_prefill(base)
+    ms["prefill_no_mesh"] = median_ms(lambda: run_prefill(base),
+                                      PARALLEL_REPS)
+    for a2a, path in ((False, "moe_ep"), (True, "moe_ep_a2a")):
+        cfg = dataclasses.replace(base, moe_a2a=a2a)
+        reset_launches()
+        with shd.use_rules(mesh), comm.record() as ops:
+            logits, cache = run_prefill(cfg)
+        counts[path] = read_launches()
+        one = comm.moe_bytes(path, B=B, S=S, D=cfg.d_model,
+                             n_experts=cfg.n_experts, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor, tp=1,
+                             itemsize=logits.new_empty((), dtype=cfg.dtype
+                                                       ).element_size())
+        nbytes_by_path[path] = check_bytes(
+            ops, {k: cfg.n_layers * v for k, v in one.items()}, path)
+        kinds = sorted({op.kind for op in ops})
+        if not torch.equal(logits, want_logits) or not all(
+                torch.equal(g, w) for g, w in zip(kv(cache), kv(want_cache),
+                                                  strict=True)):
+            raise AssertionError(f"parallel: {path} prefill differs from the "
+                                 f"no-mesh prefill")
+        if not counts[path]["gemm"]:
+            raise AssertionError(f"parallel: {path} launched no GEMM")
+        with shd.use_rules(mesh):
+            ms[path] = median_ms(lambda: run_prefill(cfg), PARALLEL_REPS)
+        phase("parallel", f"{base.name} ({cfg.n_layers} of {full.n_layers} "
+              f"layers, d_model {cfg.d_model}, {cfg.n_experts} experts "
+              f"top-{cfg.top_k}, {str(cfg.dtype)[6:]}) {B} x {S}-token "
+              f"prefill through "
+              f"{path} on the 1-rank NCCL mesh: logits and K/V rows "
+              f"bitwise the no-mesh prefill's; launches {counts[path]}; "
+              f"collectives {kinds}, bytes {nbytes_by_path[path]} = "
+              f"{cfg.n_layers} x the formula; {ms[path]:.2f} ms vs "
+              f"{ms['prefill_no_mesh']:.2f} ms with no mesh ({label})")
+    del want_cache
+
+    # one training step's gradients through moe_ep against the no-mesh ones
+    batch = {"tokens": tokens}
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def grads():
+        for t in leaves:
+            t.grad = None
+        loss, _ = loss_fn(params, base, batch)
+        loss.backward()
+        return float(loss.detach()), [t.grad for t in leaves]
+
+    loss0, want = grads()
+    want = [g.clone() for g in want]
+    reset_launches()
+    with shd.use_rules(mesh), comm.record() as ops:
+        loss1, got = grads()
+    counts["loss_fn"] = read_launches()
+    kinds = sorted({op.kind for op in ops})
+    err = rel_norm_diff(got, want)
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+    del want, got
+    if not (err <= PARALLEL_GRAD_TOL and math.isfinite(loss1)
+            and counts["loss_fn"]["gemm"] and "all-reduce" in kinds):
+        raise AssertionError(f"parallel: loss_fn through moe_ep: grads "
+                             f"{err:.3e} from the no-mesh step's, loss "
+                             f"{loss1} ({loss0} no mesh), launches "
+                             f"{counts['loss_fn']}, collectives {kinds}")
+    phase("parallel", f"loss_fn forward and backward through moe_ep: loss "
+          f"{loss1:.6f} ({loss0:.6f} no mesh), gradients {err:.3e} relative "
+          f"norm from the no-mesh step's (limit {PARALLEL_GRAD_TOL}); "
+          f"collectives {kinds}; launches {counts['loss_fn']}")
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gpipe pipeline over one stage: SmolLM-135M's 30 layers a stage
+    cfg = get_config("smollm-135m")
+    gen.manual_seed(0)
+    sparams = init_params(cfg, gen)
+    hidden = torch.randn((PIPE_MICRO, PIPE_MB, PIPE_S, cfg.d_model),
+                         generator=gen, device=dev).to(cfg.dtype)
+    positions = torch.arange(PIPE_S, device=dev)
+
+    def walk(layers, h):
+        return model_run_stack(cfg, layers, h, pattern=cfg.pattern,
+                               positions=positions, causal=True)[0]
+
+    stages = stage_split(sparams["layers"], 1)
+    stage_mesh = make_mesh((1,), ("stage",), dev)
+    with torch.no_grad():
+        plain = torch.stack([walk(sparams["layers"], h) for h in hidden])
+        ms["walk"] = median_ms(lambda: [walk(sparams["layers"], h)
+                                        for h in hidden], PARALLEL_REPS)
+        reset_launches()
+        with comm.record() as ops:
+            got = pipeline_apply(walk, stages, hidden, mesh=stage_mesh)
+        counts["pipeline"] = read_launches()
+        ms["pipeline"] = median_ms(lambda: pipeline_apply(
+            walk, stages, hidden, mesh=stage_mesh), PARALLEL_REPS)
+    nbytes_by_path["pipeline"] = check_bytes(ops, comm.pipeline_bytes(
+        n_micro=PIPE_MICRO, n_stages=1,
+        micro_bytes=hidden[0].numel() * hidden.element_size()), "pipeline")
+    if not torch.equal(got, plain) or not counts["pipeline"]["gemm"]:
+        raise AssertionError(f"parallel: pipeline vs the plain walk: equal "
+                             f"{torch.equal(got, plain)}, launches "
+                             f"{counts['pipeline']}")
+    wall = time.perf_counter() - t_phase
+    phase("parallel", f"pipeline_apply over one stage ({cfg.name}, "
+          f"{cfg.n_layers} layers a stage, {PIPE_MICRO} microbatches of "
+          f"{PIPE_MB} x {PIPE_S} hidden states): bitwise the plain walk; "
+          f"launches {counts['pipeline']}; bytes "
+          f"{nbytes_by_path['pipeline']}; {ms['pipeline']:.2f} ms vs "
+          f"{ms['walk']:.2f} ms for the plain walk ({label}); phase wall "
+          f"{wall:.1f} s")
+    total = {k: sum(c[k] for c in counts.values())
+             for k in next(iter(counts.values()))}
+    return {"counts": total, "by_path": counts, "ms": ms,
+            "bytes": nbytes_by_path, "wall_s": wall}
+
+
 REPLACES = {"gemm": "src/repro/kernels/matmul.py:36",
             "conv": "src/repro/kernels/conv.py:38",
             "attention": "src/repro/kernels/attention.py:29",
@@ -6525,6 +6743,10 @@ def main() -> int:
         launches["train"] = train["counts"]
         phase("train", f"launches on the train path (A's and B's steps): "
               f"{launches['train']}")
+        parallel = phase_parallel(dev, Path(tmp), label)
+        launches["parallel"] = parallel["counts"]
+        phase("parallel", f"launches on the parallel path (the EP prefills, "
+              f"the step, the pipeline): {launches['parallel']}")
         clear_store()
         clear_models()
     rows = {"gemm": gemm_rows, "conv": conv_rows, "attention": attn_rows,

@@ -55,6 +55,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.parallel import sharding as shd
+
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
@@ -101,6 +103,8 @@ class ModelConfig:
     decode_kv_splits: int = 1      # >1: flash-decoding over the KV cache
     causal_block_skip: bool = False        # skip attention blocks past the
     #   diagonal (causal self-attention without a cache)
+    moe_a2a: bool = False                  # under a mesh: all-to-all EP
+    #   (moe_ep_a2a) in place of the all-reduce one (moe_ep)
 
     @property
     def hd(self) -> int:
@@ -377,14 +381,45 @@ def _apply_repeat(cfg: ModelConfig, p_r: Params, c_r: Params,
                 mo = MOE.moe_decode(p["moe"], h, n_experts=cfg.n_experts,
                                     top_k=cfg.top_k)
             else:
-                mo, a = MOE.moe(p["moe"], h, n_experts=cfg.n_experts,
-                                top_k=cfg.top_k,
-                                capacity_factor=cfg.capacity_factor)
+                mo, a = _moe(cfg, p["moe"], h)
                 if want_aux:
                     aux = aux + a
             out = mo if out is None else out + mo
         x = x + out
     return x, aux
+
+
+def _moe(cfg: ModelConfig, p: Params, h: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The capacity path of a MoE layer, chosen as the reference chooses
+    it.  Under ``parallel.sharding.use_rules(mesh)`` with a ``model``
+    axis that divides the experts and a batch that divides over the
+    mesh's other axes: ``moe_ep_a2a`` where ``cfg.moe_a2a`` and the
+    sequence divides over ``model``, else ``moe_ep``; otherwise ``moe``.
+
+    Every rank holds the whole batch here: the port has no GSPMD, so the
+    layers around the MoE run replicated on every rank, and the batch is
+    not split over the other axes.  The batch condition is kept so that
+    the port takes the reference's path, whose drops differ.  Only the
+    expert slabs can be sharded (``parallel.sharding.expert_slabs``); the
+    FSDP/TP placement of the other parameters waits for A8.2."""
+    mesh = shd.active_mesh()
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor)
+    sizes = shd.mesh_axes(mesh) if mesh is not None else {}
+    tp = sizes.get("model", 0)
+    ep_ok = bool(tp) and cfg.n_experts % tp == 0
+    if ep_ok:
+        bsz = 1
+        for a, n in sizes.items():
+            if a != "model":
+                bsz *= n
+        ep_ok = h.shape[0] % bsz == 0
+    if ep_ok and cfg.moe_a2a and h.shape[1] % tp == 0:
+        return MOE.moe_ep_a2a(p, h, mesh=mesh, **kw)
+    if ep_ok:
+        return MOE.moe_ep(p, h, mesh=mesh, **kw)
+    return MOE.moe(p, h, **kw)
 
 
 def _run_stack(cfg: ModelConfig, stack: Params, x: torch.Tensor, *,

@@ -37,8 +37,8 @@ def test_the_registry_holds_the_ported_archs():
 def test_config_equals_the_reference(arch, smoke):
     """Every field of the port's ModelConfig equals the reference's (the
     dtype by name), the training fields (remat, logit_chunk,
-    causal_block_skip) among them; the reference's sharding and dry-run
-    fields (decode_replicate_acts, moe_a2a, mlp_tp, unroll_scan) have no
+    causal_block_skip) and the mesh path's moe_a2a among them; only the
+    reference's unroll_scan, mlp_tp and decode_replicate_acts have no
     counterpart in the port."""
     got = smoke_config(arch) if smoke else get_config(arch)
     want = (jregistry.smoke_config(arch) if smoke

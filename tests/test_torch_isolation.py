@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import device as tdevice
 from repro_torch.configs import smollm_135m as tconfigs
+from repro_torch.configs.shapes import make_batch
 from repro_torch.kernels import attention as kattention
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops as tops
@@ -71,7 +72,12 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.optim.compress", "repro_torch.data",
             "repro_torch.data.pipeline", "repro_torch.train",
             "repro_torch.train.checkpoint", "repro_torch.train.fault",
-            "repro_torch.train.trainer"} <= set(out["modules"])
+            "repro_torch.train.trainer", "repro_torch.compat",
+            "repro_torch.launch.mesh", "repro_torch.parallel",
+            "repro_torch.parallel.sharding", "repro_torch.parallel.pipeline",
+            "repro_torch.parallel.collectives", "repro_torch.analysis",
+            "repro_torch.analysis.comm", "repro_torch.analysis.roofline",
+            "repro_torch.configs.shapes"} <= set(out["modules"])
 
 
 @pytest.fixture
@@ -91,6 +97,36 @@ def test_entry_points_default_to_cuda(no_cuda):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke", "--requests", "1", "--max-new", "1"])
+
+
+def test_meshes_and_the_parallel_phase_name_no_cpu_default(no_cuda):
+    """``make_host_mesh()`` and ``make_production_mesh()`` with no device
+    want CUDA before they touch ``torch.distributed``; chip_smoke's
+    parallel phase builds its group on NCCL and its mesh on the card,
+    with no gloo, fake or CPU fallback."""
+    import inspect
+    import sys as _sys
+    from repro_torch.launch import mesh as lmesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lmesh.make_host_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lmesh.make_production_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_batch(tconfigs.SMOKE, "train_4k")
+    for sig in (inspect.signature(lmesh.make_host_mesh),
+                inspect.signature(lmesh.make_production_mesh),
+                inspect.signature(make_batch)):
+        assert sig.parameters["device"].default is None
+    _sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        _sys.path.remove(str(REPO))
+    src = inspect.getsource(chip_smoke.phase_parallel) + inspect.getsource(
+        chip_smoke.parallel_checks)
+    assert '"nccl"' in src and "make_host_mesh(model=1, device=dev)" in src
+    for word in ('"cpu"', "gloo", '"fake"', "init_fake_world"):
+        assert word not in src, word
 
 
 def test_gemm_never_takes_the_plain_version_off_the_cpu(monkeypatch):
