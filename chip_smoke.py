@@ -340,14 +340,36 @@ exits non-zero:
                 1e-2 of the no-mesh step's; ``pipeline_apply`` over one
                 stage running SmolLM-135M's 30 layers on 4 microbatches of
                 hidden states, bitwise the plain walk; the ms of each path
+ 25d. dryrun   the dry-run (``launch/dryrun.py``): B, two cells both
+                ways, on meta tensors and on the card: V1 SmolLM-135M's
+                training step at 8 x 512 (no mesh, split-K records
+                installed) and V2 dbrx-132b at 2 of 40 layers, a 4 x 32
+                prefill on the 1-rank NCCL host mesh (its meta pass in a
+                fake world of one, in a child that has exited before any
+                step is timed): GEMM calls, sum 2·M·N·K, reduction passes,
+                aten FLOPs and bytes (V2: the collective bytes too) equal
+                exactly; the estimated temp against the peak allocated
+                above what was held, the step's wall against the
+                roofline's largest term; then A, in a child process,
+                ``python -m repro_torch.launch.dryrun --cell ...`` over
+                full-size cells on the fake 256- and 512-rank meshes
+                (each cell's wall, per-rank FLOPs, bytes, collective
+                bytes, peak and ``fits``, and its roofline row)
  26. kernels    one JSON line summarising every hand-written kernel (the
                 four ported TPU kernels and the GEMM's split-K reduction)
+ 27. summary    one line a phase (its figures, or its last line cut short),
+                just before the last line, inside a 24 KB tail
+
+``python3 chip_smoke.py --only PHASE`` runs PHASE (a name of
+:data:`PHASES`) after the phases it needs (:data:`NEEDS`; device and
+build always run) and prints no kernels line.
 
 Each path (tune, models, serve, plans, admission, measure,
 degradation, trace, retune, fleet (the engine's; fleet_worker: the
 worker processes' own counts, from their reports), chaos (the engine's;
 chaos_workers: the worker threads' timings), serve_mamba, serve_moe,
-serve_encdec, serve_frontend, train, parallel)
+serve_encdec, serve_frontend, train, parallel, dryrun (V1's and V2's
+counted card runs))
 runs with every launch count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
 
@@ -395,7 +417,11 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.analysis import comm  # noqa: E402
 from repro_torch.analysis.comm import collective_bytes  # noqa: E402
 from repro_torch.compat import make_mesh  # noqa: E402
+from repro_torch.analysis.roofline import (format_table,  # noqa: E402
+                                           model_flops,
+                                           roofline_from_artifacts)
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs.shapes import Shape  # noqa: E402
 from repro_torch.core.backend import (HBM_GBPS, PEAK_BF16_TFLOPS,  # noqa: E402
                                       PEAK_FP32_TFLOPS, CheckedBackend,
                                       CudaEventBackend, problem_flops)
@@ -426,6 +452,7 @@ from repro_torch.models import moe as mmoe  # noqa: E402
 from repro_torch.models.model import _run_stack as model_run_stack  # noqa: E402
 from repro_torch.models import ssm as mssm  # noqa: E402
 from repro_torch.models.layers import attention, rms_norm  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.optim import AdamWConfig, global_norm  # noqa: E402
 from repro_torch.parallel import sharding as shd  # noqa: E402
@@ -642,8 +669,17 @@ H100_SXM = {"hbm": HBM_GBPS * 1e9, torch.bfloat16: PEAK_BF16_TFLOPS * 1e12,
 L2_BYTES = 50 * 1024 * 1024
 
 
+# phase name -> [time of its first line, of its last, lines, last line]
+PHASE_LOG: dict = {}
+# phase name -> the figures the summary prints for it (else its last line)
+SUMMARY: dict = {}
+
+
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+    now = time.perf_counter()
+    entry = PHASE_LOG.setdefault(name, [now, now, 0, ""])
+    entry[1:] = [now, entry[2] + 1, msg]
 
 
 def card_peaks(name: str) -> dict:
@@ -3977,7 +4013,7 @@ FLEET_CHILD_TIMEOUT_S = 120.0      # a child's start, claim or exit
 
 
 class Child:
-    """One process of the fleet phase: its command, its output lines as
+    """One process of the fleet or dryrun phase: its command, its output lines as
     they arrive (kept in ``<log>``), its exit.  ``stop`` ends it; a child
     still running when the phase ends fails the phase."""
 
@@ -4018,7 +4054,7 @@ class Child:
                 if seen >= len(self.lines):
                     break
             time.sleep(0.02)
-        raise AssertionError(f"fleet: {self.name} gave no {what} "
+        raise AssertionError(f"{self.name} gave no {what} "
                              f"(rc {self.proc.poll()}); its output ends "
                              f"{self.lines[-15:]}")
 
@@ -4027,11 +4063,11 @@ class Child:
         try:
             rc = self.proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
-            raise AssertionError(f"fleet: {self.name} did not exit in "
+            raise AssertionError(f"{self.name} did not exit in "
                                  f"{timeout:.0f} s")
         self._reader.join(10)
         if want_rc is not None and rc != want_rc:
-            raise AssertionError(f"fleet: {self.name} exited {rc}; its "
+            raise AssertionError(f"{self.name} exited {rc}; its "
                                  f"output ends {self.lines[-15:]}")
         return rc
 
@@ -6548,6 +6584,285 @@ def parallel_checks(dev: torch.device, mesh, label: str,
             "bytes": nbytes_by_path, "wall_s": wall}
 
 
+# the dryrun phase: the two cells held against the card, then full-size
+# cells through the CLI (a child process).  arctic-480b's train_4k stands
+# for the 8-microbatch, bf16-state cells: llama3-405b's took 148.8 s of
+# the GPU machine's host time, arctic's 59.4-107.0 s before the counting
+# mode replayed repeated meta ops (PERF.md)
+DRYRUN_CELLS = ("smollm-135m:train_4k:pod", "smollm-135m:prefill_32k:pod",
+                "smollm-135m:decode_32k:pod", "dbrx-132b:prefill_32k:pod",
+                "dbrx-132b:prefill_32k:multipod", "arctic-480b:train_4k:pod",
+                "jamba-v0.1-52b:long_500k:multipod")
+DRYRUN_V1 = Shape("v1_train_8x512", "train", 512, 8)     # the trainer's
+DRYRUN_V2 = Shape("v2_prefill_4x32", "prefill", 32, 4)
+DRYRUN_V2_LAYERS = 2                 # dbrx-132b's depth in V2
+DRYRUN_WARMUP, DRYRUN_REPS = 2, 5    # the step's wall: median of REPS
+# estimated temp over the measured peak above the held bytes: the limits
+# PERF.md's prediction for the dryrun phase states
+DRYRUN_MEM_RATIO = (0.95, 1.05)
+DRYRUN_CHILD_TIMEOUT_S = 600
+# what must equal, meta against the card
+DRYRUN_EXACT = ("gemm_calls", "flops_gemm", "reduce_calls", "flops_aten",
+                "bytes_accessed")
+
+# V2's meta pass: rank 0 of a fake world of one, the host mesh on the CPU
+# device type (the phase's NCCL group is another process's)
+DRYRUN_V2_META = r"""
+import dataclasses, json, sys
+from repro_torch import compat
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import Shape
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+layers, B, S = (int(a) for a in sys.argv[1:4])
+cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=layers)
+compat.init_fake_world(1)
+mesh = make_host_mesh(model=1, device="cpu")
+print(json.dumps(dryrun.cell_artifact(cfg, Shape("v2", "prefill", S, B),
+                                      mesh)))
+"""
+
+
+def split_k_store(shapes) -> RecordStore:
+    """An in-memory store with one record per GEMM shape (M, N, K): the
+    vendor heuristic's tile at k_split 4, else 2, where the kernel can
+    launch it (else the heuristic's own config), so that a step resolved
+    from it on the exact tier runs the split-K reduction pass.  Not tuned
+    records: the phase holds counts, not speed."""
+    store = RecordStore()
+    for M, N, K in shapes:
+        x = gemm_input(M, N, K)
+        base = dispatch._heuristic_cfg("gemm", x)
+        cfg = next((c for c in ({**base, "k_split": ks} for ks in (4, 2))
+                    if launchable("gemm", c, x)), base)
+        store.add(TuneRecord(space="gemm", inputs=x, config=cfg, tflops=0.0,
+                             source="chip_smoke-dryrun"))
+    return store
+
+
+def dryrun_same(what: str, meta: dict, real: dict, coll: bool) -> None:
+    """Fail unless the card's counts equal the dry-run's exactly; the
+    aten ops whose counts differ are named."""
+    diff = {k: (meta["cost"][k], real["cost"][k]) for k in DRYRUN_EXACT
+            if meta["cost"][k] != real["cost"][k]}
+    if coll and meta["collectives"] != real["collectives"]:
+        diff["collectives"] = (meta["collectives"], real["collectives"])
+    if diff:
+        mo, ro = meta["cost"]["by_op"], real["cost"]["by_op"]
+        ops_diff = {k: (mo.get(k), ro.get(k)) for k in sorted(set(mo) | set(ro))
+                    if mo.get(k) != ro.get(k)}
+        raise AssertionError(f"dryrun: {what}: the card's counts differ from "
+                             f"the dry-run's (meta, card): {diff}; aten ops "
+                             f"[calls, flops, bytes] that differ: "
+                             f"{dict(list(ops_diff.items())[:16])}")
+
+
+def dryrun_hold(what: str, cfg, shape, mesh_name: str, meta: dict, cell,
+                dev: torch.device, coll: bool, label: str) -> dict:
+    """The cell's step on the card: counted once (launches read), held to
+    the meta counts; its wall (median of :data:`DRYRUN_REPS` after
+    :data:`DRYRUN_WARMUP`, synchronised, counting off) against the
+    roofline's largest term; the peak allocated above what was held
+    before against the estimated temp."""
+    reset_launches()
+    real = dryrun.count_step(cell)
+    launches = read_launches()
+    dryrun_same(what, meta, real, coll)
+    for _ in range(DRYRUN_WARMUP):
+        cell.run()
+    times = []
+    for _ in range(DRYRUN_REPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = cell.run()
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        del out
+    wall = statistics.median(times)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    out = cell.run()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    del out
+    ratio = meta["memory"]["temp"] / peak
+    art = {"arch": cfg.name, "shape": shape.name, "mesh": mesh_name,
+           "chips": 1, "kind": shape.kind,
+           "model_flops": model_flops(cfg, shape, kind=shape.kind),
+           "cost": meta["cost"], "collectives": meta["collectives"]}
+    rt = roofline_from_artifacts(art, recompute_model_flops=False)
+    largest = max(rt.t_compute, rt.t_memory, rt.t_collective)
+    c = meta["cost"]
+    phase("dryrun", f"{what}: card = dry-run exactly: GEMM calls "
+          f"{c['gemm_calls']}, sum 2MNK {c['flops_gemm']:.6e}, reduction "
+          f"passes {c['reduce_calls']}, aten FLOPs {c['flops_aten']:.6e}, "
+          f"bytes {c['bytes_accessed']:.6e}"
+          + (f", collectives {meta['collectives']}" if coll else "")
+          + f"; launches {launches}; temp estimated "
+          f"{meta['memory']['temp'] / 1e9:.4f} GB against "
+          f"{peak / 1e9:.4f} GB allocated above the {held / 1e9:.3f} GB "
+          f"held (ratio {ratio:.4f}, limits {DRYRUN_MEM_RATIO}); argument "
+          f"{meta['memory']['argument'] / 1e9:.4f} GB; step wall "
+          f"{1e3 * wall:.2f} ms (median of {DRYRUN_REPS}) against the "
+          f"roofline's {rt.bottleneck} term {1e3 * largest:.4f} ms: "
+          f"{largest / wall:.2%} of the roofline ({label})")
+    if not DRYRUN_MEM_RATIO[0] <= ratio <= DRYRUN_MEM_RATIO[1]:
+        raise AssertionError(f"dryrun: {what}: memory ratio {ratio:.4f} "
+                             f"outside {DRYRUN_MEM_RATIO}")
+    return {"launches": launches, "wall_ms": 1e3 * wall, "peak": peak,
+            "held": held, "ratio": ratio, "roofline_ms": 1e3 * largest,
+            "bottleneck": rt.bottleneck, "fraction": largest / wall,
+            "cost": {k: c[k] for k in DRYRUN_EXACT},
+            "collectives": meta["collectives"]}
+
+
+def phase_dryrun(dev: torch.device, tmp: Path, label: str) -> dict:
+    """The dry-run (``launch/dryrun.py``).  B first: two cells both ways,
+    the dry-run on meta and the same step on the card: V1 SmolLM-135M's
+    training step at 8 x 512 (no mesh) from an in-memory store of split-K
+    records (:func:`split_k_store`; exact tier), V2 dbrx-132b at 2 of 40
+    layers, a 4 x 32 prefill under ``make_host_mesh(model=1)`` in a
+    1-rank NCCL group (its meta pass in a child, a fake world of one,
+    which has exited before V1's step is timed), nothing installed.  GEMM
+    calls, sum 2·M·N·K, reduction passes, aten FLOPs and bytes (V2: the
+    collective bytes too) must equal exactly; the real runs launch the
+    GEMM kernel, V1 the reduction pass too; the meta passes launch
+    nothing.  Then A, with no step being timed: the full-size cells of
+    :data:`DRYRUN_CELLS` through ``python -m repro_torch.launch.dryrun``
+    in a child process (its fake worlds never meet this process's NCCL
+    group); each cell's wall, per-rank FLOPs, bytes, collective bytes and
+    peak, ``fits`` and roofline row printed."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if serving_state().store is not None or serving_state().models is not None:
+        raise AssertionError("dryrun: a store or models are installed")
+    out_dir = tmp / "dryrun_torch"
+    v2_meta = Child("dryrun-v2-meta", [sys.executable, "-c", DRYRUN_V2_META,
+                                       str(DRYRUN_V2_LAYERS),
+                                       str(DRYRUN_V2.global_batch),
+                                       str(DRYRUN_V2.seq_len)],
+                    tmp / "dryrun_v2_meta.log")
+    children = [v2_meta]
+    try:
+        held = {}
+        # V1: no mesh, the meta pass here
+        cfg = get_config("smollm-135m")
+        M = DRYRUN_V1.global_batch * DRYRUN_V1.seq_len
+        install_serving(store=split_k_store(train_step_shapes(cfg, M)[
+            "calls"]), models=None, fingerprint=None, build_plan=False)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            meta = dryrun.count_step(dryrun.build_cell(cfg, DRYRUN_V1))
+            meta_s = time.perf_counter() - t0
+            if any(read_launches().values()):
+                raise AssertionError(f"dryrun: V1's meta pass launched "
+                                     f"{read_launches()}")
+            cell = dryrun.build_cell(cfg, DRYRUN_V1, device=dev, seed=0)
+            line = v2_meta.wait_line(lambda ln: ln.startswith("{"),
+                                     "V2's dry-run JSON",
+                                     DRYRUN_CHILD_TIMEOUT_S)
+            v2_meta.wait_exit(0, DRYRUN_CHILD_TIMEOUT_S)
+            held["v1"] = dryrun_hold(
+                f"V1 {cfg.name} train {DRYRUN_V1.global_batch} x "
+                f"{DRYRUN_V1.seq_len} (meta pass {meta_s:.1f} s, "
+                f"resolutions {meta['resolutions']})", cfg, DRYRUN_V1,
+                "none", meta, cell, dev, False, label)
+            del cell
+        finally:
+            install_serving(store=None, models=None, fingerprint=None,
+                            build_plan=False)
+        if not (held["v1"]["launches"]["gemm"]
+                and held["v1"]["launches"]["gemm_reduce"]):
+            raise AssertionError(f"dryrun: V1 launches {held['v1']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # V2: dbrx-132b at 2 layers under the host mesh in a 1-rank group
+        cfg = dataclasses.replace(get_config("dbrx-132b"),
+                                  n_layers=DRYRUN_V2_LAYERS)
+        meta = json.loads(line)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv-dry",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_host_mesh(model=1, device=dev)
+            cell = dryrun.build_cell(cfg, DRYRUN_V2, mesh, device=dev, seed=0)
+            held["v2"] = dryrun_hold(
+                f"V2 {cfg.name} ({cfg.n_layers} of 40 layers) prefill "
+                f"{DRYRUN_V2.global_batch} x {DRYRUN_V2.seq_len} on the "
+                f"1-rank NCCL host mesh (meta pass {meta['wall_s']:.1f} s in "
+                f"a fake world of one, resolutions {meta['resolutions']})",
+                cfg, DRYRUN_V2, "host", meta, cell, dev, True, label)
+            del cell
+        finally:
+            dist.destroy_process_group()
+            gc.collect()
+            torch.cuda.empty_cache()
+        if not held["v2"]["launches"]["gemm"] or \
+                not held["v2"]["collectives"]["total"]:
+            raise AssertionError(f"dryrun: V2 {held['v2']}")
+        held_s = time.perf_counter() - t_phase
+
+        # A: the CLI's full-size cells, with no step being timed
+        t_cells = time.perf_counter()
+        children.append(Child(
+            "dryrun-cells", [sys.executable, "-m", "repro_torch.launch.dryrun",
+                             "--force", "--out", str(out_dir)]
+            + [a for c in DRYRUN_CELLS for a in ("--cell", c)],
+            tmp / "dryrun_cells.log"))
+        children[-1].wait_exit(0, DRYRUN_CHILD_TIMEOUT_S)
+        cells_s = time.perf_counter() - t_cells
+    finally:
+        left = [c.name for c in children if c.proc.poll() is None]
+        for c in children:
+            if c.proc.poll() is None:
+                c.kill()
+        Child.ALL = [c for c in Child.ALL if c not in children]
+    if left:
+        raise AssertionError(f"dryrun: children left running: {left}")
+    rows, walls = [], {}
+    for spec in DRYRUN_CELLS:
+        arch, shape_name, mesh_name = spec.split(":")
+        art = json.loads(dryrun.artifact_path(arch, shape_name, mesh_name,
+                                              out=out_dir).read_text())
+        c, m = art.get("cost", {}), art.get("memory", {})
+        if "skipped" in art or not all(
+                math.isfinite(v) and v > 0 for v in (
+                    c["flops"], c["bytes_accessed"], m["peak_per_device"])):
+            raise AssertionError(f"dryrun: {spec}: {art}")
+        rt = roofline_from_artifacts(art)
+        rows.append(rt)
+        walls[spec] = art["wall_s"]
+        phase("dryrun", f"{spec}: wall {art['wall_s']:.1f} s, flops/dev "
+              f"{c['flops']:.4e}, bytes/dev {c['bytes_accessed']:.4e}, "
+              f"coll/dev {art['collectives']['total']:.4e} B, peak/dev "
+              f"{m['peak_per_device'] / 1e9:.2f} GB (argument "
+              f"{m['argument'] / 1e9:.2f}, temp {m['temp'] / 1e9:.2f}), fits "
+              f"{m['fits']}; roofline compute {rt.t_compute * 1e3:.2f} ms, "
+              f"memory {rt.t_memory * 1e3:.2f} ms, collective "
+              f"{rt.t_collective * 1e3:.2f} ms, {rt.bottleneck}-bound, "
+              f"MODEL/HLO {rt.useful_ratio:.4f}, roofline fraction "
+              f"{rt.roofline_fraction:.2%}; GEMM calls {c['gemm_calls']}")
+    if not any(r.collective_bytes_per_device for r in rows):
+        raise AssertionError("dryrun: no full-size cell made a collective")
+    print(format_table(rows, title="dry-run roofline of the full-size cells "
+                       "(model figures at H100 SXM peaks, not card "
+                       "measurements)"), flush=True)
+    wall = time.perf_counter() - t_phase
+    launches = {k: held["v1"]["launches"][k] + held["v2"]["launches"][k]
+                for k in held["v1"]["launches"]}
+    phase("dryrun", f"the cells' walls {walls} ({sum(walls.values()):.1f} s "
+          f"in the child); launches on the "
+          f"dryrun path (V1's and V2's counted card runs) {launches}; phase "
+          f"wall {wall:.1f} s: V1 and V2 {held_s:.1f} s, then the cells "
+          f"{cells_s:.1f} s")
+    return {"counts": launches, "held": held, "cell_walls": walls,
+            "wall_s": wall, "held_s": held_s, "cells_s": cells_s}
+
+
 REPLACES = {"gemm": "src/repro/kernels/matmul.py:36",
             "conv": "src/repro/kernels/conv.py:38",
             "attention": "src/repro/kernels/attention.py:29",
@@ -6632,11 +6947,60 @@ def kernels_line(rows: dict, worst: dict, launches: dict, n_layers: int
     return {"kernels": out}
 
 
-def main() -> int:
+# main's phases in order (device and build always run first) and the
+# phases whose results each needs; ``--only NAME`` runs NAME after these,
+# transitively, in this order
+PHASES = ("checks", "tune", "models", "times", "serve", "plans", "host_cost",
+          "prefill_parity", "admission", "measure", "degradation", "trace",
+          "model", "profile", "retune", "fleet", "chaos", "mamba", "moe",
+          "encdec", "frontend", "train", "parallel", "dryrun")
+NEEDS = {"models": ("tune",), "times": ("tune", "models"),
+         "serve": ("times",), "plans": ("serve",), "host_cost": ("plans",),
+         "prefill_parity": ("serve",), "admission": ("serve",),
+         "measure": ("serve",), "degradation": ("serve",),
+         "trace": ("serve",), "profile": ("serve",),
+         "retune": ("profile",), "fleet": ("tune",), "chaos": ("serve",),
+         "mamba": ("tune",), "moe": ("tune",), "encdec": ("tune",),
+         "frontend": ("tune",), "train": ("tune",)}
+
+
+def phases_to_run(only: Optional[str]) -> set:
+    if only is None:
+        return set(PHASES)
+    todo, stack = set(), [only]
+    while stack:
+        name = stack.pop()
+        if name not in todo:
+            todo.add(name)
+            stack.extend(NEEDS.get(name, ()))
+    return todo
+
+
+def print_summary(limit: int = 240) -> None:
+    """One line a phase, in the order they first printed: its line count,
+    the seconds from its first line to its last, and its figures (those
+    ``SUMMARY`` holds, else its last line cut at ``limit`` characters),
+    small enough for a 24 KB tail."""
+    for name, (t0, t1, n, last) in PHASE_LOG.items():
+        figs = SUMMARY.get(name)
+        text = json.dumps(figs) if figs else (
+            last if len(last) <= limit else last[:limit] + " ...")
+        print(f"[summary] {name}: {n} lines over {t1 - t0:.1f} s; {text}",
+              flush=True)
+
+
+def main(argv: Optional[list] = None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
+    ap.add_argument("--only", choices=PHASES,
+                    help="run this phase after the phases it needs (device "
+                         "and build always run); no kernels line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    run = phases_to_run(args.only)
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -6645,132 +7009,192 @@ def main() -> int:
     peaks = card_peaks(name)
     label = f"{smi}; peaks of H100 SXM"
     phase_build()
-    worst = {"gemm": phase_gemm_check(dev), "conv": phase_conv_check(dev),
-             "attention": phase_attention_check(dev),
-             "ssd": phase_ssd_check(dev)}
+    if "checks" in run:
+        worst = {"gemm": phase_gemm_check(dev), "conv": phase_conv_check(dev),
+                 "attention": phase_attention_check(dev),
+                 "ssd": phase_ssd_check(dev)}
 
     cfg = get_config("smollm-135m")
     backend = CheckedBackend(CudaEventBackend(device=dev))
     fp = backend.fingerprint
-    phase("tune", f"backend fingerprint {fp}")
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         store_path = Path(tmp) / "tunedb.jsonl"
         store = RecordStore.open(store_path)
-        reset_launches()
-        tuners = phase_tune(backend, store, fp, dev)["tuners"]
-        launches["tune"] = read_launches()
-        if not all(launches["tune"].values()):
-            raise AssertionError(f"tune path launches {launches['tune']}")
-        phase("tune", f"launches on the tune path: {launches['tune']}")
+        if "tune" in run:
+            phase("tune", f"backend fingerprint {fp}")
+            reset_launches()
+            tuners = phase_tune(backend, store, fp, dev)["tuners"]
+            launches["tune"] = read_launches()
+            if not all(launches["tune"].values()):
+                raise AssertionError(f"tune path launches {launches['tune']}")
+            phase("tune", f"launches on the tune path: {launches['tune']}")
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         params = init_params(cfg, gen)
-        models = phase_models(backend, store, store_path, fp, cfg, params,
-                              dev, label)
-        launches["models"] = models["counts"]
-        if not (launches["models"]["gemm"]
-                and launches["models"]["gemm_reduce"]):
-            raise AssertionError(f"models path launches {launches['models']}")
-        gemm_rows, conv_rows = phase_times(dev, peaks, label)
-        table4 = phase_gemm_table4(dev, peaks, label)
-        attn_rows, ssd_rows = phase_times_attention_ssd(dev, peaks, label)
-        serve = phase_serve(cfg, params, store_path, fp, gemm_rows, label)
-        launches["serve"] = serve["counts"]
-        serve_state = serving_state()
-        plans = phase_plans(cfg, params, store_path, serve, label)
-        launches["plans"] = plans["counts"]
-        install_serving(store=serve_state.store, models=serve_state.models,
-                        fingerprint=fp, plan=serve_state.plan)
-        phase_host_cost(cfg, params, serve, fp, dev, label)
-        phase_prefill_parity(serve["engine"], cfg, dev, label)
-        admission = phase_admission(cfg, params, store_path, fp, label)
-        launches["admission"] = admission["counts"]
-        launches["measure"] = phase_measure(cfg, params, store_path, fp, dev,
-                                            label)["counts"]
-        launches["degradation"] = phase_degradation(cfg, params, store_path,
-                                                    fp, label)["counts"]
-        trace = phase_trace(cfg, params, store_path, fp, serve, label)
-        launches["trace"] = trace["counts"]
-        phase_model(cfg, params, dev)
-        profile = phase_profile(serve.pop("engine"), cfg, dev, label)
-        gc.collect()
-        reset_launches()
-        retune = phase_retune(cfg, params, backend, fp, tuners, dev, label,
-                              serve_device_ms=profile["device_ms"])
-        launches["retune"] = read_launches()
-        if not (launches["retune"]["gemm"] and launches["retune"]["attention"]
-                and (launches["retune"]["gemm_reduce"]
-                     or not retune["device_reduce_launches"])):
-            raise AssertionError(f"retune path launches {launches['retune']}")
-        phase("retune", f"launches on the retune path: {launches['retune']}")
-        gc.collect()
-        fleet = phase_fleet(cfg, fp, tuners, store, dev, Path(tmp), label)
-        launches["fleet"] = fleet["a"]["launches"]
-        launches["fleet_worker"] = {
-            k: fleet["a"]["worker_launches"][k] + fleet["b"]["worker_launches"][k]
-            for k in fleet["a"]["worker_launches"]}
-        # the engine's attention is plain PyTorch (only its split count is
-        # a dispatch lookup, ROADMAP A4.2): the attention kernel runs in
-        # the worker's timings of the decode attention shape
-        if not (launches["fleet"]["gemm"] and launches["fleet"]["gemm_reduce"]
-                and launches["fleet_worker"]["gemm"]
-                and launches["fleet_worker"]["attention"]):
-            raise AssertionError(f"fleet path launches {launches['fleet']}, "
-                                 f"the workers' {launches['fleet_worker']}")
-        phase("fleet", f"launches on the fleet path: the engine "
-              f"{launches['fleet']}, the workers {launches['fleet_worker']}")
-        gc.collect()
-        chaos = phase_chaos(cfg, params, fp, tuners, dev, Path(tmp),
-                            serve["tick_ms"], label)
-        launches["chaos"] = chaos["counts"]
-        launches["chaos_workers"] = chaos["worker_launches"]
-        phase("chaos", f"launches on the chaos path: the engine "
-              f"{launches['chaos']}, the workers {launches['chaos_workers']}")
-        mamba = phase_mamba(backend, store, store_path, fp, dev, peaks,
-                            label)
-        launches["serve_mamba"] = mamba["counts"]
-        moe = phase_moe(backend, store, store_path, fp, dev, peaks, label)
-        launches["serve_moe"] = moe["counts"]
-        encdec = phase_encdec(backend, store, fp, dev, peaks, label)
-        launches["serve_encdec"] = encdec["counts"]
-        frontend = phase_frontend(backend, store, store_path, fp, dev,
-                                  peaks, label)
-        launches["serve_frontend"] = frontend["counts"]
-        phase("frontend", f"the encdec and frontend phases' wall "
-              f"{encdec['wall_s'] + frontend['wall_s']:.1f} s")
-        train = phase_train(fp, tuners, dev, peaks, Path(tmp), label)
-        launches["train"] = train["counts"]
-        phase("train", f"launches on the train path (A's and B's steps): "
-              f"{launches['train']}")
-        parallel = phase_parallel(dev, Path(tmp), label)
-        launches["parallel"] = parallel["counts"]
-        phase("parallel", f"launches on the parallel path (the EP prefills, "
-              f"the step, the pipeline): {launches['parallel']}")
+        if "models" in run:
+            models = phase_models(backend, store, store_path, fp, cfg,
+                                  params, dev, label)
+            launches["models"] = models["counts"]
+            if not (launches["models"]["gemm"]
+                    and launches["models"]["gemm_reduce"]):
+                raise AssertionError(f"models path launches "
+                                     f"{launches['models']}")
+        if "times" in run:
+            gemm_rows, conv_rows = phase_times(dev, peaks, label)
+            table4 = phase_gemm_table4(dev, peaks, label)
+            attn_rows, ssd_rows = phase_times_attention_ssd(dev, peaks, label)
+        if "serve" in run:
+            serve = phase_serve(cfg, params, store_path, fp, gemm_rows, label)
+            launches["serve"] = serve["counts"]
+            SUMMARY["serve"] = {k: serve[k] for k in (
+                "tokens_per_s", "tick_ms", "eager_tokens_per_s",
+                "eager_tick_ms")}
+        if "plans" in run:
+            serve_state = serving_state()
+            plans = phase_plans(cfg, params, store_path, serve, label)
+            launches["plans"] = plans["counts"]
+            install_serving(store=serve_state.store,
+                            models=serve_state.models, fingerprint=fp,
+                            plan=serve_state.plan)
+        if "host_cost" in run:
+            phase_host_cost(cfg, params, serve, fp, dev, label)
+        if "prefill_parity" in run:
+            phase_prefill_parity(serve["engine"], cfg, dev, label)
+        if "admission" in run:
+            admission = phase_admission(cfg, params, store_path, fp, label)
+            launches["admission"] = admission["counts"]
+        if "measure" in run:
+            launches["measure"] = phase_measure(cfg, params, store_path, fp,
+                                                dev, label)["counts"]
+        if "degradation" in run:
+            launches["degradation"] = phase_degradation(
+                cfg, params, store_path, fp, label)["counts"]
+        if "trace" in run:
+            trace = phase_trace(cfg, params, store_path, fp, serve, label)
+            launches["trace"] = trace["counts"]
+        if "model" in run:
+            phase_model(cfg, params, dev)
+        if "profile" in run:
+            profile = phase_profile(serve.pop("engine"), cfg, dev, label)
+            gc.collect()
+        if "retune" in run:
+            reset_launches()
+            retune = phase_retune(cfg, params, backend, fp, tuners, dev,
+                                  label, serve_device_ms=profile["device_ms"])
+            launches["retune"] = read_launches()
+            if not (launches["retune"]["gemm"]
+                    and launches["retune"]["attention"]
+                    and (launches["retune"]["gemm_reduce"]
+                         or not retune["device_reduce_launches"])):
+                raise AssertionError(f"retune path launches "
+                                     f"{launches['retune']}")
+            phase("retune", f"launches on the retune path: "
+                  f"{launches['retune']}")
+            gc.collect()
+        if "fleet" in run:
+            fleet = phase_fleet(cfg, fp, tuners, store, dev, Path(tmp), label)
+            launches["fleet"] = fleet["a"]["launches"]
+            launches["fleet_worker"] = {
+                k: fleet["a"]["worker_launches"][k]
+                + fleet["b"]["worker_launches"][k]
+                for k in fleet["a"]["worker_launches"]}
+            # the engine's attention is plain PyTorch (only its split count
+            # is a dispatch lookup, ROADMAP A4.2): the attention kernel runs
+            # in the worker's timings of the decode attention shape
+            if not (launches["fleet"]["gemm"]
+                    and launches["fleet"]["gemm_reduce"]
+                    and launches["fleet_worker"]["gemm"]
+                    and launches["fleet_worker"]["attention"]):
+                raise AssertionError(f"fleet path launches "
+                                     f"{launches['fleet']}, the workers' "
+                                     f"{launches['fleet_worker']}")
+            phase("fleet", f"launches on the fleet path: the engine "
+                  f"{launches['fleet']}, the workers "
+                  f"{launches['fleet_worker']}")
+            gc.collect()
+        if "chaos" in run:
+            chaos = phase_chaos(cfg, params, fp, tuners, dev, Path(tmp),
+                                serve["tick_ms"], label)
+            launches["chaos"] = chaos["counts"]
+            launches["chaos_workers"] = chaos["worker_launches"]
+            phase("chaos", f"launches on the chaos path: the engine "
+                  f"{launches['chaos']}, the workers "
+                  f"{launches['chaos_workers']}")
+        if "mamba" in run:
+            mamba = phase_mamba(backend, store, store_path, fp, dev, peaks,
+                                label)
+            launches["serve_mamba"] = mamba["counts"]
+        if "moe" in run:
+            moe = phase_moe(backend, store, store_path, fp, dev, peaks, label)
+            launches["serve_moe"] = moe["counts"]
+        if "encdec" in run:
+            encdec = phase_encdec(backend, store, fp, dev, peaks, label)
+            launches["serve_encdec"] = encdec["counts"]
+        if "frontend" in run:
+            frontend = phase_frontend(backend, store, store_path, fp, dev,
+                                      peaks, label)
+            launches["serve_frontend"] = frontend["counts"]
+            if "encdec" in run:
+                phase("frontend", f"the encdec and frontend phases' wall "
+                      f"{encdec['wall_s'] + frontend['wall_s']:.1f} s")
+        if "train" in run:
+            train = phase_train(fp, tuners, dev, peaks, Path(tmp), label)
+            launches["train"] = train["counts"]
+            phase("train", f"launches on the train path (A's and B's "
+                  f"steps): {launches['train']}")
+        if "parallel" in run:
+            parallel = phase_parallel(dev, Path(tmp), label)
+            launches["parallel"] = parallel["counts"]
+            SUMMARY["parallel"] = {"ms": parallel["ms"],
+                                   "wall_s": parallel["wall_s"]}
+            phase("parallel", f"launches on the parallel path (the EP "
+                  f"prefills, the step, the pipeline): "
+                  f"{launches['parallel']}")
         clear_store()
         clear_models()
-    rows = {"gemm": gemm_rows, "conv": conv_rows, "attention": attn_rows,
-            "ssd": ssd_rows}
-    line = kernels_line(rows, worst, launches, cfg.n_layers)
-    line["kernels"][0]["device_launches"] = serve["device_launches"]
-    served = {"serve": serve, "serve_retune": retune, "serve_fleet": fleet,
-              "serve_chaos": chaos, "serve_mamba": mamba,
-              "serve_moe": moe, "serve_encdec": encdec,
-              "serve_frontend": frontend}
-    line["kernels"][0]["device_launches_by_path"] = {
-        p: r["device_launches"] for p, r in served.items()}
-    # ms, plain_ms and library_ms time C = A @ B (ops.matmul, the split-K
-    # reduction pass included); gemm_ms is the GEMM kernel alone
-    line["kernels"][0]["gemm_ms"] = per_tick(gemm_rows, "gemm_ms",
-                                             cfg.n_layers)
-    line["kernels"][0]["table4"] = table4
-    # one SmolLM-135M training step's 840 GEMMs under the tuned configs
-    line["kernels"][0]["train_gemm_ms"] = train["sums"]["tuned"]
-    line["kernels"][-1]["device_launches"] = serve["device_reduce_launches"]
-    line["kernels"][-1]["device_launches_by_path"] = {
-        p: r["device_reduce_launches"] for p, r in served.items()}
-    print(json.dumps(line), flush=True)
+        if "dryrun" in run:
+            dry = phase_dryrun(dev, Path(tmp), label)
+            launches["dryrun"] = dry["counts"]
+            SUMMARY["dryrun"] = {
+                v: {k: dry["held"][v][k] for k in (
+                    "wall_ms", "roofline_ms", "bottleneck", "fraction",
+                    "ratio", "launches")} for v in ("v1", "v2")}
+            SUMMARY["dryrun"]["cell_walls"] = dry["cell_walls"]
+            for k in ("wall_s", "held_s", "cells_s"):
+                SUMMARY["dryrun"][k] = dry[k]
+            if not (launches["dryrun"]["gemm"]
+                    and launches["dryrun"]["gemm_reduce"]):
+                raise AssertionError(f"dryrun path launches "
+                                     f"{launches['dryrun']}")
+    if args.only is None:
+        rows = {"gemm": gemm_rows, "conv": conv_rows, "attention": attn_rows,
+                "ssd": ssd_rows}
+        line = kernels_line(rows, worst, launches, cfg.n_layers)
+        line["kernels"][0]["device_launches"] = serve["device_launches"]
+        served = {"serve": serve, "serve_retune": retune,
+                  "serve_fleet": fleet, "serve_chaos": chaos,
+                  "serve_mamba": mamba, "serve_moe": moe,
+                  "serve_encdec": encdec, "serve_frontend": frontend}
+        line["kernels"][0]["device_launches_by_path"] = {
+            p: r["device_launches"] for p, r in served.items()}
+        # ms, plain_ms and library_ms time C = A @ B (ops.matmul, the
+        # split-K reduction pass included); gemm_ms is the GEMM kernel alone
+        line["kernels"][0]["gemm_ms"] = per_tick(gemm_rows, "gemm_ms",
+                                                 cfg.n_layers)
+        line["kernels"][0]["table4"] = table4
+        # one SmolLM-135M training step's 840 GEMMs under the tuned configs
+        line["kernels"][0]["train_gemm_ms"] = train["sums"]["tuned"]
+        line["kernels"][-1]["device_launches"] = \
+            serve["device_reduce_launches"]
+        line["kernels"][-1]["device_launches_by_path"] = {
+            p: r["device_reduce_launches"] for p, r in served.items()}
+        print(json.dumps(line), flush=True)
+    else:
+        phase("kernels", f"--only {args.only}: phases run {sorted(run)}; "
+              f"launches by path {launches}; no kernels line")
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
+    print_summary()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

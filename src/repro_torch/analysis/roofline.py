@@ -118,7 +118,17 @@ def roofline_from_artifacts(artifact: Dict[str, Any],
                             ) -> RooflineTerms:
     """Terms from one dry-run artifact: ``arch``, ``shape``, ``kind``,
     ``mesh``, ``chips``, ``model_flops``, ``cost.{flops,
-    bytes_accessed}`` and ``collectives.total``, all per device."""
+    bytes_accessed}`` and ``collectives.total``, all per device.  A
+    skipped cell's artifact (``skipped``: the rule's reason) gives zero
+    terms, bottleneck ``skipped`` and the reason as its note."""
+    if "skipped" in artifact:
+        return RooflineTerms(
+            arch=artifact["arch"], shape=artifact["shape"],
+            mesh=artifact["mesh"], chips=artifact["chips"],
+            flops_per_device=0.0, bytes_per_device=0.0,
+            collective_bytes_per_device=0.0,
+            model_flops_global=artifact["model_flops"],
+            bottleneck="skipped", note=f"skipped: {artifact['skipped']}")
     mf = artifact["model_flops"]
     if recompute_model_flops:
         from repro_torch.configs import SHAPES, get_config

@@ -9,6 +9,13 @@ process standing in for a world of any size, whose collectives do
 nothing) lives in ``torch.testing._internal``.  Callers import them from
 here and :func:`make_mesh` builds a ``DeviceMesh`` with named axes, as
 ``jax.make_mesh`` does.
+
+The dry-run (``launch/dryrun.py``) also needs three private pieces of
+torch, taken here with a clear error where the installed torch lacks
+them: ``FakeTensorMode`` (parameters built without storage, in place of
+``jax.eval_shape``), ``TorchDispatchMode`` (the counting mode under which
+every aten op passes) and ``_disable_current_modes`` (the hand-written
+GEMM counted as one op, its plain version's ops unseen).
 """
 
 from __future__ import annotations
@@ -29,7 +36,38 @@ except ImportError:                         # torch 2.2-2.3
                                            distribute_tensor)
 
 __all__ = ["DeviceMesh", "DTensor", "Replicate", "Shard", "distribute_tensor",
-           "init_device_mesh", "fake_store", "init_fake_world", "make_mesh"]
+           "init_device_mesh", "fake_store", "init_fake_world", "make_mesh",
+           "fake_tensor_mode", "dispatch_mode_base", "no_dispatch_modes"]
+
+
+def _private(what: str, module: str, name: str):
+    try:
+        return getattr(__import__(module, fromlist=[name]), name)
+    except (ImportError, AttributeError) as e:
+        raise RuntimeError(f"the dry-run needs torch's {what} "
+                           f"({module}.{name}), which torch "
+                           f"{__import__('torch').__version__} does not "
+                           f"have") from e
+
+
+def fake_tensor_mode():
+    """A new ``FakeTensorMode``: tensors made under it have shapes and
+    dtypes but no storage."""
+    return _private("fake tensors", "torch._subclasses.fake_tensor",
+                    "FakeTensorMode")()
+
+
+def dispatch_mode_base() -> type:
+    """``TorchDispatchMode``, the base class of a mode that sees every
+    aten op below autograd."""
+    return _private("dispatch modes", "torch.utils._python_dispatch",
+                    "TorchDispatchMode")
+
+
+def no_dispatch_modes():
+    """A context under which no ``TorchDispatchMode`` sees the ops run."""
+    return _private("dispatch modes", "torch.utils._python_dispatch",
+                    "_disable_current_modes")()
 
 
 def fake_store():

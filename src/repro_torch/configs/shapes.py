@@ -15,13 +15,15 @@ archs.  No assigned arch is encoder-only, so decode shapes run everywhere
 ``input_specs`` returns tensors on the ``meta`` device (shape and dtype,
 no storage) in place of the reference's ``jax.ShapeDtypeStruct``; given a
 mesh, each carries its :class:`~repro_torch.parallel.sharding.
-NamedSharding` as ``.sharding``, as a ShapeDtypeStruct does.
+NamedSharding` as ``.sharding``, as a ShapeDtypeStruct does.  Where the
+reference takes a shape's name, the port also takes a :class:`Shape`
+(the dry-run's cells cut to one card, ``launch/dryrun.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,8 +61,12 @@ def applicable(cfg: ModelConfig, shape_name: str) -> Tuple[bool, str]:
     return True, ""
 
 
-def shape_kind(shape_name: str) -> str:
-    return SHAPES[shape_name].kind
+def _shape(shape: Union[str, Shape]) -> Shape:
+    return shape if isinstance(shape, Shape) else SHAPES[shape]
+
+
+def shape_kind(shape_name: Union[str, Shape]) -> str:
+    return _shape(shape_name).kind
 
 
 def _sds(shape, dtype, mesh: Optional[Any], axes: Tuple[str, ...]
@@ -71,10 +77,10 @@ def _sds(shape, dtype, mesh: Optional[Any], axes: Tuple[str, ...]
     return t
 
 
-def batch_specs(cfg: ModelConfig, shape_name: str,
+def batch_specs(cfg: ModelConfig, shape_name: Union[str, Shape],
                 mesh: Optional[Any] = None) -> Dict[str, Any]:
     """Model-input meta tensors for the training/prefill batch."""
-    sh = SHAPES[shape_name]
+    sh = _shape(shape_name)
     B, S = sh.global_batch, sh.seq_len
     out: Dict[str, Any] = {}
     tok_len = S
@@ -89,10 +95,10 @@ def batch_specs(cfg: ModelConfig, shape_name: str,
     return out
 
 
-def decode_specs(cfg: ModelConfig, shape_name: str,
+def decode_specs(cfg: ModelConfig, shape_name: Union[str, Shape],
                  mesh: Optional[Any] = None) -> Dict[str, Any]:
     """Inputs for one decode step: new tokens + cache + index (+ memory)."""
-    sh = SHAPES[shape_name]
+    sh = _shape(shape_name)
     B, L = sh.global_batch, sh.seq_len
     out: Dict[str, Any] = {
         "tokens": _sds((B, 1), torch.int32, mesh, ("batch", "none")),
@@ -132,7 +138,7 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def input_specs(cfg: ModelConfig, shape_name: str,
+def input_specs(cfg: ModelConfig, shape_name: Union[str, Shape],
                 mesh: Optional[Any] = None) -> Dict[str, Any]:
     """Unified entry: meta-tensor stand-ins for every model input of this
     (arch x shape) cell — training batch for 'train'/'prefill' kinds,
@@ -141,7 +147,7 @@ def input_specs(cfg: ModelConfig, shape_name: str,
     if kind in ("train", "prefill"):
         out = dict(batch_specs(cfg, shape_name, mesh))
         if kind == "prefill":
-            sh = SHAPES[shape_name]
+            sh = _shape(shape_name)
             out["cache"] = cache_specs(cfg, sh.global_batch, sh.seq_len, mesh)
         return out
     return decode_specs(cfg, shape_name, mesh)

@@ -45,9 +45,10 @@ fp32 oracle.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import warnings
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +72,9 @@ tier_counts: collections.Counter = collections.Counter()
 
 # (generation, reason, space): one warning per serving generation
 _WARNED: set = set()
+
+# a quiet block's own tier count and warn-once set (:func:`quiet`), or None
+_QUIET: Optional[Tuple[collections.Counter, set]] = None
 _HEURISTIC_LIBS: Dict[str, VendorHeuristicLibrary] = {}
 _HEURISTIC_MEMO: Dict[tuple, Dict[str, int]] = {}
 
@@ -90,6 +94,8 @@ def _count_degraded(space: str) -> None:
     """One more dispatch served on the degraded tier, in the metrics
     registry's ``tunedb_dispatch_degraded_calls_total{reason, space}``:
     the warning below is once per generation, the count is every call."""
+    if _QUIET is not None:
+        return
     try:
         from repro_torch.tunedb.obs.metrics import get_registry
         get_registry().counter(
@@ -101,13 +107,38 @@ def _count_degraded(space: str) -> None:
 
 
 def _warn_once(key: tuple, msg: str) -> None:
-    if key not in _WARNED:
-        _WARNED.add(key)
+    warned = _WARNED if _QUIET is None else _QUIET[1]
+    if key not in warned:
+        warned.add(key)
         warnings.warn(msg, RuntimeWarning, stacklevel=4)
+
+
+def _tiers() -> collections.Counter:
+    return tier_counts if _QUIET is None else _QUIET[0]
 
 
 def reset_counts() -> None:
     tier_counts.clear()
+
+
+@contextlib.contextmanager
+def quiet() -> Iterator[collections.Counter]:
+    """Dispatch as usual inside the block, but into a tier count of its own
+    (yielded) and a warn-once set of its own, with no shape telemetry and
+    no degraded-call metric: ``tier_counts``, the telemetry, the metrics
+    registry and ``_WARNED`` stay as they were.  The dry-run
+    (``launch/dryrun.py``) resolves its steps' configs this way.  The
+    block covers the whole process (a backward's dispatches run on the
+    autograd engine's device threads); blocks do not nest."""
+    global _QUIET
+    if _QUIET is not None:
+        raise RuntimeError("dispatch.quiet blocks do not nest")
+    tiers: collections.Counter = collections.Counter()
+    _QUIET = (tiers, set())
+    try:
+        yield tiers
+    finally:
+        _QUIET = None
 
 
 # each space's vendor menu: a conv shape never gets a GEMM tile
@@ -141,13 +172,13 @@ def _resolve_cfg(space: str, inputs: Mapping[str, int]
     ``plan``/``exact``/``model``/``nearest``/``degraded``."""
     tuner = get_tuner(space)
     if tuner is not None:
-        tier_counts[(space, "tuner")] += 1
+        _tiers()[(space, "tuner")] += 1
         return tuner.best_config(inputs, remeasure=False), "tuner"
     state = serving_state()
     store, models, fp, plan = (state.store, state.models, state.fingerprint,
                                state.plan)
     if store is None and models is None and plan is None:
-        tier_counts[(space, "none")] += 1
+        _tiers()[(space, "none")] += 1
         return None, "none"
     key = None
     if plan is not None and (store is None
@@ -167,7 +198,7 @@ def _resolve_cfg(space: str, inputs: Mapping[str, int]
                         store.nearest_hits += 1
             if tier == "model" and models is not None:
                 models.hits = getattr(models, "hits", 0) + 1
-            tier_counts[(space, "plan")] += 1
+            _tiers()[(space, "plan")] += 1
             return dict(cfg), "plan"
         plan.misses += 1
     # a record's or a model's config must launch on the space's kernel (at
@@ -212,7 +243,7 @@ def _resolve_cfg(space: str, inputs: Mapping[str, int]
                    + ("vendor heuristics" if space in _HEURISTIC_MAKERS
                       else "the ops defaults"))
         cfg, tier = _heuristic_cfg(space, inputs), "degraded"
-    tier_counts[(space, tier)] += 1
+    _tiers()[(space, tier)] += 1
     return cfg, tier
 
 
@@ -240,8 +271,10 @@ def _tuned_cfg(space: str, inputs: Mapping[str, int]
 
 
 def _record(space: str, inputs: Mapping[str, int]) -> None:
-    """Count one call of ``space`` at ``inputs`` in the shape telemetry."""
-    record_shape(space, inputs)
+    """Count one call of ``space`` at ``inputs`` in the shape telemetry
+    (outside a :func:`quiet` block)."""
+    if _QUIET is None:
+        record_shape(space, inputs)
 
 
 def _gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -10,12 +10,16 @@ IO dtype and, with ``acc32=0``, the same per-sub-dot rounding.
 ``splitk_reduce(parts)`` sums the partials in fp32 and rounds once (the
 reference's ``parts.sum(axis=0)`` in ``repro.kernels.ops.matmul``): on a
 CUDA tensor one launch of ``gemm.cu``'s reduction pass, on a CPU tensor
-:func:`splitk_reduce_plain`.
+:func:`splitk_reduce_plain`.  On ``meta`` tensors (the dry-run,
+``launch/dryrun.py``) both give a meta tensor of their output's shape and
+dtype and launch nothing.  Inside an :func:`observed` block each call of
+either goes through the block's observer (the dry-run's op counter).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import contextlib
+from typing import Callable, Iterator, Mapping, Optional
 
 import torch
 
@@ -35,6 +39,9 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # (all of them would take K/bk*k_unroll * M*N words: 8 GB at M=N=K=3186)
 PLAIN_BLOCK_BYTES = 1 << 30
 
+# the observer of an :func:`observed` block, or None
+_OBSERVER: Optional[Callable] = None
+
 
 def _check(a: torch.Tensor, b: torch.Tensor, cfg: Mapping[str, int]) -> None:
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -52,13 +59,39 @@ def _check(a: torch.Tensor, b: torch.Tensor, cfg: Mapping[str, int]) -> None:
                          "(see repro_torch.core.space.gemm_fits)")
 
 
+@contextlib.contextmanager
+def observed(observer: Callable) -> Iterator[None]:
+    """Send each :func:`gemm` and :func:`splitk_reduce` call of the block
+    through ``observer(name, body, *args)`` (``name``: ``"gemm"`` or
+    ``"splitk_reduce"``), which returns ``body(*args)``, the wrapper's own
+    work.  The block covers the whole process (a backward's GEMMs run on
+    the autograd engine's device threads); blocks do not nest."""
+    global _OBSERVER
+    if _OBSERVER is not None:
+        raise RuntimeError("matmul.observed blocks do not nest")
+    _OBSERVER = observer
+    try:
+        yield
+    finally:
+        _OBSERVER = None
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, cfg: Mapping[str, int]
          ) -> torch.Tensor:
     """(M, K) @ (K, N) -> (k_split, M, N) partials under ``cfg``."""
+    if _OBSERVER is not None:
+        return _OBSERVER("gemm", _gemm, a, b, cfg)
+    return _gemm(a, b, cfg)
+
+
+def _gemm(a: torch.Tensor, b: torch.Tensor, cfg: Mapping[str, int]
+          ) -> torch.Tensor:
     global launches
     _check(a, b, cfg)
     if a.device.type == "cpu":
         return matmul_plain(a, b, cfg)
+    if a.device.type == "meta":
+        return a.new_empty((cfg["k_split"], a.shape[0], b.shape[1]))
     if not on_cuda(a):
         raise ValueError(f"gemm runs on cuda or cpu, not {a.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -120,6 +153,12 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, cfg: Mapping[str, int]
 def splitk_reduce(parts: torch.Tensor) -> torch.Tensor:
     """(k_split, M, N) partials -> (M, N) in their dtype: summed in fp32 in
     split order, rounded once."""
+    if _OBSERVER is not None:
+        return _OBSERVER("splitk_reduce", _splitk_reduce, parts)
+    return _splitk_reduce(parts)
+
+
+def _splitk_reduce(parts: torch.Tensor) -> torch.Tensor:
     global reduce_launches
     if parts.dim() != 3 or parts.dtype not in _DTYPES or 0 in parts.shape:
         raise ValueError(f"splitk_reduce wants non-empty bf16 or fp32 "
@@ -127,6 +166,8 @@ def splitk_reduce(parts: torch.Tensor) -> torch.Tensor:
                          f"{tuple(parts.shape)}")
     if parts.device.type == "cpu":
         return splitk_reduce_plain(parts)
+    if parts.device.type == "meta":
+        return parts.new_empty(parts.shape[1:])
     if not on_cuda(parts):
         raise ValueError(f"splitk_reduce runs on cuda or cpu, not "
                          f"{parts.device}")

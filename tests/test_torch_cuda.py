@@ -116,6 +116,29 @@ def test_splitk_reduce_matches_plain(cuda, shape, dtype):
         assert _rel(got, want) <= 1e-6
 
 
+@pytest.mark.parametrize("cfg,dtype", [(CONFIGS[0], torch.bfloat16),
+                                       (CONFIGS[1], torch.bfloat16),
+                                       (CONFIGS[0], torch.float32)])
+@pytest.mark.parametrize("shape", [(4, 576, 576), (130, 100, 1001)])
+def test_meta_gemm_and_reduce_match_the_kernels(cuda, shape, cfg, dtype):
+    """The dry-run's meta results of ``gemm`` and ``splitk_reduce`` have
+    the shape and dtype of the kernels' outputs, and launch nothing."""
+    M, N, K = shape
+    a = torch.randn((M, K), device=cuda).to(dtype)
+    b = torch.randn((K, N), device=cuda).to(dtype)
+    small = tops.shrink_gemm_cfg(cfg, M, N, K, torch.finfo(dtype).bits)
+    parts = kmatmul.gemm(a, b, small)
+    red = kmatmul.splitk_reduce(parts)
+    torch.cuda.synchronize()
+    counts = (kmatmul.launches, kmatmul.reduce_launches)
+    mparts = kmatmul.gemm(a.to("meta"), b.to("meta"), small)
+    mred = kmatmul.splitk_reduce(mparts)
+    assert (kmatmul.launches, kmatmul.reduce_launches) == counts
+    assert mparts.device.type == mred.device.type == "meta"
+    assert (mparts.shape, mparts.dtype) == (parts.shape, parts.dtype)
+    assert (mred.shape, mred.dtype) == (red.shape, red.dtype)
+
+
 def test_split_call_launches_one_kernel_and_one_reduction(cuda):
     a = torch.randn((4, 576), device=cuda).bfloat16()
     b = torch.randn((576, 192), device=cuda).bfloat16()

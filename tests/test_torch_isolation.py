@@ -77,7 +77,8 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.parallel.sharding", "repro_torch.parallel.pipeline",
             "repro_torch.parallel.collectives", "repro_torch.analysis",
             "repro_torch.analysis.comm", "repro_torch.analysis.roofline",
-            "repro_torch.configs.shapes"} <= set(out["modules"])
+            "repro_torch.configs.shapes",
+            "repro_torch.launch.dryrun"} <= set(out["modules"])
 
 
 @pytest.fixture
@@ -130,17 +131,21 @@ def test_meshes_and_the_parallel_phase_name_no_cpu_default(no_cuda):
 
 
 def test_gemm_never_takes_the_plain_version_off_the_cpu(monkeypatch):
-    """Only a CPU tensor reaches matmul_plain; any other device launches
-    the kernel or raises (here: the meta device, which has no kernel)."""
+    """Only a CPU tensor reaches matmul_plain / splitk_reduce_plain; a
+    CUDA tensor launches the kernel or raises, and a meta tensor (the
+    dry-run's) gets a meta result of the kernel's shape: no plain
+    version, no launch."""
     def boom(*a, **k):
         raise AssertionError("plain version called for a non-CPU tensor")
     monkeypatch.setattr(kmatmul, "matmul_plain", boom)
+    monkeypatch.setattr(kmatmul, "splitk_reduce_plain", boom)
     a = torch.empty((4, 64), dtype=torch.bfloat16, device="meta")
     b = torch.empty((64, 32), dtype=torch.bfloat16, device="meta")
-    before = kmatmul.launches
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        tops.matmul(a, b)
-    assert kmatmul.launches == before
+    before = (kmatmul.launches, kmatmul.reduce_launches)
+    for ks in (1, 2):
+        c = tops.matmul(a, b, {"bm": 16, "bn": 32, "bk": 32, "k_split": ks})
+        assert c.device.type == "meta" and c.shape == (4, 32)
+    assert (kmatmul.launches, kmatmul.reduce_launches) == before
 
 
 def test_attention_and_ssd_have_no_fallback_off_the_cpu(monkeypatch):
