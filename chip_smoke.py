@@ -339,12 +339,19 @@ exits non-zero:
                 ``loss_fn`` step through ``moe_ep``, its gradients within
                 1e-2 of the no-mesh step's; ``pipeline_apply`` over one
                 stage running SmolLM-135M's 30 layers on 4 microbatches of
-                hidden states, bitwise the plain walk; the ms of each path
+                hidden states, bitwise the plain walk; the FSDP/TP
+                placements (``use_rules(mesh, placed=True)`` on
+                ``shard_params`` / ``shard_batch``): dbrx's step through
+                ``moe_ep`` on the batch shard and SmolLM-135M's at full
+                width on 8 x 512 tokens within 1e-2 of the no-mesh step,
+                GEMM launches equal, SmolLM's collective bytes
+                ``analysis.comm.placed_bytes``'s, its 4 x 32 prefill
+                bitwise the no-mesh one; the ms of each path
  25d. dryrun   the dry-run (``launch/dryrun.py``): B, two cells both
                 ways, on meta tensors and on the card: V1 SmolLM-135M's
                 training step at 8 x 512 (no mesh, split-K records
                 installed) and V2 dbrx-132b at 2 of 40 layers, a 4 x 32
-                prefill on the 1-rank NCCL host mesh (its meta pass in a
+                prefill placed on the 1-rank NCCL host mesh (its meta pass in a
                 fake world of one, in a child that has exited before any
                 step is timed): GEMM calls, sum 2·M·N·K, reduction passes,
                 aten FLOPs and bytes (V2: the collective bytes too) equal
@@ -6393,6 +6400,7 @@ PARALLEL_B, PARALLEL_S = 4, 32     # its prompts
 PARALLEL_REPS = 3                  # timed calls of each path
 PARALLEL_GRAD_TOL = 1e-2           # loss_fn grads, relative norm
 PIPE_MICRO, PIPE_MB, PIPE_S = 4, 2, 64   # the pipeline's microbatches
+PLACED_B, PLACED_S = 8, 512        # SmolLM-135M's placed training step
 
 
 def check_bytes(ops: list, want: dict, what: str) -> dict:
@@ -6422,8 +6430,15 @@ def phase_parallel(dev: torch.device, tmp: Path, label: str) -> dict:
     ``pipeline_apply`` over one stage whose ``stage_fn`` is SmolLM-135M's
     30 layers through the model's layer walk, on 4 microbatches of hidden
     states: bitwise the plain walk, GEMM launches > 0, its bytes the
-    formula's.  The ms of each path, median of :data:`PARALLEL_REPS`
-    calls between synchronisations."""
+    formula's.  Then the FSDP/TP placements (``use_rules(mesh,
+    placed=True)`` on ``shard_params`` / ``shard_batch``): dbrx's
+    ``loss_fn`` step through ``moe_ep`` on the batch shard and
+    SmolLM-135M's at full width, all 30 layers, on 8 x 512 tokens, each
+    within :data:`PARALLEL_GRAD_TOL` of the no-mesh step with equal GEMM
+    launches (SmolLM's collective bytes ``analysis.comm.placed_bytes``'s),
+    and SmolLM's 4 x 32 prefill bitwise the no-mesh one
+    (:func:`placed_train`, :func:`placed_prefill`).  The ms of each path,
+    median of :data:`PARALLEL_REPS` calls between synchronisations."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6535,7 +6550,11 @@ def parallel_checks(dev: torch.device, mesh, label: str,
           f"{loss1:.6f} ({loss0:.6f} no mesh), gradients {err:.3e} relative "
           f"norm from the no-mesh step's (limit {PARALLEL_GRAD_TOL}); "
           f"collectives {kinds}; launches {counts['loss_fn']}")
-    del params, leaves
+    del leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    placed = {"dbrx": placed_train(base, params, batch, mesh, "dbrx", label)}
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6570,18 +6589,148 @@ def parallel_checks(dev: torch.device, mesh, label: str,
         raise AssertionError(f"parallel: pipeline vs the plain walk: equal "
                              f"{torch.equal(got, plain)}, launches "
                              f"{counts['pipeline']}")
-    wall = time.perf_counter() - t_phase
     phase("parallel", f"pipeline_apply over one stage ({cfg.name}, "
           f"{cfg.n_layers} layers a stage, {PIPE_MICRO} microbatches of "
           f"{PIPE_MB} x {PIPE_S} hidden states): bitwise the plain walk; "
           f"launches {counts['pipeline']}; bytes "
           f"{nbytes_by_path['pipeline']}; {ms['pipeline']:.2f} ms vs "
-          f"{ms['walk']:.2f} ms for the plain walk ({label}); phase wall "
-          f"{wall:.1f} s")
+          f"{ms['walk']:.2f} ms for the plain walk ({label})")
+    del stages, hidden, plain, got
+    # the FSDP/TP placements: SmolLM-135M's whole training step and a
+    # prefill, through shard_params / shard_batch and every collective
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (PLACED_B, PLACED_S))).to(dev)
+    placed["smollm"] = placed_train(cfg, sparams, {"tokens": tokens}, mesh,
+                                    "smollm", label)
+    placed["smollm_prefill"] = placed_prefill(cfg, sparams, tokens[
+        :PARALLEL_B, :PARALLEL_S], mesh, label)
+    for name, got in placed.items():
+        counts[f"placed_{name}"] = got["counts"]
+        ms.update({f"placed_{name}_{k}": v for k, v in got["ms"].items()})
+        nbytes_by_path[f"placed_{name}"] = got["bytes"]
+    del sparams
+    wall = time.perf_counter() - t_phase
+    phase("parallel", f"phase wall {wall:.1f} s")
     total = {k: sum(c[k] for c in counts.values())
              for k in next(iter(counts.values()))}
     return {"counts": total, "by_path": counts, "ms": ms,
-            "bytes": nbytes_by_path, "wall_s": wall}
+            "bytes": nbytes_by_path, "placed": placed, "wall_s": wall}
+
+
+def _grads_of(cfg, params, batch, mesh=None):
+    """(loss, every leaf's gradient) of ``loss_fn``; under ``mesh`` placed
+    (``params``, ``batch``: the rank's shards)."""
+    leaves = tree_leaves(params)
+    ctx = (shd.use_rules(mesh, placed=True) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx:
+        loss, _ = loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), grads
+
+
+def placed_train(cfg, params, batch, mesh, name: str, label: str) -> dict:
+    """One ``loss_fn`` forward and backward of ``cfg`` on ``batch``
+    through ``shard_params`` / ``shard_batch`` and the placed path on the
+    1-rank mesh, against the step with no mesh: the loss and every
+    gradient within :data:`PARALLEL_GRAD_TOL` (relative norm), GEMM
+    launches > 0 and equal; for a dense decoder the collective bytes
+    ``analysis.comm.placed_bytes`` gives; the ms of each (median of
+    :data:`PARALLEL_REPS`)."""
+    whole = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    shards = tree_map(lambda t: t.detach().requires_grad_(True),
+                      shd.shard_params(params, mesh))
+    rows = shd.shard_batch(batch, mesh)
+    reset_launches()
+    loss0, want = _grads_of(cfg, whole, batch)
+    counts0 = read_launches()
+    reset_launches()
+    with comm.record() as ops:
+        loss1, got = _grads_of(cfg, shards, rows, mesh)
+    counts = read_launches()
+    err = rel_norm_diff(got, want)
+    del got, want
+    nbytes = collective_bytes(ops)
+    kinds = sorted({op.kind for op in ops})
+    B, S = batch["tokens"].shape
+    formula = None
+    if cfg.pattern == (("attn", "dense"),):
+        formula = comm.placed_bytes(cfg, B=B, S=S, sizes=shd.mesh_axes(mesh),
+                                    kind="train")
+    ms = {"no_mesh": median_ms(lambda: _grads_of(cfg, whole, batch),
+                               PARALLEL_REPS),
+          "placed": median_ms(lambda: _grads_of(cfg, shards, rows, mesh),
+                              PARALLEL_REPS)}
+    if not (err <= PARALLEL_GRAD_TOL and math.isfinite(loss1)
+            and counts["gemm"] and counts == counts0
+            and {"all-gather", "reduce-scatter", "all-reduce"} <= set(kinds)
+            and formula in (None, nbytes)):
+        raise AssertionError(f"parallel: {name} placed step: grads {err:.3e} "
+                             f"from the no-mesh step's, loss {loss1} "
+                             f"({loss0} no mesh), launches {counts} (no mesh "
+                             f"{counts0}), collectives {nbytes}, formula "
+                             f"{formula}")
+    phase("parallel", f"{cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {str(cfg.dtype)[6:]}) placed training step on "
+          f"{B} x {S} tokens (shard_params, shard_batch, FSDP gathers, "
+          f"seq gather/scatter, vocab-parallel loss, gradients reduced) on "
+          f"the 1-rank NCCL mesh: loss {loss1:.6f} ({loss0:.6f} no mesh), "
+          f"gradients {err:.3e} relative norm from the no-mesh step's "
+          f"(limit {PARALLEL_GRAD_TOL}); launches {counts} = no mesh's; "
+          f"collectives {kinds}, bytes {nbytes}"
+          + (" = analysis.comm.placed_bytes" if formula else "")
+          + f"; forward and backward {ms['placed']:.2f} ms vs "
+          f"{ms['no_mesh']:.2f} ms with no mesh: "
+          f"{ms['placed'] - ms['no_mesh']:+.2f} ms of placed-path host "
+          f"cost ({label})")
+    return {"counts": counts, "ms": ms, "bytes": nbytes, "err": err,
+            "loss": loss1, "loss_no_mesh": loss0}
+
+
+def placed_prefill(cfg, params, tokens, mesh, label: str) -> dict:
+    """A prefill of ``tokens`` placed on the 1-rank mesh: logits and K/V
+    rows bitwise the no-mesh prefill's, GEMM launches > 0 and equal, the
+    collective bytes ``analysis.comm.placed_bytes``'s."""
+    B, S = tokens.shape
+    dev = tokens.device
+    shards = shd.shard_params(params, mesh)
+    rows = shd.shard_batch({"tokens": tokens}, mesh)
+
+    def run(placed: bool):
+        cache = init_cache(cfg, B, S, dev)
+        ctx = (shd.use_rules(mesh, placed=True) if placed
+               else contextlib.nullcontext())
+        with torch.no_grad(), ctx:
+            return prefill(shards if placed else params, cfg,
+                           rows if placed else {"tokens": tokens}, cache)
+
+    reset_launches()
+    want, want_c = run(False)
+    counts0 = read_launches()
+    reset_launches()
+    with comm.record() as ops:
+        got, got_c = run(True)
+    counts = read_launches()
+    kv = lambda c: [t for pos in c.values() for t in pos["attn"].values()]
+    same = torch.equal(got, want) and all(
+        torch.equal(a, b) for a, b in zip(kv(got_c), kv(want_c), strict=True))
+    nbytes = collective_bytes(ops)
+    formula = comm.placed_bytes(cfg, B=B, S=S, sizes=shd.mesh_axes(mesh),
+                                kind="prefill")
+    ms = {"no_mesh": median_ms(lambda: run(False), PARALLEL_REPS),
+          "placed": median_ms(lambda: run(True), PARALLEL_REPS)}
+    if not (same and counts["gemm"] and counts == counts0
+            and nbytes == formula):
+        raise AssertionError(f"parallel: placed prefill: bitwise {same}, "
+                             f"launches {counts} (no mesh {counts0}), bytes "
+                             f"{nbytes}, formula {formula}")
+    phase("parallel", f"{cfg.name} placed {B} x {S}-token prefill on the "
+          f"1-rank NCCL mesh: logits and K/V rows bitwise the no-mesh "
+          f"prefill's; launches {counts} = no mesh's; bytes {nbytes} = "
+          f"analysis.comm.placed_bytes; {ms['placed']:.2f} ms vs "
+          f"{ms['no_mesh']:.2f} ms with no mesh ({label})")
+    return {"counts": counts, "ms": ms, "bytes": nbytes}
 
 
 # the dryrun phase: the two cells held against the card, then full-size
@@ -6619,7 +6768,7 @@ cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=layers)
 compat.init_fake_world(1)
 mesh = make_host_mesh(model=1, device="cpu")
 print(json.dumps(dryrun.cell_artifact(cfg, Shape("v2", "prefill", S, B),
-                                      mesh)))
+                                      mesh, placed=True)))
 """
 
 
@@ -6789,7 +6938,8 @@ def phase_dryrun(dev: torch.device, tmp: Path, label: str) -> dict:
                                 rank=0, world_size=1, device_id=dev)
         try:
             mesh = make_host_mesh(model=1, device=dev)
-            cell = dryrun.build_cell(cfg, DRYRUN_V2, mesh, device=dev, seed=0)
+            cell = dryrun.build_cell(cfg, DRYRUN_V2, mesh, device=dev, seed=0,
+                                     placed=True)
             held["v2"] = dryrun_hold(
                 f"V2 {cfg.name} ({cfg.n_layers} of 40 layers) prefill "
                 f"{DRYRUN_V2.global_batch} x {DRYRUN_V2.seq_len} on the "

@@ -21,6 +21,7 @@ import dataclasses
 import math
 from typing import Dict, Iterable, Iterator, List, Tuple
 
+import numpy as np
 import torch
 
 COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
@@ -43,6 +44,26 @@ class CollectiveOp:
 
 
 _RECORDINGS: List[List[CollectiveOp]] = []
+_ISSUING = 0
+
+
+@contextlib.contextmanager
+def issuing() -> Iterator[None]:
+    """The block runs a collective's backend call: the tensor ops the
+    backend makes inside it (gloo's flattening copies, the fake process
+    group's) are the transport's, not the program's, and a counter of
+    the program's ops (``launch.dryrun.counting``) skips them."""
+    global _ISSUING
+    _ISSUING += 1
+    try:
+        yield
+    finally:
+        _ISSUING -= 1
+
+
+def in_collective() -> bool:
+    """Is a collective's backend call running (:func:`issuing`)?"""
+    return _ISSUING > 0
 
 
 @contextlib.contextmanager
@@ -117,3 +138,136 @@ def pipeline_bytes(*, n_micro: int, n_stages: int, micro_bytes: int
     return _sum({"collective-permute": ticks * micro_bytes
                  if n_stages > 1 else 0,
                  "all-reduce": n_micro * micro_bytes})
+
+
+def placed_bytes(cfg, *, B: int, S: int, sizes: Dict[str, int],
+                 kind: str) -> Dict[str, int]:
+    """The collectives of one rank's placed step (``models/placed.py``)
+    for a decoder of (attention, SwiGLU) layers with no frontend: a
+    ``train`` step (``loss_fn`` forward and backward) or a ``prefill``,
+    on B rows of S tokens (the whole batch) over a mesh of ``sizes``
+    ({axis: size}; ``data``, ``model`` and optionally ``pod``).  Where
+    ``cfg.remat``, each repeat's forward collectives run again in its
+    recompute, but for its last ``seq_scatter``: ``torch.utils.checkpoint``
+    stops the recompute once every tensor the backward needs is back, as
+    it does the logit chunk's before its argmax.
+
+    Forward: each weight's gathers (``fsdp_gather``: the gathered block),
+    the residual's ``seq_gather`` (all-gather) and ``seq_scatter``
+    (reduce-scatter of the rank's chunk) around a TP block, K and V
+    gathered, the head's vocab-parallel all-reduces a logit chunk (max,
+    sum of exponentials, target logit, argmax: fp32 and int64), the loss
+    sums and the aux mean over the batch axes.  Backward: a
+    reduce-scatter of each gather's input, an all-gather for each
+    ``seq_scatter``, and an all-reduce of each leaf over every axis it is
+    not split on (``Placement.enter``)."""
+    from repro_torch.models.model import ATTN, DENSE, param_shapes
+    from repro_torch.parallel import sharding as shd
+    if cfg.pattern != ((ATTN, DENSE),) or cfg.is_encdec or \
+            cfg.frontend != "none":
+        raise NotImplementedError("placed_bytes covers (attention, dense) "
+                                  "decoders with no frontend")
+
+    class _Mesh:
+        axis_names = tuple(sizes)
+        devices = np.empty(tuple(sizes.values()))
+    mesh = _Mesh()
+    tp = sizes.get("model", 1)
+    bat = [a for a in ("pod", "data") if a in sizes]
+    dp = math.prod(sizes[a] for a in bat)
+    e = torch.finfo(cfg.dtype).bits // 8
+    Bl, D, H, G, hd, F = (B // dp, cfg.d_model, cfg.n_heads, cfg.n_kv,
+                          cfg.hd, cfg.d_ff)
+    train = kind == "train"
+    tot = {k: 0 for k in COLLECTIVE_KINDS}
+
+    def weight(path: str, shape, model_dim=None) -> Tuple[int, int]:
+        spec = shd.logical_to_spec(shd._axes_for(path, len(shape), False),
+                                   shape, mesh)
+        cur = list(shd.local_shape(shape, spec, mesh))
+        fwd = bwd = 0
+        for d, entry in enumerate(spec):
+            for a in reversed(shd.spec_axes(entry)):
+                if a == "model" and d == model_dim:
+                    continue
+                bwd += math.prod(cur) * e
+                cur[d] *= sizes[a]
+                fwd += math.prod(cur) * e
+        return fwd, bwd
+
+    def add(fwd: Dict[str, int], bwd: Dict[str, int], times: int = 1
+            ) -> None:
+        for k, v in fwd.items():
+            tot[k] += times * v
+        if train:
+            for k, v in bwd.items():
+                tot[k] += times * v
+
+    act, chunk = Bl * S * D * e, Bl * (S // tp) * D * e
+    kv = 2 * Bl * S * G * hd * e
+    # one repeat: attention, MLP
+    f = {"all-gather": 0, "reduce-scatter": 0}
+    b = {"all-gather": 0, "reduce-scatter": 0}
+    head_tp = H % tp == 0
+    kv_tp = head_tp and G % tp == 0
+    shapes = {"wq": (D, H * hd), "wk": (D, G * hd), "wv": (D, G * hd),
+              "wo": (H * hd, D)}
+    for name, shape in shapes.items():
+        col = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}[name]
+        tp_dim = col if (head_tp if name in ("wq", "wo") else kv_tp) else None
+        wf, wb = weight(f"attn/{name}", shape, tp_dim)
+        f["all-gather"] += wf
+        b["reduce-scatter"] += wb
+    f["all-gather"] += kv                   # K and V, every head/position
+    b["reduce-scatter"] += kv // tp
+    if head_tp:
+        f["all-gather"] += act
+        f["reduce-scatter"] += chunk
+        b["reduce-scatter"] += chunk
+        b["all-gather"] += act
+    mlp_tp = cfg.mlp_tp and F % tp == 0
+    for name, shape, dim in (("w_gate", (D, F), 1), ("w_up", (D, F), 1),
+                             ("w_down", (F, D), 0)):
+        wf, wb = weight(f"mlp/{name}", shape, dim if mlp_tp else None)
+        f["all-gather"] += wf
+        b["reduce-scatter"] += wb
+    if mlp_tp:
+        f["all-gather"] += act
+        f["reduce-scatter"] += chunk
+        b["reduce-scatter"] += chunk
+        b["all-gather"] += act
+    add(f, b, cfg.n_repeats)
+    if train and cfg.remat:
+        add({**f, "reduce-scatter": f["reduce-scatter"]
+             - (chunk if mlp_tp else 0)}, {}, cfg.n_repeats)
+
+    # the embedding (vocab-parallel), then the head
+    V = cfg.padded_vocab
+    ef, eb = weight("embed", (V, D), 0)
+    add({"all-gather": ef, "reduce-scatter": chunk},
+        {"reduce-scatter": eb, "all-gather": act})
+    if train:
+        n = S - 1
+        add({"all-gather": act + ef}, {"reduce-scatter": chunk + eb})
+        # a chunk's max, sum of exponentials, target logit (fp32) and
+        # argmax (int64); the recompute stops before the argmax
+        tot["all-reduce"] += Bl * n * (2 * 3 * 4 + 8)
+        tot["all-reduce"] += 4 * len(bat)    # aux mean
+        tot["all-reduce"] += 3 * 4 * len(bat)  # mask count, loss, correct
+        shapes_tree = param_shapes(cfg)
+        for shape, ns in zip(_leaves(shapes_tree),
+                             _leaves(shd.param_shardings(shapes_tree, mesh))):
+            spec = ns.spec
+            axes = {a for en in spec for a in shd.spec_axes(en)}
+            local = math.prod(shd.local_shape(shape, spec, mesh)) * e
+            tot["all-reduce"] += local * sum(
+                1 for a in (*bat, "model") if a in sizes and a not in axes)
+    else:
+        tot["all-gather"] += Bl * tp * D * e + ef + Bl * V * 4
+    return _sum(tot)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]

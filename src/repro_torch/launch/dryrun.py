@@ -20,10 +20,9 @@ lowers and compiles, the port counts every op as it runs, per rank:
     resolved;
   * collectives: ``analysis.comm.record()``, per kind and total, in the
     reference's convention;
-  * memory: ``argument`` (the rank's parameters after expert slabs, AdamW
-    state, gradient accumulators, inputs, cache) and ``temp`` (the peak of
-    the storages made during the step and alive at once), against the
-    card's 80 GB.
+  * memory: ``argument`` (the rank's parameters, AdamW state, gradient
+    accumulators, inputs, cache) and ``temp`` (the peak of the storages
+    made during the step and alive at once), against the card's 80 GB.
 
 ``kernels.matmul.gemm`` and ``splitk_reduce`` each count as one op on
 every device: on the card the kernel is a ctypes launch that no mode
@@ -36,10 +35,16 @@ The reference compiles each cell three times because XLA's
 ``cost_analysis`` counts a while body once; the port counts one pass at
 full depth, and its artifact says so.
 
-Until the FSDP/TP placements (ROADMAP A8.2 slice 2), every rank holds the
-whole non-expert model and the whole global batch (``models/model.py``
-``_moe``), so per-rank FLOPs are about ``chips`` times the reference's
-and most cells do not fit: the dry-run reports that as it stands.
+The CLI's train and prefill cells run the FSDP/TP placements (ROADMAP
+A8.2, slice 2; ``build_cell(placed=True)``): the rank's block of every
+parameter (``parallel.sharding.shard_params``) and AdamW state, its rows
+of the batch (``shard_batch``; microbatches split those rows) and a cache
+of its rows, whole over the sequence, under ``use_rules(mesh,
+placed=True)`` (``models/placed.py``).  Decode cells stay replicated:
+every rank holds the whole model but its expert slabs and the whole
+batch, and a decode step's MoE runs every expert (``moe_decode`` has no
+mesh path); their placements are slice 3's (A8.3).  ``build_cell``
+without ``placed`` builds train and prefill that way too.
 
 A dry-run leaves the process's serving state as it found it: dispatch's
 ``tier_counts``, the shape telemetry, the degraded-tier counter and the
@@ -92,6 +97,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import (ModelConfig, decode_step, init_cache,
                                 init_params, loss_fn, prefill, tree_leaves,
                                 tree_map)
+from repro_torch.models.model import param_shapes
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.parallel import sharding as shd
 
@@ -140,13 +146,16 @@ def grad_accum_dtype(cfg: ModelConfig) -> torch.dtype:
 # the steps (one per shape kind)
 # ---------------------------------------------------------------------------
 
-def build_train(cfg: ModelConfig, mesh) -> Callable:
+def build_train(cfg: ModelConfig, mesh, placed: bool = False) -> Callable:
     """``step(state, inputs)``: ``train_microbatches(cfg)`` microbatches of
-    the batch through ``loss_fn`` and its backward, gradients summed into
-    the state's accumulators (``grad_accum_dtype``) and divided by the
-    count, then ``adamw_update`` in place; one microbatch takes its
+    the batch (with ``placed``, of the rank's rows) through ``loss_fn``
+    and its backward, gradients summed into the state's accumulators
+    (``grad_accum_dtype``) and divided by the count, then ``adamw_update``
+    in place (its global norm over the shards); one microbatch takes its
     gradients as they come, as the reference's does."""
     opt_cfg, nm = opt_config_for(cfg), train_microbatches(cfg)
+    specs = (shd.param_shardings(param_shapes(cfg), mesh) if placed
+             else None)
 
     def step(state: Dict[str, Any], batch: Dict[str, Any]):
         params = state["params"]
@@ -156,7 +165,7 @@ def build_train(cfg: ModelConfig, mesh) -> Callable:
             raise ValueError(f"batch {B} does not split into {nm} "
                              f"microbatches")
         mb = B // nm
-        with shd.use_rules(mesh):
+        with shd.use_rules(mesh, placed=placed):
             losses, accs = [], []
             acc = tree_leaves(state["acc"]) if nm > 1 else None
             if acc is not None:
@@ -180,22 +189,25 @@ def build_train(cfg: ModelConfig, mesh) -> Callable:
             it = iter(grads)
             g_tree = tree_map(lambda _: next(it), params)
             _, state["opt"], om = adamw_update(params, g_tree, state["opt"],
-                                               opt_cfg)
+                                               opt_cfg, shardings=specs)
         loss = losses[0] if nm == 1 else torch.stack(losses).mean()
         acc_m = accs[0] if nm == 1 else torch.stack(accs).mean()
         return {"loss": loss, "acc": acc_m, **om}
     return step
 
 
-def build_prefill(cfg: ModelConfig, mesh) -> Callable:
+def build_prefill(cfg: ModelConfig, mesh, placed: bool = False) -> Callable:
     def step(state: Dict[str, Any], inputs: Dict[str, Any]):
         batch = {k: v for k, v in inputs.items() if k != "cache"}
-        with torch.no_grad(), shd.use_rules(mesh):
+        with torch.no_grad(), shd.use_rules(mesh, placed=placed):
             return prefill(state["params"], cfg, batch, inputs["cache"])
     return step
 
 
-def build_decode(cfg: ModelConfig, mesh) -> Callable:
+def build_decode(cfg: ModelConfig, mesh, placed: bool = False) -> Callable:
+    if placed:
+        raise ValueError("a decode step has no placements (ROADMAP A8.3)")
+
     def step(state: Dict[str, Any], inputs: Dict[str, Any]):
         with torch.no_grad(), shd.use_rules(mesh):
             return decode_step(state["params"], cfg, inputs["tokens"],
@@ -282,23 +294,30 @@ class Cell:
 
 
 def build_cell(cfg: ModelConfig, shape: Shape, mesh=None, *,
-               device: Any = "meta", seed: int = 0, rules: str = "default"
-               ) -> Cell:
+               device: Any = "meta", seed: int = 0, rules: str = "default",
+               placed: bool = False) -> Cell:
     """The cell's step, its state and its inputs on ``device``: ``meta``
     (the dry-run; parameters by :func:`meta_params`) or a real device
     (``init_params`` from a ``torch.Generator`` seeded ``seed`` on it).
-    Under ``mesh`` the expert leaves of a train or prefill step are this
-    rank's slabs.  A training state holds the parameters (requiring
-    grad), the AdamW state (``opt_config_for``) and, over more than one
-    microbatch, the gradient accumulators (``grad_accum_dtype``)."""
+    Under ``mesh`` a train or prefill step holds this rank's expert slabs
+    and the rest whole, with the whole batch; with ``placed`` it holds
+    the rank's shard of every leaf (``shard_params``), its rows of the
+    batch (``shard_batch``) and a cache of its rows, and runs the FSDP/TP
+    placements.  A decode step is never placed.  A training state holds
+    the parameters (requiring grad), the AdamW state (``opt_config_for``)
+    and, over more than one microbatch, the gradient accumulators
+    (``grad_accum_dtype``), each beside the rank's parameters."""
     dev = torch.device(device)
+    placed = placed and mesh is not None and shape.kind != "decode"
     if dev.type == "meta":
         params = meta_params(cfg)
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = init_params(cfg, gen)
-    if shape.kind != "decode":
+    if placed:
+        params = shd.shard_params(params, mesh)
+    elif shape.kind != "decode":
         # a decode step's MoE runs every expert on every rank
         # (``moe_decode`` has no mesh path), so its leaves stay whole
         params = _slabs(params, mesh, rules)
@@ -318,9 +337,20 @@ def build_cell(cfg: ModelConfig, shape: Shape, mesh=None, *,
         specs["index"] = torch.empty((shape.global_batch,),
                                      dtype=specs["index"].dtype,
                                      device="meta")
+    has_cache = placed and specs.pop("cache", None) is not None
     inputs = specs if dev.type == "meta" else _realize(cfg, shape, specs,
                                                        dev, seed)
-    return Cell(BUILDERS[shape.kind](cfg, mesh), state, inputs)
+    if placed:
+        # the rank's rows, each a tensor of its own, and a cache of them
+        inputs = {k: v.clone() for k, v in shd.shard_batch(inputs,
+                                                           mesh).items()}
+        if has_cache:
+            rows = dataclasses.replace(
+                shape, global_batch=inputs["tokens"].shape[0])
+            cache = input_specs(cfg, rows)["cache"]
+            inputs["cache"] = (cache if dev.type == "meta" else _realize(
+                cfg, rows, {"cache": cache}, dev, seed)["cache"])
+    return Cell(BUILDERS[shape.kind](cfg, mesh, placed), state, inputs)
 
 
 def _tensors(tree: Any) -> Iterator[torch.Tensor]:
@@ -501,7 +531,8 @@ def _counting_mode(counts: Counts, known: set):
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
-            if func.namespace != "aten" or func in _UNCOUNTED:
+            if (func.namespace != "aten" or func in _UNCOUNTED
+                    or comm.in_collective()):
                 return func(*args, **kwargs)   # collectives: analysis.comm
             key = None
             if _replayable(func):
@@ -629,12 +660,13 @@ def production_mesh(mesh_name: str):
 def cell_artifact(cfg: ModelConfig, shape: Shape, mesh=None, *,
                   arch: Optional[str] = None, mesh_name: str = "none",
                   tag: str = "", rules: str = "default",
-                  overrides: Optional[Dict[str, Any]] = None
-                  ) -> Dict[str, Any]:
+                  overrides: Optional[Dict[str, Any]] = None,
+                  placed: bool = False) -> Dict[str, Any]:
     """The dry-run of any ``(cfg, shape, mesh or None)`` on meta tensors,
     as an artifact in the reference's layout (``wall_s``: the cell built
-    and counted, host seconds); a skipped cell carries ``applicable``'s
-    reason and no measurement."""
+    and counted, host seconds; ``placed``: whether the step ran the
+    FSDP/TP placements, :func:`build_cell`); a skipped cell carries
+    ``applicable``'s reason and no measurement."""
     chips = (int(np.prod(list(shd.mesh_axes(mesh).values())))
              if mesh is not None else 1)
     art: Dict[str, Any] = {
@@ -649,8 +681,11 @@ def cell_artifact(cfg: ModelConfig, shape: Shape, mesh=None, *,
         art["skipped"] = reason
         return art
     shd.set_param_rules(rules)
+    placed = placed and mesh is not None and shape.kind != "decode"
+    art["placed"] = placed
     t0 = time.perf_counter()
-    art.update(count_step(build_cell(cfg, shape, mesh, rules=rules)))
+    art.update(count_step(build_cell(cfg, shape, mesh, rules=rules,
+                                     placed=placed)))
     art["wall_s"] = time.perf_counter() - t0
     return art
 
@@ -659,9 +694,10 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
              overrides: Optional[Dict[str, Any]] = None,
              tag: str = "", rules: str = "default", mesh: Any = None,
              verbose: bool = True) -> Dict[str, Any]:
-    """One production cell's artifact.  ``mesh``: the production mesh of
-    ``mesh_name`` already built (``main`` builds one a world); else the
-    cell makes its fake world and mesh and destroys the world after."""
+    """One production cell's artifact, train and prefill placed.
+    ``mesh``: the production mesh of ``mesh_name`` already built
+    (``main`` builds one a world); else the cell makes its fake world and
+    mesh and destroys the world after."""
     if mesh is None:
         with fake_world(MESH_WORLD[mesh_name]):
             return run_cell(arch, shape_name, mesh_name, overrides=overrides,
@@ -672,7 +708,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
         cfg = dataclasses.replace(cfg, **overrides)
     art = cell_artifact(cfg, SHAPES[shape_name], mesh, arch=arch,
                         mesh_name=mesh_name, tag=tag, rules=rules,
-                        overrides=overrides)
+                        overrides=overrides, placed=True)
     if verbose and "skipped" not in art:
         mem = art["memory"]
         print(f"[{arch} | {shape_name} | {mesh_name}] "

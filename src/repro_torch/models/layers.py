@@ -4,9 +4,11 @@ Every projection goes through ``repro_torch.kernels.dispatch.matmul2``, so
 on the card each one runs the hand-written GEMM under its tuned config.
 Parameters are plain dicts of tensors; activations keep the model dtype,
 normalisation and attention run in fp32.  The reference's sharding
-constraints (``constrain``) are not called: the port has no GSPMD, so
-under a mesh these layers run replicated on every rank, and the FSDP/TP
-placements those calls steer wait for A8.2 (``parallel.sharding``).
+constraints (``constrain``) are not called here: the port has no GSPMD,
+so under ``use_rules(mesh, placed=True)`` the model runs the placed
+versions of these blocks (``models/placed.py``), each constraint written
+out as its collective, on the rank's shards; otherwise these layers run
+whole on every rank.
 
 Where autograd records (:func:`recording`), the attention's chunk bodies
 run under ``torch.utils.checkpoint``, as the reference's run under

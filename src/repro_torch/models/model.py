@@ -40,6 +40,14 @@ into their repeats with one ``unbind`` a leaf (views, no kernel), whose
 backward stacks the repeats' grads in one op.  Without autograd (the
 serving engine, a CUDA graph capture) no checkpoint runs.
 
+Over a mesh: under ``parallel.sharding.use_rules(mesh, placed=True)``
+``forward``, ``loss_fn``, ``prefill`` and ``encode`` take the rank's
+shards (``shard_params``, ``shard_batch``) and run the FSDP/TP
+placements of ``models/placed.py`` (ROADMAP A8.2, slice 2); a decode step
+is refused there (A8.3).  Under plain ``use_rules(mesh)`` every layer
+runs whole on every rank and only the MoE layers take their
+expert-parallel paths (:func:`_moe`).  Outside both no op is added.
+
 ``prefill``'s batch holds ``tokens`` and, for an encoder-decoder,
 ``encoder_embeds`` (B, L_enc, D), which it encodes itself; for a vision
 frontend optionally ``patch_embeds`` (B, Np, D), prepended to the token
@@ -59,6 +67,7 @@ from repro_torch.parallel import sharding as shd
 
 from . import layers as L
 from . import moe as MOE
+from . import placed as P
 from . import ssm as SSM
 
 Params = Dict[str, Any]
@@ -105,6 +114,8 @@ class ModelConfig:
     #   diagonal (causal self-attention without a cache)
     moe_a2a: bool = False                  # under a mesh: all-to-all EP
     #   (moe_ep_a2a) in place of the all-reduce one (moe_ep)
+    mlp_tp: bool = True                    # placed: Megatron TP MLP (else
+    #   pure SP, the weights gathered whole)
 
     @property
     def hd(self) -> int:
@@ -269,6 +280,55 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     return params
 
 
+def param_shapes(cfg: ModelConfig) -> Params:
+    """``init_params``' tree as shapes (tuples), in its key order, from
+    the config alone: the global shapes that the placements split
+    (``parallel.sharding.param_shardings``)."""
+    d, f, hd, R = cfg.d_model, cfg.d_ff, cfg.hd, cfg.n_repeats
+
+    def attn(R: int, qk_norm: bool) -> Params:
+        out = {"wq": (R, d, cfg.n_heads * hd), "wk": (R, d, cfg.n_kv * hd),
+               "wv": (R, d, cfg.n_kv * hd), "wo": (R, cfg.n_heads * hd, d)}
+        if qk_norm:
+            out.update(q_norm=(R, hd), k_norm=(R, hd))
+        return out
+
+    def layer(mixer: str, mlp_kind: str, cross: bool, R: int) -> Params:
+        out: Params = {"norm1": (R, d), "norm2": (R, d)}
+        if mixer == ATTN:
+            out["attn"] = attn(R, cfg.qk_norm)
+        else:
+            di = 2 * d
+            nh = di // cfg.ssm_head_dim
+            ch = di + 2 * cfg.ssm_state
+            out["mamba"] = {
+                "w_in": (R, d, 2 * di + 2 * cfg.ssm_state + nh),
+                "conv_w": (R, SSM.CONV_WIDTH, ch), "conv_b": (R, ch),
+                "a_log": (R, nh), "dt_bias": (R, nh), "d_skip": (R, nh),
+                "norm": (R, di), "w_out": (R, di, d)}
+        if cross:
+            out["cross"] = attn(R, False)
+            out["norm_cross"] = (R, d)
+        if mlp_kind in (DENSE, MOE_DENSE):
+            out["mlp"] = {"w_gate": (R, d, f), "w_up": (R, d, f),
+                          "w_down": (R, f, d)}
+        if mlp_kind in (MOE_MLP, MOE_DENSE):
+            E = cfg.n_experts
+            out["moe"] = {"router": (R, d, E), "w_gate": (R, E, d, f),
+                          "w_up": (R, E, d, f), "w_down": (R, E, f, d)}
+        return out
+
+    shapes: Params = {
+        "embed": (cfg.padded_vocab, d), "final_norm": (d,),
+        "layers": {f"pos{i}": layer(mixer, mlp_kind, cfg.is_encdec, R)
+                   for i, (mixer, mlp_kind) in enumerate(cfg.pattern)}}
+    if cfg.is_encdec:
+        shapes["encoder"] = {"pos0": layer(ATTN, DENSE, False,
+                                           cfg.encoder_layers),
+                             "norm": (d,)}
+    return shapes
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> Params:
     """Decode cache, stacked over repeats like the params: a zero KV cache
@@ -337,10 +397,22 @@ def _apply_repeat(cfg: ModelConfig, p_r: Params, c_r: Params,
                   x: torch.Tensor, *, pattern: Tuple[Tuple[str, str], ...],
                   positions: torch.Tensor, causal: bool,
                   memory: Optional[torch.Tensor], has_cache: bool,
-                  cache_index, want_aux: bool) -> Tuple[torch.Tensor, Any]:
+                  cache_index, want_aux: bool,
+                  pl: Optional[P.Placement] = None,
+                  shapes: Optional[Params] = None
+                  ) -> Tuple[torch.Tensor, Any]:
     """One repeat of the stack: ``pattern``'s layers in order.  Returns
     (x, the summed fp32 aux loss of its capacity-path MoE layers where
-    ``want_aux``, else 0.0: the serving path adds no op for it)."""
+    ``want_aux``, else 0.0: the serving path adds no op for it).  With a
+    placement ``pl`` (``shapes``: the repeat's global leaf shapes) x is
+    the rank's chunk and every block runs placed (``models/placed.py``)."""
+    if pl is not None:
+        return _apply_repeat_placed(cfg, pl, p_r, shapes, c_r, x,
+                                    pattern=pattern, positions=positions,
+                                    causal=causal, memory=memory,
+                                    want_aux=want_aux)
+    if callable(p_r):           # gathered inside the repeat: _run_stack
+        p_r = p_r()
     aux: Any = 0.0
     for i, (mixer, mlp_kind) in enumerate(pattern):
         p = p_r[f"pos{i}"]
@@ -389,6 +461,46 @@ def _apply_repeat(cfg: ModelConfig, p_r: Params, c_r: Params,
     return x, aux
 
 
+def _apply_repeat_placed(cfg: ModelConfig, pl: P.Placement, p_r: Params,
+                         shapes: Params, c_r: Params, x: torch.Tensor, *,
+                         pattern: Tuple[Tuple[str, str], ...],
+                         positions: torch.Tensor, causal: bool,
+                         memory: Optional[torch.Tensor], want_aux: bool
+                         ) -> Tuple[torch.Tensor, Any]:
+    """:func:`_apply_repeat` on the rank's chunk x (B/dp, S/tp, D)."""
+    aux: Any = 0.0
+    for i, (mixer, mlp_kind) in enumerate(pattern):
+        p, shp = p_r[f"pos{i}"], shapes[f"pos{i}"]
+        c = c_r.get(f"pos{i}", {})
+        h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        if mixer == ATTN:
+            out = P.attention(pl, cfg, p["attn"], shp["attn"], h,
+                              positions=positions, causal=causal,
+                              qk_norm=cfg.qk_norm, cache=c.get("attn"))
+        else:
+            out = P.mamba(pl, cfg, p["mamba"], shp["mamba"], h,
+                          cache=c.get("mamba"))
+        x = x + out
+        if memory is not None and "cross" in p:
+            h = L.rms_norm(x, p["norm_cross"], cfg.norm_eps)
+            x = x + P.attention(pl, cfg, p["cross"], shp["cross"], h,
+                                positions=positions, causal=False,
+                                qk_norm=False, memory=memory, path="cross")
+        if mlp_kind == NONE:
+            continue
+        h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        out = None
+        if mlp_kind in (DENSE, MOE_DENSE):
+            out = P.mlp(pl, cfg, p["mlp"], shp["mlp"], h)
+        if mlp_kind in (MOE_MLP, MOE_DENSE):
+            mo, a = P.moe(pl, cfg, p["moe"], shp["moe"], h)
+            if want_aux:
+                aux = aux + a
+            out = mo if out is None else out + mo
+        x = x + out
+    return x, aux
+
+
 def _moe(cfg: ModelConfig, p: Params, h: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The capacity path of a MoE layer, chosen as the reference chooses
@@ -397,12 +509,13 @@ def _moe(cfg: ModelConfig, p: Params, h: torch.Tensor
     mesh's other axes: ``moe_ep_a2a`` where ``cfg.moe_a2a`` and the
     sequence divides over ``model``, else ``moe_ep``; otherwise ``moe``.
 
-    Every rank holds the whole batch here: the port has no GSPMD, so the
-    layers around the MoE run replicated on every rank, and the batch is
-    not split over the other axes.  The batch condition is kept so that
-    the port takes the reference's path, whose drops differ.  Only the
-    expert slabs can be sharded (``parallel.sharding.expert_slabs``); the
-    FSDP/TP placement of the other parameters waits for A8.2."""
+    This is the replicated mode (``use_rules(mesh)`` without
+    ``placed``): every rank holds the whole batch and runs the layers
+    around the MoE whole, and only the expert leaves may be the rank's
+    slabs (``parallel.sharding.expert_slabs``).  The batch condition is
+    kept so that the port takes the reference's path, whose drops differ.
+    Under ``use_rules(mesh, placed=True)`` the layer runs
+    ``placed.moe`` instead, on the rank's B/dp rows."""
     mesh = shd.active_mesh()
     kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
               capacity_factor=cfg.capacity_factor)
@@ -426,7 +539,10 @@ def _run_stack(cfg: ModelConfig, stack: Params, x: torch.Tensor, *,
                pattern: Tuple[Tuple[str, str], ...], positions: torch.Tensor,
                causal: bool, memory: Optional[torch.Tensor] = None,
                cache: Optional[Params] = None, cache_index=None,
-               want_aux: bool = False) -> Tuple[torch.Tensor, Any]:
+               want_aux: bool = False, pl: Optional[P.Placement] = None,
+               shapes: Optional[Params] = None,
+               whole: Optional[P.Placement] = None
+               ) -> Tuple[torch.Tensor, Any]:
     """Pre-norm residual blocks over the repeats of ``stack`` (its leaves'
     leading dim), ``pattern``'s positions in order inside each; with a
     ``cache``, each repeat's slices are written in place.  Where a layer
@@ -439,18 +555,26 @@ def _run_stack(cfg: ModelConfig, stack: Params, x: torch.Tensor, *,
     with ``want_aux`` the capacity-path MoE layers' load-balancing losses
     summed in fp32, as the reference's scan carries them (0.0 where there
     are none); without it 0.0, and no op is added for it.  Where autograd
-    records and ``cfg.remat``, each repeat runs under a checkpoint."""
+    records and ``cfg.remat``, each repeat runs under a checkpoint (its
+    collectives, under a placement, run again in the recompute).  With a
+    placement ``pl`` (``shapes``: the stack's global shapes) every block
+    runs placed; with ``whole`` each repeat's parameters are gathered
+    whole first and the blocks run as on one device (the encoder's
+    data-parallel walk)."""
     n = tree_leaves(stack)[0].shape[0]
     record = L.recording(x, stack, memory)
     reps = _unstack(stack, n)
+    rshapes = P.repeat_shapes(shapes) if shapes is not None else None
     aux: Any = 0.0
     for r, p_r in enumerate(reps):
         c_r = _slice(cache, r) if cache is not None else {}
+        if whole is not None:
+            p_r = functools.partial(P.gather_whole, whole, p_r, rshapes)
         fn = functools.partial(
             _apply_repeat, cfg, p_r, c_r, pattern=pattern,
             positions=positions, causal=causal, memory=memory,
             has_cache=cache is not None, cache_index=cache_index,
-            want_aux=want_aux)
+            want_aux=want_aux, pl=pl, shapes=rshapes)
         x, a = L.maybe_checkpoint(fn, x, record=record and cfg.remat)
         aux = aux + a
     return x, aux
@@ -531,20 +655,55 @@ def _chunked_xent(cfg: ModelConfig, x: torch.Tensor, embed: torch.Tensor,
     return loss_sum / denom, correct / denom
 
 
+def _placed_entry(cfg: ModelConfig, params: Params
+                  ) -> Tuple[Optional[P.Placement], Params]:
+    """(the active placement or None, ``params`` as the step uses them:
+    under a placement checked to be the rank's shards and, where autograd
+    records, wrapped by ``Placement.enter``)."""
+    pl = P.placement(cfg)
+    if pl is None:
+        return None, params
+    pl.check(params)
+    if L.recording(params):
+        params = pl.enter(params)
+    return pl, params
+
+
+def _hidden(cfg: ModelConfig, pl: Optional[P.Placement], params: Params,
+            batch: Dict[str, Any], cache: Optional[Params] = None,
+            want_aux: bool = False) -> Tuple[torch.Tensor, Any]:
+    """The decoder's final hidden states (normed) and the summed aux loss,
+    from position 0, filling ``cache`` where given."""
+    if pl is None:
+        x = _frontend_concat(cfg, params, batch)
+        S = x.shape[1]
+    else:
+        x = P.embed(pl, cfg, params, batch)
+        S = x.shape[1] * pl.tp
+    positions = torch.arange(S, device=x.device)
+    memory = (encode(cfg, params, batch["encoder_embeds"])
+              if cfg.is_encdec else None)
+    x, aux = _run_stack(
+        cfg, params["layers"], x, pattern=cfg.pattern, positions=positions,
+        causal=True, memory=memory, cache=cache,
+        cache_index=0 if cache is not None else None, want_aux=want_aux,
+        pl=pl, shapes=pl.shapes["layers"] if pl is not None else None)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward: ``batch`` as for :func:`prefill`, no cache.
     Returns (final hidden (B, S, D), the MoE layers' summed load-balancing
-    loss, fp32)."""
-    x = _frontend_concat(cfg, params, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
-    memory = (encode(cfg, params, batch["encoder_embeds"])
-              if cfg.is_encdec else None)
-    x, aux = _run_stack(cfg, params["layers"], x, pattern=cfg.pattern,
-                        positions=positions, causal=True, memory=memory,
-                        want_aux=True)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    loss, fp32).  Under ``use_rules(mesh, placed=True)`` the rank's
+    (B/dp, S/tp, D) chunk, and the aux loss the mean over the data
+    shards of each shard's (ROADMAP C13)."""
+    pl, params = _placed_entry(cfg, params)
+    x, aux = _hidden(cfg, pl, params, batch, want_aux=True)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    if pl is not None:
+        aux = pl.data_mean(aux)
+    return x, aux
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -553,11 +712,21 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     """Next-token loss: position t predicts t+1.  ``batch`` holds
     ``tokens`` (B, T) and optionally ``targets``, ``loss_mask``,
     ``patch_embeds`` and ``encoder_embeds``.  Returns (loss, {"loss",
-    "xent", "aux", "acc"}), loss = xent + ``aux_weight`` * aux."""
-    x, aux = forward(params, cfg, batch)
+    "xent", "aux", "acc"}), loss = xent + ``aux_weight`` * aux.  Under
+    ``use_rules(mesh, placed=True)`` ``params`` and ``batch`` are the
+    rank's shards (``parallel.sharding.shard_params``, ``shard_batch``)
+    and the loss is the whole batch's on every rank."""
+    pl, params = _placed_entry(cfg, params)
+    x, aux = _hidden(cfg, pl, params, batch, want_aux=True)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     targets, mask = _frontend_concat_shapes(cfg, batch, x.device)
-    xent, acc = _chunked_xent(cfg, x[:, :-1], params["embed"],
-                              targets[:, 1:], mask[:, 1:])
+    if pl is None:
+        xent, acc = _chunked_xent(cfg, x[:, :-1], params["embed"],
+                                  targets[:, 1:], mask[:, 1:])
+    else:
+        aux = pl.data_mean(aux)
+        xent, acc = P.chunked_xent(pl, cfg, x, params["embed"], targets,
+                                   mask)
     loss = xent + aux_weight * aux
     return loss, {"loss": loss, "xent": xent, "aux": aux, "acc": acc}
 
@@ -570,9 +739,12 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
     enc = params["encoder"]
     x = frames.to(device=enc["norm"].device, dtype=cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+    pl = P.placement(cfg)
     x, _ = _run_stack(cfg, {"pos0": enc["pos0"]}, x,
                       pattern=((ATTN, DENSE),), positions=positions,
-                      causal=False)
+                      causal=False, whole=pl,
+                      shapes=({"pos0": pl.shapes["encoder"]["pos0"]}
+                              if pl is not None else None))
     return L.rms_norm(x, enc["norm"], cfg.norm_eps)
 
 
@@ -582,6 +754,10 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step.  tokens (B, 1); index = current length, an int or
     a per-slot (B,) tensor; ``memory`` the encoder output (B, L_enc, D),
     which an encoder-decoder requires.  Returns (logits (B, V), cache)."""
+    if shd.placed():
+        raise NotImplementedError(
+            "a decode step has no placements yet (ROADMAP A8.3): run it "
+            "under use_rules(mesh) on whole parameters")
     if cfg.is_encdec and memory is None:
         raise ValueError("enc-dec decode requires encoder memory")
     x = params["embed"][tokens]
@@ -601,13 +777,15 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     """Run the prompt through the stack, filling the cache from position 0:
     the patch embeddings first where the batch has them, and for an
     encoder-decoder cross-attention into ``encode(encoder_embeds)``.
-    Returns (last-position logits (B, V), cache)."""
-    x = _frontend_concat(cfg, params, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
-    memory = (encode(cfg, params, batch["encoder_embeds"])
-              if cfg.is_encdec else None)
-    x, _ = _run_stack(cfg, params["layers"], x, pattern=cfg.pattern,
-                      positions=positions, causal=True, memory=memory,
-                      cache=cache, cache_index=0)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    Returns (last-position logits (B, V), cache).  Under
+    ``use_rules(mesh, placed=True)``: the rank's shards and rows, its
+    cache rows written whole over the sequence, its (B/dp, V) logits."""
+    pl, params = _placed_entry(cfg, params)
+    if pl is not None and batch["tokens"].shape[1] < 2:
+        raise NotImplementedError(
+            "a one-token prefill is a decode step, which has no placements "
+            "yet (ROADMAP A8.3)")
+    x, _ = _hidden(cfg, pl, params, batch, cache=cache)
+    if pl is not None:
+        return P.last_logits(pl, cfg, params, x), cache
     return _logits(cfg, params, x[:, -1:])[:, -1], cache

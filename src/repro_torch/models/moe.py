@@ -19,14 +19,26 @@ The reference's four execution paths, chosen by the model's layer walk:
   moe_decode() — the decode path: every expert runs on every token and a
                  sparse (T, E) weight matrix combines them.
 
-The mesh paths take ``x`` whole, the same on every rank of the mesh, and
-return the whole output on every rank: the port has no GSPMD, so the
-layers around them run replicated (``models/model.py``).  They do not
-split the batch over the mesh's other axes.  Their collectives are the
-conjugate pairs of ``repro_torch.parallel.collectives``, so the gradients
-through them are the no-mesh path's where the loss is the same on every
-rank.  The expert weights may be whole (E, ...) or this rank's slab of
-E/tp experts (``parallel.sharding.expert_slabs``).
+The mesh paths take ``x`` whole over the sequence, the same on every
+rank of the ``model`` axis, and return the whole output on every such
+rank.  Under plain ``use_rules(mesh)`` that ``x`` is the whole batch (the
+layers around run replicated, ``models/model.py``); under the
+placements (``models/placed.py``) it is the rank's B/dp rows of the
+batch, gathered over the sequence, with the expert slabs' FSDP dim
+gathered.  Their collectives are the conjugate pairs of
+``repro_torch.parallel.collectives``, so the gradients through them are
+the no-mesh path's where the loss is the same on every rank.  The expert
+weights may be whole (E, ...) or this rank's slab of E/tp experts
+(``parallel.sharding.expert_slabs``).
+
+The aux loss on a data-parallel mesh (ROADMAP C13): each path returns the
+aux loss of the rows it was given.  The reference's layer returns data
+shard 0's value when its batch is split over ``data`` (the shard_map's
+replicated out-spec keeps one shard's), while its gradient is each
+shard's own.  The port's placed model takes the mean over the data
+shards of each shard's aux loss (``placed.Placement.data_mean``), so its
+value and its gradient agree: at (data, model) = (2, 2) on dbrx's SMOKE
+the two differ (``tests/test_torch_placements.py`` prints both).
 
 The expert FFN is three batched products, ``torch.bmm`` here as they are
 ``jnp.einsum`` there: the reference does not route them through its GEMM

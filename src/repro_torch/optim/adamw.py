@@ -69,10 +69,31 @@ def _schedule(cfg: AdamWConfig, step: int) -> float:
     return cfg.lr * warm * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32, on the device."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tree_leaves(tree)))
+def global_norm(tree: Any, shardings: Any = None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in fp32, on the device.
+    ``shardings`` (``parallel.sharding.param_shardings`` of the whole
+    tree): ``tree`` holds this rank's shards (``shard_params``), so each
+    leaf's sum of squares is all-reduced over the axes the leaf is split
+    on, and counted once over the axes on which its ranks hold the same
+    block."""
+    if shardings is None:
+        return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                              for t in tree_leaves(tree)))
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import spec_axes
+    mesh = tree_leaves(shardings)[0].mesh
+    by_axes: Dict[Tuple[str, ...], Any] = {}
+    for t, s in zip(tree_leaves(tree), tree_leaves(shardings)):
+        axes = tuple(a for a in mesh.mesh_dim_names
+                     if any(a in spec_axes(e) for e in s.spec))
+        by_axes[axes] = by_axes.get(axes, 0.0) + torch.sum(
+            torch.square(t.float()))
+    total = 0.0
+    for axes, ss in by_axes.items():
+        for a in axes:
+            ss = col.all_reduce(ss, mesh.get_group(a))
+        total = total + ss
+    return torch.sqrt(total)
 
 
 def _stochastic_round(gen: torch.Generator, x: torch.Tensor,
@@ -93,14 +114,17 @@ def _stochastic_round(gen: torch.Generator, x: torch.Tensor,
 
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: AdamWState,
-                 cfg: AdamWConfig, *, sr_gen: Optional[torch.Generator] = None
+                 cfg: AdamWConfig, *, sr_gen: Optional[torch.Generator] = None,
+                 shardings: Any = None
                  ) -> Tuple[Any, AdamWState, Dict[str, Any]]:
     """One AdamW step: grads clipped by their global norm, decay on leaves
     of two or more dims only, the parameter rounded stochastically to its
-    dtype where ``sr_gen`` is given and it is not fp32.  Returns (params,
-    state, {"grad_norm": the unclipped norm (a device scalar), "lr"})."""
+    dtype where ``sr_gen`` is given and it is not fp32.  On a rank's
+    shards, ``shardings`` gives the whole tree's placements, for the
+    global norm (:func:`global_norm`).  Returns (params, state,
+    {"grad_norm": the unclipped norm (a device scalar), "lr"})."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = _schedule(cfg, step)

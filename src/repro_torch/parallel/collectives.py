@@ -15,6 +15,18 @@ every rank of the group:
   gather_from  all-gather forward,          own chunk backward
   all_to_all   all-to-all forward,          all-to-all backward
 
+The FSDP/TP placements (``models/placed.py``) keep another convention:
+every rank computes the gradient of its own share of the work, and a
+tensor gathered for work that the ranks split sums their gradients
+back.  Their pairs (Megatron-LM's sequence parallelism and ZeRO-3):
+
+  fsdp_gather  all-gather forward over ``data``,   reduce-scatter backward
+  seq_gather   all-gather forward over ``model``,  reduce-scatter backward
+  seq_scatter  reduce-scatter forward onto a dim,  all-gather backward
+
+(``fsdp_gather`` and ``seq_gather`` are one pair, named for their sites:
+a leaf's gradient arrives as the rank's shard, summed over the group.)
+
 ``ring_shift`` (a pipeline's send to the next rank, receive from the
 previous) and ``all_reduce`` carry no autograd.
 """
@@ -27,10 +39,12 @@ import torch.distributed as dist
 from repro_torch.analysis import comm
 
 
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``t`` over ``group``, in a new tensor."""
+def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
+               ) -> torch.Tensor:
+    """The sum (or ``op``) of ``t`` over ``group``, in a new tensor."""
     out = t.contiguous().clone()
-    dist.all_reduce(out, group=group)
+    with comm.issuing():
+        dist.all_reduce(out, op=op, group=group)
     comm.note("all-reduce", out)
     return out
 
@@ -38,7 +52,8 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
 def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
+    with comm.issuing():
+        dist.all_gather(parts, t, group=group)
     out = torch.cat(parts, dim=dim)
     comm.note("all-gather", out)
     return out
@@ -53,10 +68,27 @@ def _own_chunk(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     return t.narrow(dim, dist.get_rank(group) * size, size).contiguous()
 
 
+def _reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, of which this rank keeps its
+    chunk of ``dim``."""
+    n = dist.get_world_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {n} ranks")
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    with comm.issuing():
+        dist.reduce_scatter_tensor(out, src, group=group)
+    out = out.movedim(0, dim)
+    comm.note("reduce-scatter", out)
+    return out
+
+
 def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=group)
+    with comm.issuing():
+        dist.all_to_all_single(out, t, group=group)
     comm.note("all-to-all", out)
     return out
 
@@ -115,6 +147,28 @@ class _GatherFrom(torch.autograd.Function):
         return _own_chunk(g, ctx.group, ctx.dim), None, None
 
 
+class _GatherRS(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterAG(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -146,6 +200,25 @@ def gather_from(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return _GatherFrom.apply(x, group, dim)
 
 
+def fsdp_gather(w: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """A parameter block gathered whole along ``dim`` over ``group`` (the
+    ``data`` axis, or ``model`` where a layer wants the weight whole);
+    its gradient summed over the group and cut back to the block."""
+    return _GatherRS.apply(w, group, dim)
+
+
+def seq_gather(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Activations gathered along ``dim`` (the sequence, or K/V heads)
+    over ``group``; their gradient summed over the group and cut back."""
+    return _GatherRS.apply(x, group, dim)
+
+
+def seq_scatter(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Partial sums reduced over ``group``, each rank keeping its chunk of
+    ``dim``; the gradient all-gathered back."""
+    return _ScatterAG.apply(x, group, dim)
+
+
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """Dim 0 of ``x`` (the group's size) scattered over the group: block
     i goes to rank i, and block j of the result came from rank j."""
@@ -161,10 +234,11 @@ def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(t)
     nxt = dist.get_global_rank(group, (r + 1) % n)
     prv = dist.get_global_rank(group, (r - 1) % n)
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, t, nxt, group),
-        dist.P2POp(dist.irecv, out, prv, group)])
-    for req in reqs:
-        req.wait()
+    with comm.issuing():
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t, nxt, group),
+            dist.P2POp(dist.irecv, out, prv, group)])
+        for req in reqs:
+            req.wait()
     comm.note("collective-permute", out)
     return out

@@ -20,20 +20,34 @@ pairs it with a mesh and gives the ``DTensor`` placements.  A mesh is a
 
 :func:`constrain` redistributes a ``DTensor`` to a logical spec and
 returns any other tensor unchanged; values never change.  The port's
-model code calls it nowhere yet: without GSPMD its non-expert layers run
-replicated on every rank, and the FSDP/TP placements that the
-reference's ``constrain`` calls steer wait for the dry-run that reads
-them.
+model code does not call it: with no GSPMD to place a layer, each of the
+reference's ``constrain`` sites is written out as its collective in
+``models/placed.py``, which runs under ``use_rules(mesh, placed=True)``
+on the rank's state:
+
+  * :func:`shard_params` gives this rank's block of every leaf by
+    :func:`param_shardings` (``data``: FSDP, ``model``: TP / EP; a
+    stacked leaf's repeat dim whole), :func:`gather_params` its inverse;
+  * :func:`shard_batch` gives the rank's rows of a batch by
+    :func:`batch_spec` (over ``pod`` and ``data``).
+
+Training and prefill take the placements (ROADMAP A8.2, slice 2); a
+decode step and Mamba's head-parallel TP wait for slice 3 (A8.3).  Plain
+``use_rules(mesh)`` keeps the layers replicated on every rank over whole
+parameters and the whole batch, the MoE layers' expert-parallel paths
+over :func:`expert_slabs`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.compat import DTensor, Replicate, Shard
 
@@ -148,11 +162,13 @@ class NamedSharding:
 
 def param_shardings(params: Any, mesh: Any) -> Any:
     """A tree of :class:`NamedSharding` mirroring ``params`` (nested dicts
-    of tensors) by the PARAM_RULES table."""
-    def one(path: str, leaf: torch.Tensor) -> NamedSharding:
+    of tensors, or of shapes: ``models.param_shapes``) by the PARAM_RULES
+    table."""
+    def one(path: str, leaf: Any) -> NamedSharding:
+        shape = tuple(leaf.shape if isinstance(leaf, torch.Tensor) else leaf)
         stacked = "layers/" in path or "encoder/" in path
-        axes = _axes_for(path, leaf.dim(), stacked)
-        return NamedSharding(mesh, logical_to_spec(axes, leaf.shape, mesh))
+        axes = _axes_for(path, len(shape), stacked)
+        return NamedSharding(mesh, logical_to_spec(axes, shape, mesh))
 
     def build(tree: Any, path: str) -> Any:
         if isinstance(tree, dict):
@@ -167,30 +183,42 @@ def param_shardings(params: Any, mesh: Any) -> Any:
 # ---------------------------------------------------------------------------
 
 _ACTIVE_MESH: Optional[Any] = None
+_PLACED = False
 
 
 class use_rules:
-    """Context manager under which the model's MoE layers take their
-    expert-parallel paths over ``mesh`` (``models/model.py``).  Without
-    it everything runs as on one device."""
+    """Context manager under which the model runs over ``mesh``.  With
+    ``placed`` (training and prefill) each rank holds its shards
+    (:func:`shard_params`, :func:`shard_batch`) and every layer runs its
+    FSDP/TP placement (``models/placed.py``); without it the layers run
+    replicated and only the MoE layers take their expert-parallel paths
+    (``models/model.py``).  Outside it everything runs as on one device."""
 
-    def __init__(self, mesh: Optional[Any]):
+    def __init__(self, mesh: Optional[Any], placed: bool = False):
         self.mesh = mesh
-        self._prev: Optional[Any] = None
+        self.placed = placed
+        self._prev: Tuple[Optional[Any], bool] = (None, False)
 
     def __enter__(self):
-        global _ACTIVE_MESH
-        self._prev, _ACTIVE_MESH = _ACTIVE_MESH, self.mesh
+        global _ACTIVE_MESH, _PLACED
+        self._prev = (_ACTIVE_MESH, _PLACED)
+        _ACTIVE_MESH, _PLACED = self.mesh, self.placed and self.mesh is not None
         return self
 
     def __exit__(self, *exc):
-        global _ACTIVE_MESH
-        _ACTIVE_MESH = self._prev
+        global _ACTIVE_MESH, _PLACED
+        _ACTIVE_MESH, _PLACED = self._prev
         return False
 
 
 def active_mesh() -> Optional[Any]:
     return _ACTIVE_MESH
+
+
+def placed() -> bool:
+    """Does the model run its FSDP/TP placements (``use_rules(mesh,
+    placed=True)``)?"""
+    return _PLACED
 
 
 def axis_size(logical: str) -> int:
@@ -228,9 +256,10 @@ def replicated(mesh: Any) -> NamedSharding:
 def expert_slabs(params: Any, mesh) -> Any:
     """``params`` with every MoE expert leaf (``moe/{w_gate, w_up,
     w_down}``) cut to this rank's slab of experts over the mesh's
-    ``model`` axis (the expert dim of :func:`param_shardings`; its FSDP
-    split over ``data`` waits for A8.2), every other leaf as it is.  The
-    slabs are views of the full leaves."""
+    ``model`` axis (the expert dim of :func:`param_shardings`), every
+    other leaf as it is: the replicated mode's state (``use_rules(mesh)``
+    without ``placed``; :func:`shard_params` gives the placed path every
+    leaf's FSDP/TP block).  The slabs are views of the full leaves."""
     tp = mesh_axes(mesh)["model"]
     rank = mesh.get_local_rank("model")
 
@@ -244,3 +273,104 @@ def expert_slabs(params: Any, mesh) -> Any:
         e_loc = tree.shape[dim] // tp
         return tree.narrow(dim, rank * e_loc, e_loc)
     return build(params, "")
+
+
+# ---------------------------------------------------------------------------
+# the rank's state
+# ---------------------------------------------------------------------------
+
+def spec_axes(entry: Any) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh: Any
+                ) -> Tuple[int, ...]:
+    """The block of ``shape`` that one rank holds under ``spec``."""
+    sizes = mesh_axes(mesh)
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        out[d] //= math.prod(sizes[a] for a in spec_axes(entry))
+    return tuple(out)
+
+
+def local_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (a view): along a dim
+    split over several axes the block index runs over them outer axis
+    first, as a ``NamedSharding`` places it."""
+    sizes = mesh_axes(mesh)
+    for d, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if not axes:
+            continue
+        idx = 0
+        for a in axes:
+            idx = idx * sizes[a] + mesh.get_local_rank(a)
+        size = t.shape[d] // math.prod(sizes[a] for a in axes)
+        t = t.narrow(d, idx * size, size)
+    return t
+
+
+def _own(block: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """``block`` as a tensor of its own storage where it is a part of
+    ``whole`` (a shard's bytes are the shard's)."""
+    return block if block.numel() == whole.numel() else block.clone()
+
+
+def _map2(fn, tree: Any, specs: Any, path: str = "") -> Any:
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, specs[k], f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    return fn(path, tree, specs)
+
+
+def shard_params(params: Any, mesh) -> Any:
+    """This rank's shard of every leaf of ``params`` (the whole tree) by
+    :func:`param_shardings`: split over ``data`` (FSDP) and ``model``
+    (TP / EP) where the rules put them and the axis divides the dim, a
+    stacked leaf's repeat dim whole.  Each shard owns its storage."""
+    specs = param_shardings(params, mesh)
+    return _map2(lambda _p, t, s: _own(local_block(t, s.spec, mesh), t),
+                 params, specs)
+
+
+def gather_params(shards: Any, mesh, shapes: Any) -> Any:
+    """The whole tree from every rank's :func:`shard_params` (for
+    checkpoints and tests; no autograd): ``shapes`` the whole tree's
+    shapes (``models.param_shapes(cfg)``).  Every rank gets the whole
+    tree."""
+    specs = param_shardings(shapes, mesh)
+
+    def one(_path: str, t: torch.Tensor, s: NamedSharding) -> torch.Tensor:
+        for d, entry in enumerate(s.spec):
+            for a in reversed(spec_axes(entry)):      # inner axis first
+                group = mesh.get_group(a)
+                parts = [torch.empty_like(t)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, t.contiguous(), group=group)
+                t = torch.cat(parts, dim=d)
+        return t
+    return _map2(one, shards, specs)
+
+
+def batch_axes(mesh: Any) -> Tuple[str, ...]:
+    """The mesh's data-parallel axes, over which a batch is split."""
+    return tuple(a for a in LOGICAL_RULES["batch"] if a in mesh_axes(mesh))
+
+
+def shard_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """This rank's rows of every (B, ...) entry of ``batch`` (``tokens``,
+    ``targets``, ``loss_mask``, ``patch_embeds``, ``encoder_embeds``) by
+    :func:`batch_spec`.  The placed path wants the batch split over every
+    data-parallel axis: B must divide by their product."""
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        spec = batch_spec(mesh, v.shape).spec
+        if set(spec_axes(spec[0])) != set(batch_axes(mesh)):
+            raise ValueError(f"batch {k!r} of {tuple(v.shape)} rows does not "
+                             f"split over the mesh's {batch_axes(mesh)} axes")
+        out[k] = local_block(v, spec, mesh)
+    return out

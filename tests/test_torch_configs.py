@@ -37,12 +37,15 @@ def test_the_registry_holds_the_ported_archs():
 def test_config_equals_the_reference(arch, smoke):
     """Every field of the port's ModelConfig equals the reference's (the
     dtype by name), the training fields (remat, logit_chunk,
-    causal_block_skip) and the mesh path's moe_a2a among them; only the
-    reference's unroll_scan, mlp_tp and decode_replicate_acts have no
-    counterpart in the port."""
+    causal_block_skip), the mesh path's moe_a2a and the placements'
+    mlp_tp among them; only the reference's unroll_scan and
+    decode_replicate_acts have no counterpart in the port."""
     got = smoke_config(arch) if smoke else get_config(arch)
     want = (jregistry.smoke_config(arch) if smoke
             else jregistry.get_config(arch))
+    mine = {f.name for f in dataclasses.fields(ModelConfig)}
+    assert {f.name for f in dataclasses.fields(want)} - mine == {
+        "unroll_scan", "decode_replicate_acts"}
     for f in dataclasses.fields(ModelConfig):
         g, w = getattr(got, f.name), getattr(want, f.name)
         if f.name == "dtype":

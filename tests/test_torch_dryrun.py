@@ -38,7 +38,7 @@ from repro_torch.tunedb.obs import get_registry
 from repro_torch.tunedb.store import RecordStore, TuneRecord, install_serving
 from repro_torch.tunedb.telemetry import get_telemetry
 
-from torch_ranks import finish, start_child
+from torch_ranks import finish, load_ranks, start_child, start_ranks
 
 KINDS = {"train": Shape("tiny_train", "train", 16, 2),
          "prefill": Shape("tiny_prefill", "prefill", 16, 2),
@@ -110,6 +110,54 @@ for arch in ARCH_NAMES:
 json.dump(out, open(sys.argv[1], "w"))
 """
 
+# the placed steps (``build_cell(placed=True)``): smollm's and dbrx's
+# SMOKE train and prefill at mesh (data, model) = (2, 2), counted on meta
+# as rank 0 of a fake world of 4 and on CPU tensors as rank 0 of a real
+# 4-rank gloo world
+PLACED_ARCHS = ("smollm-135m", "dbrx-132b")
+PLACED = r"""
+from repro_torch.configs import smoke_config
+from repro_torch.configs.shapes import Shape
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+mesh = make_host_mesh(model=2, device="cpu")
+for arch in ("smollm-135m", "dbrx-132b"):
+    for kind in ("train", "prefill"):
+        cell = dryrun.build_cell(smoke_config(arch), Shape("t", kind, 16, 2),
+                                 mesh, device=DEVICE, placed=True)
+        art = dryrun.count_step(cell)
+        RESULTS[f"{arch}/{kind}"] = {"cost": art["cost"],
+                                     "collectives": art["collectives"],
+                                     "argument": dryrun.argument_bytes(cell)}
+"""
+PLACED_FAKE = r"""
+import json, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch import compat
+compat.init_fake_world(4)
+DEVICE, RESULTS = "meta", {}
+""" + PLACED + r"""
+json.dump(RESULTS, open(sys.argv[1], "w"))
+"""
+PLACED_RANKS = 'DEVICE = "cpu"\n' + PLACED
+
+# every count of the SMOKE steps with no mesh before the placements: the
+# path with no mesh adds no op (aten ops, GEMM calls, FLOPs, bytes; the
+# parent tree's ``count_step`` of ``build_cell(cfg, KINDS[kind])``)
+NO_MESH_COUNTS = {
+    "smollm-135m/train": (1715, 56, 38486016, 45557936),
+    "smollm-135m/prefill": (358, 14, 7520256, 2904544),
+    "dbrx-132b/train": (2177, 32, 46923776, 72909368),
+    "dbrx-132b/prefill": (513, 8, 9863168, 4283972),
+    "mamba2-1.3b/train": (1620, 16, 24248320, 36392548),
+    "mamba2-1.3b/prefill": (351, 4, 4423680, 4303808),
+    "whisper-base/train": (4259, 144, 61734912, 76524540),
+    "whisper-base/prefill": (887, 36, 13500416, 5978624),
+    "internvl2-76b/train": (1723, 56, 27918336, 34834544),
+    "internvl2-76b/prefill": (359, 14, 5111808, 2528576),
+}
+
 CLI = r"""
 import runpy, sys
 sys.argv = ["dryrun", *sys.argv[1:]]
@@ -125,6 +173,19 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def placed_runs(tmp_path_factory):
+    """The placed steps on meta (a fake world of 4) and on CPU tensors
+    (rank 0 of 4 gloo ranks), side by side."""
+    tmp = tmp_path_factory.mktemp("dryrun_placed")
+    procs = start_ranks(PLACED_RANKS, 4, tmp)
+    procs.append(start_child(PLACED_FAKE, tmp, "fake4",
+                             [str(tmp / "fake4.json")]))
+    finish(procs, timeout=300)
+    return {"meta": json.loads((tmp / "fake4.json").read_text()),
+            "real": load_ranks(tmp, 4)[0]}
 
 
 @pytest.fixture(scope="module")
@@ -190,6 +251,36 @@ def test_counts_equal_a_real_cpu_run(arch, kind):
     gemm = sum(n for key, n in meta["resolutions"].items()
                if key.startswith("gemm/"))
     assert gemm == meta["cost"]["gemm_calls"] > 0
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+@pytest.mark.parametrize("arch", PLACED_ARCHS)
+def test_placed_counts_equal_a_real_gloo_rank(placed_runs, arch, kind):
+    """At fake world 4 and mesh (2, 2) the placed step's per-rank FLOPs,
+    bytes, ops and collective bytes of each kind, counted on meta, equal
+    exactly what ``counting()`` gives for rank 0 of a real 4-rank gloo
+    run; the rank holds its shards (argument bytes alike)."""
+    meta = placed_runs["meta"][f"{arch}/{kind}"]
+    real = placed_runs["real"][f"{arch}/{kind}"]
+    for k in EXACT + ("flops", "bytes_aten"):
+        assert meta["cost"][k] == real["cost"][k], k
+    assert meta["cost"]["by_op"] == real["cost"]["by_op"]
+    assert meta["collectives"] == real["collectives"]
+    assert meta["collectives"]["all-gather"] > 0
+    assert meta["collectives"]["reduce-scatter"] > 0
+    assert meta["argument"] == real["argument"]
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+@pytest.mark.parametrize("arch", sorted({a.split("/")[0]
+                                         for a in NO_MESH_COUNTS}))
+def test_the_path_with_no_mesh_adds_no_op(arch, kind):
+    """With no mesh, a SMOKE train step and prefill make the ops, GEMM
+    calls, FLOPs and bytes they made before the placements."""
+    c = dryrun.count_step(dryrun.build_cell(smoke_config(arch),
+                                            KINDS[kind]))["cost"]
+    assert (c["aten_ops"], c["gemm_calls"], c["flops"],
+            c["bytes_accessed"]) == NO_MESH_COUNTS[f"{arch}/{kind}"]
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
