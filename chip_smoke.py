@@ -346,15 +346,26 @@ exits non-zero:
                 width on 8 x 512 tokens within 1e-2 of the no-mesh step,
                 GEMM launches equal, SmolLM's collective bytes
                 ``analysis.comm.placed_bytes``'s, its 4 x 32 prefill
-                bitwise the no-mesh one; the ms of each path
+                bitwise the no-mesh one; the decode placements (a
+                ``shard_cache`` cache): SmolLM-135M's 4 x 32 prefill and
+                16 greedy decode steps, mamba2-1.3b's (48 layers,
+                head-parallel TP) prefill and 8 steps, dbrx-132b's 8
+                steps through the EP ``moe_decode``, each step's logits
+                bitwise (or within 1e-3 of their max) the no-mesh step's,
+                the greedy tokens equal, GEMM launches equal (SmolLM's
+                collective bytes ``placed_bytes``'s); mamba2's placed
+                ``loss_fn`` step at 8 of 48 layers on 8 x 512 tokens
+                within 1e-2; the ms of each path
  25d. dryrun   the dry-run (``launch/dryrun.py``): B, two cells both
                 ways, on meta tensors and on the card: V1 SmolLM-135M's
                 training step at 8 x 512 (no mesh, split-K records
                 installed) and V2 dbrx-132b at 2 of 40 layers, a 4 x 32
-                prefill placed on the 1-rank NCCL host mesh (its meta pass in a
-                fake world of one, in a child that has exited before any
-                step is timed): GEMM calls, sum 2·M·N·K, reduction passes,
-                aten FLOPs and bytes (V2: the collective bytes too) equal
+                prefill placed on the 1-rank NCCL host mesh, and V3
+                SmolLM-135M's decode step at 16 x 32768 placed there (the
+                meta passes in fake worlds of one, in children that have
+                exited before any step is timed): GEMM calls, sum
+                2·M·N·K, reduction passes, aten FLOPs and bytes (V2, V3:
+                the collective bytes too) equal
                 exactly; the estimated temp against the peak allocated
                 above what was held, the step's wall against the
                 roofline's largest term; then A, in a child process,
@@ -375,8 +386,8 @@ Each path (tune, models, serve, plans, admission, measure,
 degradation, trace, retune, fleet (the engine's; fleet_worker: the
 worker processes' own counts, from their reports), chaos (the engine's;
 chaos_workers: the worker threads' timings), serve_mamba, serve_moe,
-serve_encdec, serve_frontend, train, parallel, dryrun (V1's and V2's
-counted card runs))
+serve_encdec, serve_frontend, train, parallel, dryrun (V1's, V2's and
+V3's counted card runs))
 runs with every launch count set to 0 just before it and read just after; a kernel of the path
 that never launched fails.
 
@@ -5160,7 +5171,7 @@ def phase_mamba(backend, store: RecordStore, store_path: Path, fp: str,
     h = rms_norm(params["embed"][toks], layer["norm1"][0], cfg.norm_eps)
     _, xh, dt, a, bm, cm, _ = mssm.mamba_inputs(
         {k: v[0] for k, v in layer["mamba"].items()}, h,
-        d_model=cfg.d_model, state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
+        state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
     # contiguous, and dt in the kernel's IO dtype, for both
     args = (xh.contiguous(), dt.to(bf16), a, bm.contiguous(),
             cm.contiguous())
@@ -6401,6 +6412,9 @@ PARALLEL_REPS = 3                  # timed calls of each path
 PARALLEL_GRAD_TOL = 1e-2           # loss_fn grads, relative norm
 PIPE_MICRO, PIPE_MB, PIPE_S = 4, 2, 64   # the pipeline's microbatches
 PLACED_B, PLACED_S = 8, 512        # SmolLM-135M's placed training step
+DECODE_STEPS = {"smollm": 16, "mamba": 8, "dbrx": 8}   # placed decode steps
+DECODE_TOL = 1e-3                  # decode logits, relative to their max
+MAMBA_TRAIN_LAYERS = 8             # mamba2-1.3b's depth in its placed step
 
 
 def check_bytes(ops: list, want: dict, what: str) -> dict:
@@ -6553,7 +6567,9 @@ def parallel_checks(dev: torch.device, mesh, label: str,
     del leaves
     gc.collect()
     torch.cuda.empty_cache()
-    placed = {"dbrx": placed_train(base, params, batch, mesh, "dbrx", label)}
+    placed = {"dbrx": placed_train(base, params, batch, mesh, "dbrx", label),
+              "dbrx_decode": placed_decode(base, params, tokens,
+                                           DECODE_STEPS["dbrx"], mesh, label)}
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -6605,11 +6621,30 @@ def parallel_checks(dev: torch.device, mesh, label: str,
                                     "smollm", label)
     placed["smollm_prefill"] = placed_prefill(cfg, sparams, tokens[
         :PARALLEL_B, :PARALLEL_S], mesh, label)
+    placed["smollm_decode"] = placed_decode(cfg, sparams, tokens[
+        :PARALLEL_B, :PARALLEL_S], DECODE_STEPS["smollm"], mesh, label)
+    del sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Mamba's head-parallel TP: mamba2-1.3b whole for decode, cut for a step
+    cfg = get_config("mamba2-1.3b")
+    gen.manual_seed(0)
+    mparams = init_params(cfg, gen)
+    placed["mamba_decode"] = placed_decode(cfg, mparams, tokens[
+        :PARALLEL_B, :PARALLEL_S], DECODE_STEPS["mamba"], mesh, label)
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg, n_layers=MAMBA_TRAIN_LAYERS)
+    gen.manual_seed(0)
+    mparams = init_params(cfg, gen)
+    placed["mamba"] = placed_train(cfg, mparams, {"tokens": tokens}, mesh,
+                                   "mamba", label)
+    del mparams
     for name, got in placed.items():
         counts[f"placed_{name}"] = got["counts"]
         ms.update({f"placed_{name}_{k}": v for k, v in got["ms"].items()})
         nbytes_by_path[f"placed_{name}"] = got["bytes"]
-    del sparams
     wall = time.perf_counter() - t_phase
     phase("parallel", f"phase wall {wall:.1f} s")
     total = {k: sum(c[k] for c in counts.values())
@@ -6626,7 +6661,9 @@ def _grads_of(cfg, params, batch, mesh=None):
            else contextlib.nullcontext())
     with ctx:
         loss, _ = loss_fn(params, cfg, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a (mamba, none) layer's norm2 takes no part: a zero gradient
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     return float(loss.detach()), grads
 
 
@@ -6733,6 +6770,105 @@ def placed_prefill(cfg, params, tokens, mesh, label: str) -> dict:
     return {"counts": counts, "ms": ms, "bytes": nbytes}
 
 
+def placed_decode(cfg, params, prompt, steps: int, mesh, label: str) -> dict:
+    """A prefill of ``prompt`` (B, S) into a cache of ``S + steps``
+    positions rounded up to 64, then ``steps`` greedy decode steps with
+    per-slot (B,) indices, placed on the 1-rank mesh (``shard_params``,
+    ``shard_batch``, ``shard_cache``) against the same with no mesh:
+    every step's logits bitwise or within :data:`DECODE_TOL` of their max
+    (which is printed), the greedy tokens equal, GEMM launches > 0 and
+    equal; for a dense decoder the collective bytes ``placed_bytes``'s
+    (the prefill and each step); the ms of one decode step each way
+    (median of :data:`PARALLEL_REPS`)."""
+    B, S = prompt.shape
+    dev = prompt.device
+    L = -(-(S + steps) // 64) * 64
+    shards = shd.shard_params(params, mesh)
+
+    def ctx(placed: bool):
+        return (shd.use_rules(mesh, placed=True) if placed
+                else contextlib.nullcontext())
+
+    def run(placed: bool):
+        p = shards if placed else params
+        cache = init_cache(cfg, B, L, dev)
+        if placed:
+            cache = shd.shard_cache(cache, mesh)
+        batch = {"tokens": prompt}
+        out, toks = [], []
+        with torch.no_grad(), ctx(placed):
+            if placed:
+                batch = shd.shard_batch(batch, mesh)
+            lg, cache = prefill(p, cfg, batch, cache)
+            for t in range(steps + 1):
+                out.append(lg)
+                toks.append(lg.argmax(-1))
+                if t == steps:
+                    break
+                step = {"tokens": toks[-1][:, None],
+                        "index": torch.full((B,), S + t, device=dev)}
+                if placed:
+                    step = shd.shard_batch(step, mesh, whole_rows=True)
+                lg, cache = decode_step(p, cfg, step["tokens"], cache,
+                                        step["index"])
+        return out, torch.stack(toks, 1), cache, step
+
+    reset_launches()
+    want, want_tok, want_cache, _ = run(False)
+    counts0 = read_launches()
+    reset_launches()
+    with comm.record() as ops:
+        got, got_tok, cache, step = run(True)
+    counts = read_launches()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+    err = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(got, want))
+    nbytes = collective_bytes(ops)
+    formula = None
+    if cfg.pattern == (("attn", "dense"),):
+        sizes = shd.mesh_axes(mesh)
+        formula = comm.placed_bytes(cfg, B=B, S=S, sizes=sizes,
+                                    kind="prefill")
+        one = comm.placed_bytes(cfg, B=B, S=1, sizes=sizes, kind="decode")
+        formula = {k: formula[k] + steps * one[k] for k in formula}
+
+    def tick(placed: bool):
+        # the last step again (a Mamba state advances once more: timed,
+        # not compared)
+        p, c = (shards, cache) if placed else (params, want_cache)
+        with torch.no_grad(), ctx(placed):
+            decode_step(p, cfg, step["tokens"], c, step["index"])
+
+    ms = {"no_mesh": median_ms(lambda: tick(False), PARALLEL_REPS),
+          "placed": median_ms(lambda: tick(True), PARALLEL_REPS)}
+    kinds = sorted({op.kind for op in ops})
+    if not (err <= DECODE_TOL and torch.equal(got_tok, want_tok)
+            and counts["gemm"] and counts == counts0
+            and formula in (None, nbytes)):
+        raise AssertionError(f"parallel: {cfg.name} placed decode: logits "
+                             f"{err:.3e} from the no-mesh steps' (bitwise "
+                             f"{bitwise}), tokens equal "
+                             f"{torch.equal(got_tok, want_tok)}, launches "
+                             f"{counts} (no mesh {counts0}), bytes {nbytes}, "
+                             f"formula {formula}")
+    phase("parallel", f"{cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {str(cfg.dtype)[6:]}) placed {B} x {S}-token "
+          f"prefill into a shard_cache cache of {L} positions, then "
+          f"{steps} greedy decode steps with per-slot indices on the "
+          f"1-rank NCCL mesh: logits "
+          + ("bitwise the no-mesh steps'" if bitwise else
+             f"{err:.3e} of their max from the no-mesh steps' (not bitwise; "
+             f"limit {DECODE_TOL})")
+          + f"; greedy tokens equal ({got_tok.shape[1]} a slot); launches "
+          f"{counts} = no mesh's; collectives {kinds}, bytes {nbytes}"
+          + (" = analysis.comm.placed_bytes" if formula else "")
+          + f"; a decode step {ms['placed']:.2f} ms vs {ms['no_mesh']:.2f} "
+          f"ms with no mesh: {ms['placed'] - ms['no_mesh']:+.2f} ms of "
+          f"placed-path host cost ({label})")
+    return {"counts": counts, "ms": ms, "bytes": nbytes, "err": err,
+            "bitwise": bitwise}
+
+
 # the dryrun phase: the two cells held against the card, then full-size
 # cells through the CLI (a child process).  arctic-480b's train_4k stands
 # for the 8-microbatch, bf16-state cells: llama3-405b's took 148.8 s of
@@ -6745,6 +6881,7 @@ DRYRUN_CELLS = ("smollm-135m:train_4k:pod", "smollm-135m:prefill_32k:pod",
 DRYRUN_V1 = Shape("v1_train_8x512", "train", 512, 8)     # the trainer's
 DRYRUN_V2 = Shape("v2_prefill_4x32", "prefill", 32, 4)
 DRYRUN_V2_LAYERS = 2                 # dbrx-132b's depth in V2
+DRYRUN_V3 = Shape("v3_decode_16x32k", "decode", 32768, 16)  # SmolLM's
 DRYRUN_WARMUP, DRYRUN_REPS = 2, 5    # the step's wall: median of REPS
 # estimated temp over the measured peak above the held bytes: the limits
 # PERF.md's prediction for the dryrun phase states
@@ -6754,20 +6891,23 @@ DRYRUN_CHILD_TIMEOUT_S = 600
 DRYRUN_EXACT = ("gemm_calls", "flops_gemm", "reduce_calls", "flops_aten",
                 "bytes_accessed")
 
-# V2's meta pass: rank 0 of a fake world of one, the host mesh on the CPU
-# device type (the phase's NCCL group is another process's)
-DRYRUN_V2_META = r"""
+# V2's and V3's meta passes: rank 0 of a fake world of one, the host mesh
+# on the CPU device type (the phase's NCCL group is another process's);
+# arguments: arch, layers (0: all), kind, S, B
+DRYRUN_PLACED_META = r"""
 import dataclasses, json, sys
 from repro_torch import compat
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import Shape
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh
-layers, B, S = (int(a) for a in sys.argv[1:4])
-cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=layers)
+arch, layers, kind, S, B = sys.argv[1:6]
+cfg = get_config(arch)
+if int(layers):
+    cfg = dataclasses.replace(cfg, n_layers=int(layers))
 compat.init_fake_world(1)
 mesh = make_host_mesh(model=1, device="cpu")
-print(json.dumps(dryrun.cell_artifact(cfg, Shape("v2", "prefill", S, B),
+print(json.dumps(dryrun.cell_artifact(cfg, Shape(kind, kind, int(S), int(B)),
                                       mesh, placed=True)))
 """
 
@@ -6867,15 +7007,17 @@ def dryrun_hold(what: str, cfg, shape, mesh_name: str, meta: dict, cell,
 
 
 def phase_dryrun(dev: torch.device, tmp: Path, label: str) -> dict:
-    """The dry-run (``launch/dryrun.py``).  B first: two cells both ways,
-    the dry-run on meta and the same step on the card: V1 SmolLM-135M's
-    training step at 8 x 512 (no mesh) from an in-memory store of split-K
-    records (:func:`split_k_store`; exact tier), V2 dbrx-132b at 2 of 40
-    layers, a 4 x 32 prefill under ``make_host_mesh(model=1)`` in a
-    1-rank NCCL group (its meta pass in a child, a fake world of one,
-    which has exited before V1's step is timed), nothing installed.  GEMM
-    calls, sum 2·M·N·K, reduction passes, aten FLOPs and bytes (V2: the
-    collective bytes too) must equal exactly; the real runs launch the
+    """The dry-run (``launch/dryrun.py``).  B first: three cells both
+    ways, the dry-run on meta and the same step on the card: V1
+    SmolLM-135M's training step at 8 x 512 (no mesh) from an in-memory
+    store of split-K records (:func:`split_k_store`; exact tier), V2
+    dbrx-132b at 2 of 40 layers, a 4 x 32 prefill, and V3 SmolLM-135M's
+    decode step over a 16 x 32768 cache, both placed under
+    ``make_host_mesh(model=1)`` in a 1-rank NCCL group (their meta passes
+    in children, fake worlds of one, which have exited before V1's step
+    is timed), nothing installed.  GEMM calls, sum 2·M·N·K, reduction
+    passes, aten FLOPs and bytes (V2, V3: the collective bytes too) must
+    equal exactly; the real runs launch the
     GEMM kernel, V1 the reduction pass too; the meta passes launch
     nothing.  Then A, with no step being timed: the full-size cells of
     :data:`DRYRUN_CELLS` through ``python -m repro_torch.launch.dryrun``
@@ -6888,12 +7030,13 @@ def phase_dryrun(dev: torch.device, tmp: Path, label: str) -> dict:
     if serving_state().store is not None or serving_state().models is not None:
         raise AssertionError("dryrun: a store or models are installed")
     out_dir = tmp / "dryrun_torch"
-    v2_meta = Child("dryrun-v2-meta", [sys.executable, "-c", DRYRUN_V2_META,
-                                       str(DRYRUN_V2_LAYERS),
-                                       str(DRYRUN_V2.global_batch),
-                                       str(DRYRUN_V2.seq_len)],
-                    tmp / "dryrun_v2_meta.log")
-    children = [v2_meta]
+    metas = {name: Child(f"dryrun-{name}-meta", [
+        sys.executable, "-c", DRYRUN_PLACED_META, arch, str(layers),
+        shape.kind, str(shape.seq_len), str(shape.global_batch)],
+        tmp / f"dryrun_{name}_meta.log") for name, arch, layers, shape in (
+            ("v2", "dbrx-132b", DRYRUN_V2_LAYERS, DRYRUN_V2),
+            ("v3", "smollm-135m", 0, DRYRUN_V3))}
+    children = list(metas.values())
     try:
         held = {}
         # V1: no mesh, the meta pass here
@@ -6910,10 +7053,12 @@ def phase_dryrun(dev: torch.device, tmp: Path, label: str) -> dict:
                 raise AssertionError(f"dryrun: V1's meta pass launched "
                                      f"{read_launches()}")
             cell = dryrun.build_cell(cfg, DRYRUN_V1, device=dev, seed=0)
-            line = v2_meta.wait_line(lambda ln: ln.startswith("{"),
-                                     "V2's dry-run JSON",
-                                     DRYRUN_CHILD_TIMEOUT_S)
-            v2_meta.wait_exit(0, DRYRUN_CHILD_TIMEOUT_S)
+            lines = {name: child.wait_line(lambda ln: ln.startswith("{"),
+                                           f"{name}'s dry-run JSON",
+                                           DRYRUN_CHILD_TIMEOUT_S)
+                     for name, child in metas.items()}
+            for child in metas.values():
+                child.wait_exit(0, DRYRUN_CHILD_TIMEOUT_S)
             held["v1"] = dryrun_hold(
                 f"V1 {cfg.name} train {DRYRUN_V1.global_batch} x "
                 f"{DRYRUN_V1.seq_len} (meta pass {meta_s:.1f} s, "
@@ -6932,7 +7077,7 @@ def phase_dryrun(dev: torch.device, tmp: Path, label: str) -> dict:
         # V2: dbrx-132b at 2 layers under the host mesh in a 1-rank group
         cfg = dataclasses.replace(get_config("dbrx-132b"),
                                   n_layers=DRYRUN_V2_LAYERS)
-        meta = json.loads(line)
+        meta = json.loads(lines["v2"])
         torch.cuda.set_device(dev)
         dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv-dry",
                                 rank=0, world_size=1, device_id=dev)
@@ -6947,13 +7092,28 @@ def phase_dryrun(dev: torch.device, tmp: Path, label: str) -> dict:
                 f"a fake world of one, resolutions {meta['resolutions']})",
                 cfg, DRYRUN_V2, "host", meta, cell, dev, True, label)
             del cell
+            gc.collect()
+            torch.cuda.empty_cache()
+            # V3: SmolLM-135M's decode step, placed, a cache of 16 x 32768
+            cfg = get_config("smollm-135m")
+            meta = json.loads(lines["v3"])
+            cell = dryrun.build_cell(cfg, DRYRUN_V3, mesh, device=dev, seed=0,
+                                     placed=True)
+            held["v3"] = dryrun_hold(
+                f"V3 {cfg.name} decode step, {DRYRUN_V3.global_batch} slots "
+                f"x a {DRYRUN_V3.seq_len}-position cache, on the 1-rank NCCL "
+                f"host mesh (meta pass {meta['wall_s']:.1f} s in a fake world "
+                f"of one, resolutions {meta['resolutions']})",
+                cfg, DRYRUN_V3, "host", meta, cell, dev, True, label)
+            del cell
         finally:
             dist.destroy_process_group()
             gc.collect()
             torch.cuda.empty_cache()
-        if not held["v2"]["launches"]["gemm"] or \
-                not held["v2"]["collectives"]["total"]:
-            raise AssertionError(f"dryrun: V2 {held['v2']}")
+        for v in ("v2", "v3"):
+            if not held[v]["launches"]["gemm"] or \
+                    not held[v]["collectives"]["total"]:
+                raise AssertionError(f"dryrun: {v} {held[v]}")
         held_s = time.perf_counter() - t_phase
 
         # A: the CLI's full-size cells, with no step being timed
@@ -7002,12 +7162,13 @@ def phase_dryrun(dev: torch.device, tmp: Path, label: str) -> dict:
                        "(model figures at H100 SXM peaks, not card "
                        "measurements)"), flush=True)
     wall = time.perf_counter() - t_phase
-    launches = {k: held["v1"]["launches"][k] + held["v2"]["launches"][k]
+    launches = {k: sum(h["launches"][k] for h in held.values())
                 for k in held["v1"]["launches"]}
     phase("dryrun", f"the cells' walls {walls} ({sum(walls.values()):.1f} s "
           f"in the child); launches on the "
-          f"dryrun path (V1's and V2's counted card runs) {launches}; phase "
-          f"wall {wall:.1f} s: V1 and V2 {held_s:.1f} s, then the cells "
+          f"dryrun path (V1's, V2's and V3's counted card runs) "
+          f"{launches}; phase wall {wall:.1f} s: V1, V2 and V3 "
+          f"{held_s:.1f} s, then the cells "
           f"{cells_s:.1f} s")
     return {"counts": launches, "held": held, "cell_walls": walls,
             "wall_s": wall, "held_s": held_s, "cells_s": cells_s}

@@ -141,12 +141,15 @@ def pipeline_bytes(*, n_micro: int, n_stages: int, micro_bytes: int
 
 
 def placed_bytes(cfg, *, B: int, S: int, sizes: Dict[str, int],
-                 kind: str) -> Dict[str, int]:
+                 kind: str, adamw: bool = False) -> Dict[str, int]:
     """The collectives of one rank's placed step (``models/placed.py``)
     for a decoder of (attention, SwiGLU) layers with no frontend: a
-    ``train`` step (``loss_fn`` forward and backward) or a ``prefill``,
-    on B rows of S tokens (the whole batch) over a mesh of ``sizes``
-    ({axis: size}; ``data``, ``model`` and optionally ``pod``).  Where
+    ``train`` step (``loss_fn`` forward and backward, and with ``adamw``
+    the update's global norm, as the dry-run's train cell runs it), a
+    ``prefill`` or a ``decode`` step, on B rows of S tokens (the whole
+    batch; a decode step's one token a row, B divided by the batch axes)
+    over a mesh of ``sizes`` ({axis: size}; ``data``, ``model`` and
+    optionally ``pod``).  Where
     ``cfg.remat``, each repeat's forward collectives run again in its
     recompute, but for its last ``seq_scatter``: ``torch.utils.checkpoint``
     stops the recompute once every tensor the backward needs is back, as
@@ -160,7 +163,17 @@ def placed_bytes(cfg, *, B: int, S: int, sizes: Dict[str, int],
     sums and the aux mean over the batch axes.  Backward: a
     reduce-scatter of each gather's input, an all-gather for each
     ``seq_scatter``, and an all-reduce of each leaf over every axis it is
-    not split on (``Placement.enter``)."""
+    not split on (``Placement.enter``).  The global norm
+    (``optim.adamw.global_norm``): an fp32 scalar all-reduced over each
+    axis of each set of axes that leaves are split on.
+
+    Decode: each weight's gathers; the lookup's all-reduce over
+    ``model``; q, K and V gathered over their heads where they are
+    column-parallel; the log-sum-exp combine's three all-reduces (the
+    max and the sum of exponentials, fp32 (B/dp, H), the accumulator
+    fp32 (B/dp, H, hd)); an all-reduce of the (B/dp, 1, D) output after
+    a row-parallel ``wo`` and ``w_down``; the logits' vocab slices
+    gathered, fp32."""
     from repro_torch.models.model import ATTN, DENSE, param_shapes
     from repro_torch.parallel import sharding as shd
     if cfg.pattern != ((ATTN, DENSE),) or cfg.is_encdec or \
@@ -203,6 +216,8 @@ def placed_bytes(cfg, *, B: int, S: int, sizes: Dict[str, int],
             for k, v in bwd.items():
                 tot[k] += times * v
 
+    if kind == "decode":
+        return _decode_bytes(cfg, weight, Bl=Bl, tp=tp, e=e)
     act, chunk = Bl * S * D * e, Bl * (S // tp) * D * e
     kv = 2 * Bl * S * G * hd * e
     # one repeat: attention, MLP
@@ -255,16 +270,45 @@ def placed_bytes(cfg, *, B: int, S: int, sizes: Dict[str, int],
         tot["all-reduce"] += 4 * len(bat)    # aux mean
         tot["all-reduce"] += 3 * 4 * len(bat)  # mask count, loss, correct
         shapes_tree = param_shapes(cfg)
+        split_on = set()
         for shape, ns in zip(_leaves(shapes_tree),
                              _leaves(shd.param_shardings(shapes_tree, mesh))):
             spec = ns.spec
             axes = {a for en in spec for a in shd.spec_axes(en)}
+            split_on.add(frozenset(axes))
             local = math.prod(shd.local_shape(shape, spec, mesh)) * e
             tot["all-reduce"] += local * sum(
                 1 for a in (*bat, "model") if a in sizes and a not in axes)
+        if adamw:
+            tot["all-reduce"] += 4 * sum(len(a) for a in split_on)
     else:
         tot["all-gather"] += Bl * tp * D * e + ef + Bl * V * 4
     return _sum(tot)
+
+
+def _decode_bytes(cfg, weight, *, Bl: int, tp: int, e: int
+                  ) -> Dict[str, int]:
+    """:func:`placed_bytes` of a decode step (``weight``: its gather
+    bytes of a leaf)."""
+    D, H, G, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff
+    q_tp, kv_tp = H % tp == 0, G % tp == 0
+    mlp_tp = cfg.mlp_tp and F % tp == 0
+    out = Bl * D * e
+    ag = ar = 0
+    for name, shape, col, split in (
+            ("wq", (D, H * hd), 1, q_tp), ("wk", (D, G * hd), 1, kv_tp),
+            ("wv", (D, G * hd), 1, kv_tp), ("wo", (H * hd, D), 0, q_tp)):
+        ag += weight(f"attn/{name}", shape, col if split else None)[0]
+    ag += Bl * H * hd * e * q_tp + 2 * Bl * G * hd * e * kv_tp
+    ar += 2 * Bl * H * 4 + Bl * H * hd * 4 + out * q_tp
+    for name, shape, col in (("w_gate", (D, F), 1), ("w_up", (D, F), 1),
+                             ("w_down", (F, D), 0)):
+        ag += weight(f"mlp/{name}", shape, col if mlp_tp else None)[0]
+    ar += out * mlp_tp
+    ef = weight("embed", (cfg.padded_vocab, D), 0)[0]
+    return _sum({"all-gather": cfg.n_repeats * ag + 2 * ef
+                 + Bl * cfg.padded_vocab * 4,
+                 "all-reduce": cfg.n_repeats * ar + out})
 
 
 def _leaves(tree) -> list:

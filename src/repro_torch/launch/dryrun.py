@@ -35,16 +35,18 @@ The reference compiles each cell three times because XLA's
 ``cost_analysis`` counts a while body once; the port counts one pass at
 full depth, and its artifact says so.
 
-The CLI's train and prefill cells run the FSDP/TP placements (ROADMAP
-A8.2, slice 2; ``build_cell(placed=True)``): the rank's block of every
-parameter (``parallel.sharding.shard_params``) and AdamW state, its rows
-of the batch (``shard_batch``; microbatches split those rows) and a cache
-of its rows, whole over the sequence, under ``use_rules(mesh,
-placed=True)`` (``models/placed.py``).  Decode cells stay replicated:
-every rank holds the whole model but its expert slabs and the whole
-batch, and a decode step's MoE runs every expert (``moe_decode`` has no
-mesh path); their placements are slice 3's (A8.3).  ``build_cell``
-without ``placed`` builds train and prefill that way too.
+Every CLI cell runs the FSDP/TP placements (ROADMAP A8.2, A8.3;
+``build_cell(placed=True)``) under ``use_rules(mesh, placed=True)``
+(``models/placed.py``): the rank's block of every parameter
+(``parallel.sharding.shard_params``) and AdamW state, its rows of the
+batch (``shard_batch``; microbatches split those rows; a decode step's
+tokens, per-slot index and memory whole over an axis its B does not
+divide, as ``long_500k``'s one row) and its block of the cache
+(``shard_cache``: its rows, the KV length over ``model``, a Mamba
+state's heads over ``model``).  ``build_cell`` without ``placed`` builds
+the replicated mode: every rank holds the whole model but its expert
+slabs (a decode step: every leaf whole, ``moe_decode`` running every
+expert) and the whole batch.
 
 A dry-run leaves the process's serving state as it found it: dispatch's
 ``tier_counts``, the shape telemetry, the degraded-tier counter and the
@@ -205,11 +207,8 @@ def build_prefill(cfg: ModelConfig, mesh, placed: bool = False) -> Callable:
 
 
 def build_decode(cfg: ModelConfig, mesh, placed: bool = False) -> Callable:
-    if placed:
-        raise ValueError("a decode step has no placements (ROADMAP A8.3)")
-
     def step(state: Dict[str, Any], inputs: Dict[str, Any]):
-        with torch.no_grad(), shd.use_rules(mesh):
+        with torch.no_grad(), shd.use_rules(mesh, placed=placed):
             return decode_step(state["params"], cfg, inputs["tokens"],
                                inputs["cache"], inputs["index"],
                                memory=inputs.get("memory"))
@@ -300,15 +299,18 @@ def build_cell(cfg: ModelConfig, shape: Shape, mesh=None, *,
     (the dry-run; parameters by :func:`meta_params`) or a real device
     (``init_params`` from a ``torch.Generator`` seeded ``seed`` on it).
     Under ``mesh`` a train or prefill step holds this rank's expert slabs
-    and the rest whole, with the whole batch; with ``placed`` it holds
-    the rank's shard of every leaf (``shard_params``), its rows of the
-    batch (``shard_batch``) and a cache of its rows, and runs the FSDP/TP
-    placements.  A decode step is never placed.  A training state holds
+    and the rest whole (a decode step every leaf whole), with the whole
+    batch; with ``placed`` it holds the rank's shard of every leaf
+    (``shard_params``), its rows of the batch (``shard_batch``; a decode
+    step's whole over an axis its B does not divide) and its block of
+    the cache (``shard_cache``), and runs the FSDP/TP placements.  A
+    training state holds
     the parameters (requiring grad), the AdamW state (``opt_config_for``)
     and, over more than one microbatch, the gradient accumulators
     (``grad_accum_dtype``), each beside the rank's parameters."""
     dev = torch.device(device)
-    placed = placed and mesh is not None and shape.kind != "decode"
+    placed = placed and mesh is not None
+    decode = shape.kind == "decode"
     if dev.type == "meta":
         params = meta_params(cfg)
     else:
@@ -317,9 +319,9 @@ def build_cell(cfg: ModelConfig, shape: Shape, mesh=None, *,
         params = init_params(cfg, gen)
     if placed:
         params = shd.shard_params(params, mesh)
-    elif shape.kind != "decode":
-        # a decode step's MoE runs every expert on every rank
-        # (``moe_decode`` has no mesh path), so its leaves stay whole
+    elif not decode:
+        # the replicated mode's decode step runs every expert of
+        # ``moe_decode`` on every rank, so its leaves stay whole
         params = _slabs(params, mesh, rules)
     state: Dict[str, Any] = {"params": params}
     if shape.kind == "train":
@@ -337,19 +339,18 @@ def build_cell(cfg: ModelConfig, shape: Shape, mesh=None, *,
         specs["index"] = torch.empty((shape.global_batch,),
                                      dtype=specs["index"].dtype,
                                      device="meta")
-    has_cache = placed and specs.pop("cache", None) is not None
+    cache = specs.pop("cache", None) if placed else None
     inputs = specs if dev.type == "meta" else _realize(cfg, shape, specs,
                                                        dev, seed)
     if placed:
-        # the rank's rows, each a tensor of its own, and a cache of them
-        inputs = {k: v.clone() for k, v in shd.shard_batch(inputs,
-                                                           mesh).items()}
-        if has_cache:
-            rows = dataclasses.replace(
-                shape, global_batch=inputs["tokens"].shape[0])
-            cache = input_specs(cfg, rows)["cache"]
-            inputs["cache"] = (cache if dev.type == "meta" else _realize(
-                cfg, rows, {"cache": cache}, dev, seed)["cache"])
+        # the rank's rows, each a tensor of its own, and its block of the
+        # cache
+        inputs = {k: v.clone() for k, v in shd.shard_batch(
+            inputs, mesh, whole_rows=decode).items()}
+        if cache is not None:
+            inputs["cache"] = shd.shard_cache(
+                cache if dev.type == "meta" else _realize(
+                    cfg, shape, {"cache": cache}, dev, seed)["cache"], mesh)
     return Cell(BUILDERS[shape.kind](cfg, mesh, placed), state, inputs)
 
 
@@ -681,7 +682,7 @@ def cell_artifact(cfg: ModelConfig, shape: Shape, mesh=None, *,
         art["skipped"] = reason
         return art
     shd.set_param_rules(rules)
-    placed = placed and mesh is not None and shape.kind != "decode"
+    placed = placed and mesh is not None
     art["placed"] = placed
     t0 = time.perf_counter()
     art.update(count_step(build_cell(cfg, shape, mesh, rules=rules,
@@ -694,7 +695,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
              overrides: Optional[Dict[str, Any]] = None,
              tag: str = "", rules: str = "default", mesh: Any = None,
              verbose: bool = True) -> Dict[str, Any]:
-    """One production cell's artifact, train and prefill placed.
+    """One production cell's artifact, every kind placed.
     ``mesh``: the production mesh of ``mesh_name`` already built
     (``main`` builds one a world); else the cell makes its fake world and
     mesh and destroys the world after."""

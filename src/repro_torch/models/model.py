@@ -41,12 +41,13 @@ backward stacks the repeats' grads in one op.  Without autograd (the
 serving engine, a CUDA graph capture) no checkpoint runs.
 
 Over a mesh: under ``parallel.sharding.use_rules(mesh, placed=True)``
-``forward``, ``loss_fn``, ``prefill`` and ``encode`` take the rank's
-shards (``shard_params``, ``shard_batch``) and run the FSDP/TP
-placements of ``models/placed.py`` (ROADMAP A8.2, slice 2); a decode step
-is refused there (A8.3).  Under plain ``use_rules(mesh)`` every layer
-runs whole on every rank and only the MoE layers take their
-expert-parallel paths (:func:`_moe`).  Outside both no op is added.
+``forward``, ``loss_fn``, ``prefill``, ``encode`` and ``decode_step``
+take the rank's shards (``shard_params``, ``shard_batch``, a
+``shard_cache`` cache) and run the FSDP/TP placements of
+``models/placed.py`` (ROADMAP A8.2, A8.3).  Under plain
+``use_rules(mesh)`` every layer runs whole on every rank and only the
+MoE layers take their expert-parallel paths (:func:`_moe`).  Outside
+both no op is added.
 
 ``prefill``'s batch holds ``tokens`` and, for an encoder-decoder,
 ``encoder_embeds`` (B, L_enc, D), which it encodes itself; for a vision
@@ -399,18 +400,20 @@ def _apply_repeat(cfg: ModelConfig, p_r: Params, c_r: Params,
                   memory: Optional[torch.Tensor], has_cache: bool,
                   cache_index, want_aux: bool,
                   pl: Optional[P.Placement] = None,
-                  shapes: Optional[Params] = None
+                  shapes: Optional[Params] = None, decode: bool = False
                   ) -> Tuple[torch.Tensor, Any]:
     """One repeat of the stack: ``pattern``'s layers in order.  Returns
     (x, the summed fp32 aux loss of its capacity-path MoE layers where
     ``want_aux``, else 0.0: the serving path adds no op for it).  With a
     placement ``pl`` (``shapes``: the repeat's global leaf shapes) x is
-    the rank's chunk and every block runs placed (``models/placed.py``)."""
+    the rank's chunk, or with ``decode`` its (B/dp, 1, D) at a decode
+    step, and every block runs placed (``models/placed.py``)."""
     if pl is not None:
         return _apply_repeat_placed(cfg, pl, p_r, shapes, c_r, x,
                                     pattern=pattern, positions=positions,
                                     causal=causal, memory=memory,
-                                    want_aux=want_aux)
+                                    want_aux=want_aux, decode=decode,
+                                    cache_index=cache_index)
     if callable(p_r):           # gathered inside the repeat: _run_stack
         p_r = p_r()
     aux: Any = 0.0
@@ -465,34 +468,51 @@ def _apply_repeat_placed(cfg: ModelConfig, pl: P.Placement, p_r: Params,
                          shapes: Params, c_r: Params, x: torch.Tensor, *,
                          pattern: Tuple[Tuple[str, str], ...],
                          positions: torch.Tensor, causal: bool,
-                         memory: Optional[torch.Tensor], want_aux: bool
+                         memory: Optional[torch.Tensor], want_aux: bool,
+                         decode: bool = False, cache_index=None
                          ) -> Tuple[torch.Tensor, Any]:
-    """:func:`_apply_repeat` on the rank's chunk x (B/dp, S/tp, D)."""
+    """:func:`_apply_repeat` on the rank's chunk x (B/dp, S/tp, D), or
+    with ``decode`` on its (B/dp, 1, D) at position ``cache_index``."""
     aux: Any = 0.0
     for i, (mixer, mlp_kind) in enumerate(pattern):
         p, shp = p_r[f"pos{i}"], shapes[f"pos{i}"]
         c = c_r.get(f"pos{i}", {})
         h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-        if mixer == ATTN:
+        if mixer == ATTN and decode:
+            out = P.attention_decode(pl, cfg, p["attn"], shp["attn"], h,
+                                     positions=positions, index=cache_index,
+                                     qk_norm=cfg.qk_norm, cache=c["attn"])
+        elif mixer == ATTN:
             out = P.attention(pl, cfg, p["attn"], shp["attn"], h,
                               positions=positions, causal=causal,
                               qk_norm=cfg.qk_norm, cache=c.get("attn"))
         else:
             out = P.mamba(pl, cfg, p["mamba"], shp["mamba"], h,
-                          cache=c.get("mamba"))
+                          cache=c.get("mamba"), decode=decode)
         x = x + out
         if memory is not None and "cross" in p:
             h = L.rms_norm(x, p["norm_cross"], cfg.norm_eps)
-            x = x + P.attention(pl, cfg, p["cross"], shp["cross"], h,
-                                positions=positions, causal=False,
-                                qk_norm=False, memory=memory, path="cross")
+            if decode:
+                x = x + P.attention_decode(
+                    pl, cfg, p["cross"], shp["cross"], h,
+                    positions=positions, index=cache_index, qk_norm=False,
+                    memory=memory, path="cross")
+            else:
+                x = x + P.attention(pl, cfg, p["cross"], shp["cross"], h,
+                                    positions=positions, causal=False,
+                                    qk_norm=False, memory=memory,
+                                    path="cross")
         if mlp_kind == NONE:
             continue
         h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         out = None
         if mlp_kind in (DENSE, MOE_DENSE):
-            out = P.mlp(pl, cfg, p["mlp"], shp["mlp"], h)
-        if mlp_kind in (MOE_MLP, MOE_DENSE):
+            out = (P.mlp_decode if decode else P.mlp)(pl, cfg, p["mlp"],
+                                                      shp["mlp"], h)
+        if mlp_kind in (MOE_MLP, MOE_DENSE) and decode:
+            mo = P.moe_decode(pl, cfg, p["moe"], shp["moe"], h)
+            out = mo if out is None else out + mo
+        elif mlp_kind in (MOE_MLP, MOE_DENSE):
             mo, a = P.moe(pl, cfg, p["moe"], shp["moe"], h)
             if want_aux:
                 aux = aux + a
@@ -541,7 +561,7 @@ def _run_stack(cfg: ModelConfig, stack: Params, x: torch.Tensor, *,
                cache: Optional[Params] = None, cache_index=None,
                want_aux: bool = False, pl: Optional[P.Placement] = None,
                shapes: Optional[Params] = None,
-               whole: Optional[P.Placement] = None
+               whole: Optional[P.Placement] = None, decode: bool = False
                ) -> Tuple[torch.Tensor, Any]:
     """Pre-norm residual blocks over the repeats of ``stack`` (its leaves'
     leading dim), ``pattern``'s positions in order inside each; with a
@@ -558,9 +578,9 @@ def _run_stack(cfg: ModelConfig, stack: Params, x: torch.Tensor, *,
     records and ``cfg.remat``, each repeat runs under a checkpoint (its
     collectives, under a placement, run again in the recompute).  With a
     placement ``pl`` (``shapes``: the stack's global shapes) every block
-    runs placed; with ``whole`` each repeat's parameters are gathered
-    whole first and the blocks run as on one device (the encoder's
-    data-parallel walk)."""
+    runs placed (with ``decode``, its decode step's layout); with
+    ``whole`` each repeat's parameters are gathered whole first and the
+    blocks run as on one device (the encoder's data-parallel walk)."""
     n = tree_leaves(stack)[0].shape[0]
     record = L.recording(x, stack, memory)
     reps = _unstack(stack, n)
@@ -574,7 +594,7 @@ def _run_stack(cfg: ModelConfig, stack: Params, x: torch.Tensor, *,
             _apply_repeat, cfg, p_r, c_r, pattern=pattern,
             positions=positions, causal=causal, memory=memory,
             has_cache=cache is not None, cache_index=cache_index,
-            want_aux=want_aux, pl=pl, shapes=rshapes)
+            want_aux=want_aux, pl=pl, shapes=rshapes, decode=decode)
         x, a = L.maybe_checkpoint(fn, x, record=record and cfg.remat)
         aux = aux + a
     return x, aux
@@ -753,13 +773,17 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens (B, 1); index = current length, an int or
     a per-slot (B,) tensor; ``memory`` the encoder output (B, L_enc, D),
-    which an encoder-decoder requires.  Returns (logits (B, V), cache)."""
-    if shd.placed():
-        raise NotImplementedError(
-            "a decode step has no placements yet (ROADMAP A8.3): run it "
-            "under use_rules(mesh) on whole parameters")
+    which an encoder-decoder requires.  Returns (logits (B, V), cache).
+    Under ``use_rules(mesh, placed=True)``: the rank's shards, its rows
+    of the tokens, the index and the memory (``shard_batch(...,
+    whole_rows=True)``) and its ``shard_cache`` block of the cache; its
+    (B/dp, V) logits."""
     if cfg.is_encdec and memory is None:
         raise ValueError("enc-dec decode requires encoder memory")
+    pl, params = _placed_entry(cfg, params)
+    if pl is not None:
+        return _decode_placed(cfg, pl, params, tokens, cache, index,
+                              memory), cache
     x = params["embed"][tokens]
     dev = x.device
     idx = torch.as_tensor(index, device=dev)
@@ -772,6 +796,26 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _logits(cfg, params, x)[:, -1], cache
 
 
+def _decode_placed(cfg: ModelConfig, pl: P.Placement, params: Params,
+                   tokens: torch.Tensor, cache: Params, index,
+                   memory: Optional[torch.Tensor]) -> torch.Tensor:
+    """The placed decode step on the rank's rows: one position a slot
+    (tokens (B/dp, 1)), the layers in their decode layout, the rank's
+    (B/dp, V) logits."""
+    if tokens.shape[1] != 1:
+        raise ValueError(f"a placed decode step takes one token a slot, "
+                         f"got {tuple(tokens.shape)}")
+    x = P.embed_decode(pl, cfg, params, tokens)
+    idx = L.device_index(index, x.device)
+    positions = idx.reshape(-1, 1) + torch.arange(1, device=x.device)[None]
+    x, _ = _run_stack(cfg, params["layers"], x, pattern=cfg.pattern,
+                      positions=positions, causal=True, memory=memory,
+                      cache=cache, cache_index=index, pl=pl,
+                      shapes=pl.shapes["layers"], decode=True)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return P.decode_logits(pl, cfg, params, x)
+
+
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             cache: Params) -> Tuple[torch.Tensor, Params]:
     """Run the prompt through the stack, filling the cache from position 0:
@@ -779,12 +823,18 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     encoder-decoder cross-attention into ``encode(encoder_embeds)``.
     Returns (last-position logits (B, V), cache).  Under
     ``use_rules(mesh, placed=True)``: the rank's shards and rows, its
-    cache rows written whole over the sequence, its (B/dp, V) logits."""
+    ``shard_cache`` block of the cache (the KV length over ``model``),
+    its (B/dp, V) logits; a one-position prompt runs the decode step's
+    layout at index 0."""
     pl, params = _placed_entry(cfg, params)
-    if pl is not None and batch["tokens"].shape[1] < 2:
-        raise NotImplementedError(
-            "a one-token prefill is a decode step, which has no placements "
-            "yet (ROADMAP A8.3)")
+    n_pos = batch["tokens"].shape[1] + (
+        batch["patch_embeds"].shape[1] if cfg.frontend == "vision"
+        and "patch_embeds" in batch else 0)
+    if pl is not None and n_pos == 1:
+        memory = (encode(cfg, params, batch["encoder_embeds"])
+                  if cfg.is_encdec else None)
+        return _decode_placed(cfg, pl, params, batch["tokens"], cache, 0,
+                              memory), cache
     x, _ = _hidden(cfg, pl, params, batch, cache=cache)
     if pl is not None:
         return P.last_logits(pl, cfg, params, x), cache

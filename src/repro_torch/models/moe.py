@@ -17,7 +17,9 @@ The reference's four execution paths, chosen by the model's layer walk:
                  them to the experts' owners, a second brings the outputs
                  back, and the output's slices are gathered.
   moe_decode() — the decode path: every expert runs on every token and a
-                 sparse (T, E) weight matrix combines them.
+                 sparse (T, E) weight matrix combines them; under the
+                 placed decode each ``model`` rank runs its slab of E/tp
+                 experts and one all-reduce sums the slabs' shares.
 
 The mesh paths take ``x`` whole over the sequence, the same on every
 rank of the ``model`` axis, and return the whole output on every such
@@ -58,6 +60,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.parallel import collectives as col
@@ -292,23 +295,33 @@ def moe_ep_a2a(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     return col.gather_from(out, group, 1).to(x.dtype), aux
 
 
-def moe_decode(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int
-               ) -> torch.Tensor:
+def moe_decode(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
+               group=None) -> torch.Tensor:
     """The decode path: x (B, S, D) -> out (B, S, D).  Every expert runs
     on every token; the outputs combine in fp32 through the (T, E) matrix
-    of the routing weights."""
+    of the routing weights.  With ``group`` (the placed decode's
+    ``model`` axis, the reference's ``("expert", "fsdp", "model")``
+    slabs) the expert leaves are this rank's slab of E/tp experts: the
+    rank runs them on every token, weights them by their columns of the
+    (replicated, fp32) routing, and one all-reduce over ``group`` sums the
+    slabs' shares."""
     B, S, D = x.shape
     T = B * S
     logits = torch.matmul(x.float(), p["router"]).reshape(T, n_experts)
     w, idx = _route(logits, top_k)                           # (T, k)
     # the tokens broadcast over the experts; the expert weights are read
     # in place (E, D, F)
-    xt = x.reshape(T, D).expand(n_experts, T, D)
+    e_loc = p["w_gate"].shape[0]
+    xt = x.reshape(T, D).expand(e_loc, T, D)
     g = torch.bmm(xt, p["w_gate"])                           # (E, T, F)
     u = torch.bmm(xt, p["w_up"])
     y = torch.bmm(F.silu(g) * u, p["w_down"])                # (E, T, D)
     # the k ids of a token are distinct: a scatter, no accumulation
     we = torch.zeros((T, n_experts), dtype=torch.float32,
                      device=x.device).scatter_(1, idx, w)
+    if group is not None:
+        we = we.narrow(1, dist.get_rank(group) * e_loc, e_loc)
     out = torch.einsum("etd,te->td", y.float(), we)
+    if group is not None:
+        out = col.all_reduce(out, group)
     return out.reshape(B, S, D).to(x.dtype)

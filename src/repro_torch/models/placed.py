@@ -1,16 +1,21 @@
-"""The FSDP/TP placements of training and prefill, each of the
-reference's ``constrain`` sites written out as its collective (ROADMAP
-A8.2, slice 2).
+"""The FSDP/TP placements of training, prefill and the decode step, each
+of the reference's ``constrain`` sites written out as its collective
+(ROADMAP A8.2 slice 2, A8.3).
 
 Under ``parallel.sharding.use_rules(mesh, placed=True)`` the model runs
 here on the rank's state: its block of every parameter
-(``sharding.shard_params``: ``data`` FSDP, ``model`` TP / EP) and its
-rows of the batch (``sharding.shard_batch``: B over ``pod`` and
-``data``).  dp is the product of ``pod`` and ``data``, tp the ``model``
-axis.  The residual stream between blocks is the reference's
-``("batch", "seq", "none")``: x is (B/dp, S/tp, D) on every rank, so the
-sequence must divide by tp.  ``rms_norm`` is per token and runs on the
-rank's chunk.  Per site (reference lines in ``src/repro/models``):
+(``sharding.shard_params``: ``data`` FSDP, ``model`` TP / EP), its rows
+of the batch (``sharding.shard_batch``: B over ``pod`` and ``data``) and
+its block of the decode cache (``sharding.shard_cache``: the rows over
+``pod`` and ``data``, a KV cache's length over ``model``, a Mamba
+state's heads over ``model``).  dp is the product of ``pod`` and
+``data``, tp the ``model`` axis.
+
+Training and prefill.  The residual stream between blocks is the
+reference's ``("batch", "seq", "none")``: x is (B/dp, S/tp, D) on every
+rank, so the sequence must divide by tp.  ``rms_norm`` is per token and
+runs on the rank's chunk.  Per site (reference lines in
+``src/repro/models``):
 
   * embedding (``model.py:367``): ``embed`` (V, D) is ``("model",
     "fsdp")``; its D is gathered over ``data`` and the lookup is
@@ -29,9 +34,11 @@ rank's chunk.  Per site (reference lines in ``src/repro/models``):
     chunk.  K and V are column-parallel and gathered over their heads
     where ``n_kv % tp == 0`` (head-TP only), else each rank projects its
     own chunk with the weights gathered and K and V are gathered over
-    the sequence.  Prefill writes the cache on the rank's rows, whole
-    over the sequence.  Cross-attention takes K and V from the encoder
-    memory, whole over the sequence on every ``model`` rank.
+    the sequence.  Prefill writes the rank's L/tp block of the cache
+    (positions ``rank * L/tp`` on) from the K and V gathered over the
+    sequence, so decode takes the cache as prefill leaves it.
+    Cross-attention takes K and V from the encoder memory, whole over the
+    sequence on every ``model`` rank.
   * MLP (``layers.py:358-380``): with ``cfg.mlp_tp`` (and d_ff dividing
     by tp), ``seq_gather``, ``w_gate`` / ``w_up`` column-parallel,
     ``w_down`` row-parallel, ``seq_scatter``; else pure SP, the weights
@@ -48,20 +55,56 @@ rank's chunk.  Per site (reference lines in ``src/repro/models``):
     rank's B/dp rows gathered over the sequence, the expert slabs'
     ``fsdp`` dim gathered on use; the aux loss is the mean over the data
     shards of each shard's (ROADMAP C13).
-  * Mamba layers and the encoder run data-parallel in this slice: their
-    weights gathered whole, the sequence gathered over ``model``, each
-    rank keeping its own chunk of a Mamba layer's output (head-TP,
-    ``ssm.py:163, 173``, is A8.3's).
+  * Mamba (``ssm.py:160-173``): where its heads H = 2·d_model /
+    ``ssm_head_dim`` divide by tp, head-parallel TP (:func:`mamba`):
+    ``seq_gather`` x, the fused in-projection on the rank's head-aligned
+    columns (its heads of z, x and dt, the whole B and C), the conv, the
+    scan and the gated norm on its H/tp heads (the norm's sum of squares
+    all-reduced over ``model``), ``w_out`` row-parallel and a
+    ``seq_scatter``.  Else every rank runs the mixer whole on its rows.
+  * the encoder runs data-parallel: its weights gathered whole, each
+    rank's rows whole over the sequence.
+
+The decode step (``layers.py:331-339, 369-378``, ``moe.py:263-278``).  x
+is the rank's (B/dp, 1, D), whole over ``model``; each block is a
+column-parallel / row-parallel pair and an all-reduce over ``model``:
+
+  * the lookup is vocab-parallel and all-reduced over ``model``; the
+    head forms the rank's vocab slice of the logits, gathered over
+    ``model``;
+  * attention: q, K and V column-parallel where their heads divide by tp
+    (else their weights gathered) and gathered over ``model`` to every
+    head; the new K/V written by the rank that owns the slot's position
+    in its L/tp block; each rank's partial softmax over its block (the
+    max, the sum of exponentials and the accumulator of
+    ``serve/flash_decode.py``) combined over ``model`` by the log-sum-exp
+    (an all-reduce of the max, then of the rescaled sums), which moves
+    O(B/dp·H·hd), never the cache (``flash_decode.py:69-73, 88-93``);
+    ``wo`` row-parallel over the rank's heads and an all-reduce.
+    Cross-attention projects the memory to K/V every step, on the rank's
+    heads where they divide;
+  * the MLP column / row-parallel and all-reduced where ``cfg.mlp_tp``
+    and d_ff divides, else gathered whole;
+  * ``moe_decode`` on the rank's slab of E/tp experts and an all-reduce
+    where E divides by tp, else whole;
+  * the Mamba mixer on the rank's heads with its conv and SSM state,
+    ``w_out`` row-parallel and an all-reduce.
+
+Every weight is gathered over ``data`` on use, as in training.  The
+reference's ``decode_replicate_acts`` (each decode projection contracted
+against the FSDP shard in place, the activations moved instead) has no
+counterpart: no configuration sets it.
 
 Gradients follow ``parallel.collectives``' placed convention: each rank
 computes the gradient of its own share, a gathered tensor's gradient is
 reduce-scattered back, and :meth:`Placement.enter` all-reduces every
 leaf over each axis it is not split on (the batch axes: the ranks saw
-other rows; ``model``: other positions, heads or vocab).  The MoE paths
-and the Mamba layers run whole on every ``model`` rank under the
-conjugate pairs instead (``gather_from`` in, ``split_to`` out): their
-gradients come out whole and the same on every ``model`` rank, so their
-leaves (:data:`WHOLE_OVER_MODEL`) are not summed over ``model``.
+other rows; ``model``: other positions, heads or vocab).  The MoE paths,
+and the Mamba layers where their heads do not divide, run whole on every
+``model`` rank under the conjugate pairs instead (``gather_from`` in,
+``split_to`` out): their gradients come out whole and the same on every
+``model`` rank, so their leaves (:attr:`Placement.whole_over_model`) are
+not summed over ``model``.
 """
 
 from __future__ import annotations
@@ -82,9 +125,9 @@ from . import ssm as SSM
 
 Params = Dict[str, Any]
 
-# leaves whose gradient is whole on every ``model`` rank (the layer runs
-# whole there under the conjugate pairs): not all-reduced over ``model``
-WHOLE_OVER_MODEL = ("moe/router", "mamba/")
+def mamba_heads(cfg) -> int:
+    """The heads of ``cfg``'s Mamba mixer (0: it has none)."""
+    return 2 * cfg.d_model // cfg.ssm_head_dim if cfg.ssm_state else 0
 
 
 class Placement:
@@ -101,6 +144,12 @@ class Placement:
         self.shapes = param_shapes(cfg)
         self.specs = shd.param_shardings(self.shapes, mesh)
         self._spec: Dict[Tuple[str, Tuple[int, ...]], Any] = {}
+        # leaves whose gradient is whole on every ``model`` rank (the
+        # layer runs whole there under the conjugate pairs): not
+        # all-reduced over ``model``
+        self.whole_over_model = ("moe/router",) + (
+            () if shd.mamba_head_tp(mamba_heads(cfg), self.tp)
+            else ("mamba/",))
 
     def group(self, axis: str):
         return self.mesh.get_group(axis)
@@ -140,7 +189,7 @@ class Placement:
     def enter(self, params: Params) -> Params:
         """``params`` with every leaf's gradient all-reduced over each
         mesh axis it is not split on (``collectives.copy_to``: identity
-        forward), the leaves of :data:`WHOLE_OVER_MODEL` not over
+        forward), the leaves of :attr:`whole_over_model` not over
         ``model``.  Applied where autograd records only."""
         def one(path, t, s):
             axes = {a for e in s.spec for a in shd.spec_axes(e)}
@@ -148,7 +197,7 @@ class Placement:
                 if a not in self.sizes or a in axes:
                     continue
                 if a == "model" and any(w in path
-                                        for w in WHOLE_OVER_MODEL):
+                                        for w in self.whole_over_model):
                     continue
                 t = col.copy_to(t, self.group(a))
             return t
@@ -208,6 +257,19 @@ def weight(pl: Placement, w: torch.Tensor, path: str,
     return w
 
 
+def project(pl: Placement, x: torch.Tensor, w: torch.Tensor, path: str,
+            shape: Tuple[int, ...], model_dim: Optional[int] = None,
+            cols=None) -> torch.Tensor:
+    """x @ the rank's block of a per-repeat weight through
+    ``dispatch.matmul2``: the block gathered as :func:`weight` gathers it
+    (``model_dim``: the rank's own TP chunk), ``cols`` its ``(start,
+    length)`` column ranges (``sharding.take``)."""
+    wb = weight(pl, w, path, shape, model_dim)
+    if cols is not None:
+        wb = shd.take(wb, -1, cols)
+    return dispatch.matmul2(x, wb)
+
+
 def gather_whole(pl: Placement, p: Params, shapes: Params, path: str = "",
                  whole_grads: bool = False) -> Params:
     """Every leaf of a repeat's subtree ``p`` gathered whole
@@ -254,6 +316,27 @@ def embed(pl: Placement, cfg, params: Params, batch: Dict[str, Any]
         x = torch.cat([pe, x], dim=1)
     _check_seq(pl, x.shape[1])
     return col.seq_scatter(x, pl.mgroup, 1)
+
+
+def embed_decode(pl: Placement, cfg, params: Params, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """A decode step's input (B/dp, 1, D), whole over ``model``: the
+    vocab-parallel lookup all-reduced over ``model``."""
+    e, v0 = _vocab_slice(pl, params["embed"])
+    ids = tokens.to(e.device).long() - v0
+    ok = (ids >= 0) & (ids < e.shape[0])
+    x = e[torch.where(ok, ids, torch.zeros_like(ids))] * ok[..., None].to(
+        e.dtype)
+    return col.all_reduce(x, pl.mgroup)
+
+
+def decode_logits(pl: Placement, cfg, params: Params, x: torch.Tensor
+                  ) -> torch.Tensor:
+    """A decode step's (B/dp, V) logits of x (B/dp, 1, D): the rank's
+    vocab slice, gathered over ``model``."""
+    e, _ = _vocab_slice(pl, params["embed"])
+    logits = torch.matmul(x, e.to(cfg.dtype).t()).float()
+    return col.gather_from(logits, pl.mgroup, 2)[:, -1]
 
 
 def _check_seq(pl: Placement, S: int) -> None:
@@ -372,9 +455,9 @@ def attention(pl: Placement, cfg, p: Params, shapes: Params,
               path: str = "attn") -> torch.Tensor:
     """``layers.attention`` on the rank's chunk x (B/dp, S/tp, D): the
     chunk of the block's output.  ``positions`` (S,) are the global ones;
-    ``cache`` (prefill, index 0) the rank's rows, written whole over the
-    sequence; ``memory`` (B/dp, L_enc, D), whole on every rank, makes it
-    cross-attention."""
+    ``cache`` (prefill, index 0) the rank's (B/dp, L/tp, G, hd) block,
+    written from position ``rank * L/tp`` on; ``memory`` (B/dp, L_enc,
+    D), whole on every rank, makes it cross-attention."""
     mg, tp, m = pl.mgroup, pl.tp, pl.rank("model")
     B, Sl, D = x.shape
     S = Sl * tp
@@ -426,9 +509,13 @@ def attention(pl: Placement, cfg, p: Params, shapes: Params,
     v = kv("wv", None)
     kv_len = None
     if cache is not None:
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
-        k, v, kv_len = cache["k"], cache["v"], S
+        # the rank's L/tp block: positions m * L/tp onwards
+        Lb = cache["k"].shape[1]
+        lo = min(m * Lb, S)
+        n = min(S - lo, Lb)
+        cache["k"][:, :n] = k[:, lo:lo + n].to(cache["k"].dtype)
+        cache["v"][:, :n] = v[:, lo:lo + n].to(cache["v"].dtype)
+        kv_len = S
     if head_tp:
         k = _kv_heads(k, m * hl, hl, H // G)
         v = _kv_heads(v, m * hl, hl, H // G)
@@ -447,6 +534,121 @@ def attention(pl: Placement, cfg, p: Params, shapes: Params,
         return col.seq_scatter(part, mg, 1)
     out = out.reshape(B, Sl, H * hd)
     return dispatch.matmul2(out, W(p["wo"], f"{path}/wo", shapes["wo"]))
+
+
+def _write_owned(cache: torch.Tensor, new: torch.Tensor, idx, lo: int
+                 ) -> None:
+    """Write the new position ``new`` (B, 1, G, hd) of each slot into
+    the rank's block ``cache`` (B, L/tp, G, hd) of a cache cut over its
+    length, where the block (positions ``lo`` onwards) owns the slot's
+    position ``idx`` (an int or per-slot (B,)); elsewhere the block keeps
+    its value.  No collective: the owner alone writes."""
+    Lb = cache.shape[1]
+    new = new.to(cache.dtype)
+    if not isinstance(idx, torch.Tensor):
+        if lo <= int(idx) < lo + Lb:
+            cache[:, int(idx) - lo:int(idx) - lo + 1] = new
+        return
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cols = idx.to(cache.device).reshape(-1, 1) - lo
+    keep = ((cols >= 0) & (cols < Lb))[..., None, None]
+    colc = cols.clamp(0, Lb - 1)
+    cache[rows, colc] = torch.where(keep, new, cache[rows, colc])
+
+
+def decode_splits(cfg, B: int, L: int, dtype: torch.dtype, tp: int) -> int:
+    """The splits of a rank's L/tp block of the KV cache: the split count
+    resolved on the cache's whole length L (``resolve_decode_splits``, as
+    the path with no mesh resolves it), n/tp of them a rank where tp
+    divides it, else one.  The combine over ``model`` then merges the
+    same partials in another order.  B is the rank's rows, not the
+    batch's: a decode step takes no batch size, and its rows cannot tell
+    a batch split over the batch axes from one kept whole there
+    (``sharding.shard_batch(whole_rows=True)``: B/dp rows of a split
+    batch can be any count).  So at dp > 1 the lookup and its telemetry
+    see (B/dp, L), the rows each rank reduces."""
+    if cfg.decode_kv_splits <= 1:
+        return 1
+    from repro_torch.serve.flash_decode import resolve_decode_splits
+    n = resolve_decode_splits(
+        B=B, Hq=cfg.n_heads, Hkv=cfg.n_kv, Lkv=L, D=cfg.hd,
+        dtype_bits=dispatch._dtype_bits(dtype), causal=1,
+        default=cfg.decode_kv_splits)
+    if n <= 1 or L % n or n % tp:
+        return 1
+    return n // tp
+
+
+def attention_decode(pl: Placement, cfg, p: Params, shapes: Params,
+                     x: torch.Tensor, *, positions: torch.Tensor, index,
+                     qk_norm: bool, cache: Optional[Params] = None,
+                     memory: Optional[torch.Tensor] = None,
+                     path: str = "attn") -> torch.Tensor:
+    """``layers.attention`` at a decode step on the rank's x (B/dp, 1,
+    D), whole over ``model``: the block's output, whole over ``model``.
+    ``positions`` (B/dp, 1) and ``index`` (an int or (B/dp,)) are the
+    slots' global ones, ``cache`` the rank's (B/dp, L/tp, G, hd) block;
+    ``memory`` (B/dp, L_enc, D) makes it cross-attention (no cache, no
+    combine: the rank's heads attend to the whole memory)."""
+    from repro_torch.serve.flash_decode import (flash_decode_out,
+                                                flash_decode_partials)
+    mg, tp, m = pl.mgroup, pl.tp, pl.rank("model")
+    B = x.shape[0]
+    H, G, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    eps, theta = cfg.norm_eps, cfg.rope_theta
+    proj = functools.partial(project, pl)
+    q_tp, kv_tp = H % tp == 0, G % tp == 0
+    cross = memory is not None
+
+    def heads(name: str, src: torch.Tensor, split: bool,
+              norm: Optional[torch.Tensor]) -> torch.Tensor:
+        t = proj(src, p[name], f"{path}/{name}", shapes[name],
+                 model_dim=1 if split else None)
+        t = t.reshape(B, src.shape[1], -1, hd)
+        if norm is not None:
+            t = L.rms_norm(t, norm, eps)
+        if not cross:
+            t = L.apply_rope(t, positions, theta)
+        return t
+
+    q = heads("wq", x, q_tp, p["q_norm"] if qk_norm else None)
+    src = memory if cross else x
+    k = heads("wk", src, kv_tp, p["k_norm"] if qk_norm else None)
+    v = proj(src, p["wv"], f"{path}/wv", shapes["wv"],
+             model_dim=1 if kv_tp else None).reshape(B, src.shape[1], -1, hd)
+    hl = H // tp if q_tp else H
+    if cross:
+        # the rank's query heads read their own KV heads where both split
+        if kv_tp and not q_tp:
+            k, v = col.gather_from(k, mg, 2), col.gather_from(v, mg, 2)
+        elif q_tp and not kv_tp:
+            k = _kv_heads(k, m * hl, hl, H // G)
+            v = _kv_heads(v, m * hl, hl, H // G)
+        out = L._chunked_attention(q, k, v, causal=False, q_start=0,
+                                   chunk=cfg.attn_chunk)
+    else:
+        if q_tp:
+            q = col.gather_from(q, mg, 2)               # every head
+        if kv_tp:
+            k, v = col.gather_from(k, mg, 2), col.gather_from(v, mg, 2)
+        Lb = cache["k"].shape[1]
+        _write_owned(cache["k"], k, index, m * Lb)
+        _write_owned(cache["v"], v, index, m * Lb)
+        kv_len = index + 1
+        n = decode_splits(cfg, B, Lb * tp, q.dtype, tp)
+        mx, l, acc = flash_decode_partials(q, cache["k"], cache["v"], kv_len,
+                                           n_splits=n, pos0=m * Lb)
+        gmax = col.all_reduce(mx, mg, op=dist.ReduceOp.MAX)
+        corr = torch.exp(mx - gmax)[:, 0]
+        l = col.all_reduce(l * corr, mg)
+        acc = col.all_reduce(acc * corr[..., None], mg)
+        out = flash_decode_out(q, l, acc)               # (B, 1, H, hd)
+        if q_tp:
+            out = out.narrow(2, m * hl, hl)
+    out = out.reshape(B, 1, hl * hd)
+    y = proj(out, p["wo"], f"{path}/wo", shapes["wo"],
+             model_dim=0 if q_tp else None)
+    return col.all_reduce(y, mg) if q_tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +672,38 @@ def mlp(pl: Placement, cfg, p: Params, shapes: Params, x: torch.Tensor
         return col.seq_scatter(part, pl.mgroup, 1)
     whole = gather_whole(pl, p, shapes, "mlp")
     return L.mlp(whole, x)
+
+
+def mlp_decode(pl: Placement, cfg, p: Params, shapes: Params,
+               x: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU MLP at a decode step on x (B/dp, 1, D), whole over
+    ``model``: column / row-parallel and an all-reduce over ``model``
+    where ``cfg.mlp_tp`` and d_ff divides by tp, else the weights
+    gathered whole."""
+    proj = functools.partial(project, pl)
+    tp = cfg.mlp_tp and cfg.d_ff % pl.tp == 0
+    g = proj(x, p["w_gate"], "mlp/w_gate", shapes["w_gate"],
+             model_dim=1 if tp else None)
+    u = proj(x, p["w_up"], "mlp/w_up", shapes["w_up"],
+             model_dim=1 if tp else None)
+    y = proj(torch.nn.functional.silu(g) * u, p["w_down"], "mlp/w_down",
+             shapes["w_down"], model_dim=0 if tp else None)
+    return col.all_reduce(y, pl.mgroup) if tp else y
+
+
+def moe_decode(pl: Placement, cfg, p: Params, shapes: Params,
+               h: torch.Tensor) -> torch.Tensor:
+    """``moe_decode`` on h (B/dp, 1, D), whole over ``model``: where the
+    experts divide by tp, the rank's slab of E/tp experts (their
+    ``fsdp`` dim gathered) on every token and an all-reduce over
+    ``model`` of the slabs' shares; else every expert gathered."""
+    ep = cfg.n_experts % pl.tp == 0
+    pp = {k: weight(pl, p[k], f"moe/{k}", shapes[k],
+                    model_dim=0 if ep else None)
+          for k in ("w_gate", "w_up", "w_down")}
+    return MOE.moe_decode({"router": p["router"], **pp}, h,
+                          n_experts=cfg.n_experts, top_k=cfg.top_k,
+                          group=pl.mgroup if ep else None)
 
 
 def moe(pl: Placement, cfg, p: Params, shapes: Params, h: torch.Tensor
@@ -498,16 +732,51 @@ def moe(pl: Placement, cfg, p: Params, shapes: Params, h: torch.Tensor
 
 
 def mamba(pl: Placement, cfg, p: Params, shapes: Params, h: torch.Tensor,
-          cache: Optional[Params]) -> torch.Tensor:
-    """The Mamba-2 mixer data-parallel: the weights gathered whole, the
-    rank's rows gathered over the sequence (``gather_from``), the mixer
-    run whole on every ``model`` rank and its own chunk of the output
-    kept (``split_to``: the gradient of the whole output comes back, so
-    every rank's backward is the whole layer's, as with no mesh).  The
-    cache, the rank's rows, gets the whole sequence's state."""
-    whole = gather_whole(pl, p, shapes, "mamba", whole_grads=True)
-    hf = col.gather_from(h, pl.mgroup, 1)
-    out, _ = SSM.mamba_block(whole, hf, d_model=cfg.d_model,
-                             state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
-                             chunk=cfg.ssd_chunk, cache=cache)
-    return col.split_to(out, pl.mgroup, 1)
+          cache: Optional[Params], decode: bool = False) -> torch.Tensor:
+    """The Mamba-2 mixer on the rank's h: its chunk (B/dp, S/tp, D) in
+    training and prefill, its (B/dp, 1, D) whole over ``model`` at a
+    decode step.  Where the heads divide by tp
+    (``sharding.mamba_head_tp``), head-parallel TP (``ssm.py:160-173``):
+    the sequence gathered (``seq_gather``), then ``ssm.mamba_block`` on
+    the rank's heads: the in-projection on its head-aligned columns
+    (``sharding.mamba_columns``; ``w_in``, ``conv_w`` and ``conv_b`` are
+    gathered whole and sliced: their contiguous TP cut does not fall on
+    head boundaries, and the gather's reduce-scatter sums the B and C
+    columns' gradients over the ranks), the depthwise conv on its heads'
+    x channels and the whole B and C, the scan on its H/tp heads with
+    their ``a_log``, ``dt_bias`` and ``d_skip``, the gated RMSNorm's sum
+    of squares over ``d_inner`` all-reduced over ``model`` (both ways:
+    every rank's channels use the total), ``w_out`` row-parallel, then a
+    ``seq_scatter`` (an all-reduce at a decode step).  The cache is the
+    rank's: its heads' SSM state, its conv channels
+    (``sharding.shard_cache``).  Else every rank runs the mixer whole on
+    its rows, the weights gathered whole: in training and prefill under
+    the conjugate pairs (``gather_from`` the sequence, ``split_to`` its
+    own chunk of the output, so its backward is the whole layer's), the
+    cache's state whole over ``model``."""
+    mg, tp, m = pl.mgroup, pl.tp, pl.rank("model")
+    kw = dict(d_model=cfg.d_model, state=cfg.ssm_state,
+              head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk, cache=cache)
+    H = mamba_heads(cfg)
+    if not shd.mamba_head_tp(H, tp):
+        whole = gather_whole(pl, p, shapes, "mamba", whole_grads=not decode)
+        hf = h if decode else col.gather_from(h, mg, 1)
+        out, _ = SSM.mamba_block(whole, hf, **kw)
+        return out if decode else col.split_to(out, mg, 1)
+    di, S = 2 * cfg.d_model, cfg.ssm_state
+    hl, dl = H // tp, di // tp
+    ch = shd.mamba_conv_channels(di, S, tp, m)
+    local = {k: shd.take(weight(pl, p[k], f"mamba/{k}", shapes[k]), -1, ch)
+             for k in ("conv_w", "conv_b")}
+    local.update({k: p[k].narrow(-1, m * hl, hl) for k in SSM.FP32_LEAVES})
+    local["norm"] = p["norm"].narrow(-1, m * dl, dl)
+    x = h if decode else col.seq_gather(h, mg, 1)
+    out, _ = SSM.mamba_block(
+        local, x, **kw,
+        project_in=lambda t: project(pl, t, p["w_in"], "mamba/w_in",
+                                     shapes["w_in"],
+                                     cols=shd.mamba_columns(di, S, H, tp, m)),
+        project_out=lambda t: project(pl, t, p["w_out"], "mamba/w_out",
+                                      shapes["w_out"], model_dim=0),
+        sum_sq=lambda t: col.psum(t, mg))
+    return col.all_reduce(out, mg) if decode else col.seq_scatter(out, mg, 1)

@@ -21,7 +21,7 @@ idempotent: running a decode step twice advances the state twice.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -164,15 +164,21 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     return new_state, y
 
 
-def mamba_inputs(p: Params, x: torch.Tensor, *, d_model: int, state: int,
-                 head_dim: int, conv_state: Optional[torch.Tensor] = None):
+def mamba_inputs(p: Params, x: torch.Tensor, *, state: int, head_dim: int,
+                 conv_state: Optional[torch.Tensor] = None,
+                 project: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                 = None):
     """The mixer up to its scan: the input projection, dt, a and the
-    causal conv.  Returns (z, xh (B, L, H, head_dim), dt (B, L, H) fp32,
-    a (H,) fp32, B (B, L, S), C (B, L, S), new conv state)."""
+    causal conv, on the heads ``p`` holds (its ``a_log``'s: all of them,
+    or a rank's under head-parallel TP, with the conv channels that go
+    with them).  ``project`` gives the input projection of x in place of
+    ``x @ p["w_in"]``.  Returns (z, xh (B, L, H, head_dim), dt (B, L, H)
+    fp32, a (H,) fp32, B (B, L, S), C (B, L, S), new conv state)."""
     B, L, _ = x.shape
-    d_inner = 2 * d_model
-    H = d_inner // head_dim
-    proj = dispatch.matmul2(x, p["w_in"])
+    H = p["a_log"].shape[-1]
+    d_inner = H * head_dim
+    proj = (project(x) if project is not None
+            else dispatch.matmul2(x, p["w_in"]))
     z, xbc, dt_raw = _split_proj(proj, d_inner, state, H)
     # F.softplus returns its input above its threshold of 20 where
     # jax.nn.softplus computes log1p(exp(x)); the two differ by < 2e-9
@@ -185,19 +191,33 @@ def mamba_inputs(p: Params, x: torch.Tensor, *, d_model: int, state: int,
 
 def mamba_block(p: Params, x: torch.Tensor, *, d_model: int, state: int,
                 head_dim: int, chunk: int = 256,
-                cache: Optional[Dict[str, torch.Tensor]] = None
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                project_in: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                = None,
+                project_out: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                = None,
+                sum_sq: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """The Mamba-2 mixer.  x (B, L, D).  ``cache`` {'conv': (B, W-1, C),
     'ssm': (B, H, P, S)} is read as the state before x and overwritten IN
     PLACE with the state after it: one step (L == 1, the decode branch,
     taken by a 1-token prefill too) or a prefill from the cache's state
     (zero in a fresh cache).  Without a cache: the training/prefill scan
-    from zero state."""
+    from zero state.
+
+    Head-parallel TP (``models/placed.py``) runs it on a rank's heads:
+    ``p`` holds their ``a_log``, ``dt_bias``, ``d_skip`` and ``norm``
+    channels and the conv's channels (``sharding.mamba_conv_channels``),
+    the cache their state; ``project_in`` / ``project_out`` stand for the
+    products with ``w_in`` / ``w_out`` (the rank's head-aligned columns,
+    its rows); ``sum_sq`` totals the gated norm's per-token sum of
+    squares over the ranks, which then divides by the whole
+    d_inner = 2·d_model."""
     B, L, _ = x.shape
-    d_inner = 2 * d_model
     z, xh, dt, a, bmat, cmat, new_conv = mamba_inputs(
-        p, x, d_model=d_model, state=state, head_dim=head_dim,
-        conv_state=cache["conv"] if cache is not None else None)
+        p, x, state=state, head_dim=head_dim,
+        conv_state=cache["conv"] if cache is not None else None,
+        project=project_in)
 
     if cache is not None and L == 1:        # decode step
         new_ssm, y = ssd_decode_step(
@@ -216,11 +236,20 @@ def mamba_block(p: Params, x: torch.Tensor, *, d_model: int, state: int,
     # fp32 in both branches: y is fp32 (decode) or x's dtype (prefill)
     # times the fp32 d_skip, as the reference's promotion gives
     y = y + xh.to(y.dtype) * p["d_skip"][None, None, :, None]
-    y = y.reshape(B, L, d_inner)
+    y = y.reshape(B, L, -1)
     # gated RMSNorm (mamba2 style) under rms_norm's default eps, as the
     # reference calls it
-    y = rms_norm(y.to(x.dtype) * F.silu(z.float()).to(x.dtype), p["norm"])
-    return dispatch.matmul2(y, p["w_out"]), cache
+    g = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
+    if sum_sq is None:
+        y = rms_norm(g, p["norm"])
+    else:
+        gf = g.float()
+        ss = sum_sq((gf * gf).sum(dim=-1, keepdim=True))
+        y = (gf * torch.rsqrt(ss / (2 * d_model) + 1e-5)
+             * p["norm"].float()).to(x.dtype)
+    out = (project_out(y) if project_out is not None
+           else dispatch.matmul2(y, p["w_out"]))
+    return out, cache
 
 
 def init_mamba_cache(batch: int, d_model: int, state: int, head_dim: int,

@@ -14,6 +14,7 @@ every rank of the group:
   split_to     own chunk of a dim forward,  all-gather backward
   gather_from  all-gather forward,          own chunk backward
   all_to_all   all-to-all forward,          all-to-all backward
+  psum         all-reduce forward,          all-reduce backward
 
 The FSDP/TP placements (``models/placed.py``) keep another convention:
 every rank computes the gradient of its own share of the work, and a
@@ -26,6 +27,9 @@ back.  Their pairs (Megatron-LM's sequence parallelism and ZeRO-3):
 
 (``fsdp_gather`` and ``seq_gather`` are one pair, named for their sites:
 a leaf's gradient arrives as the rank's shard, summed over the group.)
+``psum`` sums partial values that every rank then uses for its own
+share (the head-parallel Mamba norm's sum of squares over ``d_inner``):
+the total's gradient is the sum of the ranks' gradients.
 
 ``ring_shift`` (a pipeline's send to the next rank, receive from the
 previous) and ``all_reduce`` carry no autograd.
@@ -169,6 +173,17 @@ class _ScatterAG(torch.autograd.Function):
         return _all_gather(g, ctx.group, ctx.dim), None, None
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -217,6 +232,12 @@ def seq_scatter(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
     """Partial sums reduced over ``group``, each rank keeping its chunk of
     ``dim``; the gradient all-gathered back."""
     return _ScatterAG.apply(x, group, dim)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """Partial sums all-reduced over ``group``, every rank using the
+    total for its own share; the gradient all-reduced back."""
+    return _Psum.apply(x, group)
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

@@ -31,11 +31,16 @@ on the rank's state:
   * :func:`shard_batch` gives the rank's rows of a batch by
     :func:`batch_spec` (over ``pod`` and ``data``).
 
-Training and prefill take the placements (ROADMAP A8.2, slice 2); a
-decode step and Mamba's head-parallel TP wait for slice 3 (A8.3).  Plain
-``use_rules(mesh)`` keeps the layers replicated on every rank over whole
-parameters and the whole batch, the MoE layers' expert-parallel paths
-over :func:`expert_slabs`.
+  * :func:`shard_cache` gives the rank's block of a decode cache by
+    :func:`cache_shardings` (the reference's ``cache_specs``: the KV
+    length over ``model``, the Mamba SSM state's heads over ``model``,
+    the rows over ``pod`` and ``data``), :func:`gather_cache` its
+    inverse.
+
+Training, prefill and the decode step take the placements (ROADMAP A8.2
+and A8.3).  Plain ``use_rules(mesh)`` keeps the layers replicated on
+every rank over whole parameters and the whole batch, the MoE layers'
+expert-parallel paths over :func:`expert_slabs`.
 """
 
 from __future__ import annotations
@@ -78,6 +83,15 @@ PARAM_RULES: List[Tuple[str, Tuple[str, ...]]] = [
     (r"conv_b$",                    ("model",)),
     # everything else (norm scales, a_log, biases): replicated
 ]
+
+# the decode cache's leaves ((repeats, B, ...), ``models.init_cache``) by
+# their path's last two names: the reference's ``cache_specs``
+CACHE_RULES: Dict[str, Tuple[str, ...]] = {
+    "attn/k": ("none", "batch", "seq", "none", "none"),
+    "attn/v": ("none", "batch", "seq", "none", "none"),
+    "mamba/conv": ("none", "batch", "none", "model"),
+    "mamba/ssm": ("none", "batch", "model", "none", "none"),
+}
 
 # 'dp_only': replicate every parameter
 RULE_SETS: Dict[str, List[Tuple[str, Tuple[str, ...]]]] = {
@@ -343,16 +357,157 @@ def gather_params(shards: Any, mesh, shapes: Any) -> Any:
     tree."""
     specs = param_shardings(shapes, mesh)
 
-    def one(_path: str, t: torch.Tensor, s: NamedSharding) -> torch.Tensor:
-        for d, entry in enumerate(s.spec):
-            for a in reversed(spec_axes(entry)):      # inner axis first
-                group = mesh.get_group(a)
-                parts = [torch.empty_like(t)
-                         for _ in range(dist.get_world_size(group))]
-                dist.all_gather(parts, t.contiguous(), group=group)
-                t = torch.cat(parts, dim=d)
-        return t
-    return _map2(one, shards, specs)
+    return _map2(lambda _p, t, s: _gather_leaf(t, s.spec, mesh), shards,
+                 specs)
+
+
+def cache_shardings(cache: Any, mesh: Any) -> Any:
+    """A tree of :class:`NamedSharding` mirroring a decode cache (nested
+    dicts of tensors or shapes, ``models.init_cache``'s layout) by
+    :data:`CACHE_RULES`: the reference's ``cache_specs``."""
+    def build(tree: Any, path: str) -> Any:
+        if isinstance(tree, dict):
+            return {k: build(v, f"{path}/{k}" if path else k)
+                    for k, v in tree.items()}
+        shape = tuple(tree.shape if isinstance(tree, torch.Tensor) else tree)
+        axes = CACHE_RULES["/".join(path.split("/")[-2:])]
+        return NamedSharding(mesh, logical_to_spec(axes, shape, mesh))
+    return build(cache, "")
+
+
+def mamba_head_tp(n_heads: int, tp: int) -> bool:
+    """Does a Mamba mixer of ``n_heads`` heads split by head over ``tp``
+    ``model`` ranks (head-parallel TP, ``models/placed.py``)?  Where its
+    heads divide: exactly there :data:`CACHE_RULES` puts the SSM state's
+    heads over ``model`` (:func:`logical_to_spec` keeps an axis that
+    divides its dim and drops one that does not)."""
+    return n_heads % tp == 0
+
+
+def mamba_conv_channels(d_inner: int, state: int, tp: int, rank: int
+                        ) -> Tuple[Tuple[int, int], ...]:
+    """The (start, length) ranges of the Mamba conv's ``d_inner + 2 *
+    state`` channels (x | B | C) that ``model`` rank ``rank`` of ``tp``
+    holds under head-parallel TP: its heads' x channels, then the whole B
+    and C.  Adjacent ranges are merged (one rank: the whole)."""
+    n = d_inner // tp
+    return merge_ranges(((rank * n, n), (d_inner, 2 * state)))
+
+
+def mamba_columns(d_inner: int, state: int, n_heads: int, tp: int,
+                  rank: int) -> Tuple[Tuple[int, int], ...]:
+    """The (start, length) columns of the Mamba fused in-projection (z |
+    x | B | C | dt) that ``model`` rank ``rank`` of ``tp`` computes under
+    head-parallel TP: its heads of z, the conv's channels
+    (:func:`mamba_conv_channels`), its heads of dt (one rank: every
+    column, one range)."""
+    n, hl = d_inner // tp, n_heads // tp
+    conv = tuple((d_inner + a, k) for a, k in mamba_conv_channels(
+        d_inner, state, tp, rank))
+    return merge_ranges(((rank * n, n), *conv,
+                         (2 * d_inner + 2 * state + rank * hl, hl)))
+
+
+def merge_ranges(ranges) -> Tuple[Tuple[int, int], ...]:
+    """``(start, length)`` ranges with each one that starts where the one
+    before ends merged into it."""
+    out: List[List[int]] = []
+    for start, n in ranges:
+        if out and out[-1][0] + out[-1][1] == start:
+            out[-1][1] += n
+        else:
+            out.append([start, n])
+    return tuple((a, n) for a, n in out)
+
+
+def take(t: torch.Tensor, dim: int, ranges) -> torch.Tensor:
+    """The ``(start, length)`` ranges of ``t`` along ``dim``, in order
+    (one range: a view)."""
+    parts = [t.narrow(dim, a, n) for a, n in ranges]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def shard_cache(cache: Any, mesh) -> Any:
+    """This rank's block of every leaf of a decode cache (the whole
+    cache, ``models.init_cache``'s layout) by :func:`cache_shardings`:
+    the rows over ``pod`` and ``data`` where they divide, a KV cache's
+    length over ``model`` (it must divide: a length that does not raises
+    with the lengths), a Mamba SSM state's heads over ``model`` where they
+    divide.  A Mamba conv state departs from the reference's contiguous
+    cut of its ``d_inner + 2 * state`` channels (ROADMAP C14): where the
+    heads split, the rank holds its heads' x channels and the whole B and
+    C channels (:func:`mamba_conv_channels`), the channels its head-TP
+    conv reads; else every channel.  The values are the same.  Each
+    block owns its storage."""
+    specs = cache_shardings(cache, mesh)
+    tp = mesh_axes(mesh).get("model", 1)
+
+    def kv(path: str, t: torch.Tensor, s: NamedSharding) -> torch.Tensor:
+        if t.shape[2] % tp:
+            raise NotImplementedError(
+                f"placed path: the cache length ({t.shape[2]}) of {path} "
+                f"must divide over model = {tp}")
+        return _own(local_block(t, s.spec, mesh), t)
+
+    def build(tree: Any, spec: Any, path: str) -> Any:
+        if isinstance(tree, dict) and "ssm" in tree:    # a Mamba position
+            conv, ssm = tree["conv"], tree["ssm"]
+            rows = local_block(conv, (None, spec["conv"].spec[1]), mesh)
+            H, P, S = ssm.shape[2:]
+            if tp > 1 and mamba_head_tp(H, tp):
+                rows = take(rows, 3, mamba_conv_channels(
+                    H * P, S, tp, mesh.get_local_rank("model")))
+            return {"conv": _own(rows, conv),
+                    "ssm": _own(local_block(ssm, spec["ssm"].spec, mesh),
+                                ssm)}
+        if isinstance(tree, dict):
+            return {k: build(v, spec[k], f"{path}/{k}" if path else k)
+                    for k, v in tree.items()}
+        return kv(path, tree, spec)
+    return build(cache, specs, "")
+
+
+def _gather_leaf(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole leaf from every rank's ``spec`` block (no autograd)."""
+    for d, entry in enumerate(spec):
+        for a in reversed(spec_axes(entry)):      # inner axis first
+            group = mesh.get_group(a)
+            parts = [torch.empty_like(t)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            t = torch.cat(parts, dim=d)
+    return t
+
+
+def gather_cache(shards: Any, mesh, shapes: Any) -> Any:
+    """The whole cache from every rank's :func:`shard_cache` (for tests;
+    no autograd): ``shapes`` the whole cache's shapes or tensors
+    (``configs.shapes.cache_specs``).  Every rank gets the whole cache."""
+    specs = cache_shardings(shapes, mesh)
+    tp = mesh_axes(mesh).get("model", 1)
+
+    def build(tree: Any, spec: Any) -> Any:
+        if isinstance(tree, dict) and "ssm" in tree:
+            conv = _gather_leaf(tree["conv"], (None, spec["conv"].spec[1]),
+                                mesh)
+            ssm = _gather_leaf(tree["ssm"], spec["ssm"].spec, mesh)
+            H, P, S = ssm.shape[2:]
+            if tp > 1 and mamba_head_tp(H, tp):
+                # each rank's channels back to their place
+                parts = [torch.empty_like(conv) for _ in range(tp)]
+                dist.all_gather(parts, conv.contiguous(),
+                                group=mesh.get_group("model"))
+                conv = conv.new_empty((*conv.shape[:3], H * P + 2 * S))
+                for r, part in enumerate(parts):
+                    at = 0
+                    for a, n in mamba_conv_channels(H * P, S, tp, r):
+                        conv.narrow(3, a, n).copy_(part.narrow(3, at, n))
+                        at += n
+            return {"conv": conv, "ssm": ssm}
+        if isinstance(tree, dict):
+            return {k: build(v, spec[k]) for k, v in tree.items()}
+        return _gather_leaf(tree, spec.spec, mesh)
+    return build(shards, specs)
 
 
 def batch_axes(mesh: Any) -> Tuple[str, ...]:
@@ -360,16 +515,22 @@ def batch_axes(mesh: Any) -> Tuple[str, ...]:
     return tuple(a for a in LOGICAL_RULES["batch"] if a in mesh_axes(mesh))
 
 
-def shard_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
+def shard_batch(batch: Dict[str, Any], mesh, whole_rows: bool = False
+                ) -> Dict[str, Any]:
     """This rank's rows of every (B, ...) entry of ``batch`` (``tokens``,
-    ``targets``, ``loss_mask``, ``patch_embeds``, ``encoder_embeds``) by
-    :func:`batch_spec`.  The placed path wants the batch split over every
-    data-parallel axis: B must divide by their product."""
+    ``targets``, ``loss_mask``, ``patch_embeds``, ``encoder_embeds``; a
+    decode step's per-slot ``index`` and ``memory``) by
+    :func:`batch_spec`.  Training and prefill want the batch split over
+    every data-parallel axis: B must divide by their product.  With
+    ``whole_rows`` (a decode step, whose layers are per row) rows that do
+    not divide stay whole over an axis, as the spec places them and as
+    :func:`shard_cache` places the cache's rows."""
     out = {}
     for k, v in batch.items():
         v = torch.as_tensor(v)
         spec = batch_spec(mesh, v.shape).spec
-        if set(spec_axes(spec[0])) != set(batch_axes(mesh)):
+        if not whole_rows and set(spec_axes(spec[0])) != set(
+                batch_axes(mesh)):
             raise ValueError(f"batch {k!r} of {tuple(v.shape)} rows does not "
                              f"split over the mesh's {batch_axes(mesh)} axes")
         out[k] = local_block(v, spec, mesh)

@@ -43,10 +43,15 @@ def resolve_decode_splits(*, B: int, Hq: int, Hkv: int, Lkv: int, D: int,
     return max(1, Lkv // b_kv)
 
 
-def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           kv_len, *, n_splits: int) -> torch.Tensor:
-    """q (B, Sq, H, D); k/v (B, L, G, D); kv_len = valid cache entries, a
-    scalar or per-slot (B,).  Returns (B, Sq, H, D)."""
+def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_len, *, n_splits: int, pos0: int = 0):
+    """The partial softmax of the KV block ``k`` / ``v`` (B, L, G, D),
+    positions ``pos0`` .. ``pos0 + L - 1`` of the cache, in ``n_splits``
+    splits combined: (max (B, 1, G, rep, Sq), sum of exponentials (B, G,
+    rep, Sq), weighted accumulator (B, G, rep, Sq, D)), fp32.  q (B, Sq,
+    H, D); kv_len = valid cache entries, a scalar or per-slot (B,).  A
+    ``model`` rank's block of a cache cut over its length combines with
+    the others' in ``models/placed.py``."""
     B, Sq, H, D = q.shape
     L, G = k.shape[1], k.shape[2]
     rep = H // G
@@ -62,6 +67,8 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bqgrd,bnkgd->bngrqk", qf, ks)
     pos = (torch.arange(n_splits, device=dev)[:, None] * Ls
            + torch.arange(Ls, device=dev)[None, :])               # (n, Ls)
+    if pos0:
+        pos = pos + pos0
     valid = pos[None] < device_index(kv_len, dev).reshape(-1, 1, 1)
     s = torch.where(valid[:, :, None, None, None, :], s,
                     torch.full_like(s, -1e30))
@@ -75,5 +82,21 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     corr = torch.exp(m_loc - m_glob)
     l_glob = (l_loc * corr).sum(dim=1)
     acc = (acc_loc * corr[..., None]).sum(dim=1)                 # (B,G,r,Sq,D)
-    out = acc / torch.clamp(l_glob[..., None], min=1e-30)
+    return m_glob, l_glob, acc
+
+
+def flash_decode_out(q: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
+                     ) -> torch.Tensor:
+    """The attention output (B, Sq, H, D) in q's dtype from the combined
+    sum of exponentials and accumulator."""
+    B, Sq, H, D = q.shape
+    out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_len, *, n_splits: int) -> torch.Tensor:
+    """q (B, Sq, H, D); k/v (B, L, G, D); kv_len = valid cache entries, a
+    scalar or per-slot (B,).  Returns (B, Sq, H, D)."""
+    _, l, acc = flash_decode_partials(q, k, v, kv_len, n_splits=n_splits)
+    return flash_decode_out(q, l, acc)

@@ -111,25 +111,28 @@ json.dump(out, open(sys.argv[1], "w"))
 """
 
 # the placed steps (``build_cell(placed=True)``): smollm's and dbrx's
-# SMOKE train and prefill at mesh (data, model) = (2, 2), counted on meta
-# as rank 0 of a fake world of 4 and on CPU tensors as rank 0 of a real
-# 4-rank gloo world
-PLACED_ARCHS = ("smollm-135m", "dbrx-132b")
+# SMOKE train, prefill and decode, mamba2's (head-parallel TP) train and
+# decode, at mesh (data, model) = (2, 2), counted on meta as rank 0 of a
+# fake world of 4 and on CPU tensors as rank 0 of a real 4-rank gloo world
+PLACED_CELLS = (("smollm-135m", "prefill"), ("smollm-135m", "train"),
+                ("dbrx-132b", "prefill"), ("dbrx-132b", "train"),
+                ("smollm-135m", "decode"), ("dbrx-132b", "decode"),
+                ("mamba2-1.3b", "decode"), ("mamba2-1.3b", "train"))
 PLACED = r"""
 from repro_torch.configs import smoke_config
 from repro_torch.configs.shapes import Shape
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh
 mesh = make_host_mesh(model=2, device="cpu")
-for arch in ("smollm-135m", "dbrx-132b"):
-    for kind in ("train", "prefill"):
-        cell = dryrun.build_cell(smoke_config(arch), Shape("t", kind, 16, 2),
-                                 mesh, device=DEVICE, placed=True)
-        art = dryrun.count_step(cell)
-        RESULTS[f"{arch}/{kind}"] = {"cost": art["cost"],
-                                     "collectives": art["collectives"],
-                                     "argument": dryrun.argument_bytes(cell)}
+for arch, kind in CELLS:
+    cell = dryrun.build_cell(smoke_config(arch), Shape("t", kind, 16, 2),
+                             mesh, device=DEVICE, placed=True)
+    art = dryrun.count_step(cell)
+    RESULTS[f"{arch}/{kind}"] = {"cost": art["cost"],
+                                 "collectives": art["collectives"],
+                                 "argument": dryrun.argument_bytes(cell)}
 """
+CELLS_LINE = f"CELLS = {PLACED_CELLS!r}\n"
 PLACED_FAKE = r"""
 import json, sys
 import torch
@@ -137,10 +140,10 @@ torch.set_num_threads(1)
 from repro_torch import compat
 compat.init_fake_world(4)
 DEVICE, RESULTS = "meta", {}
-""" + PLACED + r"""
+""" + CELLS_LINE + PLACED + r"""
 json.dump(RESULTS, open(sys.argv[1], "w"))
 """
-PLACED_RANKS = 'DEVICE = "cpu"\n' + PLACED
+PLACED_RANKS = 'DEVICE = "cpu"\n' + CELLS_LINE + PLACED
 
 # every count of the SMOKE steps with no mesh before the placements: the
 # path with no mesh adds no op (aten ops, GEMM calls, FLOPs, bytes; the
@@ -156,6 +159,15 @@ NO_MESH_COUNTS = {
     "whisper-base/prefill": (887, 36, 13500416, 5978624),
     "internvl2-76b/train": (1723, 56, 27918336, 34834544),
     "internvl2-76b/prefill": (359, 14, 5111808, 2528576),
+}
+# the same of a SMOKE decode step with no mesh before its placements (the
+# parent tree's ``count_step`` of ``build_cell(cfg, KINDS["decode"])``)
+NO_MESH_DECODE_COUNTS = {
+    "smollm-135m": (395, 14, 608256, 1081696),
+    "dbrx-132b": (434, 8, 1036288, 1539472),
+    "mamba2-1.3b": (216, 4, 364544, 999520),
+    "whisper-base": (590, 22, 1605632, 1379584),
+    "internvl2-76b": (395, 14, 442368, 882224),
 }
 
 CLI = r"""
@@ -253,21 +265,32 @@ def test_counts_equal_a_real_cpu_run(arch, kind):
     assert gemm == meta["cost"]["gemm_calls"] > 0
 
 
-@pytest.mark.parametrize("kind", ["prefill", "train"])
-@pytest.mark.parametrize("arch", PLACED_ARCHS)
+@pytest.mark.parametrize("arch,kind", PLACED_CELLS)
 def test_placed_counts_equal_a_real_gloo_rank(placed_runs, arch, kind):
     """At fake world 4 and mesh (2, 2) the placed step's per-rank FLOPs,
     bytes, ops and collective bytes of each kind, counted on meta, equal
     exactly what ``counting()`` gives for rank 0 of a real 4-rank gloo
-    run; the rank holds its shards (argument bytes alike)."""
+    run; the rank holds its shards and its block of the cache (argument
+    bytes alike).  A decode step gathers weights and all-reduces over
+    ``model``, and reduce-scatters nothing.  For SmolLM (a dense decoder)
+    the bytes are ``analysis.comm.placed_bytes``'s, its train step's
+    with AdamW's global norm."""
     meta = placed_runs["meta"][f"{arch}/{kind}"]
     real = placed_runs["real"][f"{arch}/{kind}"]
     for k in EXACT + ("flops", "bytes_aten"):
         assert meta["cost"][k] == real["cost"][k], k
     assert meta["cost"]["by_op"] == real["cost"]["by_op"]
     assert meta["collectives"] == real["collectives"]
+    if arch == "smollm-135m":
+        assert meta["collectives"] == comm.placed_bytes(
+            smoke_config(arch), B=2, S=16, sizes={"data": 2, "model": 2},
+            kind=kind, adamw=kind == "train")
     assert meta["collectives"]["all-gather"] > 0
-    assert meta["collectives"]["reduce-scatter"] > 0
+    if kind == "decode":
+        assert meta["collectives"]["all-reduce"] > 0
+        assert meta["collectives"]["reduce-scatter"] == 0
+    else:
+        assert meta["collectives"]["reduce-scatter"] > 0
     assert meta["argument"] == real["argument"]
 
 
@@ -281,6 +304,16 @@ def test_the_path_with_no_mesh_adds_no_op(arch, kind):
                                             KINDS[kind]))["cost"]
     assert (c["aten_ops"], c["gemm_calls"], c["flops"],
             c["bytes_accessed"]) == NO_MESH_COUNTS[f"{arch}/{kind}"]
+
+
+@pytest.mark.parametrize("arch", sorted(NO_MESH_DECODE_COUNTS))
+def test_the_decode_path_with_no_mesh_adds_no_op(arch):
+    """With no mesh, a SMOKE decode step makes the ops, GEMM calls, FLOPs
+    and bytes it made before the decode placements (ROADMAP A8.3)."""
+    c = dryrun.count_step(dryrun.build_cell(smoke_config(arch),
+                                            KINDS["decode"]))["cost"]
+    assert (c["aten_ops"], c["gemm_calls"], c["flops"],
+            c["bytes_accessed"]) == NO_MESH_DECODE_COUNTS[arch]
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
